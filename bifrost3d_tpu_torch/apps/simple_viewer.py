@@ -1,0 +1,73 @@
+"""SimpleViewer: the offline CLI renderer, path-tracer branch.
+
+Port of ``bifrost3d_tpu/apps/simple_viewer.py::main`` for the built-in
+scenes: render progressively through the pooled wavefront, apply the
+camera-effects chain and write a PNG.
+
+Usage::
+
+    python -m bifrost3d_tpu_torch.apps.simple_viewer --scene CornellBox \\
+        -n 64 -o build/cornell.png
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+_TONEMAPPERS = ("linear", "filmic", "agx", "khronos")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="PyTorch/CUDA path tracer")
+    parser.add_argument("--scene", "-s", default="CornellBox",
+                        help="built-in scene name")
+    parser.add_argument("--environment-tint", default="0.68,0.92,1.0",
+                        help="R,G,B background tint (SimpleViewer default, "
+                             "main.cpp:58)")
+    parser.add_argument("--window-size", default="512x512")
+    parser.add_argument("--accumulations", "-n", type=int, default=64)
+    parser.add_argument("--max-bounces", type=int, default=4)
+    parser.add_argument("--output", "-o", default="render.png")
+    parser.add_argument("--tonemapper", default="filmic", choices=_TONEMAPPERS)
+    parser.add_argument("--high-precision", action="store_true",
+                        help="Kahan-compensated accumulation")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to render on (cuda or cpu)")
+    args = parser.parse_args(argv)
+
+    from bifrost3d_tpu_torch.apps.scenes import SCENES
+    from bifrost3d_tpu_torch.integrator.path_tracer import (
+        RenderSettings,
+        render_progressive,
+    )
+    from bifrost3d_tpu_torch.io.image import save_image
+    from bifrost3d_tpu_torch.post.pipeline import process
+    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+
+    if args.scene not in SCENES:
+        raise NotImplementedError(
+            f"scene {args.scene!r}: only {sorted(SCENES)} are ported yet")
+    device = torch.device(args.device)
+    width, height = (int(v) for v in args.window_size.split("x"))
+    tint = tuple(float(v) for v in args.environment_tint.split(","))
+
+    scene, camera = SCENES[args.scene](aspect=width / height, device=device)
+    scene = scene._replace(environment_tint=torch.tensor(
+        tint, dtype=torch.float32, device=device))
+
+    t0 = time.time()
+    settings = RenderSettings(max_bounce_count=args.max_bounces)
+    hdr = render_progressive(scene, camera, width, height, args.accumulations,
+                             settings, high_precision=args.high_precision)
+    post = CameraEffectsSettings.preset()._replace(
+        tonemapping_mode=_TONEMAPPERS.index(args.tonemapper), film_grain=0.0)
+    save_image(args.output, process(hdr, post))
+    print(f"rendered {args.scene} {width}x{height} n={args.accumulations} "
+          f"on {device} in {time.time() - t0:.1f}s -> {args.output}")
+
+
+if __name__ == "__main__":
+    main()

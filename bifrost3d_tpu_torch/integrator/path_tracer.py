@@ -1,0 +1,611 @@
+"""Wavefront mesh path tracer with NEE (RIS) + MIS, forward only.
+
+Port of ``bifrost3d_tpu/integrator/path_tracer.py``: ``RenderSettings``,
+``settings_for_scene``, ``mis_weight``, ``_sample_single_light``,
+``_reestimated_light_samples``, ``_intersect_analytic_lights``,
+``_fetch_tri_attributes``, ``_wavefront_step``, ``render_sample``,
+``_make_camera_lanes``, ``render_pixels_pooled``,
+``render_sample_pooled``, ``render_sample_pooled_counted``,
+``explain_render_path``, ``render_sample_fast`` and
+``render_progressive``.
+
+Each wavefront step makes two scene queries through
+``geometry.traverse.intersect_scene`` — a closest hit and an any-hit
+shadow ray — which on CUDA tensors launch the hand-written dense trace
+kernel. RNG is the Owen-scrambled Sobol chain keyed by (accumulation,
+pcg2d pixel hash, 8·bounce + dim), exactly as in JAX.
+
+JAX's ``fori_loop``/``while_loop`` become Python loops. The pooled loop's
+``any(active)`` condition costs one ``.item()`` (a host sync) per
+iteration. The megakernel is not ported yet, so ``render_sample_fast``
+always takes the pooled wavefront.
+
+Not on the slice, and raising ``NotImplementedError`` when asked for:
+path regularization, coverage-aware shadows, trilinear textures, ray
+sorting for the BVH kernels, and the Diffuse and Transmissive shading
+models (the environment map and textures raise at scene build).
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from bifrost3d_tpu_torch.geometry.traverse import (
+    intersect_scene,
+    intersect_scene_any,
+)
+from bifrost3d_tpu_torch.lights.analytic import (
+    _ray_sphere_t,
+    evaluate_light,
+    light_pdf,
+    sample_light,
+)
+from bifrost3d_tpu_torch.lights.types import LIGHT_SPHERE, LIGHT_SPOT
+from bifrost3d_tpu_torch.math.octahedral import octahedral_decode
+from bifrost3d_tpu_torch.math.ray_offset import offset_ray_origin
+from bifrost3d_tpu_torch.math.vec import (
+    cross,
+    dot,
+    normalize,
+    reflect,
+    to_local,
+    to_world,
+)
+from bifrost3d_tpu_torch.sampling.hashes import pcg2d
+from bifrost3d_tpu_torch.sampling.sobol import Dimension, path_rng_4d
+from bifrost3d_tpu_torch.scene.camera import PinholeCamera, camera_ray_directions
+from bifrost3d_tpu_torch.scene.materials import (
+    FLAG_CUTOUT,
+    FLAG_THIN_WALLED,
+    SHADING_DIFFUSE,
+    SHADING_TRANSMISSIVE,
+)
+from bifrost3d_tpu_torch.scene.render_scene import RenderScene
+from bifrost3d_tpu_torch.shading.default_shading import DefaultShading
+
+logger = logging.getLogger(__name__)
+
+
+class RenderSettings(NamedTuple):
+    """Per-camera settings (Renderer.h:47-63).
+
+    The four switches of features off the slice are kept so that asking
+    for one raises. JAX fields that only those features or gradients read
+    (``path_regularization_decay``, ``shadow_coverage_steps``,
+    ``use_presampled_environment``, ``remat_bounces``,
+    ``detached_replay_vjp``) are left out, and so is
+    ``shading_models_present``: the port reads the models present from the
+    scene's material table (``RenderScene.shading_models``).
+    """
+
+    max_bounce_count: int = 4
+    next_event_sample_count: int = 3
+    path_regularization_scale: float = 0.0   # 0 = off
+    firefly_clamp: float = 4.0
+    delta_light_clamp: float = 32.0
+    coverage_aware_shadows: bool = False
+    passthrough_slack: int = 2
+    sort_rays_every: int = 0
+    trilinear_textures: bool = False
+
+
+def settings_for_scene(scene: RenderScene, **overrides) -> RenderSettings:
+    """RenderSettings with the static scene hints filled from the material
+    table (semi-transparency)."""
+    mats = scene.materials
+    semi_transparent = bool(
+        torch.any(mats.coverage < 1.0)
+        or torch.any(mats.coverage_texture >= 0)
+        or torch.any((mats.flags & FLAG_CUTOUT) != 0))
+    overrides.setdefault("coverage_aware_shadows", semi_transparent)
+    if semi_transparent:
+        overrides.setdefault("passthrough_slack", 8)
+    overrides.setdefault("sort_rays_every", 0)   # no cluster packing yet
+    overrides.setdefault("trilinear_textures", False)
+    return RenderSettings(**overrides)
+
+
+def _check_supported(scene: RenderScene, settings: RenderSettings) -> None:
+    """Raise for every requested feature that is not on the slice."""
+    if settings.path_regularization_scale > 0.0:
+        raise NotImplementedError("path regularization is not ported yet")
+    if settings.coverage_aware_shadows:
+        raise NotImplementedError("coverage-aware shadows are not ported yet")
+    if settings.trilinear_textures:
+        raise NotImplementedError("trilinear textures are not ported yet")
+    if settings.sort_rays_every:
+        raise NotImplementedError(
+            "ray sorting (for the BVH trace kernels) is not ported yet")
+    if SHADING_DIFFUSE in scene.shading_models:
+        raise NotImplementedError("the Diffuse shading model is not ported yet")
+    if SHADING_TRANSMISSIVE in scene.shading_models:
+        raise NotImplementedError(
+            "the Transmissive shading model is not ported yet")
+
+
+def _reverse_halton_offsets(count: int = 8) -> np.ndarray:
+    """4D reverse-Halton toroidal-shift offsets (Renderer.cpp:323-336);
+    offset 0 is (0, 0, 0, 0)."""
+    def reverse_halton(p, i):
+        h, f = 0.0, 1.0 / p
+        fct = f
+        while i > 0:
+            digit = i % p
+            h += (0 if digit == 0 else p - digit) * fct
+            i //= p
+            fct *= f
+        return h
+
+    return np.asarray([[reverse_halton(p, i) for p in (2, 3, 5, 7)]
+                       for i in range(count)], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _ris_offsets(device: torch.device) -> torch.Tensor:
+    """Read-only [8, 4] RIS candidate offsets on ``device``."""
+    return torch.as_tensor(_reverse_halton_offsets(8), device=device)
+
+
+def mis_weight(pdf1, pdf2):
+    """Balance heuristic with inf/NaN handling (MonteCarlo.h:20-25)."""
+    divisor = pdf1 + pdf2
+    result = pdf1 / torch.where(divisor == 0.0, 1.0, divisor)
+    invalid = torch.isinf(divisor) | torch.isnan(result)
+    return torch.where(invalid, torch.where(pdf1 <= pdf2, 0.0, 1.0), result)
+
+
+def _toroidal_shift(base, shift):
+    s = base + shift
+    return s - torch.floor(s)
+
+
+def _fix_backfacing_shading_normal(w, n, target_cos=0.002):
+    cos_theta = dot(w, n, keepdims=True)
+    fixed = normalize(n - (cos_theta - target_cos) * w)
+    return torch.where(cos_theta < target_cos, fixed, n)
+
+
+# -- light sampling (NEE with RIS) ---------------------------------------------
+
+def _sample_single_light(scene: RenderScene, bundle: DefaultShading, position,
+                         wo, shading_normal, u3, settings: RenderSettings):
+    """One NEE candidate (MonteCarlo.cu:61-87) → (direction, distance,
+    weighted radiance, pdf valid)."""
+    total = scene.lights.count
+    if total == 0:
+        z = torch.zeros(position.shape[:-1], device=position.device)
+        return position, z, torch.zeros_like(position), z > 0.0
+    pick = torch.clamp_max((u3[..., 2] * total).to(torch.int32), total - 1)
+    ls = sample_light(scene.lights, pick, position, u3[..., :2])
+    radiance = ls.radiance * total   # uniform light pick
+    n_dot_l = dot(shading_normal, ls.direction)
+    safe_pdf = torch.clamp_min(ls.pdf, 1e-12)
+    radiance = radiance * (torch.abs(n_dot_l) / safe_pdf)[..., None]
+    radiance = torch.where((ls.pdf > 0.0)[..., None], radiance, 0.0)
+
+    wi = to_local(ls.direction, shading_normal)
+    f, bsdf_pdf = bundle.evaluate_with_pdf(wo, wi)
+    weight = torch.where(ls.is_delta, 1.0, mis_weight(ls.pdf, bsdf_pdf))
+    f = torch.where(ls.is_delta[..., None],
+                    torch.clamp_max(f, settings.delta_light_clamp), f)
+    radiance = radiance * weight[..., None] * f
+    return ls.direction, ls.distance, radiance, ls.pdf > 1e-6
+
+
+def _reestimated_light_samples(scene, bundle, position, wo, shading_normal,
+                               u4_base, settings: RenderSettings):
+    """RIS over ``next_event_sample_count`` candidates (MonteCarlo.cu:91-123)
+    → (direction, distance, radiance, pdf valid of the selected one)."""
+    direction = torch.zeros_like(position)
+    distance = torch.zeros(position.shape[:-1], device=position.device)
+    radiance = torch.zeros_like(position)
+    pdf_valid = torch.zeros(position.shape[:-1], dtype=torch.bool,
+                            device=position.device)
+    if settings.next_event_sample_count <= 0:
+        return direction, distance, radiance, pdf_valid
+    offsets = _ris_offsets(position.device)
+    for s in range(settings.next_event_sample_count):
+        u4 = _toroidal_shift(u4_base, offsets[s])
+        new_dir, new_dist, new_rad, new_valid = _sample_single_light(
+            scene, bundle, position, wo, shading_normal, u4[..., :3], settings)
+        w_old = torch.sum(radiance, dim=-1)
+        w_new = torch.sum(new_rad, dim=-1)
+        any_w = w_old + w_new > 0.0
+        p_new = w_new / torch.where(any_w, w_old + w_new, 1.0)
+        take = u4[..., 3] < p_new
+        direction = torch.where(take[..., None], new_dir, direction)
+        distance = torch.where(take, new_dist, distance)
+        pdf_valid = torch.where(take, new_valid, pdf_valid)
+        denom = torch.where(take, p_new, 1.0 - p_new)
+        denom = torch.where(any_w & (denom > 1e-20), denom, 1.0)
+        radiance = torch.where(
+            any_w[..., None],
+            torch.where(take[..., None], new_rad, radiance) / denom[..., None],
+            0.0)
+    return (direction, distance,
+            radiance / settings.next_event_sample_count, pdf_valid)
+
+
+# -- the wavefront step -------------------------------------------------------------
+
+def _intersect_analytic_lights(scene: RenderScene, origin, direction):
+    """Nearest sphere-light or spot-disk hit → (t [r], light index [r])."""
+    r = origin.shape[0]
+    lights = scene.lights
+    if lights.count == 0:
+        return (torch.full((r,), float("inf"), device=origin.device),
+                torch.full((r,), -1, dtype=torch.int32, device=origin.device))
+    is_sphere = lights.kind == LIGHT_SPHERE
+    is_spot = lights.kind == LIGHT_SPOT
+    pos = lights.position[None, :, :]
+    radius = lights.radius[None, :]
+    o = origin[:, None, :]
+    d = direction[:, None, :]
+    t_sphere = _ray_sphere_t(o, d, pos, radius)
+
+    ldir = lights.direction[None, :, :]
+    denom = dot(d, ldir)
+    t_disk = dot(pos - o, ldir) / torch.where(torch.abs(denom) > 1e-9, denom, 1e-9)
+    off = o + d * t_disk[..., None] - pos
+    on_disk = torch.sum(off * off, dim=-1) <= radius * radius
+    t_disk = torch.where(on_disk & (torch.abs(denom) > 1e-9), t_disk, -1.0)
+
+    t = torch.where(is_sphere[None, :], t_sphere,
+                    torch.where(is_spot[None, :], t_disk, -1.0))
+    t = torch.where((t > 0) & (radius > 0), t, float("inf"))
+    t_min = torch.amin(t, dim=1)
+    idx = torch.argmin(t, dim=1).to(torch.int32)
+    return t_min, torch.where(torch.isfinite(t_min), idx, -1)
+
+
+def _fetch_tri_attributes(scene: RenderScene, prim):
+    """Per-triangle attributes of lanes ``prim`` → (verts [r,3,3], corner
+    normals [r,3,3], tint_roughness [r,3,4], material [r]). Plain row
+    gathers (the JAX one-hot contraction is an exact selection); the uvs
+    serve only textures, which are not on the slice."""
+    p = prim.long()
+    return (scene.tri_verts[p], octahedral_decode(scene.tri_normals_oct[p]),
+            scene.tri_tint_roughness[p], scene.tri_material[p])
+
+
+def _interpolate(bary, attr):
+    """Σ_k bary[r, k] · attr[r, k, c]."""
+    return torch.sum(bary[..., None] * attr, dim=1)
+
+
+class _PathState(NamedTuple):
+    origin: torch.Tensor
+    direction: torch.Tensor
+    throughput: torch.Tensor
+    radiance: torch.Tensor
+    bsdf_pdf: torch.Tensor        # last BSDF pdf (MIS); <= 0 disables MIS
+    pixel_hash: torch.Tensor      # int64 holding uint32
+    bounce: torch.Tensor          # int64 per-lane bounce counter
+    active: torch.Tensor
+
+
+def _wavefront_step(scene: RenderScene, settings: RenderSettings,
+                    accumulation: int, state: _PathState) -> _PathState:
+    """One iteration for every lane: trace, light hits, shade, NEE with a
+    shadow trace, BSDF sample."""
+    (origin, direction, throughput, radiance, bsdf_pdf, pixel_hash, bounce,
+     active) = state
+    eps = scene.scene_epsilon
+
+    hit = intersect_scene(scene.tri_verts, origin, direction, t_min=eps,
+                          tri_components=scene.tri_components)
+    t_light, light_idx = _intersect_analytic_lights(scene, origin, direction)
+
+    light_first = t_light < hit.t
+    mesh_hit = active & hit.mask & ~light_first
+    light_hit = active & light_first
+    miss = active & ~hit.mask & ~light_first
+
+    # Miss: the background tint (no environment map on the slice).
+    radiance = radiance + torch.where(
+        miss[..., None], throughput * scene.environment_tint, 0.0)
+
+    # Analytic light hit, MIS-weighted against the previous BSDF sample.
+    if scene.lights.count > 0:
+        li = torch.clamp_min(light_idx, 0)
+        l_radiance = evaluate_light(scene.lights, li, origin, direction)
+        l_pdf = light_pdf(scene.lights, li, origin, direction)
+        w = torch.where(bsdf_pdf > 0.0, mis_weight(bsdf_pdf, l_pdf), 1.0)
+        clamped_t = torch.clamp_max(throughput, settings.firefly_clamp)
+        radiance = radiance + torch.where(
+            light_hit[..., None], clamped_t * l_radiance * w[..., None], 0.0)
+
+    # Mesh hit: attributes and material.
+    prim = torch.clamp_min(hit.prim, 0)
+    v, n, tr, mat_idx = _fetch_tri_attributes(scene, prim)
+    bary = torch.stack([1.0 - hit.u - hit.v, hit.u, hit.v], dim=-1)
+    position = _interpolate(bary, v)
+    shading_normal = normalize(_interpolate(bary, n))
+    tr_scale = _interpolate(bary, tr)
+    geo_normal = normalize(cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]))
+
+    mats = scene.materials.gather(mat_idx)
+    tint = mats.tint * tr_scale[..., :3]
+    roughness = mats.roughness * tr_scale[..., 3]
+    # Cutouts binarize the (untextured, so 1) coverage against the stored
+    # threshold (Types.h:405-413).
+    is_cutout = (mats.flags & FLAG_CUTOUT) != 0
+    coverage = torch.where(is_cutout,
+                           torch.where(1.0 < mats.coverage, 0.0, 1.0),
+                           mats.coverage)
+
+    # Cutouts are implicitly thin-walled (Types.h:384). Transmissive
+    # materials, which are never culled, are not on the slice.
+    thin_walled = (mats.flags & (FLAG_THIN_WALLED | FLAG_CUTOUT)) != 0
+    hit_from_front = dot(geo_normal, direction) < 0.0
+    backside_cull = ~hit_from_front & ~thin_walled
+
+    # Coverage: stochastic transparency (MonteCarlo.cu:152-164).
+    u_bsdf4 = path_rng_4d(accumulation, pixel_hash,
+                          bounce * Dimension.PER_BOUNCE + Dimension.BSDF)
+    discard_coverage = coverage < u_bsdf4[..., 3]
+    passthrough = mesh_hit & (backside_cull | discard_coverage)
+    shade = mesh_hit & ~backside_cull & ~discard_coverage
+
+    front = hit_from_front[..., None]
+    geo_normal = torch.where(front, geo_normal, -geo_normal)
+    sn = torch.where(front, shading_normal, -shading_normal)
+    sn = _fix_backfacing_shading_normal(-direction, sn)
+
+    wo = to_local(-direction, sn)
+    cos_theta_o = torch.where(hit_from_front | thin_walled, wo[..., 2],
+                              -wo[..., 2])
+    bundle = DefaultShading.create(
+        tint=tint, roughness=roughness, specularity=mats.specularity,
+        metallic=mats.metallic, coat=mats.coat,
+        coat_roughness=mats.coat_roughness,
+        abs_cos_theta_o=torch.abs(cos_theta_o))
+
+    # Surface emission.
+    radiance = radiance + torch.where(shade[..., None],
+                                      throughput * mats.emission, 0.0)
+
+    # NEE with RIS, then one binary any-hit shadow query.
+    u_nee = path_rng_4d(accumulation, pixel_hash,
+                        bounce * Dimension.PER_BOUNCE + Dimension.NEE)
+    l_dir, l_dist, l_radiance, nee_valid = _reestimated_light_samples(
+        scene, bundle, position, wo, sn, u_nee, settings)
+    l_radiance = l_radiance * throughput
+    shadow_side = torch.where(dot(l_dir, geo_normal) >= 0, 1.0, -1.0)
+    shadow_origin = offset_ray_origin(position, geo_normal * shadow_side[..., None])
+    has_light = shade & (torch.amax(l_radiance, dim=-1) > 0.0)
+    occluded = intersect_scene_any(
+        scene.tri_verts, shadow_origin, l_dir, t_min=eps,
+        t_max=l_dist * (1.0 - 1e-4), tri_components=scene.tri_components)
+    radiance = radiance + torch.where(has_light[..., None] & ~occluded[..., None],
+                                      l_radiance, 0.0)
+
+    # BSDF sampling; mirror directions that point into the geometry
+    # (MonteCarlo.cu:204-228).
+    s = bundle.sample(wo, u_bsdf4[..., :3])
+    new_dir = to_world(s.direction, sn)
+    is_reflection = s.direction[..., 2] >= 0.0
+    cos_geo = dot(new_dir, geo_normal)
+    wrong_side = torch.where(is_reflection, cos_geo < 0.0, cos_geo >= 0.0)
+    new_dir = torch.where(wrong_side[..., None], reflect(new_dir, geo_normal),
+                          new_dir)
+
+    weight = torch.abs(s.direction[..., 2]) / torch.clamp_min(s.pdf, 1e-12)
+    new_throughput = torch.where((s.pdf > 0.0)[..., None],
+                                 throughput * s.reflectance * weight[..., None],
+                                 0.0)
+    bounce_side = torch.where(dot(new_dir, geo_normal) >= 0, 1.0, -1.0)
+    new_origin = offset_ray_origin(position, geo_normal * bounce_side[..., None])
+    new_bsdf_pdf = torch.where(s.is_delta | ~nee_valid, 0.0, s.pdf)
+    # Passthrough lanes continue past the surface on the far side.
+    pass_origin = offset_ray_origin(position, -geo_normal)
+
+    shade_c = shade[..., None]
+    origin = torch.where(shade_c, new_origin,
+                         torch.where(passthrough[..., None], pass_origin, origin))
+    direction = torch.where(shade_c, new_dir, direction)
+    throughput = torch.where(shade_c, new_throughput, throughput)
+    bsdf_pdf = torch.where(shade, new_bsdf_pdf, bsdf_pdf)
+    bounce = torch.where(shade, bounce + 1, bounce)
+    active = (active & ~miss & ~light_hit
+              & (~shade | (torch.amax(throughput, dim=-1) > 0.0))
+              & (bounce <= settings.max_bounce_count))
+    return _PathState(origin, direction, throughput, radiance, bsdf_pdf,
+                      pixel_hash, bounce, active)
+
+
+# -- entry points ---------------------------------------------------------------
+
+def _camera_lanes(camera: PinholeCamera, x, y, width: int, height: int,
+                  accumulation: int, valid) -> _PathState:
+    """Fresh camera-ray lanes for int64 pixel coords x/y [r]."""
+    pixel_hash, _ = pcg2d(x, y)
+    xf = x.to(torch.float32)
+    yf = y.to(torch.float32)
+    if accumulation == 0:
+        xf = xf + 0.5
+        yf = yf + 0.5
+    else:
+        u_cam = path_rng_4d(accumulation, pixel_hash, Dimension.CAMERA)
+        xf = xf + u_cam[..., 0]
+        yf = yf + u_cam[..., 1]
+    origin, direction = camera_ray_directions(
+        camera, torch.stack([xf / width, 1.0 - yf / height], dim=-1))
+    r = x.shape[0]
+    device = x.device
+    return _PathState(
+        origin=origin,
+        direction=direction,
+        throughput=torch.ones((r, 3), device=device),
+        radiance=torch.zeros((r, 3), device=device),
+        bsdf_pdf=torch.zeros(r, device=device),
+        pixel_hash=pixel_hash,
+        bounce=torch.zeros(r, dtype=torch.int64, device=device),
+        active=valid & torch.isfinite(origin[..., 0]))
+
+
+def render_sample(scene: RenderScene, camera: PinholeCamera, width: int,
+                  height: int, accumulation: int,
+                  settings: RenderSettings = RenderSettings()):
+    """One progressive frame through the fixed-iteration wavefront →
+    radiance [height, width, 3] (row 0 = top)."""
+    _check_supported(scene, settings)
+    device = scene.tri_verts.device
+    y, x = torch.meshgrid(torch.arange(height, device=device),
+                          torch.arange(width, device=device), indexing="ij")
+    x = x.reshape(-1)
+    y = y.reshape(-1)
+    state = _camera_lanes(camera, x, y, width, height, int(accumulation),
+                          torch.ones_like(x, dtype=torch.bool))
+    # Iterations = bounces + slack for passthrough lanes.
+    for _ in range(settings.max_bounce_count + 1 + settings.passthrough_slack):
+        state = _wavefront_step(scene, settings, int(accumulation), state)
+    return state.radiance.reshape(height, width, 3)
+
+
+def _make_camera_lanes(camera: PinholeCamera, pixel_idx, width: int,
+                       height: int, accumulation: int):
+    """Lanes for flat pixel indices [r] (>= width·height = idle lane)."""
+    n_pixels = width * height
+    safe_idx = torch.clamp_max(pixel_idx, n_pixels - 1)
+    return _camera_lanes(camera, safe_idx % width, safe_idx // width, width,
+                         height, accumulation, pixel_idx < n_pixels)
+
+
+def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
+                         width: int, height: int, accumulation: int,
+                         settings: RenderSettings = RenderSettings(),
+                         pool_size: int = 65536, with_iters: bool = False):
+    """Pooled wavefront over the frame's flat pixels → (radiance
+    [width·height, 3], ray count [] int64[, wavefront steps]).
+
+    A pool of ``pool_size`` lanes runs the wavefront step; finished lanes
+    add their radiance into the frame and are refilled with fresh camera
+    rays from the remaining pixels, so every trace runs near full
+    occupancy. The ray count is live lanes × 2 (closest + shadow) per
+    iteration.
+    """
+    _check_supported(scene, settings)
+    accumulation = int(accumulation)
+    device = scene.tri_verts.device
+    n_pixels = width * height
+    r = min(pool_size, n_pixels)
+
+    pixel_idx = torch.arange(r, dtype=torch.int64, device=device)
+    state = _make_camera_lanes(camera, pixel_idx, width, height, accumulation)
+    accum = torch.zeros((n_pixels, 3), device=device)
+    next_pixel = torch.tensor(r, dtype=torch.int64, device=device)
+    rays = torch.zeros((), dtype=torch.int64, device=device)
+
+    # Safety bound against pathological passthrough chains.
+    bounce_iters = settings.max_bounce_count + 1 + settings.passthrough_slack
+    max_iters = (n_pixels // r + 1) * bounce_iters * 4 + 64
+    it = 0
+    while it < max_iters:
+        # The loop condition: one host sync per iteration.
+        if not bool((state.active.any() | (next_pixel < n_pixels)).item()):
+            break
+        rays = rays + 2 * state.active.sum()
+        state = _wavefront_step(scene, settings, accumulation, state)
+        done = (pixel_idx < n_pixels) & ~state.active
+
+        # Each pixel finishes once per pass: add finished lanes into the
+        # frame (in place; idle lanes add zeros).
+        accum.index_add_(
+            0, torch.clamp_max(pixel_idx, n_pixels - 1),
+            torch.where(done[..., None], state.radiance, 0.0))
+
+        # Refill: hand each finished lane the next unstarted pixel.
+        slot = torch.cumsum(done.to(torch.int64), dim=0) - 1
+        new_idx = next_pixel + slot
+        refill = done & (new_idx < n_pixels)
+        pixel_idx = torch.where(refill, new_idx,
+                                torch.where(done, n_pixels, pixel_idx))
+        next_pixel = torch.clamp_max(next_pixel + done.sum(), n_pixels)
+
+        fresh = _make_camera_lanes(camera, pixel_idx, width, height,
+                                   accumulation)
+        state = _PathState(*(
+            torch.where(refill.reshape(refill.shape + (1,) * (f.dim() - 1)), f, s)
+            for f, s in zip(fresh, state)))
+        it += 1
+    if with_iters:
+        return accum, rays, it
+    return accum, rays
+
+
+def render_sample_pooled(scene: RenderScene, camera: PinholeCamera,
+                         width: int, height: int, accumulation: int,
+                         settings: RenderSettings = RenderSettings(),
+                         pool_size: int = 65536):
+    """One progressive frame through the pooled wavefront → [h, w, 3]."""
+    accum, _ = render_pixels_pooled(scene, camera, width, height,
+                                    accumulation, settings, pool_size)
+    return accum.reshape(height, width, 3)
+
+
+def render_sample_pooled_counted(scene: RenderScene, camera: PinholeCamera,
+                                 width: int, height: int, accumulation: int,
+                                 settings: RenderSettings = RenderSettings(),
+                                 pool_size: int = 65536):
+    """Like :func:`render_sample_pooled`, plus the in-run ray count."""
+    accum, rays = render_pixels_pooled(scene, camera, width, height,
+                                       accumulation, settings, pool_size)
+    return accum.reshape(height, width, 3), rays
+
+
+def explain_render_path(scene: RenderScene,
+                        settings: RenderSettings = RenderSettings()) -> str:
+    """Which forward path :func:`render_sample_fast` takes, and why."""
+    reasons = []
+    if scene.tri_verts.device.type != "cuda":
+        reasons.append(f"device is {scene.tri_verts.device.type}, not cuda")
+    reasons.append("megakernel not yet ported")
+    return "wavefront: " + ", ".join(reasons)
+
+
+def render_sample_fast(scene: RenderScene, camera: PinholeCamera,
+                       width: int, height: int, accumulation: int,
+                       settings: RenderSettings = RenderSettings(),
+                       pool_size: int = 65536):
+    """The product dispatch: the pooled compacting wavefront (the mesh
+    megakernel is not ported yet; see :func:`explain_render_path`)."""
+    return render_sample_pooled(scene, camera, width, height, accumulation,
+                                settings, pool_size)
+
+
+def render_progressive(scene: RenderScene, camera: PinholeCamera,
+                       width: int, height: int, accumulations: int,
+                       settings: RenderSettings = RenderSettings(),
+                       pool_size: int = 65536,
+                       high_precision: bool = False):
+    """Progressive accumulation (lerp 1/(n+1), SimpleRGPs.cu:74-107).
+
+    ``high_precision`` keeps the running sum in Kahan-compensated float32
+    (a (sum, compensation) pair) and divides once at the end — the
+    counterpart of the reference's double-precision accumulation buffer.
+    """
+    logger.info("render path: %s", explain_render_path(scene, settings))
+    device = scene.tri_verts.device
+    if high_precision:
+        total = torch.zeros((height, width, 3), device=device)
+        comp = torch.zeros((height, width, 3), device=device)
+        for n in range(accumulations):
+            frame = render_sample_fast(scene, camera, width, height, n,
+                                       settings, pool_size)
+            y = frame - comp
+            t = total + y
+            comp = (t - total) - y
+            total = t
+        return total / max(accumulations, 1)
+    buffer = torch.zeros((height, width, 3), device=device)
+    for n in range(accumulations):
+        frame = render_sample_fast(scene, camera, width, height, n, settings,
+                                   pool_size)
+        buffer = buffer + (frame - buffer) / (n + 1)
+    return buffer

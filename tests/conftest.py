@@ -30,6 +30,8 @@ SLOW_ENABLED = os.environ.get("BIFROST_SLOW", "") == "1"
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: expensive opt-in test (set BIFROST_SLOW=1 to run)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips where there is none)")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,97 @@
+"""CUDA-only tests of the PyTorch port; they need no JAX.
+
+Each test needs a card and skips where there is none. On a machine with a
+card but without JAX (whose tests/conftest.py cannot be imported there),
+run them as::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
+from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+from bifrost3d_tpu_torch.geometry.creation import make_sphere
+from bifrost3d_tpu_torch.integrator import path_tracer as pt
+from torch_parity import assert_kernel_matches_plain, assert_statistical_gate
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rays(r, seed, lo, hi, device):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo, hi, size=(r, 3)).astype(np.float32)
+    d = rng.normal(size=(r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = rng.uniform(0.1, 2.0, size=r).astype(np.float32)
+    return [torch.tensor(a, device=device) for a in (o, d, t_max)]
+
+
+def _sphere_soup(device):
+    m = make_sphere(radius=0.5, slices=48, stacks=24)
+    return torch.tensor(m.positions[m.indices], device=device)
+
+
+@pytest.mark.parametrize("live", [None, 1000])
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("soup", ["cornell", "sphere"])
+def test_kernel_matches_plain_version(cuda, soup, bounded, live):
+    if soup == "cornell":
+        tris = create_cornell_box(device=cuda)[0].tri_verts
+        o, d, t_max = _rays(5000, 1, (-0.45, 0.12, -0.45), (0.45, 0.45, 0.45),
+                            cuda)
+    else:
+        tris = _sphere_soup(cuda)
+        o, d, t_max = _rays(5000, 2, -0.9, 0.9, cuda)
+    comp, n = dense.pack_triangles(tris)
+    got = assert_kernel_matches_plain(comp, n, o, d,
+                                      t_max if bounded else float("inf"), live)
+    live_rays = got.prim[:live] if live is not None else got.prim
+    assert int((live_rays >= 0).sum()) > live_rays.numel() // 10
+
+
+def test_wrapper_validates_inputs(cuda):
+    comp, n = dense.pack_triangles(_sphere_soup(cuda))
+    o, d, _ = _rays(64, 3, -0.9, 0.9, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        dense.dense_intersect_cuda(comp, n, o.double(), d.double(), 1e-4, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense.dense_intersect_cuda(comp[:, ::2], n // 2, o, d, 1e-4, 1.0)
+    with pytest.raises(ValueError, match="n_tris"):
+        dense.dense_intersect_cuda(comp, comp.shape[1] + 1, o, d, 1e-4, 1.0)
+    with pytest.raises(ValueError, match=r"\[r, 3\]"):
+        dense.dense_intersect_cuda(comp, n, o[:, :2], d, 1e-4, 1.0)
+
+
+def test_pooled_render_on_card_matches_cpu(cuda):
+    """The pooled wavefront on the card (kernel trace) against the same
+    frame on the CPU (plain trace), under the statistical gate."""
+    res = 64
+    scene, cam = create_cornell_box(device=cuda)
+    cpu_scene, cpu_cam = create_cornell_box(device="cpu")
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    before = dense.launch_count
+    img = pt.render_sample_pooled(scene, cam, res, res, 1, settings)
+    assert dense.launch_count > before
+    ref = pt.render_sample_pooled(cpu_scene, cpu_cam, res, res, 1, settings)
+    assert_statistical_gate(img.cpu().numpy(), ref.numpy())
+
+
+def test_render_progressive_on_card(cuda):
+    scene, cam = create_cornell_box(device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    img = pt.render_progressive(scene, cam, 32, 32, 2, settings,
+                                high_precision=True)
+    assert img.device.type == "cuda"
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.05
+    assert pt.explain_render_path(scene) == \
+        "wavefront: megakernel not yet ported"

@@ -1,0 +1,57 @@
+"""Import hygiene of the PyTorch port, and chip_smoke.py's refusals.
+
+The port imports torch and numpy only: importing every one of its modules
+in a fresh interpreter must bring in neither ``jax`` nor the JAX package
+``bifrost3d_tpu`` (which would also switch on its compile cache), nor
+``triton``. chip_smoke.py must refuse to run without a CUDA card and
+outside a checkout of the repository.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import bifrost3d_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "bifrost3d_tpu", "triton"))
+print(len(names), bad)
+assert len(names) >= 30, names
+assert not bad, bad
+"""
+
+
+def _run(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    proc = _run(["-c", _IMPORT_ALL], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run")
+    proc = _run(["chip_smoke.py"], REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_refuses_outside_the_repository(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run(["chip_smoke.py"], str(tmp_path))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
