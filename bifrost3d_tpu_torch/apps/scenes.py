@@ -1,8 +1,16 @@
 """Built-in test scenes.
 
 Port of ``bifrost3d_tpu/apps/scenes.py`` (``_trs``,
-``create_cornell_box``, ``SCENES``), holding CornellBox only so far. Each
-builder returns (RenderScene, PinholeCamera) on the given device.
+``create_cornell_box``, ``create_veach_scene``,
+``create_sphere_light_scene``, ``SCENES``). Each builder returns
+(RenderScene, PinholeCamera) on the given device.
+
+``TEST_SCENES`` holds the small scenes that the JAX package's megakernel
+tests build inline (``tests/test_pallas_mesh.py``: coated materials, a
+spot light, Default and Diffuse materials side by side), one with an
+emissive panel and one lit by a directional and a sphere light; each
+exercises a branch of the megakernel that the
+built-in scenes leave out.
 """
 
 from __future__ import annotations
@@ -10,9 +18,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bifrost3d_tpu_torch.geometry.creation import make_box, make_plane
+from bifrost3d_tpu_torch.geometry.creation import (
+    make_box,
+    make_plane,
+    make_sphere,
+)
 from bifrost3d_tpu_torch.geometry.mesh import transform_mesh
-from bifrost3d_tpu_torch.lights.types import LIGHT_SPHERE, LightArray
+from bifrost3d_tpu_torch.lights.types import (
+    LIGHT_DIRECTIONAL,
+    LIGHT_SPHERE,
+    LIGHT_SPOT,
+    LightArray,
+)
 from bifrost3d_tpu_torch.math.quaternion import (
     quat_from_axis_angle,
     quat_to_matrix,
@@ -85,4 +102,152 @@ def create_cornell_box(aspect=1.0, *, device):
     return scene, camera
 
 
-SCENES = {"CornellBox": create_cornell_box}
+def create_veach_scene(with_mesh_light: bool = False, aspect=1.0, *, device):
+    """Veach.h:27: the classic MIS scene — four increasingly rough plates
+    reflecting three sphere lights of increasing size and equal power.
+    ``with_mesh_light`` is accepted and, as in the JAX builder, changes
+    nothing."""
+    material_dicts = [dielectric((0.4, 0.4, 0.4), 0.9)]
+    instances = [
+        (make_plane(size=40.0), 0, _trs((0, 0, 0))),
+        (make_plane(size=40.0), 0, _trs((0, 0, -10), (1, 0, 0), -HALF_PI)),
+    ]
+    plate = transform_mesh(make_plane(size=1.0), np.asarray(
+        [[4.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1.0, 0]], F32))
+    for i, rough in enumerate([0.005, 0.02, 0.05, 0.1]):
+        material_dicts.append(metal((0.9, 0.9, 0.9), rough))
+        angle = 0.25 + 0.18 * i
+        instances.append((plate, len(material_dicts) - 1,
+                          _trs((0, 0.25 + 0.5 * i, -1.0 - 1.05 * i),
+                               (1, 0, 0), -angle)))
+    mats = MaterialArray.build(material_dicts, device=device)
+    power = (30.0, 30.0, 30.0)
+    lights = LightArray.build([
+        {"kind": LIGHT_SPHERE, "position": (-2.5, 5.0, -6.0), "radius": 0.03,
+         "power": power},
+        {"kind": LIGHT_SPHERE, "position": (0.0, 5.0, -6.0), "radius": 0.3,
+         "power": power},
+        {"kind": LIGHT_SPHERE, "position": (2.5, 5.0, -6.0), "radius": 0.9,
+         "power": power},
+    ], device=device)
+    scene = build_render_scene(instances, mats, lights, device=device)
+    camera = perspective_camera(eye=(0, 3.0, 3.0), target=(0, 1.8, -3.0),
+                                fov_radians=PI / 4, aspect=aspect,
+                                device=device)
+    return scene, camera
+
+
+def create_sphere_light_scene(aspect=1.0, *, device):
+    """SphereLight.h: a diffuse 960-triangle sphere lit by a large nearby
+    sphere light."""
+    mats = MaterialArray.build([dielectric((0.8, 0.8, 0.8), 0.7)],
+                               device=device)
+    instances = [(make_sphere(radius=0.5), 0, _trs((0, 0, 0)))]
+    lights = LightArray.build([
+        {"kind": LIGHT_SPHERE, "position": (1.5, 1.0, -1.0), "radius": 0.5,
+         "power": (40.0, 40.0, 40.0)}], device=device)
+    scene = build_render_scene(instances, mats, lights, device=device)
+    camera = perspective_camera(eye=(0, 0.5, -2.5), target=(0, 0, 0),
+                                fov_radians=PI / 4, aspect=aspect,
+                                device=device)
+    return scene, camera
+
+
+def _test_scene(materials, instances, lights, device):
+    scene = build_render_scene(
+        instances, MaterialArray.build(materials, device=device),
+        LightArray.build(lights, device=device), device=device)
+    camera = perspective_camera(eye=(0, 0.8, -2.6), target=(0, -0.1, 0),
+                                fov_radians=PI / 4, aspect=1.0, device=device)
+    return scene, camera
+
+
+def create_coated_scene(*, device):
+    """Coat layers: a plain floor, a coated dielectric box and a coated
+    metal sphere under one sphere light."""
+    materials = [
+        dielectric((0.6, 0.6, 0.6), 0.9),
+        dielectric((0.2, 0.4, 0.8), 0.1, coat=1.0, coat_roughness=0.0),
+        metal((0.95, 0.64, 0.54), 0.5, coat=0.7, coat_roughness=0.3),
+    ]
+    instances = [
+        (make_plane(size=8.0), 0, _trs((0, -0.5, 0))),
+        (make_box(size=0.7), 1, _trs((-0.6, -0.15, 0.3))),
+        (make_sphere(radius=0.4, slices=12, stacks=8), 2,
+         _trs((0.7, -0.1, 0.0))),
+    ]
+    lights = [{"kind": LIGHT_SPHERE, "position": (1.5, 3.0, -2.0),
+               "radius": 0.4, "power": (120.0,) * 3}]
+    return _test_scene(materials, instances, lights, device)
+
+
+def create_spot_light_scene(*, device):
+    """A box on a floor under one disk spot light (cone-or-disk NEE, disk
+    hits with MIS)."""
+    down = np.asarray([0.2, -1.0, 0.3], F32)
+    down /= np.linalg.norm(down)
+    materials = [dielectric((0.7, 0.7, 0.7), 0.8),
+                 dielectric((0.7, 0.2, 0.2), 0.3)]
+    instances = [(make_plane(size=10.0), 0, _trs((0, -0.5, 0))),
+                 (make_box(size=0.6), 1, _trs((0, -0.2, 0.2)))]
+    lights = [{"kind": LIGHT_SPOT, "position": (0.5, 2.5, -0.5),
+               "radius": 0.3, "direction": tuple(down), "cos_angle": 0.8,
+               "power": (120.0,) * 3}]
+    return _test_scene(materials, instances, lights, device)
+
+
+def create_diffuse_scene(*, device):
+    """A Default floor and a Diffuse-model (EON only) box side by side."""
+    materials = [dielectric((0.7, 0.7, 0.7), 0.8),
+                 dict(tint=(0.2, 0.6, 0.3), roughness=0.6, shading_model=1)]
+    instances = [(make_plane(size=10.0), 0, _trs((0, -0.5, 0))),
+                 (make_box(size=0.6), 1, _trs((0, -0.2, 0.2)))]
+    lights = [{"kind": LIGHT_SPHERE, "position": (1.0, 3.0, -1.5),
+               "radius": 0.4, "power": (100.0,) * 3}]
+    return _test_scene(materials, instances, lights, device)
+
+
+def create_emissive_scene(*, device):
+    """A box on a floor under an emissive panel facing down, beside a
+    small sphere light (surface emission on camera and bounce rays)."""
+    materials = [dielectric((0.7, 0.7, 0.7), 0.8),
+                 dielectric((0.3, 0.5, 0.7), 0.4),
+                 dict(tint=(0.1, 0.1, 0.1), roughness=1.0,
+                      emission=(4.0, 3.5, 3.0))]
+    instances = [(make_plane(size=10.0), 0, _trs((0, -0.5, 0))),
+                 (make_box(size=0.6), 1, _trs((0, -0.2, 0.2))),
+                 (make_plane(size=0.8), 2, _trs((0, 1.0, 0.2), (0, 0, 1), PI))]
+    lights = [{"kind": LIGHT_SPHERE, "position": (1.0, 2.0, -1.5),
+               "radius": 0.1, "power": (20.0,) * 3}]
+    return _test_scene(materials, instances, lights, device)
+
+
+def create_directional_scene(*, device):
+    """A box and a glossy metal sphere on a floor under a directional light
+    and a small sphere light (RIS over mixed light kinds, the delta-light
+    clamp, shadow rays of unbounded length)."""
+    ldir = -np.asarray([1.0, 2.0, -1.0], F32)
+    ldir /= np.linalg.norm(ldir)
+    materials = [dielectric((0.7, 0.7, 0.7), 0.8),
+                 dielectric((0.7, 0.5, 0.2), 0.3),
+                 metal((0.9, 0.9, 0.9), 0.15)]
+    instances = [(make_plane(size=10.0), 0, _trs((0, -0.5, 0))),
+                 (make_box(size=0.6), 1, _trs((-0.4, -0.2, 0.2))),
+                 (make_sphere(radius=0.3, slices=12, stacks=8), 2,
+                  _trs((0.5, -0.2, 0.0)))]
+    lights = [{"kind": LIGHT_SPHERE, "position": (1.0, 2.0, -1.5),
+               "radius": 0.2, "power": (40.0,) * 3},
+              {"kind": LIGHT_DIRECTIONAL, "direction": tuple(ldir),
+               "radiance": (3.0, 2.9, 2.5)}]
+    return _test_scene(materials, instances, lights, device)
+
+
+TEST_SCENES = {"coated": create_coated_scene,
+               "spot": create_spot_light_scene,
+               "diffuse": create_diffuse_scene,
+               "emissive": create_emissive_scene,
+               "directional": create_directional_scene}
+
+SCENES = {"CornellBox": create_cornell_box,
+          "Veach": create_veach_scene,
+          "SphereLight": create_sphere_light_scene}

@@ -1,0 +1,1078 @@
+// The mesh path tracer as one kernel: a whole progressive sample per pixel,
+// for Hopper (sm_90a).
+//
+// Replaces the dense branch of the TPU kernel
+// bifrost3d_tpu/integrator/pallas_mesh.py::_make_kernel (driven by
+// render_mesh_megakernel / _render_packed). It computes what that kernel
+// computes for every pixel lane, iteration by iteration in the same order:
+// the closest hit of a dense Möller–Trumbore trace; the nearest sphere-light
+// or spot-disk hit; background tint on a miss; the light's radiance with
+// balance-heuristic MIS on a light hit; attributes of the hit triangle;
+// passthrough of a culled back face; Default shading (EON diffuse + GGX
+// specular with rho-table energy compensation, optional coat lobe) or
+// Diffuse shading (EON only) by the material's model; emission; RIS over up
+// to 8 NEE candidates with one binary any-hit shadow ray; a BSDF sample; the
+// Owen-scrambled Sobol RNG keyed by (accumulation, pixel hash, 8·bounce +
+// dimension). The environment-map, NEAREST-texture and cutout branches of
+// the TPU kernel are not here (their scenes go to the wavefront).
+//
+// The TPU layout does not carry over. There, (8, 128) pixel tiles run every
+// branch as masked vector math, the triangle trace is a (T, 128) broadcast,
+// and attribute, material and rho-table fetches are one-hot MXU
+// contractions. Here:
+//
+//   - one thread per pixel, the reference's own structure (OptiX,
+//     SimpleRGPs.cu + MonteCarlo.cu); the path state stays in registers and
+//     a thread leaves its loop when its path ends (a dead lane's state never
+//     changes again, so the result is the TPU kernel's);
+//   - the triangle table (v0, e1, e2; 9 floats each, ≤ 1024 triangles, at
+//     most 36 KB), the two 32×32 rho tables, the material and light tables,
+//     the light kinds, the RIS offsets and the 4×32 Sobol direction numbers
+//     are staged in shared memory once per block (≤ 48 KB in all); every
+//     thread of a warp reads the same triangle at the same step, so those
+//     reads are broadcasts;
+//   - attributes are read from global memory by triangle index, materials
+//     and the rho tables by index (a 4-tap bilinear fetch);
+//   - only the selected branch of each select is computed (the chosen light,
+//     the chosen lobe, the lane's shading model);
+//   - templates cover the coat lobe and the Diffuse model; light kinds are a
+//     runtime switch, uniform across a warp.
+//
+// The trace keeps the lowest triangle index on equal t (strict '<' over
+// ascending indices), as the TPU kernel's column-min does. RNG is bit-exact
+// with the JAX package: uint32 hashes, __brev for the bit reversal, and
+// __uint2float_rn(x) * 2^-32 for the conversion, which the TPU kernel's
+// _u2f is defined to equal. megakernel_rng_probe exports the RNG so that a
+// test can hold it bit for bit against the port's torch path_rng_4d.
+//
+// What bounds it on an H100: per live lane-iteration the trace streams the
+// whole triangle table (~50 flops per test, two traces per iteration), so
+// at hundreds of triangles the kernel is FP32-issue-bound in the trace; at
+// Cornell's 34 triangles the shading math (transcendentals, RIS) dominates.
+// Divergence (paths end at different iterations; lanes pick different
+// lights and lobes) and register pressure (spills are reported by ptxas)
+// bound the achieved rate. This simple design does nothing about either:
+// no path regeneration, no ray packets, no culling. Making it fast is later
+// work.
+//
+// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+// -Xcompiler -fPIC (no --use_fast_math: IEEE division and square root,
+// full-precision sinf/cosf/powf). nvcc contracts a*b+c into FMA, which the
+// plain version does not; that moves values by an ulp and flips a few
+// stochastic decisions, which the statistical gate allows.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxLights = 8;
+constexpr int kMaxRis = 8;
+constexpr int kRho = 32;
+constexpr float kBig = 3.0e38f;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kInvPi = 0.31830988618379067154f;
+constexpr float kMinAlpha = 1e-4f;
+constexpr float kMinCos = 1e-6f;
+constexpr float kEpsDet = 1e-9f;
+constexpr float kMinSpotCone = 1e-5f;
+constexpr float kCoatIor = 1.5f;
+constexpr float kCoatSpecularity = 0.04f;
+// EON constants (bsdf/oren_nayar.py), rounded from double as JAX does.
+constexpr float kC1Fon = (float)(0.5 - 2.0 / (3.0 * 3.14159265358979323846));
+constexpr float kC2Fon = (float)(2.0 / 3.0 - 28.0 / (15.0 * 3.14159265358979323846));
+constexpr float kXCoat = (float)(1.0 - 1.0 / 1.5);
+
+constexpr int kSphere = 0;
+constexpr int kSpot = 1;   // any other kind is directional
+
+}  // namespace
+
+struct MegakernelParams {
+  const float* tri;          // [t_pad, 16]: v0 0-2, e1 3-5, e2 6-8
+  const float* attr;         // [24, t_pad]
+  const float* mats;         // [n_mats, 16]
+  const float* lights;       // [>= n_lights, 12]
+  const float* rho_ggx;      // [32, 32], [roughness][cos_theta]
+  const float* rho_fres;     // [32, 32]
+  const uint32_t* sobol;     // [4, 32] direction numbers
+  const float* origin;       // [n_pixels, 3]
+  const float* direction;    // [n_pixels, 3]
+  const uint32_t* pixel_hash;  // [n_pixels]
+  const float* active;       // [n_pixels] 0/1
+  const float* scalars;      // epsilon, background rgb
+  float* out;                // [4, n_pixels]: r, g, b, rays
+  int n_pixels, n_tris, t_pad, n_mats, n_lights;
+  int light_kinds[kMaxLights];
+  uint32_t accumulation;
+  int n_iters, max_bounce, ris_count;
+  float firefly_clamp, delta_light_clamp;
+  float ris_offsets[kMaxRis * 4];
+  int has_coat, has_diffuse;
+};
+
+namespace {
+
+// -- vec3 -------------------------------------------------------------------
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 mk(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ float max3(V3 a) { return fmaxf(fmaxf(a.x, a.y), a.z); }
+__device__ __forceinline__ V3 vmin(V3 a, float m) {
+  return {fminf(a.x, m), fminf(a.y, m), fminf(a.z, m)};
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 normalize(V3 a) {
+  return scale(a, 1.0f / sqrtf(fmaxf(dot(a, a), 1e-30f)));
+}
+__device__ __forceinline__ float lerp(float a, float b, float t) { return a + (b - a) * t; }
+__device__ __forceinline__ float gsafe(float x) { return fmaxf(x, 1e-12f); }
+__device__ __forceinline__ float sq(float x) { return x * x; }
+
+// Duff et al. branch-free tangent basis (math/vec.py orthonormal_basis).
+__device__ __forceinline__ void onb(V3 n, V3& t, V3& b) {
+  const float sign = n.z >= 0.0f ? 1.0f : -1.0f;
+  const float a = -1.0f / (sign + n.z);
+  const float bb = n.x * n.y * a;
+  t = mk(1.0f + sign * n.x * n.x * a, sign * bb, -sign * n.x);
+  b = mk(bb, sign + n.y * n.y * a, -n.y);
+}
+__device__ __forceinline__ V3 to_local(V3 v, V3 n) {
+  V3 t, b;
+  onb(n, t, b);
+  return mk(dot(v, t), dot(v, b), dot(v, n));
+}
+__device__ __forceinline__ V3 to_world(V3 v, V3 n) {
+  V3 t, b;
+  onb(n, t, b);
+  return mk(v.x * t.x + v.y * b.x + v.z * n.x, v.x * t.y + v.y * b.y + v.z * n.y,
+            v.x * t.z + v.y * b.z + v.z * n.z);
+}
+__device__ __forceinline__ V3 reflect(V3 d, V3 n) { return sub(d, scale(n, 2.0f * dot(d, n))); }
+
+// RT Gems integer ray offset (math/ray_offset.py): float bits as int32,
+// float -> int truncation toward zero as astype(int32).
+__device__ __forceinline__ float offset_c(float p, float n) {
+  const int of_i = static_cast<int>(256.0f * n);
+  const int p_i = __float_as_int(p) + (p < 0.0f ? -of_i : of_i);
+  return fabsf(p) < 1.0f / 32.0f ? p + (1.0f / 65536.0f) * n : __int_as_float(p_i);
+}
+__device__ __forceinline__ V3 offset_ray_origin(V3 p, V3 n) {
+  return mk(offset_c(p.x, n.x), offset_c(p.y, n.y), offset_c(p.z, n.z));
+}
+
+// -- RNG (sampling/hashes.py + sobol.py) --------------------------------------
+
+__device__ __forceinline__ uint32_t cessen_owen_hash(uint32_t x, uint32_t seed) {
+  x ^= x * 0x3D20ADEAu;
+  x += seed;
+  x *= (seed >> 16) | 1u;
+  x ^= x * 0x05526C56u;
+  x ^= x * 0x53A22864u;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t nested_uniform_scramble(uint32_t x, uint32_t seed) {
+  return __brev(cessen_owen_hash(__brev(x), seed));
+}
+
+__device__ __forceinline__ uint32_t pcg2d_x(uint32_t x, uint32_t y) {
+  x = x * 1664525u + 1013904223u;
+  y = y * 1664525u + 1013904223u;
+  x += y * 1664525u;
+  y += x * 1664525u;
+  x ^= x >> 16;
+  y ^= y >> 16;
+  x += y * 1664525u;
+  return x ^ (x >> 16);
+}
+
+// path_rng_4d: seed = pcg2d(pixel_hash, dimension).x; 4 Owen-scrambled
+// Sobol coordinates of point `accumulation`, each in [0, 1].
+__device__ void path_rng_4d(uint32_t accumulation, uint32_t pixel_hash, uint32_t dimension,
+                            const uint32_t* __restrict__ dirs, float u[4]) {
+  const uint32_t seed = pcg2d_x(pixel_hash, dimension);
+  const uint32_t index = nested_uniform_scramble(accumulation, seed);
+  uint32_t res[4] = {0u, 0u, 0u, 0u};
+  for (int b = 0; b < 32; ++b) {
+    const uint32_t m = 0u - ((index >> b) & 1u);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) res[d] ^= dirs[d * 32 + b] & m;
+  }
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const uint32_t dseed = seed ^ (static_cast<uint32_t>(d) + (seed << 6) + (seed >> 2));
+    u[d] = __uint2float_rn(nested_uniform_scramble(res[d], dseed)) * 2.3283064365386963e-10f;
+  }
+}
+
+__device__ __forceinline__ float toroidal_shift(float u, float off) {
+  const float s = u + off;
+  return s - floorf(s);
+}
+
+// -- MIS and the rho lookups --------------------------------------------------
+
+__device__ __forceinline__ float mis_weight(float p1, float p2) {
+  const float divisor = p1 + p2;
+  const float r = p1 / (divisor == 0.0f ? 1.0f : divisor);
+  const bool invalid = isinf(divisor) || isnan(r);
+  return invalid ? (p1 <= p2 ? 0.0f : 1.0f) : r;
+}
+
+// Bilinear fetch of table[y][x], coordinates clipped to [0, 1] and scaled to
+// the 32-entry axes, with the hat weights max(0, 1 - |f - i|) of
+// shading/fittings._bilinear_2d (only two are non-zero per axis).
+__device__ float rho_lookup(const float* __restrict__ tab, float x, float y) {
+  const float fx = fminf(fmaxf(x, 0.0f), 1.0f) * 31.0f;
+  const float fy = fminf(fmaxf(y, 0.0f), 1.0f) * 31.0f;
+  const int ix = min(static_cast<int>(floorf(fx)), kRho - 2);
+  const int iy = min(static_cast<int>(floorf(fy)), kRho - 2);
+  const float wx0 = fmaxf(0.0f, 1.0f - fabsf(fx - static_cast<float>(ix)));
+  const float wx1 = fmaxf(0.0f, 1.0f - fabsf(fx - static_cast<float>(ix + 1)));
+  const float wy0 = fmaxf(0.0f, 1.0f - fabsf(fy - static_cast<float>(iy)));
+  const float wy1 = fmaxf(0.0f, 1.0f - fabsf(fy - static_cast<float>(iy + 1)));
+  const float c0 = wy0 * tab[iy * kRho + ix] + wy1 * tab[(iy + 1) * kRho + ix];
+  const float c1 = wy0 * tab[iy * kRho + ix + 1] + wy1 * tab[(iy + 1) * kRho + ix + 1];
+  return wx0 * c0 + wx1 * c1;
+}
+
+// -- GGX reflection (bsdf/ggx.py) -----------------------------------------------
+
+__device__ __forceinline__ float ggx_ndf(float alpha, float abs_cos) {
+  const float a2 = alpha * alpha;
+  const float c2 = abs_cos * abs_cos;
+  const float s2 = fmaxf(1.0f - c2, 0.0f);
+  const float q = fmaxf(c2 * a2 + s2, 1e-9f);
+  return a2 / (kPi * q * q);
+}
+
+__device__ __forceinline__ float ggx_lambda(float alpha, V3 w) {
+  const float z2 = fmaxf(w.z * w.z, 1e-12f);
+  return 0.5f * (-1.0f + sqrtf(1.0f + (sq(alpha * w.x) + sq(alpha * w.y)) / z2));
+}
+
+__device__ __forceinline__ V3 schlick(V3 spec, float abs_cos) {
+  const float t = fmaxf(1.0f - abs_cos, 0.0f);
+  const float t2 = t * t;
+  const float t5 = t2 * t2 * t;
+  return mk((1.0f - t5) * spec.x + t5, (1.0f - t5) * spec.y + t5, (1.0f - t5) * spec.z + t5);
+}
+
+__device__ __forceinline__ float bounded_k(float alpha, V3 wo) {
+  const float a2 = alpha * alpha;
+  const float s = 1.0f + sqrtf(gsafe(wo.x * wo.x + wo.y * wo.y));
+  const float s2 = s * s;
+  return (1.0f - a2) * s2 / (s2 + a2 * wo.z * wo.z);
+}
+
+__device__ float ggx_bounded_vndf_pdf(float alpha, V3 wo, V3 wi) {
+  const V3 h = normalize(add(wo, wi));
+  const float ndf = ggx_ndf(alpha, fabsf(h.z));
+  const float ao2 = sq(alpha * wo.x) + sq(alpha * wo.y);
+  const float t = sqrtf(gsafe(ao2 + wo.z * wo.z));
+  if (wo.z < 0.0f) return ndf * (t - wo.z) / fmaxf(2.0f * ao2, 1e-10f);
+  const float k = bounded_k(alpha, wo);
+  return ndf / (2.0f * (k * wo.z + t));
+}
+
+__device__ V3 ggx_r_evaluate(float alpha, V3 spec, V3 wo, V3 wi) {
+  if (alpha <= kMinAlpha || !(wo.z * wi.z > 0.0f)) return mk(0.0f, 0.0f, 0.0f);
+  const V3 h = normalize(add(wo, wi));
+  const float g = 1.0f / (1.0f + ggx_lambda(alpha, wo) + ggx_lambda(alpha, wi));
+  const float d = ggx_ndf(alpha, fabsf(h.z));
+  const V3 f = schlick(spec, fabsf(dot(wo, h)));
+  const float denom = 4.0f * wo.z * wi.z;
+  return scale(f, d * g / (fabsf(denom) > 1e-10f ? denom : 1.0f));
+}
+
+__device__ float ggx_r_pdf(float alpha, V3 wo, V3 wi) {
+  if (alpha <= kMinAlpha || !(wo.z * wi.z > 0.0f)) return 0.0f;
+  return ggx_bounded_vndf_pdf(alpha, wo, wi);
+}
+
+// → wi, and pdf / delta flag / f of the lobe's own sample.
+__device__ V3 ggx_r_sample(float alpha, V3 spec, V3 wo, float u0, float u1, float& pdf,
+                           bool& is_delta, V3& f) {
+  if (alpha <= kMinAlpha) {
+    is_delta = true;
+    pdf = 1.0f;
+    f = scale(schlick(spec, fabsf(wo.z)), 1.0f / fmaxf(fabsf(wo.z), 1e-7f));
+    return mk(-wo.x, -wo.y, wo.z);
+  }
+  is_delta = false;
+  const V3 wo_std = normalize(mk(wo.x * alpha, wo.y * alpha, wo.z));
+  const float phi = kTwoPi * u1;
+  const float k = bounded_k(alpha, wo);
+  const float b = wo.z >= 0.0f ? k * wo_std.z : wo_std.z;
+  const float z = (1.0f - u0) * (1.0f + b) - b;
+  const float sin_theta = sqrtf(fminf(fmaxf(1.0f - z * z, 1e-12f), 1.0f));
+  const V3 h_std = add(wo_std, mk(sin_theta * cosf(phi), sin_theta * sinf(phi), z));
+  const V3 h = normalize(mk(h_std.x * alpha, h_std.y * alpha, h_std.z));
+  const V3 wi = reflect(neg(wo), h);
+  if (wi.z < 0.0f) {
+    pdf = 0.0f;
+    f = mk(0.0f, 0.0f, 0.0f);
+  } else {
+    pdf = ggx_bounded_vndf_pdf(alpha, wo, wi);
+    f = ggx_r_evaluate(alpha, spec, wo, wi);
+  }
+  return wi;
+}
+
+// -- EON Oren-Nayar (bsdf/oren_nayar.py + its CLTC sampler) ---------------------
+
+__device__ float eon_evaluate_scalar(float roughness, V3 wo, V3 wi) {
+  const float cos_i = wi.z, cos_o = wo.z;
+  const float s = dot(wi, wo) - cos_i * cos_o;
+  const float s_over_t = s > 0.0f ? s / fmaxf(fmaxf(cos_i, cos_o), 1e-7f) : s;
+  const float a = 1.0f / (1.0f + kC1Fon * roughness);
+  const float b = roughness * a;
+  const float f_single = kInvPi * a * (1.0f + roughness * s_over_t);
+  float g_o = 0.0f, g_i = 0.0f;
+  const float mo = 1.0f - cos_o, mi = 1.0f - cos_i;
+  const float coeffs[4] = {0.0714429953f, -0.332181442f, 0.491881867f, 0.0571085289f};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    g_o = mo * (coeffs[c] + g_o);
+    g_i = mi * (coeffs[c] + g_i);
+  }
+  const float ef_o = a + b * g_o;
+  const float ef_i = a + b * g_i;
+  const float avg_ef = a * (1.0f + kC2Fon * roughness);
+  const float f_multi =
+      kInvPi * fabsf(1.0f - ef_o) * fabsf(1.0f - ef_i) / fmaxf(1e-7f, 1.0f - avg_ef);
+  return f_single + f_multi;
+}
+
+__device__ __forceinline__ float eon_uniform_probability(float roughness, float c) {
+  return powf(fmaxf(roughness, 1e-7f), 0.1f) *
+         (0.162925f + c * (-0.372058f + (0.538233f - 0.290822f * c) * c));
+}
+
+__device__ __forceinline__ void cltc_coeffs(float mu, float r, float& a, float& b, float& c,
+                                            float& d) {
+  a = 1.0f + r * (0.303392f + (-0.518982f + 0.111709f * mu) * mu +
+                  (-0.276266f + 0.335918f * mu) * r);
+  b = r * (-1.16407f + 1.15859f * mu + (0.150815f - 0.150105f * mu) * r) /
+      (mu * mu * mu - 1.43545f);
+  c = 1.0f + (0.20013f + (-0.506373f + 0.261777f * mu) * mu) * r;
+  d = ((0.540852f + (-1.01625f + 0.475392f * mu) * mu) * r) / (-1.0743f + mu * (0.0725628f + mu));
+}
+
+__device__ __forceinline__ void ltc_tangent(V3 wo, float& cx, float& sx) {
+  const float len2 = wo.x * wo.x + wo.y * wo.y;
+  const float inv = 1.0f / sqrtf(fmaxf(len2, 1e-20f));
+  cx = len2 > 0.0f ? wo.x * inv : 1.0f;
+  sx = len2 > 0.0f ? wo.y * inv : 0.0f;
+}
+
+__device__ float eon_pdf(float roughness, V3 wo, V3 wi) {
+  const float u_prob = eon_uniform_probability(roughness, wo.z);
+  float cx, sx;
+  ltc_tangent(wo, cx, sx);
+  const float lx = cx * wi.x + sx * wi.y;
+  const float ly = -sx * wi.x + cx * wi.y;
+  const float lz = wi.z;
+  float a, b, c, d;
+  cltc_coeffs(wo.z, roughness, a, b, c, d);
+  const float det_m = c * (a - b * d);
+  const float whx = c * (lx - b * lz);
+  const float why = (a - b * d) * ly;
+  const float whz = -c * (d * lx - a * lz);
+  const float wh_mag2 = whx * whx + why * why + whz * whz;
+  const float vz = 1.0f / sqrtf(d * d + 1.0f);
+  const float s = 0.5f * (1.0f + vz);
+  const float cltc =
+      det_m * det_m / fmaxf(sq(wh_mag2), 1e-10f) * fmaxf(whz, 0.0f) / (kPi * s);
+  return u_prob * (0.5f * kInvPi) + (1.0f - u_prob) * cltc;
+}
+
+__device__ V3 eon_sample(float roughness, V3 wo, float u0, float u1) {
+  const float u_prob = eon_uniform_probability(roughness, wo.z);
+  const bool pick_uniform = u0 <= u_prob;
+  const float ux = fminf(fmaxf(pick_uniform ? u0 / fmaxf(u_prob, 1e-7f)
+                                            : (u0 - u_prob) / fmaxf(1.0f - u_prob, 1e-7f),
+                               0.0f),
+                         0.9999999f);
+  const float phi = kTwoPi * u1;
+  if (pick_uniform) {
+    const float r = sqrtf(gsafe(1.0f - ux * ux));
+    return mk(r * cosf(phi), r * sinf(phi), ux);
+  }
+  float a, b, c, d;
+  cltc_coeffs(wo.z, roughness, a, b, c, d);
+  const float radius = sqrtf(ux);
+  float x = radius * cosf(phi);
+  const float y = radius * sinf(phi);
+  const float vz = 1.0f / sqrtf(d * d + 1.0f);
+  const float s = 0.5f * (1.0f + vz);
+  x = -lerp(sqrtf(gsafe(1.0f - y * y)), x, s);
+  const float whz = sqrtf(gsafe(1.0f - (x * x + y * y)));
+  const V3 wi = mk(a * x + b * whz, c * y, d * x + whz);
+  float cx, sx;
+  ltc_tangent(wo, cx, sx);
+  return normalize(mk(cx * wi.x - sx * wi.y, sx * wi.x + cx * wi.y, wi.z));
+}
+
+// -- shading models (shading/default_shading.py, diffuse_shading.py) ---------
+
+// A conductor's specularity re-based under the coat medium (bsdf/fresnel.py,
+// exterior IOR 1.5; NaN → 1).
+__device__ __forceinline__ float coated_conductor(float tint, float coat) {
+  const float s = fminf(fmaxf(tint, 0.0f), 0.9999f);
+  const float a = s - 1.0f;
+  const float b = 2.0f * s + 2.0f;
+  const float d = b * b - 4.0f * a * a;
+  const float ior = (-b + sqrtf(fmaxf(d, 0.0f))) / (2.0f * a);
+  float cs = sq((kCoatIor - ior) / (kCoatIor + ior));
+  if (isnan(cs)) cs = 1.0f;
+  return lerp(tint, cs, coat);
+}
+
+struct Shading {
+  V3 tint;        // the material's tint (the Diffuse model's albedo)
+  V3 diffuse_tint;
+  V3 specularity;
+  float roughness, alpha, specular_scale, specular_probability;
+  float coat_scale, coat_alpha, coat_probability;
+  bool diffuse_model;
+};
+
+template <bool kCoat>
+__device__ Shading shading_create(const float* __restrict__ rho_ggx,
+                                  const float* __restrict__ rho_fres, V3 tint, float roughness,
+                                  float specularity, float metallic, float abs_cos_o, float coat,
+                                  float coat_roughness) {
+  Shading sh;
+  sh.tint = tint;
+  sh.diffuse_model = false;
+  V3 conductor = tint;
+  const bool has_coat = kCoat && coat > 0.0f;
+  if (has_coat) {
+    // Coat-modulated base roughness (OpenPBR eq. 86, Utils.h:363-367).
+    const float r4 = fminf(1.0f, powf(roughness, 4.0f) + 2.0f * kXCoat * powf(coat_roughness, 4.0f));
+    roughness = lerp(roughness, powf(r4, 0.25f), coat);
+    // Specularities re-based under the coat medium (bsdf/fresnel.py).
+    if (specularity < 1.0f) {
+      const float base_ior = 2.0f / (1.0f - sqrtf(fminf(specularity, 0.9999f))) - 1.0f;
+      specularity = lerp(specularity, sq((kCoatIor - base_ior) / (kCoatIor + base_ior)), coat);
+    }
+    conductor = mk(coated_conductor(tint.x, coat), coated_conductor(tint.y, coat),
+                   coated_conductor(tint.z, coat));
+  }
+  const float base = rho_lookup(rho_fres, abs_cos_o, roughness);
+  const float full = rho_lookup(rho_ggx, abs_cos_o, roughness);
+  float reflection_scale = 1.0f / fmaxf(full, 1e-5f);
+  const float rho = lerp(base, full, specularity) * reflection_scale;
+  V3 diffuse_tint = scale(scale(tint, 1.0f - rho), 1.0f - metallic);
+  sh.specularity = mk(lerp(specularity, conductor.x, metallic),
+                      lerp(specularity, conductor.y, metallic),
+                      lerp(specularity, conductor.z, metallic));
+  float coat_rho = 0.0f;
+  sh.coat_scale = 0.0f;
+  sh.coat_alpha = 0.0f;
+  if (has_coat) {
+    // Coat layer: GGX with fixed IOR 1.5 / specularity 0.04.
+    const float cbase = rho_lookup(rho_fres, abs_cos_o, coat_roughness);
+    const float cfull = rho_lookup(rho_ggx, abs_cos_o, coat_roughness);
+    const float coat_refl_scale = coat / fmaxf(cfull, 1e-5f);
+    coat_rho = lerp(cbase, cfull, kCoatSpecularity) * coat_refl_scale;
+    const float coat_transmission = 1.0f - coat_rho;
+    sh.coat_scale = coat_refl_scale;
+    sh.coat_alpha = fmaxf(kMinAlpha, coat_roughness * coat_roughness);
+    reflection_scale *= coat_transmission;
+    diffuse_tint = scale(diffuse_tint, coat_transmission);
+  }
+  const float spec_rho_sum = lerp(base, full, sh.specularity.x) * reflection_scale +
+                             lerp(base, full, sh.specularity.y) * reflection_scale +
+                             lerp(base, full, sh.specularity.z) * reflection_scale;
+  const float diffuse_rho_sum = diffuse_tint.x + diffuse_tint.y + diffuse_tint.z;
+  const float coat_rho_sum = 3.0f * coat_rho;
+  const float recip = 1.0f / fmaxf(diffuse_rho_sum + spec_rho_sum + coat_rho_sum, 1e-9f);
+  sh.diffuse_tint = diffuse_tint;
+  sh.roughness = roughness;
+  sh.alpha = fmaxf(kMinAlpha, roughness * roughness);
+  sh.specular_scale = reflection_scale;
+  sh.specular_probability = spec_rho_sum * recip;
+  sh.coat_probability = coat_rho_sum * recip;
+  return sh;
+}
+
+template <bool kCoat>
+__device__ V3 shading_evaluate(const Shading& sh, V3 wo, V3 wi, float& pdf) {
+  pdf = 0.0f;
+  if (!(wo.z > kMinCos && wi.z > kMinCos)) return mk(0.0f, 0.0f, 0.0f);
+  const float d_scalar = eon_evaluate_scalar(sh.roughness, wo, wi);
+  const float d_pdf = eon_pdf(sh.roughness, wo, wi);
+  if (sh.diffuse_model) {
+    pdf = d_pdf;
+    return scale(sh.tint, d_scalar);
+  }
+  const V3 s_f = ggx_r_evaluate(sh.alpha, sh.specularity, wo, wi);
+  const float s_pdf = ggx_r_pdf(sh.alpha, wo, wi);
+  const float sp = sh.specular_probability;
+  V3 f = add(scale(sh.diffuse_tint, d_scalar), scale(s_f, sh.specular_scale));
+  if (kCoat) {
+    const V3 spec04 = mk(kCoatSpecularity, kCoatSpecularity, kCoatSpecularity);
+    const V3 c_f = ggx_r_evaluate(sh.coat_alpha, spec04, wo, wi);
+    const float c_pdf = ggx_r_pdf(sh.coat_alpha, wo, wi);
+    const float cp = sh.coat_probability;
+    f = add(f, scale(c_f, sh.coat_scale));
+    pdf = d_pdf * (1.0f - sp - cp) + s_pdf * sp + c_pdf * cp;
+  } else {
+    pdf = d_pdf * (1.0f - sp) + s_pdf * sp;
+  }
+  return f;
+}
+
+// → wi; pdf, is_delta and f of the sample (DefaultShading.h:218-280, or
+// the Diffuse model's EON sample).
+template <bool kCoat>
+__device__ V3 shading_sample(const Shading& sh, V3 wo, float u0, float u1, float u2, float& pdf,
+                             bool& is_delta, V3& f) {
+  const bool frontside = wo.z > kMinCos;
+  is_delta = false;
+  if (sh.diffuse_model) {
+    const V3 wi = eon_sample(sh.roughness, wo, u0, u1);
+    f = frontside ? scale(sh.tint, eon_evaluate_scalar(sh.roughness, wo, wi)) : mk(0.0f, 0.0f, 0.0f);
+    pdf = frontside ? eon_pdf(sh.roughness, wo, wi) : 0.0f;
+    return wi;
+  }
+  const float cp = kCoat ? sh.coat_probability : 0.0f;
+  const bool sample_coat = kCoat && u2 < cp;
+  const bool sample_specular = !sample_coat && u2 < cp + sh.specular_probability;
+  V3 wi;
+  V3 lobe_f = mk(0.0f, 0.0f, 0.0f);
+  float lobe_pdf = 0.0f;
+  bool lobe_delta = false;
+  if (sample_coat) {
+    const V3 spec04 = mk(kCoatSpecularity, kCoatSpecularity, kCoatSpecularity);
+    wi = ggx_r_sample(sh.coat_alpha, spec04, wo, u0, u1, lobe_pdf, lobe_delta, lobe_f);
+  } else if (sample_specular) {
+    wi = ggx_r_sample(sh.alpha, sh.specularity, wo, u0, u1, lobe_pdf, lobe_delta, lobe_f);
+  } else {
+    wi = eon_sample(sh.roughness, wo, u0, u1);
+  }
+  if (lobe_delta) {
+    // A smooth lobe is a delta mirror: keep the lobe's own sample.
+    pdf = sample_coat ? cp : sh.specular_probability;
+    f = scale(lobe_f, sample_coat ? sh.coat_scale : sh.specular_scale);
+    is_delta = frontside;
+    return wi;
+  }
+  f = shading_evaluate<kCoat>(sh, wo, wi, pdf);
+  return wi;
+}
+
+// -- lights (lights/analytic.py; a row of 12: position 0-2, radius 3,
+//    power 4-6, direction 7-9, cos_angle 10) ---------------------------------
+
+struct Light {
+  V3 pos, power, dir;
+  float radius, cos_angle;
+};
+
+__device__ __forceinline__ Light load_light(const float* __restrict__ row) {
+  Light l;
+  l.pos = mk(row[0], row[1], row[2]);
+  l.radius = row[3];
+  l.power = mk(row[4], row[5], row[6]);
+  l.dir = mk(row[7], row[8], row[9]);
+  l.cos_angle = row[10];
+  return l;
+}
+
+__device__ __forceinline__ float ray_plane_t(V3 o, V3 d, V3 p, V3 n) {
+  const float denom = dot(d, n);
+  return (dot(p, n) - dot(o, n)) / (fabsf(denom) > 1e-9f ? denom : 1e-9f);
+}
+
+__device__ float ray_sphere_t(V3 o, V3 d, const Light& l) {
+  const V3 op = sub(l.pos, o);
+  const float b = dot(op, d);
+  const float det = l.radius * l.radius - (dot(op, op) - b * b);
+  const float sqrt_det = sqrtf(gsafe(det));
+  const float t = b - sqrt_det > 0.0f ? b - sqrt_det : b + sqrt_det;
+  return (det >= 0.0f && t > 0.0f && l.radius > 0.0f) ? t : kBig;
+}
+
+__device__ float ray_spot_disk_t(V3 o, V3 d, const Light& l) {
+  const float denom = dot(d, l.dir);
+  const float t = ray_plane_t(o, d, l.pos, l.dir);
+  const V3 off = sub(add(o, scale(d, t)), l.pos);
+  const bool on_disk = dot(off, off) <= l.radius * l.radius;
+  return (on_disk && fabsf(denom) > 1e-9f && t > 0.0f && l.radius > 0.0f) ? t : kBig;
+}
+
+__device__ __forceinline__ V3 sphere_light_evaluate(const Light& l) {
+  const float area = 4.0f * kPi * l.radius * l.radius;
+  return scale(l.power, 1.0f / fmaxf(kPi * area, 1e-10f));
+}
+
+__device__ float sphere_light_pdf(const Light& l, V3 lit, V3 direction) {
+  const V3 to_center = sub(l.pos, lit);
+  const float sin2 = l.radius * l.radius / fmaxf(dot(to_center, to_center), 1e-10f);
+  const float cos_theta_max = sqrtf(gsafe(1.0f - sin2));
+  const float cos_theta = dot(direction, normalize(to_center));
+  return (cos_theta >= cos_theta_max && sin2 > 0.0f)
+             ? 1.0f / (kTwoPi * fmaxf(1.0f - cos_theta_max, 1e-10f))
+             : 0.0f;
+}
+
+__device__ V3 spot_light_evaluate(const Light& l, V3 lit, V3 direction) {
+  const float cos_theta = -dot(l.dir, direction);
+  const V3 diff = sub(l.pos, lit);
+  const float norm = kTwoPi * (1.0f - l.cos_angle) *
+                     (l.radius == 0.0f ? dot(diff, diff) : kPi * l.radius * l.radius * cos_theta);
+  const float inv = 1.0f / fmaxf(norm, 1e-10f);
+  return cos_theta > l.cos_angle ? scale(l.power, inv) : mk(0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ bool spot_use_cone(const Light& l, V3 lit) {
+  const float t_plane = ray_plane_t(lit, neg(l.dir), l.pos, l.dir);
+  const float cone_radius_at =
+      t_plane * sqrtf(gsafe(1.0f - l.cos_angle * l.cos_angle)) / fmaxf(l.cos_angle, 1e-9f);
+  return l.radius > cone_radius_at && l.cos_angle > kMinSpotCone;
+}
+
+__device__ float spot_light_pdf(const Light& l, V3 lit, V3 direction) {
+  const float cos_theta = -dot(l.dir, direction);
+  if (!(cos_theta > 0.0f && l.radius > 0.0f)) return 0.0f;
+  if (spot_use_cone(l, lit)) return 1.0f / (kTwoPi * fmaxf(1.0f - l.cos_angle, 1e-10f));
+  const float t = ray_plane_t(lit, direction, l.pos, l.dir);
+  const V3 off = sub(add(lit, scale(direction, t)), l.pos);
+  const bool on_disk = t >= 0.0f && dot(off, off) < l.radius * l.radius;
+  return on_disk ? (1.0f / (kPi * fmaxf(l.radius * l.radius, 1e-18f))) * t * t /
+                       fmaxf(cos_theta, 1e-9f)
+                 : 0.0f;
+}
+
+struct LightSample {
+  V3 dir, radiance;
+  float dist, pdf;
+  bool is_delta;
+};
+
+__device__ LightSample sphere_light_sample(const Light& l, V3 lit, float u0, float u1) {
+  LightSample s;
+  const V3 to_center = sub(l.pos, lit);
+  const float dist2 = dot(to_center, to_center);
+  const float sin2 = l.radius * l.radius / fmaxf(dist2, 1e-10f);
+  if (sin2 <= 0.0f) {   // a point light
+    const float dist = sqrtf(gsafe(dist2));
+    s.dir = scale(to_center, 1.0f / fmaxf(dist, 1e-10f));
+    s.dist = (dist - l.radius) * 0.999999f;
+    s.radiance = scale(l.power, 1.0f / (4.0f * kPi * dist2));
+    s.pdf = 1.0f;
+    s.is_delta = true;
+    return s;
+  }
+  const float cos_theta_max = sqrtf(gsafe(1.0f - sin2));
+  const float cos_theta = (1.0f - u0) + u0 * cos_theta_max;
+  const float sin_theta = sqrtf(gsafe(1.0f - cos_theta * cos_theta));
+  const float phi = kTwoPi * u1;
+  const V3 cone_dir = mk(cosf(phi) * sin_theta, sinf(phi) * sin_theta, cos_theta);
+  const V3 direction = to_world(cone_dir, normalize(to_center));
+  // The exact sphere distance from the lit point.
+  const float b = dot(to_center, direction);
+  const float det = l.radius * l.radius - (dist2 - b * b);
+  const float sqrt_det = sqrtf(gsafe(det));
+  float t = b - sqrt_det > 0.0f ? b - sqrt_det : b + sqrt_det;
+  t = (det >= 0.0f && t > 0.0f) ? t : -1.0f;
+  if (t <= 0.0f) t = b;
+  s.dir = direction;
+  s.dist = t * 0.999999f;
+  s.radiance = sphere_light_evaluate(l);
+  s.pdf = 1.0f / (kTwoPi * fmaxf(1.0f - cos_theta_max, 1e-10f));
+  s.is_delta = false;
+  return s;
+}
+
+__device__ LightSample spot_light_sample(const Light& l, V3 lit, float u0, float u1) {
+  LightSample s;
+  if (l.radius == 0.0f) {   // a delta spot
+    const V3 to_light = sub(l.pos, lit);
+    const float dist = sqrtf(gsafe(dot(to_light, to_light)));
+    s.dir = scale(to_light, 1.0f / fmaxf(dist, 1e-10f));
+    s.dist = dist * 0.999999f;
+    s.radiance = spot_light_evaluate(l, lit, s.dir);
+    s.pdf = 1.0f;
+    s.is_delta = true;
+    return s;
+  }
+  s.is_delta = false;
+  if (spot_use_cone(l, lit)) {
+    // Sample the cone about the spot axis, pointing backwards.
+    const float cos_theta = (1.0f - u0) + u0 * l.cos_angle;
+    const float sin_theta = sqrtf(gsafe(1.0f - cos_theta * cos_theta));
+    const float phi = kTwoPi * u1;
+    const V3 dir_cone =
+        neg(to_world(mk(cosf(phi) * sin_theta, sinf(phi) * sin_theta, cos_theta), l.dir));
+    const float t_cone = ray_plane_t(lit, dir_cone, l.pos, l.dir);
+    const V3 off = sub(add(lit, scale(dir_cone, t_cone)), l.pos);
+    const bool on_light = dot(off, off) < l.radius * l.radius;
+    s.dir = dir_cone;
+    s.dist = t_cone * 0.999999f;
+    s.radiance = on_light ? spot_light_evaluate(l, lit, dir_cone) : mk(0.0f, 0.0f, 0.0f);
+    s.pdf = 1.0f / (kTwoPi * fmaxf(1.0f - l.cos_angle, 1e-10f));
+    return s;
+  }
+  // Sample the disk (concentric mapping, Distributions.h).
+  const float r_safe = fmaxf(l.radius, 1e-9f);
+  const float a = 2.0f * u0 - 1.0f;
+  float b = 2.0f * u1 - 1.0f;
+  if (b == 0.0f) b = 1.0f;
+  const bool use_a = a * a > b * b;
+  const float rr = (use_a ? a : b) * r_safe;
+  const float safe_a = a == 0.0f ? 1.0f : a;
+  const float phi_d = use_a ? (kPi / 4.0f) * (b / safe_a) : (kPi / 2.0f) - (kPi / 4.0f) * (a / b);
+  const float dx = rr * cosf(phi_d);
+  const float dy = rr * sinf(phi_d);
+  const float disk_p = 1.0f / (kPi * r_safe * r_safe);
+  const bool axis_x = fabsf(l.dir.x) > 0.9f;
+  const V3 tangent = normalize(cross(mk(axis_x ? 0.0f : 1.0f, axis_x ? 1.0f : 0.0f, 0.0f), l.dir));
+  const V3 bitangent = cross(l.dir, tangent);
+  const V3 sampled = add(l.pos, add(scale(tangent, dx), scale(bitangent, dy)));
+  const V3 to_s = sub(sampled, lit);
+  const float dist_disk = sqrtf(gsafe(dot(to_s, to_s)));
+  s.dir = scale(to_s, 1.0f / fmaxf(dist_disk, 1e-10f));
+  s.dist = dist_disk * 0.999999f;
+  s.radiance = spot_light_evaluate(l, lit, s.dir);
+  s.pdf = disk_p * dist_disk * dist_disk / fmaxf(-dot(l.dir, s.dir), 1e-9f);
+  return s;
+}
+
+// -- trace (dense Möller–Trumbore, as csrc/dense_intersect.cu) -----------------
+
+__device__ __forceinline__ bool mt_test(const float* __restrict__ tri, V3 o, V3 d, float& t,
+                                        float& u, float& v) {
+  const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
+  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+  const float px = d.y * e2z - d.z * e2y;
+  const float py = d.z * e2x - d.x * e2z;
+  const float pz = d.x * e2y - d.y * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool det_ok = fabsf(det) > kEpsDet;
+  const float inv_det = __fdiv_rn(det_ok ? 1.0f : 0.0f, det == 0.0f ? 1.0f : det);
+  const float tx = o.x - v0x, ty = o.y - v0y, tz = o.z - v0z;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  v = (d.x * qx + d.y * qy + d.z * qz) * inv_det;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
+}
+
+// Closest hit in (t_min, inf): prim -1 and t = kBig on a miss.
+__device__ int trace_closest(const float* __restrict__ s_tri, int n_tris, V3 o, V3 d, float t_min,
+                             float& best_t, float& best_u, float& best_v) {
+  best_t = kBig;
+  best_u = 0.0f;
+  best_v = 0.0f;
+  int best = -1;
+  for (int k = 0; k < n_tris; ++k) {
+    float t, u, v;
+    if (mt_test(s_tri + 9 * k, o, d, t, u, v) && t > t_min && t < best_t) {
+      best_t = t;
+      best_u = u;
+      best_v = v;
+      best = k;
+    }
+  }
+  return best;
+}
+
+// Any hit in (t_min, t_max); stops at the first.
+__device__ bool trace_any(const float* __restrict__ s_tri, int n_tris, V3 o, V3 d, float t_min,
+                          float t_max) {
+  for (int k = 0; k < n_tris; ++k) {
+    float t, u, v;
+    if (mt_test(s_tri + 9 * k, o, d, t, u, v) && t > t_min && t < t_max) return true;
+  }
+  return false;
+}
+
+// -- the kernel -----------------------------------------------------------------
+
+constexpr int kAttrRows = 24;
+constexpr int kMatCols = 16;
+constexpr int kLightCols = 12;
+constexpr int kDimNee = 1, kDimBsdf = 2, kPerBounce = 8;
+
+template <bool kCoat, bool kDiffuse>
+__global__ void mesh_megakernel_kernel(const MegakernelParams p) {
+  extern __shared__ float smem[];
+  float* s_tri = smem;                               // [n_tris, 9]
+  float* s_rho_ggx = s_tri + 9 * p.n_tris;           // [32, 32]
+  float* s_rho_fres = s_rho_ggx + kRho * kRho;       // [32, 32]
+  float* s_mats = s_rho_fres + kRho * kRho;          // [n_mats, 16]
+  float* s_lights = s_mats + kMatCols * p.n_mats;    // [n_lights, 12]
+  float* s_offsets = s_lights + kLightCols * p.n_lights;  // [8, 4] RIS offsets
+  uint32_t* s_sobol = reinterpret_cast<uint32_t*>(s_offsets + 4 * kMaxRis);  // [4, 32]
+  int* s_kinds = reinterpret_cast<int*>(s_sobol + 128);   // [8] light kinds
+
+  for (int k = threadIdx.x; k < 9 * p.n_tris; k += blockDim.x)
+    s_tri[k] = p.tri[(k / 9) * 16 + k % 9];
+  for (int k = threadIdx.x; k < kRho * kRho; k += blockDim.x) {
+    s_rho_ggx[k] = p.rho_ggx[k];
+    s_rho_fres[k] = p.rho_fres[k];
+  }
+  for (int k = threadIdx.x; k < kMatCols * p.n_mats; k += blockDim.x) s_mats[k] = p.mats[k];
+  for (int k = threadIdx.x; k < kLightCols * p.n_lights; k += blockDim.x) s_lights[k] = p.lights[k];
+  for (int k = threadIdx.x; k < 128; k += blockDim.x) s_sobol[k] = p.sobol[k];
+  if (threadIdx.x < 4 * kMaxRis) s_offsets[threadIdx.x] = p.ris_offsets[threadIdx.x];
+  if (threadIdx.x < kMaxLights) s_kinds[threadIdx.x] = p.light_kinds[threadIdx.x];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n_pixels) return;
+
+  const float eps = p.scalars[0];
+  const V3 env_tint = mk(p.scalars[1], p.scalars[2], p.scalars[3]);
+  const uint32_t pixel_hash = p.pixel_hash[i];
+  V3 o = mk(p.origin[3 * i], p.origin[3 * i + 1], p.origin[3 * i + 2]);
+  V3 d = mk(p.direction[3 * i], p.direction[3 * i + 1], p.direction[3 * i + 2]);
+  V3 throughput = mk(1.0f, 1.0f, 1.0f);
+  V3 radiance = mk(0.0f, 0.0f, 0.0f);
+  float bsdf_pdf = 0.0f;
+  uint32_t bounce = 0u;
+  float rays = 0.0f;
+  bool active = p.active[i] > 0.0f;
+
+  for (int it = 0; it < p.n_iters && active; ++it) {
+    rays += 2.0f;
+    float t_hit, hu, hv;
+    const int prim = trace_closest(s_tri, p.n_tris, o, d, eps, t_hit, hu, hv);
+
+    float t_light = kBig;
+    int light_idx = -1;
+    for (int k = 0; k < p.n_lights; ++k) {
+      const int kind = s_kinds[k];
+      if (kind != kSphere && kind != kSpot) continue;
+      const Light l = load_light(s_lights + kLightCols * k);
+      const float tk = kind == kSphere ? ray_sphere_t(o, d, l) : ray_spot_disk_t(o, d, l);
+      if (tk < t_light) {
+        t_light = tk;
+        light_idx = k;
+      }
+    }
+    const bool light_first = t_light < t_hit;
+    if (!light_first && prim < 0) {   // miss: the background tint
+      radiance = add(radiance, mul(throughput, env_tint));
+      break;
+    }
+    if (light_first) {   // an analytic light, MIS-weighted
+      const Light l = load_light(s_lights + kLightCols * light_idx);
+      const bool sphere = s_kinds[light_idx] == kSphere;
+      const V3 l_rad = sphere ? sphere_light_evaluate(l) : spot_light_evaluate(l, o, d);
+      const float l_pdf = sphere ? sphere_light_pdf(l, o, d) : spot_light_pdf(l, o, d);
+      const float w = bsdf_pdf > 0.0f ? mis_weight(bsdf_pdf, l_pdf) : 1.0f;
+      radiance = add(radiance, scale(mul(vmin(throughput, p.firefly_clamp), l_rad), w));
+      break;
+    }
+
+    // Mesh hit: attributes, material.
+    const float* a = p.attr + prim;
+    const int ts = p.t_pad;
+    const float bary0 = 1.0f - hu - hv;
+    const V3 n0 = mk(a[0 * ts], a[1 * ts], a[2 * ts]);
+    const V3 n1 = mk(a[3 * ts], a[4 * ts], a[5 * ts]);
+    const V3 n2 = mk(a[6 * ts], a[7 * ts], a[8 * ts]);
+    const int mat_idx = static_cast<int>(a[9 * ts]);
+    const V3 geo_n = mk(a[10 * ts], a[11 * ts], a[12 * ts]);
+    const V3 shading_n = normalize(add(add(scale(n0, bary0), scale(n1, hu)), scale(n2, hv)));
+    const V3 position = add(o, scale(d, t_hit));
+    const float* m = s_mats + kMatCols * mat_idx;
+    const bool thin_walled = m[6] > 0.5f;
+    const bool hit_from_front = dot(geo_n, d) < 0.0f;
+    const V3 gf = hit_from_front ? geo_n : neg(geo_n);
+    if (!hit_from_front && !thin_walled) {   // a culled back face: pass through
+      o = offset_ray_origin(position, neg(gf));
+      continue;
+    }
+
+    float u_bsdf[4], u_nee[4];
+    path_rng_4d(p.accumulation, pixel_hash, bounce * kPerBounce + kDimBsdf, s_sobol, u_bsdf);
+    path_rng_4d(p.accumulation, pixel_hash, bounce * kPerBounce + kDimNee, s_sobol, u_nee);
+
+    V3 sn = hit_from_front ? shading_n : neg(shading_n);
+    // fix_backfacing_shading_normal (Utils.h), target cos 0.002.
+    const V3 wo_world = neg(d);
+    const float cos_w = dot(wo_world, sn);
+    if (cos_w < 0.002f) sn = normalize(sub(sn, scale(wo_world, cos_w - 0.002f)));
+    const V3 wo = to_local(wo_world, sn);
+    const float cos_theta_o = (hit_from_front || thin_walled) ? wo.z : -wo.z;
+
+    const V3 tint = mk(m[0], m[1], m[2]);
+    const float rough = m[3];
+    Shading sh;
+    if (kDiffuse && m[13] == 1.0f) {
+      sh.tint = tint;
+      sh.roughness = rough;
+      sh.diffuse_model = true;
+    } else {
+      sh = shading_create<kCoat>(s_rho_ggx, s_rho_fres, tint, rough, m[4], m[5],
+                                 fabsf(cos_theta_o), kCoat ? m[11] : 0.0f,
+                                 kCoat ? m[12] : 0.0f);
+    }
+
+    // Surface emission.
+    radiance = add(radiance, mul(throughput, mk(m[7], m[8], m[9])));
+
+    // NEE: RIS over ris_count candidates, then one any-hit shadow ray.
+    bool nee_valid = false;
+    if (p.n_lights > 0 && p.ris_count > 0) {
+      V3 res_dir = mk(0.0f, 0.0f, 0.0f), res_rad = mk(0.0f, 0.0f, 0.0f);
+      float res_dist = 0.0f;
+      const float n_total = static_cast<float>(p.n_lights);
+      for (int s = 0; s < p.ris_count; ++s) {
+        const float* off = s_offsets + 4 * s;
+        const float c0 = toroidal_shift(u_nee[0], off[0]);
+        const float c1 = toroidal_shift(u_nee[1], off[1]);
+        const float c2 = toroidal_shift(u_nee[2], off[2]);
+        const float c3 = toroidal_shift(u_nee[3], off[3]);
+        const int pick = static_cast<int>(fminf(floorf(c2 * n_total), n_total - 1.0f));
+        const int kind = s_kinds[pick];
+        const Light l = load_light(s_lights + kLightCols * pick);
+        LightSample ls;
+        if (kind == kSphere) {
+          ls = sphere_light_sample(l, position, c0, c1);
+        } else if (kind == kSpot) {
+          ls = spot_light_sample(l, position, c0, c1);
+        } else {   // directional
+          ls.dir = neg(l.dir);
+          ls.dist = 1e30f;
+          ls.radiance = l.power;
+          ls.pdf = 1.0f;
+          ls.is_delta = true;
+        }
+        // Uniform light pick, |N·L| / pdf, MIS and the material's f.
+        V3 cand = scale(scale(ls.radiance, n_total), fabsf(dot(sn, ls.dir)) / fmaxf(ls.pdf, 1e-12f));
+        if (!(ls.pdf > 0.0f)) cand = mk(0.0f, 0.0f, 0.0f);
+        float bsdf_pdf_c;
+        V3 f_c = shading_evaluate<kCoat>(sh, wo, to_local(ls.dir, sn), bsdf_pdf_c);
+        float w = 1.0f;
+        if (ls.is_delta) {
+          f_c = vmin(f_c, p.delta_light_clamp);
+        } else {
+          w = mis_weight(ls.pdf, bsdf_pdf_c);
+        }
+        cand = scale(mul(cand, f_c), w);
+        // Reservoir update (path_tracer._reestimated_light_samples).
+        const float w_old = res_rad.x + res_rad.y + res_rad.z;
+        const float w_new = cand.x + cand.y + cand.z;
+        const bool any_w = w_old + w_new > 0.0f;
+        const float p_new = w_new / (any_w ? w_old + w_new : 1.0f);
+        const bool take = c3 < p_new;
+        if (take) {
+          res_dir = ls.dir;
+          res_dist = ls.dist;
+          nee_valid = ls.pdf > 1e-6f;
+        }
+        float denom = take ? p_new : 1.0f - p_new;
+        denom = (any_w && denom > 1e-20f) ? denom : 1.0f;
+        res_rad = any_w ? scale(take ? cand : res_rad, 1.0f / denom) : mk(0.0f, 0.0f, 0.0f);
+      }
+      res_rad = scale(res_rad, 1.0f / static_cast<float>(p.ris_count));
+      const V3 l_radiance = mul(res_rad, throughput);
+      if (max3(l_radiance) > 0.0f) {
+        const float side = dot(res_dir, gf) >= 0.0f ? 1.0f : -1.0f;
+        const V3 shadow_origin = offset_ray_origin(position, scale(gf, side));
+        if (!trace_any(s_tri, p.n_tris, shadow_origin, res_dir, eps, res_dist * 0.9999f))
+          radiance = add(radiance, l_radiance);
+      }
+    }
+
+    // BSDF sampling; mirror directions that point into the geometry.
+    float s_pdf;
+    bool s_delta;
+    V3 s_f;
+    const V3 wi = shading_sample<kCoat>(sh, wo, u_bsdf[0], u_bsdf[1], u_bsdf[2], s_pdf, s_delta, s_f);
+    V3 new_dir = to_world(wi, sn);
+    const bool is_reflection = wi.z >= 0.0f;
+    const float cos_geo = dot(new_dir, gf);
+    if ((is_reflection && cos_geo < 0.0f) || (!is_reflection && cos_geo >= 0.0f))
+      new_dir = reflect(new_dir, gf);
+    throughput = s_pdf > 0.0f ? scale(mul(throughput, s_f), fabsf(wi.z) / fmaxf(s_pdf, 1e-12f))
+                              : mk(0.0f, 0.0f, 0.0f);
+    o = offset_ray_origin(position, scale(gf, dot(new_dir, gf) >= 0.0f ? 1.0f : -1.0f));
+    d = new_dir;
+    bsdf_pdf = (s_delta || !nee_valid) ? 0.0f : s_pdf;
+    bounce += 1u;
+    active = max3(throughput) > 0.0f && bounce <= static_cast<uint32_t>(p.max_bounce);
+  }
+
+  p.out[i] = radiance.x;
+  p.out[p.n_pixels + i] = radiance.y;
+  p.out[2 * p.n_pixels + i] = radiance.z;
+  p.out[3 * p.n_pixels + i] = rays;
+}
+
+__global__ void rng_probe_kernel(const uint32_t* __restrict__ pixel_hash,
+                                 const uint32_t* __restrict__ dims, int n, uint32_t accumulation,
+                                 const uint32_t* __restrict__ sobol, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float u[4];
+  path_rng_4d(accumulation, pixel_hash[i], dims[i], sobol, u);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) out[4 * i + d] = u[d];
+}
+
+template <bool kCoat, bool kDiffuse>
+int launch(const MegakernelParams& p, int threads, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (9 * p.n_tris + 2 * kRho * kRho + kMatCols * p.n_mats +
+                                       kLightCols * p.n_lights + 4 * kMaxRis) +
+                      sizeof(uint32_t) * 128 + sizeof(int) * kMaxLights;
+  auto kernel = mesh_megakernel_kernel<kCoat, kDiffuse>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int blocks = (p.n_pixels + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int megakernel_params_size() { return static_cast<int>(sizeof(MegakernelParams)); }
+
+// Launches one frame on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int mesh_megakernel(const MegakernelParams* params, int threads, void* stream) {
+  const MegakernelParams& p = *params;
+  if (p.n_pixels <= 0) return 0;
+  if (threads <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.has_coat) {
+    return p.has_diffuse ? launch<true, true>(p, threads, s) : launch<true, false>(p, threads, s);
+  }
+  return p.has_diffuse ? launch<false, true>(p, threads, s) : launch<false, false>(p, threads, s);
+}
+
+// path_rng_4d(accumulation, pixel_hash[i], dims[i]) → out[i, 0:4].
+extern "C" int megakernel_rng_probe(const uint32_t* pixel_hash, const uint32_t* dims, int n,
+                                    uint32_t accumulation, const uint32_t* sobol, float* out,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  rng_probe_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pixel_hash, dims, n, accumulation, sobol, out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -47,6 +47,10 @@ class RenderScene(NamedTuple):
     shading_models: tuple = (0,)
     bvh: Optional[object] = None
     tri_clustered: Optional[object] = None
+    # The environment map is not ported (lights/environment.py): the
+    # builders raise on one, so this stays None; a scene given one is
+    # ineligible for the megakernel and raises in the wavefront.
+    environment: Optional[object] = None
 
 
 def _assemble_soup(instances):

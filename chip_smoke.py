@@ -5,27 +5,43 @@ Run from the repository root, with no arguments::
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero before the last
-line):
+Phases (each prints one or more lines; any failure exits non-zero before
+the last line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and convolutions.
-2. build: compiles the dense trace kernel (csrc/dense_intersect.cu) with
-   nvcc into build/kernels/.
-3. kernel: the kernel against its plain PyTorch version on the card, on
-   65,536 random rays (numpy seed 0) against the CornellBox soup (rays
-   from the room's free space) and a ~16k-triangle sphere + floor soup
-   (rays from around the sphere): closest hit with t_max = inf, with a
-   finite t_max, and with a live prefix of R/3. prim must agree on
+2. build: compiles both kernels (csrc/dense_intersect.cu and
+   csrc/mesh_megakernel.cu) with nvcc into build/kernels/, one nvcc each,
+   started together; prints each build's time and ptxas report.
+3. rng: the megakernel's path_rng_4d (megakernel_rng_probe) must equal the
+   port's torch path_rng_4d bit for bit on 65,536 seeded (pixel hash,
+   dimension) pairs at accumulations 0, 1 and 7.
+4. kernel: the dense trace kernel against its plain PyTorch version on the
+   card, on 65,536 random rays (numpy seed 0) against the CornellBox soup
+   (rays from the room's free space) and a ~16k-triangle sphere + floor
+   soup (rays from around the sphere): closest hit with t_max = inf, with
+   a finite t_max, and with a live prefix of R/3. prim must agree on
    >= 99.9% of rays and t be allclose (rtol 1e-5) where it does. Median
    times by CUDA events.
-4. slice: CornellBox 512², 4 bounces, 8 accumulations through
-   render_progressive; the trace kernel's launch count must rise, the
-   image be finite and lit. One accumulation with the trace forced to the
-   plain version must pass the statistical gate of
-   tests/test_pallas_mesh.py:25-42 against the kernel's. The frame is
-   tonemapped and written to build/cornell_512.png; frame time, rays/s
-   and peak memory are printed.
+5. wavefront: CornellBox 512², 4 bounces, one accumulation through
+   render_sample_pooled, the path of scenes the megakernel does not take;
+   the trace kernel's launch count must rise. One accumulation with the
+   trace forced to the plain version must pass the statistical gate of
+   tests/test_pallas_mesh.py:25-42 against the kernel's; pooled frame
+   time and rays/s are printed.
+6. megakernel: CornellBox and SphereLight at 512² and Veach, Veach
+   mesh-light and the coated, spot-light, Default+Diffuse, emissive and
+   directional-light test scenes at 256², 4 bounces, one accumulation
+   each: the kernel against its plain version on the same inputs (the
+   same RNG bits, only FMA contraction differs: at most 0.2% of pixels off
+   by > 1e-3, means within 0.5%) and against the pooled wavefront (the
+   statistical gate: 3%, 2%), ray counts within 2% of the wavefront's. For
+   CornellBox and SphereLight also the median kernel and plain times (CUDA
+   events) and the frame time and rays/s of render_sample_fast.
+7. progressive: CornellBox 512² × 8 accumulations through
+   render_progressive, the main path: the megakernel's launch count must
+   rise by exactly 8, the image be finite and lit; it is tonemapped and
+   written to build/cornell_512.png; time and peak memory are printed.
 
 Then one JSON line of per-kernel results, and last the JSON result line.
 The script imports nothing of JAX.
@@ -39,6 +55,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -47,8 +64,13 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 R = 65536
 RES = 512
+SMALL_RES = 256
 ACCUMULATIONS = 8
 BOUNCES = 4
+SOURCES = ("dense_intersect.cu", "mesh_megakernel.cu")
+# Kernel vs its plain version on the same inputs: share of pixels off by
+# > 1e-3, and relative difference of the means.
+KERNEL_FLIPS, KERNEL_MEAN = 0.002, 0.005
 
 
 def check(ok: bool, message: str) -> None:
@@ -75,17 +97,40 @@ def device_phase() -> str:
     return smi
 
 
-def build_phase() -> float:
+def build_phase() -> None:
     from bifrost3d_tpu_torch.utils import cuda_build
-    t0 = time.perf_counter()
-    path = cuda_build.build("dense_intersect.cu")
-    seconds = time.perf_counter() - t0
-    with open(os.path.splitext(path)[0] + ".log") as f:
-        ptxas = " ".join(line.strip() for line in f
-                         if "registers" in line or "spill" in line)
-    print(f"build: dense_intersect.cu in {seconds:.2f} s -> "
-          f"{os.path.relpath(path, REPO)} | {ptxas}", flush=True)
-    return seconds
+
+    def build(source):
+        t0 = time.perf_counter()
+        path = cuda_build.build(source)
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build, SOURCES))
+    for source, (path, seconds) in zip(SOURCES, built):
+        with open(os.path.splitext(path)[0] + ".log") as f:
+            ptxas = " ".join(line.strip() for line in f
+                             if "registers" in line or "spill" in line)
+        print(f"build: {source} in {seconds:.2f} s -> "
+              f"{os.path.relpath(path, REPO)} | {ptxas}", flush=True)
+
+
+def rng_phase(device) -> None:
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.sampling.sobol import path_rng_4d
+    rng = np.random.default_rng(1)
+    hashes = torch.tensor(rng.integers(0, 2**32, R), device=device)
+    dims = torch.tensor(rng.integers(0, 64, R), device=device)
+    for acc in (0, 1, 7):
+        got = mega.rng_probe(acc, hashes, dims)
+        ref = path_rng_4d(acc, hashes, dims)
+        torch.cuda.synchronize()
+        same = int((got.view(torch.int32) == ref.view(torch.int32)).sum())
+        check(same == got.numel(), f"rng at accumulation {acc}: "
+              f"{got.numel() - same} of {got.numel()} values differ")
+    print(f"rng: megakernel path_rng_4d bit-exact with the torch chain on "
+          f"{R} (pixel hash, dimension) pairs x 4 at accumulations 0, 1, 7",
+          flush=True)
 
 
 def _soups(device):
@@ -178,47 +223,51 @@ def kernel_phase(device) -> dict:
     return results
 
 
-def _gate(img, ref, flip_budget=0.03) -> float:
+def _gate(img, ref, what, flip_budget=0.03, mean_budget=0.02):
+    """The statistical gate of tests/test_pallas_mesh.py:25-42 → (share of
+    pixels off by > 1e-3, max |difference|, relative difference of the
+    means)."""
     d = (img - ref).abs().amax(dim=-1)
     flips = float((d > 1e-3).float().mean())
-    check(flips < flip_budget, f"{flips:.4f} of pixels differ by > 1e-3")
+    check(bool(torch.isfinite(img).all()), f"{what}: image is not finite")
+    check(flips < flip_budget, f"{what}: {flips:.4f} of pixels differ by "
+          "> 1e-3")
     mi, mr = float(img.mean()), float(ref.mean())
-    check(abs(mi - mr) < 0.02 * max(mr, 1e-3), f"means {mi} vs {mr}")
-    return flips
+    rel = abs(mi - mr) / max(mr, 1e-3)
+    check(rel < mean_budget, f"{what}: means {mi} vs {mr}")
+    return flips, float(d.max()), rel
+
+
+def _reset_counts():
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    dense.reset_launch_count()
+    mega.reset_launch_count()
 
 
 def slice_phase(device) -> dict:
     from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
-    from bifrost3d_tpu_torch.io.image import save_image
-    from bifrost3d_tpu_torch.post.pipeline import process
-    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
 
     scene, cam = create_cornell_box(device=device)
     settings = pt.RenderSettings(max_bounce_count=BOUNCES)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
-    dense.reset_launch_count()
-    t0 = time.perf_counter()
-    hdr = pt.render_progressive(scene, cam, RES, RES, ACCUMULATIONS, settings)
+    # The wavefront path, driven with every count at 0.
+    _reset_counts()
+    kern = pt.render_sample_pooled(scene, cam, RES, RES, 0, settings)
     torch.cuda.synchronize()
-    progressive_s = time.perf_counter() - t0
     launches = dense.launch_count
-    check(launches > 0, "the main path launched no trace kernel")
-    check(hdr.shape == (RES, RES, 3), f"image shape {tuple(hdr.shape)}")
-    check(bool(torch.isfinite(hdr).all()), "image is not finite")
-    mean = float(hdr.mean())
+    check(launches > 0, "the wavefront path launched no trace kernel")
+    mean = float(kern.mean())
     check(mean > 0.05, f"image mean {mean} is not lit")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # One accumulation, kernel trace vs the plain version of the trace.
-    kern = pt.render_sample_pooled(scene, cam, RES, RES, 0, settings)
     with mock.patch.object(dense, "pallas_intersect",
                            dense.dense_intersect_reference):
         plain = pt.render_sample_pooled(scene, cam, RES, RES, 0, settings)
-    flips = _gate(kern, plain)
+    flips, _, _ = _gate(kern, plain, "wavefront vs plain trace")
 
     # Frame time and in-run ray rate of one pooled accumulation.
     frame_ms, rates = [], []
@@ -232,33 +281,144 @@ def slice_phase(device) -> dict:
         frame_ms.append(dt * 1e3)
         rates.append(rays / dt)
 
+    out = dict(launches=launches, mean=mean, flips=flips,
+               frame_ms=statistics.median(frame_ms),
+               rays_per_s=statistics.median(rates))
+    print(f"wavefront: CornellBox {RES}x{RES} {BOUNCES} bounces pooled | "
+          f"trace launches {launches} | mean {mean:.4f} | gate vs plain "
+          f"trace: {flips:.4f} flips | frame {out['frame_ms']:.1f} ms, "
+          f"{out['rays_per_s'] / 1e6:.2f} M rays/s (median of 3)",
+          flush=True)
+    return out
+
+
+def _megakernel_scenes(device):
+    from bifrost3d_tpu_torch.apps import scenes
+    yield "CornellBox", RES, scenes.create_cornell_box(device=device)
+    yield "SphereLight", RES, scenes.create_sphere_light_scene(device=device)
+    yield "Veach", SMALL_RES, scenes.create_veach_scene(device=device)
+    yield "Veach mesh-light", SMALL_RES, scenes.create_veach_scene(
+        with_mesh_light=True, device=device)
+    for name, build in scenes.TEST_SCENES.items():
+        yield name, SMALL_RES, build(device=device)
+
+
+def megakernel_phase(device) -> dict:
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    results = {}
+    for name, res, (scene, cam) in _megakernel_scenes(device):
+        settings = pt.RenderSettings(max_bounce_count=BOUNCES)
+        path = pt.explain_render_path(scene, settings)
+        check(path == "megakernel", f"{name}: {path}")
+        args = mega.megakernel_inputs(scene, cam, res, res, 1, settings)
+        got = mega.mesh_megakernel_cuda(*args)
+        ref = mega.mesh_megakernel_reference(*args)
+        torch.cuda.synchronize()
+        img = torch.stack(got[:3], dim=-1)
+        flips, max_err, mean_rel = _gate(
+            img, torch.stack(ref[:3], dim=-1), f"{name}: kernel vs plain",
+            KERNEL_FLIPS, KERNEL_MEAN)
+        rays = float(got[3].sum())
+        pooled, pooled_rays = pt.render_sample_pooled_counted(
+            scene, cam, res, res, 1, settings)
+        wf_flips, _, _ = _gate(img.reshape(res, res, 3), pooled,
+                               f"{name}: kernel vs wavefront")
+        pooled_rays = int(pooled_rays)
+        check(abs(rays - pooled_rays) <= 0.02 * pooled_rays,
+              f"{name}: {rays} rays vs the wavefront's {pooled_rays}")
+        out = dict(res=res, n_tris=int(scene.tri_verts.shape[0]),
+                   flips=flips, max_abs_err=max_err, mean_rel=mean_rel,
+                   wavefront_flips=wf_flips,
+                   rays=rays, wavefront_rays=pooled_rays,
+                   mean=float(img.mean()))
+        line = (f"megakernel/{name}: {res}x{res} {out['n_tris']} tris | vs "
+                f"plain {flips:.5f} flips, max |d| {max_err:.3g}, means "
+                f"{mean_rel:.2e} apart | vs "
+                f"wavefront {wf_flips:.4f} flips | rays {rays:.0f} vs "
+                f"{pooled_rays} | mean {out['mean']:.4f}")
+        if name in ("CornellBox", "SphereLight"):
+            out["ms"] = _median_ms(lambda: mega.mesh_megakernel_cuda(*args),
+                                   repeats=10, warmup=2)
+            out["plain_ms"] = _median_ms(
+                lambda: mega.mesh_megakernel_reference(*args), repeats=3,
+                warmup=1)
+            frame_ms, rates = [], []
+            for acc in (1, 2, 3, 4, 5):
+                _, acc_rays = mega.render_mesh_megakernel(
+                    scene, cam, res, res, acc, settings)
+                acc_rays = float(acc_rays)   # synchronises
+                t0 = time.perf_counter()
+                pt.render_sample_fast(scene, cam, res, res, acc, settings)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                frame_ms.append(dt * 1e3)
+                rates.append(acc_rays / dt)
+            out["frame_ms"] = statistics.median(frame_ms)
+            out["rays_per_s"] = statistics.median(rates)
+            line += (f" | kernel {out['ms']:.3f} ms, plain "
+                     f"{out['plain_ms']:.1f} ms (CUDA events) | "
+                     f"render_sample_fast frame {out['frame_ms']:.2f} ms, "
+                     f"{out['rays_per_s'] / 1e6:.1f} M rays/s (median of 5)")
+        print(line, flush=True)
+        results[name] = out
+    return results
+
+
+def progressive_phase(device) -> dict:
+    from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.io.image import save_image
+    from bifrost3d_tpu_torch.post.pipeline import process
+    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+
+    scene, cam = create_cornell_box(device=device)
+    settings = pt.RenderSettings(max_bounce_count=BOUNCES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, driven with every count at 0.
+    _reset_counts()
+    t0 = time.perf_counter()
+    hdr = pt.render_progressive(scene, cam, RES, RES, ACCUMULATIONS, settings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, trace_launches = mega.launch_count, dense.launch_count
+    check(launches == ACCUMULATIONS, f"the main path launched the "
+          f"megakernel {launches} times for {ACCUMULATIONS} frames")
+    check(hdr.shape == (RES, RES, 3), f"image shape {tuple(hdr.shape)}")
+    check(bool(torch.isfinite(hdr).all()), "image is not finite")
+    mean = float(hdr.mean())
+    check(mean > 0.05, f"image mean {mean} is not lit")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
     ldr = process(hdr, CameraEffectsSettings.preset()._replace(film_grain=0.0))
     png = os.path.join(REPO, "build", "cornell_512.png")
     os.makedirs(os.path.dirname(png), exist_ok=True)
     save_image(png, ldr)
     check(os.path.getsize(png) > 0, "PNG not written")
-
-    out = dict(launches=launches, mean=mean, flips=flips,
-               progressive_s=progressive_s,
-               frame_ms=statistics.median(frame_ms),
-               rays_per_s=statistics.median(rates), peak_gib=peak_gib,
-               png=os.path.relpath(png, REPO))
-    print(f"slice: CornellBox {RES}x{RES} {BOUNCES} bounces x{ACCUMULATIONS} "
-          f"in {progressive_s:.2f} s | trace launches {launches} | mean "
-          f"{mean:.4f} | gate vs plain trace: {flips:.4f} flips | frame "
-          f"{out['frame_ms']:.1f} ms, {out['rays_per_s'] / 1e6:.2f} M rays/s "
-          f"(median of 3) | peak {peak_gib:.3f} GiB | {out['png']}",
-          flush=True)
-    return out
+    print(f"progressive: CornellBox {RES}x{RES} {BOUNCES} bounces "
+          f"x{ACCUMULATIONS} through render_progressive in {seconds:.3f} s | "
+          f"megakernel launches {launches}, trace launches {trace_launches} "
+          f"| mean {mean:.4f} | peak {peak_gib:.3f} GiB | "
+          f"{os.path.relpath(png, REPO)}", flush=True)
+    return dict(launches=launches, seconds=seconds, mean=mean,
+                peak_gib=peak_gib)
 
 
 def main() -> int:
     device_phase()
     device = torch.device("cuda", 0)
     build_phase()
+    rng_phase(device)
     kernels = kernel_phase(device)
     sliced = slice_phase(device)
-    cornell = kernels["cornell"]
+    scenes = megakernel_phase(device)
+    main = progressive_phase(device)
+    cornell, mega = kernels["cornell"], scenes["CornellBox"]
     print(json.dumps({"kernels": [{
         "name": "dense_intersect",
         "route": "cuda",
@@ -268,6 +428,16 @@ def main() -> int:
         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
         "ms": cornell["ms"],
         "plain_ms": cornell["plain_ms"],
+    }, {
+        "name": "mesh_megakernel",
+        "route": "cuda",
+        "source": "bifrost3d_tpu_torch/csrc/mesh_megakernel.cu",
+        "replaces": "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
+        "launches": main["launches"],
+        "max_abs_err": mega["max_abs_err"],
+        "flip_share": max(s["flips"] for s in scenes.values()),
+        "ms": mega["ms"],
+        "plain_ms": mega["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

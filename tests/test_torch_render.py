@@ -135,9 +135,8 @@ def test_render_progressive(carried, high_precision):
 
 def test_explain_render_path(carried):
     scene, _ = carried
-    text = tpt.explain_render_path(scene)
-    assert text.startswith("wavefront: ")
-    assert "megakernel not yet ported" in text
+    assert tpt.explain_render_path(scene) == \
+        "wavefront: device is cpu, not cuda"
 
 
 @pytest.mark.parametrize("override, feature", [
@@ -157,9 +156,9 @@ def test_unported_shading_models_raise(jax_cornell):
     arrays = scene_arrays(jscene)
     arrays["materials"] = dict(arrays["materials"])
     models = arrays["materials"]["shading_model"].copy()
-    models[0] = 1
+    models[0] = 2
     arrays["materials"]["shading_model"] = models
     scene = render_scene_from_numpy(arrays, device="cpu")
     cam = create_cornell_box(device="cpu")[1]
-    with pytest.raises(NotImplementedError, match="Diffuse"):
+    with pytest.raises(NotImplementedError, match="Transmissive"):
         tpt.render_sample(scene, cam, 8, 8, 0, tpt.settings_for_scene(scene))
