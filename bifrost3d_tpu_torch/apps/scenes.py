@@ -10,7 +10,11 @@ tests build inline (``tests/test_pallas_mesh.py``: coated materials, a
 spot light, Default and Diffuse materials side by side), one with an
 emissive panel and one lit by a directional and a sphere light; each
 exercises a branch of the megakernel that the
-built-in scenes leave out.
+built-in scenes leave out. It also holds ``torus_grid``, the JAX package's
+own large scene (``bench.py::bench_torus_grid``: an 8 × 8 grid of tori,
+589,824 triangles) given the material, light and camera a frame needs: it
+is over the dense kernel's 65,536 triangles and renders through the BVH
+trace kernel.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ from bifrost3d_tpu_torch.geometry.creation import (
     make_box,
     make_plane,
     make_sphere,
+    make_torus,
 )
-from bifrost3d_tpu_torch.geometry.mesh import transform_mesh
+from bifrost3d_tpu_torch.geometry.mesh import combine_meshes, transform_mesh
 from bifrost3d_tpu_torch.lights.types import (
     LIGHT_DIRECTIONAL,
     LIGHT_SPHERE,
@@ -242,11 +247,52 @@ def create_directional_scene(*, device):
     return _test_scene(materials, instances, lights, device)
 
 
+TORUS_GRID_EYE = (0.0, 8.0, -30.0)
+
+
+def torus_grid_mesh(grid: int = 8, major_segments: int = 96,
+                    minor_segments: int = 48):
+    """``grid`` × ``grid`` tori 3 units apart, each lifted by a seeded
+    uniform(-1, 1): the transforms and seed of
+    ``bench.py::bench_torus_grid``. The defaults give 589,824 triangles."""
+    parts = []
+    rng = np.random.default_rng(0)
+    for i in range(grid):
+        for j in range(grid):
+            m = make_torus(major_segments=major_segments,
+                           minor_segments=minor_segments)
+            matrix = np.asarray([[1, 0, 0, i * 3 - 12],
+                                 [0, 1, 0, rng.uniform(-1, 1)],
+                                 [0, 0, 1, j * 3 - 12]], F32)
+            parts.append(transform_mesh(m, matrix))
+    return combine_meshes(parts)
+
+
+def create_torus_grid_scene(aspect=1.0, grid: int = 8,
+                            major_segments: int = 96,
+                            minor_segments: int = 48, *, device):
+    """The torus grid under one sphere light above its centre, one Default
+    material, seen from the bench's eye looking at the grid's centre."""
+    mesh = torus_grid_mesh(grid, major_segments, minor_segments)
+    centre = (3.0 * (grid - 1) / 2 - 12.0, 0.0, 3.0 * (grid - 1) / 2 - 12.0)
+    mats = MaterialArray.build([dielectric((0.7, 0.6, 0.5), 0.6)],
+                               device=device)
+    lights = LightArray.build([
+        {"kind": LIGHT_SPHERE, "position": (centre[0], 14.0, centre[2]),
+         "radius": 1.5, "power": (6000.0,) * 3}], device=device)
+    scene = build_render_scene([(mesh, 0)], mats, lights, device=device)
+    camera = perspective_camera(eye=TORUS_GRID_EYE, target=centre,
+                                fov_radians=PI / 4, aspect=aspect,
+                                device=device)
+    return scene, camera
+
+
 TEST_SCENES = {"coated": create_coated_scene,
                "spot": create_spot_light_scene,
                "diffuse": create_diffuse_scene,
                "emissive": create_emissive_scene,
-               "directional": create_directional_scene}
+               "directional": create_directional_scene,
+               "torus_grid": create_torus_grid_scene}
 
 SCENES = {"CornellBox": create_cornell_box,
           "Veach": create_veach_scene,

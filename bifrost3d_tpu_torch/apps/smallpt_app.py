@@ -1,0 +1,91 @@
+"""SmallPT app: the standalone progressive sphere tracer.
+
+Port of ``bifrost3d_tpu/apps/smallpt_app.py`` (``render_progressive``,
+``main``): progressive accumulation over the 9-sphere Cornell box,
+``--volumetric`` switches to the smallvpt homogeneous-medium variant, and
+the result is written as a PNG.
+
+On a CUDA card the forward render takes the SmallPT megakernel
+(``integrator/pallas_smallpt.py``), whole paths in one kernel launch per
+frame, as the JAX app takes its megakernel on a TPU. The CPU and the
+volumetric variant use the eager wavefront.
+
+Usage::
+
+    python -m bifrost3d_tpu_torch.apps.smallpt_app -n 64 -o build/smallpt.png
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+
+def render_progressive(width: int, height: int, accumulations: int,
+                       volumetric: bool = False, quiet: bool = False,
+                       device="cuda"):
+    """The running mean of ``accumulations`` frames → float32
+    [height, width, 3] on ``device``, row 0 at the bottom."""
+    device = torch.device(device)
+    if volumetric:
+        from bifrost3d_tpu_torch.integrator.smallvpt import (
+            render_smallvpt_accumulation as frame_fn)
+        from bifrost3d_tpu_torch.scene.spheres import smallvpt_scene
+        scene = smallvpt_scene(device=device)
+    else:
+        from bifrost3d_tpu_torch.integrator.pallas_smallpt import (
+            render_smallpt_megakernel as frame_fn)
+        from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
+        scene = smallpt_scene(device=device)
+
+    buffer = torch.zeros((height, width, 3), device=device)
+    t0 = time.perf_counter()
+    for n in range(1, accumulations + 1):
+        frame = frame_fn(scene, width, height, n)
+        # Progressive lerp with 1/n (smallpt.h:144) == running mean.
+        buffer = buffer + (frame - buffer) / n
+        if not quiet and (n & (n - 1)) == 0:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            print(f"  {n}/{accumulations} accumulations "
+                  f"({n / max(dt, 1e-9):.2f} frames/s)", flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return buffer
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--height", type=int, default=768)
+    p.add_argument("-n", "--accumulations", type=int, default=64)
+    p.add_argument("--volumetric", action="store_true",
+                   help="smallvpt: homogeneous scattering medium variant")
+    p.add_argument("-o", "--output", default="smallpt.png")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (cuda or cpu)")
+    args = p.parse_args(argv)
+
+    t0 = time.perf_counter()
+    img = render_progressive(args.width, args.height, args.accumulations,
+                             volumetric=args.volumetric, device=args.device)
+    dt = time.perf_counter() - t0
+
+    from bifrost3d_tpu_torch.io.image import save_image
+    # smallpt's backbuffer row 0 is the bottom; PNG row 0 is the top.
+    save_image(args.output, img.flip(0), from_linear=True)
+    total_pixels = args.width * args.height * args.accumulations
+    print(f"rendered {args.width}x{args.height} n={args.accumulations} "
+          f"({'smallvpt' if args.volumetric else 'smallpt'}) on "
+          f"{args.device} in {dt:.1f}s "
+          f"({total_pixels / dt / 1e6:.1f}M pixel-samples/s) "
+          f"-> {args.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

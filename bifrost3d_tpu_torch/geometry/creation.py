@@ -1,7 +1,7 @@
-"""Procedural meshes: plane, box and UV sphere (CCW winding, +Y up).
+"""Procedural meshes: plane, box, UV sphere and torus (CCW winding, +Y up).
 
 Port of ``bifrost3d_tpu/geometry/creation.py`` (``make_plane``,
-``make_box``, ``make_sphere``), host-side numpy.
+``make_box``, ``make_sphere``, ``make_torus``), host-side numpy.
 """
 
 from __future__ import annotations
@@ -85,3 +85,19 @@ def make_sphere(radius: float = 0.5, slices: int = 32,
     p = pos[idx]
     area2 = np.linalg.norm(np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]), axis=-1)
     return _mesh(idx[area2 > 1e-12], pos, n.reshape(-1, 3), uvs)
+
+
+def make_torus(major_radius: float = 1.0, minor_radius: float = 0.25,
+               major_segments: int = 32,
+               minor_segments: int = 16) -> TriangleMesh:
+    u = np.linspace(0, 2 * np.pi, major_segments + 1)
+    v = np.linspace(0, 2 * np.pi, minor_segments + 1)
+    uu, vv = np.meshgrid(u, v, indexing="xy")
+    cx = np.stack([np.cos(uu), np.zeros_like(uu), np.sin(uu)], -1)
+    n = (cx * np.cos(vv)[..., None]
+         + np.stack([np.zeros_like(uu), np.ones_like(uu), np.zeros_like(uu)], -1)
+         * np.sin(vv)[..., None])
+    pos = (cx * major_radius + n * minor_radius).reshape(-1, 3)
+    uvs = np.stack([uu.ravel() / (2 * np.pi), vv.ravel() / (2 * np.pi)], -1)
+    return _mesh(_grid_indices(major_segments, minor_segments, flip=True), pos,
+                 n.reshape(-1, 3), uvs)

@@ -1,7 +1,8 @@
 """Triangle meshes (host side).
 
 Port of the slice's part of ``bifrost3d_tpu/geometry/mesh.py``
-(``TriangleMesh``, ``compute_smooth_normals``, ``transform_mesh``). Meshes
+(``TriangleMesh``, ``compute_smooth_normals``, ``transform_mesh``,
+``combine_meshes``). Meshes
 are assets built once on the host, so their buffers are numpy arrays;
 ``scene.render_scene.build_render_scene`` flattens them into device
 tensors.
@@ -47,3 +48,39 @@ def transform_mesh(mesh: TriangleMesh, matrix3x4) -> TriangleMesh:
         n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
         out = out._replace(normals=n.astype(np.float32))
     return out
+
+
+def combine_meshes(meshes) -> TriangleMesh:
+    """Concatenate N meshes into one (MeshUtils::combine). Optional buffers
+    present in any input get defaults in the rest."""
+    any_normals = any(m.normals is not None for m in meshes)
+    any_uv = any(m.texcoords is not None for m in meshes)
+    any_tr = any(m.tint_roughness is not None for m in meshes)
+
+    indices, positions, normals, uvs, trs = [], [], [], [], []
+    offset = 0
+    for m in meshes:
+        v = m.positions.shape[0]
+        indices.append(np.asarray(m.indices) + offset)
+        positions.append(np.asarray(m.positions))
+        if any_normals:
+            normals.append(np.asarray(m.normals) if m.normals is not None
+                           else np.tile([0, 0, 1.0], (v, 1)))
+        if any_uv:
+            uvs.append(np.asarray(m.texcoords) if m.texcoords is not None
+                       else np.zeros((v, 2)))
+        if any_tr:
+            trs.append(np.asarray(m.tint_roughness)
+                       if m.tint_roughness is not None
+                       else np.tile([1, 1, 1, 1.0], (v, 1)))
+        offset += v
+
+    def cat(parts, dtype=np.float32):
+        return np.concatenate(parts).astype(dtype)
+
+    return TriangleMesh(
+        indices=cat(indices, np.int32),
+        positions=cat(positions),
+        normals=cat(normals) if any_normals else None,
+        texcoords=cat(uvs) if any_uv else None,
+        tint_roughness=cat(trs) if any_tr else None)

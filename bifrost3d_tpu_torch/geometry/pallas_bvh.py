@@ -1,0 +1,248 @@
+"""BVH ray trace for scenes too large for the dense kernel.
+
+Port of ``bifrost3d_tpu/geometry/pallas_bvh.py`` (``HierTriangles``,
+``pack_hierarchical``, ``hierarchical_intersect``,
+``hierarchical_intersect_sorted``). The TPU kernel ``_make_hier_kernel``
+becomes the hand-written CUDA kernel ``csrc/bvh_intersect.cu`` (one thread
+per ray with a private stack; its header says what bounds it on an H100).
+
+:func:`hierarchical_intersect` dispatches on the device of the rays: CUDA
+tensors launch the kernel, CPU tensors take the plain PyTorch version
+:func:`hierarchical_intersect_reference` — the lockstep traversal of
+``geometry/traverse.py`` over the same packed tree — anything else raises.
+A failed build or launch raises; nothing falls back. ``launch_count``
+counts kernel launches (plain-version calls do not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from bifrost3d_tpu_torch.geometry.bvh import BVH, STACK_SIZE, build_bvh
+from bifrost3d_tpu_torch.geometry.pallas_intersect import _check, _finish
+from bifrost3d_tpu_torch.geometry.traverse import (
+    Hit,
+    ray_bounds,
+    traverse_lockstep,
+)
+from bifrost3d_tpu_torch.math.morton import morton_encode_3d
+
+_THREADS = 128      # the kernel's block size, one ray per thread
+
+launch_count = 0
+
+
+def reset_launch_count() -> None:
+    global launch_count
+    launch_count = 0
+
+
+class HierTriangles(NamedTuple):
+    """The packed triangle BVH, all on one device.
+
+    The JAX package packs a two-level tree for its TPU kernel: 512-triangle
+    clusters under a BVH of cluster boxes, because that kernel walks the
+    tree once per ray block and tests a cluster densely. The CUDA kernel
+    walks per ray, so this packing is the triangle BVH itself
+    (``geometry/bvh.py``: leaves of at most 4 triangles) in records sized
+    for 16-byte loads. ``order`` and ``n_tris`` keep the JAX meaning: slot
+    → original triangle id, and the number of slots that may hold a
+    triangle.
+    """
+
+    tri_components: torch.Tensor  # [T, 12] f32 leaf-ordered (v0, e1, e2, 0 0 0)
+    node_boxes: torch.Tensor      # [n, 8] f32: lo.xyz, hi.xyz, then node_a
+                                  #   and node_count as int32 bits
+    order: torch.Tensor           # [T] int32 → original triangle ids
+    n_tris: int
+    max_depth: int                # of the tree; the kernel's stack holds
+                                  #   STACK_SIZE entries
+
+    @property
+    def node_meta(self) -> torch.Tensor:
+        """[n, 2] int32 (node_a, node_count): leaf → (first slot, count),
+        internal → (right child, 0); the left child is node + 1."""
+        return self.node_boxes[:, 6:8].contiguous().view(torch.int32)
+
+
+def pack_hierarchical(tri_verts, bvh: BVH | None = None) -> HierTriangles:
+    """[t, 3, 3] world-space triangles → the packed BVH, on the device of
+    ``tri_verts`` (a numpy array packs on the CPU).
+
+    ``bvh`` is the tree over these triangles (built here, on the host, when
+    not given); its depth is checked against the traversal stack.
+    """
+    tv = torch.as_tensor(tri_verts, dtype=torch.float32)
+    device = tv.device
+    t = int(tv.shape[0])
+    if bvh is None:
+        flat = tv.reshape(-1, 3).cpu().numpy()
+        idx = np.arange(flat.shape[0], dtype=np.int32).reshape(-1, 3)
+        bvh = build_bvh(flat, idx)
+    bvh = bvh.to(device)
+    if bvh.prim_indices.shape[0] != t:
+        raise ValueError(f"the BVH orders {bvh.prim_indices.shape[0]} "
+                         f"triangles, the soup has {t}")
+    depth = bvh.max_depth
+    if depth + 1 > STACK_SIZE:
+        raise ValueError(f"BVH depth {depth} exceeds the kernel "
+                         f"stack ({STACK_SIZE})")
+    order = bvh.prim_indices.to(torch.int32)
+    sorted_tv = tv[order.long()]
+    v0 = sorted_tv[:, 0]
+    comp = torch.zeros((t, 12), dtype=torch.float32, device=device)
+    comp[:, 0:3] = v0
+    comp[:, 3:6] = sorted_tv[:, 1] - v0
+    comp[:, 6:9] = sorted_tv[:, 2] - v0
+    meta = torch.stack([bvh.node_a, bvh.node_count], dim=1).to(torch.int32)
+    boxes = torch.cat([bvh.node_min.to(torch.float32),
+                       bvh.node_max.to(torch.float32),
+                       meta.contiguous().view(torch.float32)], dim=1)
+    return HierTriangles(tri_components=comp.contiguous(),
+                         node_boxes=boxes.contiguous(),
+                         order=order.contiguous(), n_tris=t,
+                         max_depth=depth)
+
+
+def hierarchical_intersect_reference(packed: HierTriangles, origin, direction,
+                                     t_min, t_max, any_hit: bool = False,
+                                     live_count=None, stats=None) -> Hit:
+    """Plain PyTorch version of the kernel: the lockstep traversal over the
+    packed tree and its (v0, e1, e2) records. Runs on any device. ``stats``
+    is passed to :func:`~bifrost3d_tpu_torch.geometry.traverse.traverse_lockstep`."""
+    meta = packed.node_meta
+    comp, order = packed.tri_components, packed.order
+    last = max(packed.n_tris - 1, 0)
+
+    def fetch_leaf(slot):
+        slot = torch.clamp_max(slot, last)
+        rec = comp[slot]                                    # [r, K, 12]
+        return rec[..., 0:3], rec[..., 3:6], rec[..., 6:9], order[slot]
+
+    return traverse_lockstep(
+        packed.node_boxes[:, 0:3], packed.node_boxes[:, 3:6], meta[:, 0],
+        meta[:, 1], fetch_leaf, origin, direction, t_min, t_max,
+        any_hit=any_hit, live_count=live_count, stats=stats)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from bifrost3d_tpu_torch.utils import cuda_build
+    lib = cuda_build.load("bvh_intersect.cu")
+    fn = lib.bvh_intersect
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def hierarchical_intersect_cuda(packed: HierTriangles, origin, direction,
+                                t_min, t_max, any_hit: bool = False,
+                                live_count=None) -> Hit:
+    """Launch ``csrc/bvh_intersect.cu`` on the current stream. A
+    ``live_count`` tensor stays on the device: the kernel reads it through
+    a pointer, so a pool's live sum costs no host sync."""
+    global launch_count
+    device = origin.device
+    r = int(origin.shape[0])
+    if origin.shape != (r, 3) or direction.shape != (r, 3):
+        raise ValueError("origin and direction must both be [r, 3]")
+    if packed.tri_components.dim() != 2 or packed.tri_components.shape[1] != 12:
+        raise ValueError("tri_components must be [T, 12]")
+    if packed.node_boxes.dim() != 2 or packed.node_boxes.shape[1] != 8 \
+            or packed.node_boxes.shape[0] < 1:
+        raise ValueError("node_boxes must be [n >= 1, 8]")
+    if packed.order.shape != (packed.tri_components.shape[0],):
+        raise ValueError("order must hold one id per triangle slot")
+    if packed.max_depth + 1 > STACK_SIZE:
+        raise ValueError(f"BVH depth {packed.max_depth} exceeds the kernel "
+                         f"stack ({STACK_SIZE})")
+    if 8 * r >= 2**31:
+        raise ValueError(f"{r} rays overflow the kernel's int32 indexing")
+    rays = torch.cat([origin.T, direction.T,
+                      ray_bounds(t_min, r, origin)[None],
+                      ray_bounds(t_max, r, origin)[None]], dim=0).contiguous()
+    if isinstance(live_count, torch.Tensor):
+        live = live_count.to(device=device, dtype=torch.int32).reshape(1)
+    else:
+        live = torch.tensor([r if live_count is None else int(live_count)],
+                            dtype=torch.int32, device=device)
+    _check("rays", rays, torch.float32, device)
+    _check("tri_components", packed.tri_components, torch.float32, device)
+    _check("node_boxes", packed.node_boxes, torch.float32, device)
+    _check("order", packed.order, torch.int32, device)
+
+    t = torch.empty(r, dtype=torch.float32, device=device)
+    prim = torch.empty(r, dtype=torch.int32, device=device)
+    u = torch.empty(r, dtype=torch.float32, device=device)
+    v = torch.empty(r, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _library()(rays.data_ptr(), r, live.data_ptr(),
+                     packed.node_boxes.data_ptr(),
+                     packed.tri_components.data_ptr(), packed.order.data_ptr(),
+                     int(any_hit), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+                     v.data_ptr(), _THREADS, stream)
+    if err != 0:
+        raise RuntimeError(f"bvh_intersect launch failed: cudaError {err}")
+    launch_count += 1
+    return _finish(t, prim, u, v)
+
+
+def hierarchical_intersect(packed: HierTriangles, origin, direction, t_min,
+                           t_max, any_hit: bool = False,
+                           live_count=None) -> Hit:
+    """Nearest hit (or any-hit occlusion) of rays [r, 3] through the packed
+    BVH; prim ids are original triangle indices. With ``any_hit`` only
+    ``prim >= 0`` is defined. Rays at an index >= ``live_count`` (int or
+    int tensor) report misses untraversed.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    """
+    kind = origin.device.type
+    if kind == "cuda":
+        return hierarchical_intersect_cuda(packed, origin, direction, t_min,
+                                           t_max, any_hit, live_count)
+    if kind == "cpu":
+        return hierarchical_intersect_reference(packed, origin, direction,
+                                                t_min, t_max, any_hit,
+                                                live_count)
+    raise ValueError(f"no BVH intersect for tensors on {origin.device}")
+
+
+def coherence_sort_key(origin, direction, lo, hi):
+    """int64 [r] sort key: 18-bit Morton code of the origin quantized to 6
+    bits per axis inside the box (lo, hi), then the direction's octant."""
+    scale = 63.0 / torch.clamp_min(hi - lo, 1e-20)
+    q = torch.clamp((origin - lo) * scale, 0.0, 63.0).to(torch.int64)
+    m = morton_encode_3d(q[:, 0], q[:, 1], q[:, 2])
+    octant = ((direction[:, 0] < 0).to(torch.int64) * 4
+              + (direction[:, 1] < 0).to(torch.int64) * 2
+              + (direction[:, 2] < 0).to(torch.int64))
+    return (m << 3) | octant
+
+
+def hierarchical_intersect_sorted(packed: HierTriangles, origin, direction,
+                                  t_min, t_max, any_hit: bool = False) -> Hit:
+    """:func:`hierarchical_intersect` behind an origin-Morton +
+    direction-octant sort of the rays (results scattered back to the input
+    order): neighbouring threads then walk neighbouring subtrees. The
+    standalone counterpart of the pooled wavefront's in-loop sort."""
+    r = origin.shape[0]
+    t_min = ray_bounds(t_min, r, origin)
+    t_max = ray_bounds(t_max, r, origin)
+    key = coherence_sort_key(origin, direction, packed.node_boxes[0, 0:3],
+                             packed.node_boxes[0, 3:6])
+    order = torch.argsort(key, stable=True)
+    hit = hierarchical_intersect(packed, origin[order], direction[order],
+                                 t_min[order], t_max[order], any_hit=any_hit)
+    inverse = torch.argsort(order)
+    return Hit(t=hit.t[inverse], prim=hit.prim[inverse], u=hit.u[inverse],
+               v=hit.v[inverse])

@@ -4,17 +4,21 @@ Port of ``bifrost3d_tpu/integrator/path_tracer.py``: ``RenderSettings``,
 ``settings_for_scene``, ``mis_weight``, ``_sample_single_light``,
 ``_reestimated_light_samples``, ``_intersect_analytic_lights``,
 ``_fetch_tri_attributes``, ``_wavefront_step``, ``render_sample``,
-``_make_camera_lanes``, ``render_pixels_pooled``,
-``render_sample_pooled``, ``render_sample_pooled_counted``,
-``explain_render_path``, ``render_sample_fast`` and
-``render_progressive``, with the per-lane Default/Diffuse model select of
-``_ShadingBundle``.
+``_make_camera_lanes``, ``render_pixels_pooled`` (the pool sort of its
+loop body is ``pool_sort_order``), ``render_sample_pooled``,
+``render_sample_pooled_counted``, ``explain_render_path``,
+``render_sample_fast`` and ``render_progressive``, with the per-lane
+Default/Diffuse model select of ``_ShadingBundle``.
 
 Each wavefront step makes two scene queries through
 ``geometry.traverse.intersect_scene`` — a closest hit and an any-hit
-shadow ray — which on CUDA tensors launch the hand-written dense trace
-kernel. RNG is the Owen-scrambled Sobol chain keyed by (accumulation,
-pcg2d pixel hash, 8·bounce + dim), exactly as in JAX.
+shadow ray — which on CUDA tensors launch a hand-written trace kernel: the
+dense one for a scene of at most 65,536 triangles, the BVH one above. For
+a BVH scene the pool is sorted before every step (origin Morton code +
+direction octant, dead lanes last), so neighbouring threads walk
+neighbouring subtrees and the kernel skips the dead suffix. RNG is the
+Owen-scrambled Sobol chain keyed by (accumulation, pcg2d pixel hash,
+8·bounce + dim), exactly as in JAX.
 
 JAX's ``fori_loop``/``while_loop`` become Python loops. The pooled loop's
 ``any(active)`` condition costs one ``.item()`` (a host sync) per
@@ -24,9 +28,9 @@ one kernel launch per frame, and every other scene through the pooled
 wavefront, as JAX does with "tpu" read as "cuda".
 
 Not on the slice, and raising ``NotImplementedError`` when asked for:
-path regularization, coverage-aware shadows, trilinear textures, ray
-sorting for the BVH kernels, and the Transmissive shading model (the
-environment map and textures raise at scene build).
+path regularization, coverage-aware shadows, trilinear textures and the
+Transmissive shading model (the environment map and textures raise at
+scene build).
 """
 
 from __future__ import annotations
@@ -79,9 +83,13 @@ logger = logging.getLogger(__name__)
 class RenderSettings(NamedTuple):
     """Per-camera settings (Renderer.h:47-63).
 
-    The four switches of features off the slice are kept so that asking
-    for one raises. JAX fields that only those features or gradients read
-    (``path_regularization_decay``, ``shadow_coverage_steps``,
+    The three switches of features that are not ported
+    (``path_regularization_scale``, ``coverage_aware_shadows``,
+    ``trilinear_textures``) are kept so that asking for one raises.
+    ``sort_rays_every`` sorts the pool for the BVH trace kernel every that
+    many steps (0 = never; ``settings_for_scene`` sets 1 for a scene that
+    carries the BVH packing). JAX fields that only those features or
+    gradients read (``path_regularization_decay``, ``shadow_coverage_steps``,
     ``use_presampled_environment``, ``remat_bounces``,
     ``detached_replay_vjp``) are left out, and so is
     ``shading_models_present``: the port reads the models present from the
@@ -110,7 +118,8 @@ def settings_for_scene(scene: RenderScene, **overrides) -> RenderSettings:
     overrides.setdefault("coverage_aware_shadows", semi_transparent)
     if semi_transparent:
         overrides.setdefault("passthrough_slack", 8)
-    overrides.setdefault("sort_rays_every", 0)   # no cluster packing yet
+    overrides.setdefault("sort_rays_every",
+                         1 if scene.tri_clustered is not None else 0)
     overrides.setdefault("trilinear_textures", False)
     return RenderSettings(**overrides)
 
@@ -125,9 +134,6 @@ def _check_supported(scene: RenderScene, settings: RenderSettings) -> None:
         raise NotImplementedError("coverage-aware shadows are not ported yet")
     if settings.trilinear_textures:
         raise NotImplementedError("trilinear textures are not ported yet")
-    if settings.sort_rays_every:
-        raise NotImplementedError(
-            "ray sorting (for the BVH trace kernels) is not ported yet")
     if SHADING_TRANSMISSIVE in scene.shading_models:
         raise NotImplementedError(
             "the Transmissive shading model is not ported yet")
@@ -345,15 +351,19 @@ class _PathState(NamedTuple):
 
 
 def _wavefront_step(scene: RenderScene, settings: RenderSettings,
-                    accumulation: int, state: _PathState) -> _PathState:
+                    accumulation: int, state: _PathState,
+                    live_count=None) -> _PathState:
     """One iteration for every lane: trace, light hits, shade, NEE with a
-    shadow trace, BSDF sample."""
+    shadow trace, BSDF sample. ``live_count`` (int tensor, optional): the
+    pool's sorted live prefix, which the trace kernels stop at."""
     (origin, direction, throughput, radiance, bsdf_pdf, pixel_hash, bounce,
      active) = state
     eps = scene.scene_epsilon
 
-    hit = intersect_scene(scene.tri_verts, origin, direction, t_min=eps,
-                          tri_components=scene.tri_components)
+    hit = intersect_scene(scene.bvh, scene.tri_verts, origin, direction,
+                          t_min=eps, tri_components=scene.tri_components,
+                          tri_clustered=scene.tri_clustered,
+                          live_count=live_count)
     t_light, light_idx = _intersect_analytic_lights(scene, origin, direction)
 
     light_first = t_light < hit.t
@@ -435,8 +445,9 @@ def _wavefront_step(scene: RenderScene, settings: RenderSettings,
     shadow_origin = offset_ray_origin(position, geo_normal * shadow_side[..., None])
     has_light = shade & (torch.amax(l_radiance, dim=-1) > 0.0)
     occluded = intersect_scene_any(
-        scene.tri_verts, shadow_origin, l_dir, t_min=eps,
-        t_max=l_dist * (1.0 - 1e-4), tri_components=scene.tri_components)
+        scene.bvh, scene.tri_verts, shadow_origin, l_dir, t_min=eps,
+        t_max=l_dist * (1.0 - 1e-4), tri_components=scene.tri_components,
+        tri_clustered=scene.tri_clustered, live_count=live_count)
     radiance = radiance + torch.where(has_light[..., None] & ~occluded[..., None],
                                       l_radiance, 0.0)
 
@@ -532,6 +543,29 @@ def _make_camera_lanes(camera: PinholeCamera, pixel_idx, width: int,
                          height, accumulation, pixel_idx < n_pixels)
 
 
+def pool_sort_order(origin, direction, active, lo, hi):
+    """The pool's coherence order → int64 [r] permutation: origin Morton
+    code (6 bits per axis inside the scene box lo..hi) and direction
+    octant, inactive lanes last. The sort is stable, so equal keys keep
+    their pool order and the live prefix is the same on every backend."""
+    from bifrost3d_tpu_torch.geometry.pallas_bvh import coherence_sort_key
+    key = coherence_sort_key(origin, direction, lo, hi)
+    key = key + torch.where(active, 0, 1 << 22)
+    return torch.argsort(key, stable=True)
+
+
+def _sorted_pool(scene: RenderScene, state: _PathState, pixel_idx):
+    """Sort the pool before a step: keeps the BVH kernel's neighbouring
+    threads spatially and directionally coherent after bounces scatter the
+    ray origins, and makes the live lanes a prefix the kernel can stop
+    at."""
+    if scene.bvh is None:
+        raise ValueError("sort_rays_every needs a scene that carries its BVH")
+    order = pool_sort_order(state.origin, state.direction, state.active,
+                            scene.bvh.node_min[0], scene.bvh.node_max[0])
+    return _PathState(*(f[order] for f in state)), pixel_idx[order]
+
+
 def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
                          width: int, height: int, accumulation: int,
                          settings: RenderSettings = RenderSettings(),
@@ -565,8 +599,18 @@ def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
         # The loop condition: one host sync per iteration.
         if not bool((state.active.any() | (next_pixel < n_pixels)).item()):
             break
-        rays = rays + 2 * state.active.sum()
-        state = _wavefront_step(scene, settings, accumulation, state)
+        if settings.sort_rays_every and it % settings.sort_rays_every == 0:
+            state, pixel_idx = _sorted_pool(scene, state, pixel_idx)
+        n_active = state.active.sum()
+        # The live lanes are a prefix only when the pool was sorted in this
+        # very iteration. Only the BVH kernel reads the count from the
+        # device; the dense kernel would need it on the host (a sync per
+        # trace), so it traces the whole pool.
+        live = n_active if (settings.sort_rays_every == 1
+                            and scene.tri_clustered is not None) else None
+        rays = rays + 2 * n_active
+        state = _wavefront_step(scene, settings, accumulation, state,
+                                live_count=live)
         done = (pixel_idx < n_pixels) & ~state.active
 
         # Each pixel finishes once per pass: add finished lanes into the
@@ -620,7 +664,9 @@ _EXPLAINED_PATHS = set()
 def explain_render_path(scene: RenderScene,
                         settings: RenderSettings = RenderSettings()) -> str:
     """Which forward path :func:`render_sample_fast` takes, and why:
-    ``"megakernel"`` or ``"wavefront: <reasons>"``."""
+    ``"megakernel"`` or ``"wavefront: <reasons>"``; a scene that carries
+    the BVH packing says ``"wavefront [BVH trace, pool sorted every n
+    step(s)]: <reasons>"`` (or ``pool not sorted``)."""
     from bifrost3d_tpu_torch.integrator.pallas_mesh import (
         megakernel_ineligibility_reasons)
     reasons = megakernel_ineligibility_reasons(scene, settings)
@@ -629,7 +675,12 @@ def explain_render_path(scene: RenderScene,
         reasons = [f"device is {kind}, not cuda"] + reasons
     if not reasons:
         return "megakernel"
-    return "wavefront: " + ", ".join(reasons)
+    trace = ""
+    if scene.tri_clustered is not None:
+        every = settings.sort_rays_every
+        trace = (f" [BVH trace, pool sorted every {every} step(s)]" if every
+                 else " [BVH trace, pool not sorted]")
+    return "wavefront" + trace + ": " + ", ".join(reasons)
 
 
 def render_sample_fast(scene: RenderScene, camera: PinholeCamera,

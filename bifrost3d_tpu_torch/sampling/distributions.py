@@ -4,7 +4,8 @@ Port of the slice's part of ``bifrost3d_tpu/sampling/distributions.py``:
 ``concentric_disk_sample``, ``cone_pdf``/``cone_sample``,
 ``uniform_hemisphere_sample``, ``cosine_hemisphere_pdf``/``_sample``,
 ``ggx_ndf``, ``_ggx_lambda``, ``ggx_bounded_vndf_sample``/``_pdf`` (Eto
-2023) and ``oren_nayar_cltc_sample``/``_pdf`` (EON CLTC). Directions are in
+2023), ``oren_nayar_cltc_sample``/``_pdf`` (EON CLTC) and
+``henyey_greenstein_phase``/``_sample``. Directions are in
 tangent space (+z = shading normal); samplers take ``u2 [..., 2]`` in
 [0, 1)² and return ``(direction [..., 3], pdf [...])``.
 """
@@ -196,3 +197,22 @@ def oren_nayar_cltc_pdf(roughness, wo, wi):
     s = 0.5 * (1.0 + vz)
     return (det_m * det_m / torch.clamp_min(wh_mag2 * wh_mag2, 1e-10)
             * torch.clamp_min(whz, 0.0) / (PI * s))
+
+
+def henyey_greenstein_phase(g, cos_theta):
+    denom = 1.0 + g * g + 2.0 * g * cos_theta
+    return (1.0 - g * g) / (4.0 * PI * denom * torch.sqrt(gsafe(denom, 1e-20)))
+
+
+def henyey_greenstein_sample(g: float, u2):
+    """Sample the HG phase function about +z → (direction, pdf)."""
+    if abs(g) < 1e-3:
+        cos_theta = 1.0 - 2.0 * u2[..., 0]
+    else:
+        sqr_term = (1.0 - g * g) / (1.0 + g * (2.0 * u2[..., 0] - 1.0))
+        cos_theta = (1.0 + g * g - sqr_term * sqr_term) / (2.0 * g)
+    sin_theta = torch.sqrt(gsafe(1.0 - cos_theta * cos_theta, 0.0))
+    phi = TWO_PI * u2[..., 1]
+    d = torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                     cos_theta], dim=-1)
+    return d, henyey_greenstein_phase(g, cos_theta)

@@ -1,7 +1,8 @@
 """Integer hashes on uint32 values carried in int64 tensors.
 
 Port of ``bifrost3d_tpu/sampling/hashes.py`` (``reverse_bits``,
-``cessen_owen_hash``, ``pcg2d``, ``uint_to_unit_float``), bit-exact.
+``cessen_owen_hash``, ``pcg2d``, ``jenkins_hash``, ``lcg_next``,
+``uint_to_unit_float``), bit-exact.
 
 torch has no uint32 ``+``, ``*``, ``>>`` or ``<<`` on the CPU, so every
 value here is a uint32 held in an int64 tensor, and each step is masked
@@ -65,3 +66,21 @@ def pcg2d(x, y):
     x = x ^ (x >> 16)
     y = y ^ (y >> 16)
     return x, y
+
+
+def jenkins_hash(x):
+    """Jenkins one-at-a-time style avalanche hash (Math/RNG.h jenkins_hash)."""
+    x = (x + (x << 10)) & M32
+    x = x ^ (x >> 6)
+    x = (x + (x << 3)) & M32
+    x = x ^ (x >> 11)
+    x = (x + (x << 15)) & M32
+    return x
+
+
+def lcg_next(state):
+    """One step of the LCG (multiplier 1664525, increment 1013904223) →
+    (new state, float32 sample in [0, 1]). SmallPT seeds it with
+    ``jenkins_hash(pixel) ^ reverse_bits(frame)``."""
+    state = (state * _LCG_MULTIPLIER + _LCG_INCREMENT) & M32
+    return state, uint_to_unit_float(state)

@@ -1,13 +1,17 @@
 """RenderScene: the device-resident scene bundle the integrator consumes.
 
 Port of ``bifrost3d_tpu/scene/render_scene.py`` (``RenderScene``,
-``_assemble_soup``, ``build_render_scene``, ``_safe_unit``): the host
+``_assemble_soup``, ``build_render_scene``, ``refit_render_scene``,
+``_safe_unit``, ``_packed_components``, ``_packed_clusters``): the host
 flattens (mesh, material, matrix) instances into one world-space triangle
-soup plus material and light tables, all on one device.
+soup, builds the BVH over it, and packs material and light tables, all on
+one device.
 
-On the slice every scene traces dense: ``tri_components`` is always
-packed, ``bvh`` and ``tri_clustered`` are ``None``. Environment maps and
-textures are not ported yet; asking for one raises.
+A scene of at most ``PALLAS_MAX_TRIS`` triangles carries the dense table
+``tri_components`` and traces through the dense kernel; a larger one
+carries the BVH packing ``tri_clustered`` instead and traces through the
+BVH kernel. Environment maps and textures are not ported yet; asking for
+one raises.
 
 :func:`render_scene_from_numpy` builds a ``RenderScene`` from another
 renderer's scene arrays, so two implementations can render the very same
@@ -21,12 +25,17 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from bifrost3d_tpu_torch.geometry import traverse
+from bifrost3d_tpu_torch.geometry.bvh import BVH, build_bvh, refit_bvh
 from bifrost3d_tpu_torch.geometry.mesh import (
     compute_smooth_normals,
     transform_mesh,
 )
+from bifrost3d_tpu_torch.geometry.pallas_bvh import (
+    HierTriangles,
+    pack_hierarchical,
+)
 from bifrost3d_tpu_torch.geometry.pallas_intersect import pack_triangles
-from bifrost3d_tpu_torch.geometry.traverse import PALLAS_MAX_TRIS
 from bifrost3d_tpu_torch.lights.types import LightArray
 from bifrost3d_tpu_torch.math.octahedral import octahedral_encode
 from bifrost3d_tpu_torch.scene.materials import MaterialArray
@@ -42,11 +51,16 @@ class RenderScene(NamedTuple):
     lights: LightArray
     environment_tint: torch.Tensor    # [3] background radiance
     scene_epsilon: torch.Tensor       # [] ray offset scale
-    tri_components: torch.Tensor      # [16, T_pad] packed (v0, e1, e2)
+    # [16, T_pad] packed (v0, e1, e2) for the dense kernel; None on a
+    # scene over PALLAS_MAX_TRIS triangles.
+    tri_components: Optional[torch.Tensor]
     # Shading models present in the material table (host-side, sorted).
     shading_models: tuple = (0,)
-    bvh: Optional[object] = None
-    tri_clustered: Optional[object] = None
+    # The BVH over the soup, on the scene's device (None on a scene
+    # carried over without one).
+    bvh: Optional[BVH] = None
+    # The BVH kernel's packing; None on a scene the dense kernel takes.
+    tri_clustered: Optional[HierTriangles] = None
     # The environment map is not ported (lights/environment.py): the
     # builders raise on one, so this stays None; a scene given one is
     # ineligible for the megakernel and raises in the wavefront.
@@ -102,12 +116,31 @@ def _check_materials(materials: MaterialArray) -> tuple:
     return tuple(sorted(set(int(m) for m in materials.shading_model.tolist())))
 
 
-def _packed(tri_verts: torch.Tensor) -> torch.Tensor:
-    if tri_verts.shape[0] > PALLAS_MAX_TRIS:
-        raise NotImplementedError(
-            f"scenes over {PALLAS_MAX_TRIS} triangles need the BVH, which is "
-            "not ported yet")
+def _packed_components(tri_verts: torch.Tensor) -> Optional[torch.Tensor]:
+    # PALLAS_MAX_TRIS is read from its module at call time, so a test can
+    # lower it to send a small scene down the BVH path.
+    if tri_verts.shape[0] > traverse.PALLAS_MAX_TRIS:
+        return None    # large scene: the BVH packing takes over
     return pack_triangles(tri_verts)[0]
+
+
+def _packed_clusters(tri_verts: torch.Tensor,
+                     bvh: Optional[BVH]) -> Optional[HierTriangles]:
+    if tri_verts.shape[0] <= traverse.PALLAS_MAX_TRIS:
+        return None    # small scene: dense streaming
+    return pack_hierarchical(tri_verts, bvh)
+
+
+def _build_soup_bvh(tri_verts: np.ndarray) -> BVH:
+    flat_pos = tri_verts.reshape(-1, 3)
+    flat_idx = np.arange(flat_pos.shape[0], dtype=np.int32).reshape(-1, 3)
+    return build_bvh(flat_pos, flat_idx)
+
+
+def _extent(tri_verts: np.ndarray) -> float:
+    flat_pos = tri_verts.reshape(-1, 3)
+    return (float(np.max(flat_pos.max(axis=0) - flat_pos.min(axis=0)))
+            if flat_pos.size else 1.0)
 
 
 def build_render_scene(instances, materials: MaterialArray,
@@ -126,9 +159,8 @@ def build_render_scene(instances, materials: MaterialArray,
             raise ValueError(f"scene {name} contain non-finite values")
     if lights is None:
         lights = LightArray.build([], device=device)
-    flat_pos = tri_verts.reshape(-1, 3)
-    extent = (float(np.max(flat_pos.max(axis=0) - flat_pos.min(axis=0)))
-              if flat_pos.size else 1.0)
+    bvh = _build_soup_bvh(tri_verts).to(device)
+    extent = _extent(tri_verts)
     verts = torch.as_tensor(tri_verts, device=device)
     return RenderScene(
         tri_verts=verts,
@@ -143,8 +175,45 @@ def build_render_scene(instances, materials: MaterialArray,
                                       device=device),
         scene_epsilon=torch.tensor(max(extent, 1e-3) * 1e-4,
                                    dtype=torch.float32, device=device),
-        tri_components=_packed(verts),
-        shading_models=_check_materials(materials))
+        tri_components=_packed_components(verts),
+        shading_models=_check_materials(materials),
+        bvh=bvh,
+        tri_clustered=_packed_clusters(verts, bvh))
+
+
+def refit_render_scene(scene: RenderScene, instances) -> RenderScene:
+    """Transform-only scene update: rebuild the world-space soup and refit
+    the existing BVH topology (``geometry.bvh.refit_bvh``) instead of a SAH
+    rebuild. Materials and lights are reused by identity.
+
+    ``instances`` must bind the same meshes in the same order as the
+    original build (only the matrices may differ); the triangle count is
+    checked.
+    """
+    tri_verts, tri_normals, tri_uvs, tri_tr, tri_material = \
+        _assemble_soup(instances)
+    if tri_verts.shape[0] != int(scene.tri_verts.shape[0]):
+        raise ValueError("refit requires identical instance topology; "
+                         "rebuild instead")
+    if scene.bvh is None:
+        raise ValueError("refit needs a scene that carries its BVH")
+    device = scene.tri_verts.device
+    flat_pos = tri_verts.reshape(-1, 3)
+    flat_idx = np.arange(flat_pos.shape[0], dtype=np.int32).reshape(-1, 3)
+    bvh = refit_bvh(scene.bvh, flat_pos, flat_idx)
+    verts = torch.as_tensor(tri_verts, device=device)
+    return scene._replace(
+        tri_verts=verts,
+        tri_normals_oct=octahedral_encode(
+            torch.as_tensor(_safe_unit(tri_normals), device=device)),
+        tri_uvs=torch.as_tensor(tri_uvs, device=device),
+        tri_tint_roughness=torch.as_tensor(tri_tr, device=device),
+        tri_material=torch.as_tensor(tri_material, device=device),
+        scene_epsilon=torch.tensor(max(_extent(tri_verts), 1e-3) * 1e-4,
+                                   dtype=torch.float32, device=device),
+        tri_components=_packed_components(verts),
+        bvh=bvh,
+        tri_clustered=_packed_clusters(verts, bvh))
 
 
 def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
@@ -153,7 +222,10 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
     ``arrays`` maps the JAX ``RenderScene`` field names to numpy arrays;
     ``materials`` and ``lights`` map their own field names to arrays.
     ``environment`` must be ``None`` and a ``textures`` entry, if present,
-    must hold no texture (``data`` of length 0).
+    must hold no texture (``data`` of length 0). A ``bvh`` entry (the JAX
+    ``BVH`` fields as numpy) is carried over, so both renderers trace the
+    same tree; without one the scene has no BVH unless it is over
+    ``PALLAS_MAX_TRIS`` triangles, where one is built for the packing.
     """
     if arrays.get("environment") is not None:
         raise NotImplementedError("environment maps are not ported yet")
@@ -167,6 +239,11 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
     verts = t("tri_verts", np.float32)
     materials = MaterialArray.from_numpy(arrays["materials"], device=device)
     comp = arrays.get("tri_components")
+    bvh = arrays.get("bvh")
+    if bvh is not None:
+        bvh = BVH.from_numpy(bvh, device=device)
+    elif verts.shape[0] > traverse.PALLAS_MAX_TRIS:
+        bvh = _build_soup_bvh(verts.cpu().numpy()).to(device)
     return RenderScene(
         tri_verts=verts,
         tri_normals_oct=t("tri_normals_oct", np.int16),
@@ -177,6 +254,8 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
         lights=LightArray.from_numpy(arrays["lights"], device=device),
         environment_tint=t("environment_tint", np.float32),
         scene_epsilon=t("scene_epsilon", np.float32),
-        tri_components=(_packed(verts) if comp is None
+        tri_components=(_packed_components(verts) if comp is None
                         else t("tri_components", np.float32)),
-        shading_models=_check_materials(materials))
+        shading_models=_check_materials(materials),
+        bvh=bvh,
+        tri_clustered=_packed_clusters(verts, bvh))

@@ -10,12 +10,17 @@ the last line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and convolutions.
-2. build: compiles both kernels (csrc/dense_intersect.cu and
-   csrc/mesh_megakernel.cu) with nvcc into build/kernels/, one nvcc each,
-   started together; prints each build's time and ptxas report.
-3. rng: the megakernel's path_rng_4d (megakernel_rng_probe) must equal the
-   port's torch path_rng_4d bit for bit on 65,536 seeded (pixel hash,
-   dimension) pairs at accumulations 0, 1 and 7.
+2. build: compiles the four kernels (csrc/dense_intersect.cu,
+   csrc/mesh_megakernel.cu, csrc/smallpt_megakernel.cu and
+   csrc/bvh_intersect.cu) with nvcc into build/kernels/, one nvcc each,
+   started together, and the native BVH builder with g++ into
+   build/native/; prints each build's time and ptxas report.
+3. rng: the mesh megakernel's path_rng_4d (megakernel_rng_probe) must
+   equal the port's torch path_rng_4d bit for bit on 65,536 seeded (pixel
+   hash, dimension) pairs at accumulations 0, 1 and 7; the SmallPT
+   kernel's pixel seed and LCG chain (smallpt_rng_probe) must equal
+   jenkins_hash / lcg_next bit for bit, states and floats, on 65,536
+   seeded pixels x 48 steps at accumulations 1, 2 and 7.
 4. kernel: the dense trace kernel against its plain PyTorch version on the
    card, on 65,536 random rays (numpy seed 0) against the CornellBox soup
    (rays from the room's free space) and a ~16k-triangle sphere + floor
@@ -42,8 +47,35 @@ the last line):
    render_progressive, the main path: the megakernel's launch count must
    rise by exactly 8, the image be finite and lit; it is tonemapped and
    written to build/cornell_512.png; time and peak memory are printed.
+8. kernel/smallpt: the SmallPT megakernel at 1024 x 768, accumulations 1
+   and 2, against its plain version (the eager wavefront over all
+   pixels): share of pixels off by > 1e-4 and relative gap of the means,
+   both gated; median times of both by CUDA events.
+9. kernel/bvh: the BVH trace kernel on the 589,824-triangle torus grid
+   with 65,536 coherent camera rays and 65,536 seeded incoherent rays:
+   closest hit, any-hit, and the sorted wrapper, each against the plain
+   version (the lockstep traversal over the same packed tree): prim must
+   agree off ties (two candidates whose t agree to 1e-6 relative) on
+   >= 99.9% of rays and t within rtol 1e-5 where it does; occlusion must
+   agree on >= 99.9%; and against the dense kernel on the 16,130-triangle
+   soup. Median times, the plain walk's box and triangle test counts.
+10. smallpt: smallpt_app.render_progressive(1024, 768, 8) on the card,
+   main path A: exactly 8 SmallPT-kernel launches, frames/s and
+   pixel-samples/s, the image finite and lit and written to
+   build/smallpt_1024x768.png; the pooled torch wavefront renders one
+   frame for comparison.
+11. torus_grid: the 589,824-triangle scene at 512², 4 bounces through
+   render_sample_fast, main path B: explain_render_path, BVH-kernel
+   launches > 0 and dense-kernel launches 0 on that frame, wavefront
+   steps, frame time and rays/s (and, in turns, the frame time without the
+   pool sort), scene-build seconds, peak memory; at 128²
+   the frame must pass the statistical gate against the same frame traced
+   with the plain version.
 
-Then one JSON line of per-kernel results, and last the JSON result line.
+Then one JSON line of per-kernel results (each kernel's time beside its
+bound: the larger of its bytes over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s, counted from this run's inputs), and last the JSON
+result line.
 The script imports nothing of JAX.
 """
 
@@ -67,7 +99,22 @@ RES = 512
 SMALL_RES = 256
 ACCUMULATIONS = 8
 BOUNCES = 4
-SOURCES = ("dense_intersect.cu", "mesh_megakernel.cu")
+SOURCES = ("dense_intersect.cu", "mesh_megakernel.cu",
+           "smallpt_megakernel.cu", "bvh_intersect.cu")
+SMALLPT_W, SMALLPT_H = 1024, 768
+TORUS_RES = 512
+TORUS_TRIS = 589824
+# TEST_SCENES too large for the dense megakernel: main path B drives them.
+LARGE_SCENES = ("torus_grid",)
+# Published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
+# tensor cores.
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# Operation counts behind the bounds: a Möller–Trumbore test, a slab test,
+# one SmallPT sphere test, and the rest of a SmallPT bounce.
+MT_FLOPS, BOX_FLOPS, SPHERE_FLOPS, SMALLPT_SHADE_FLOPS = 50, 24, 30, 120
+# SmallPT kernel vs its plain version: share of pixels off by > 1e-4 and
+# relative difference of the means.
+SMALLPT_FLIPS, SMALLPT_MEAN = 0.02, 0.003
 # Kernel vs its plain version on the same inputs: share of pixels off by
 # > 1e-3, and relative difference of the means.
 KERNEL_FLIPS, KERNEL_MEAN = 0.002, 0.005
@@ -97,7 +144,16 @@ def device_phase() -> str:
     return smi
 
 
+def roofline(n_bytes: float, flops: float) -> dict:
+    """The least time this card could take for the work, in ms, and which
+    of the two limits sets it."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
 def build_phase() -> None:
+    from bifrost3d_tpu_torch.geometry import native
     from bifrost3d_tpu_torch.utils import cuda_build
 
     def build(source):
@@ -113,6 +169,11 @@ def build_phase() -> None:
                              if "registers" in line or "spill" in line)
         print(f"build: {source} in {seconds:.2f} s -> "
               f"{os.path.relpath(path, REPO)} | {ptxas}", flush=True)
+    t0 = time.perf_counter()
+    check(native.native_available(), "the native BVH builder did not build "
+          "(g++): the numpy builder would take minutes on the torus grid")
+    print(f"build: native/bvh_builder.cpp in {time.perf_counter() - t0:.2f} s"
+          f" -> {os.path.relpath(native.library_path(), REPO)}", flush=True)
 
 
 def rng_phase(device) -> None:
@@ -131,6 +192,28 @@ def rng_phase(device) -> None:
     print(f"rng: megakernel path_rng_4d bit-exact with the torch chain on "
           f"{R} (pixel hash, dimension) pairs x 4 at accumulations 0, 1, 7",
           flush=True)
+
+    from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
+    from bifrost3d_tpu_torch.sampling import hashes
+    steps = 48
+    x = torch.tensor(rng.integers(0, SMALLPT_W, R), device=device)
+    y = torch.tensor(rng.integers(0, SMALLPT_H, R), device=device)
+    for acc in (1, 2, 7):
+        states, floats = spt.rng_probe(x, y, SMALLPT_W, acc, steps)
+        index = hashes.u32((y * 2 + (acc >> 1) % 2) * (SMALLPT_W * 2)
+                           + x * 2 + acc % 2)
+        state = hashes.jenkins_hash(index) ^ int(
+            hashes.reverse_bits(hashes.u32(acc)))
+        for k in range(steps):
+            state, u = hashes.lcg_next(state)
+            check(bool(torch.equal(states[k], state)),
+                  f"smallpt LCG state differs at step {k}, accumulation {acc}")
+            check(bool(torch.equal(floats[k].view(torch.int32),
+                                   u.view(torch.int32))),
+                  f"smallpt LCG float differs at step {k}, accumulation {acc}")
+    print(f"rng: smallpt pixel seed and LCG chain bit-exact with jenkins_hash "
+          f"/ lcg_next on {R} pixels x {steps} steps (states and floats) at "
+          f"accumulations 1, 2, 7", flush=True)
 
 
 def _soups(device):
@@ -179,11 +262,11 @@ def _median_ms(fn, repeats=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(device) -> dict:
+def kernel_phase(device, soups) -> dict:
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     rng = np.random.default_rng(0)
     results, failures = {}, []
-    for name, tris in _soups(device).items():
+    for name, tris in soups.items():
         comp, n = dense.pack_triangles(tris)
         o, d, t_max = _rays(rng, name, device)
         worst_err, worst_agree = 0.0, 1.0
@@ -213,12 +296,17 @@ def kernel_phase(device) -> dict:
             comp, n, o, d, 1e-4, float("inf")))
         plain_ms = _median_ms(lambda: dense.dense_intersect_reference(
             comp, n, o, d, 1e-4, float("inf")))
+        # Rays in (32 B), hits out (16 B) and the 9-row table once; one
+        # Möller–Trumbore test per ray and triangle.
         results[name] = dict(n_tris=n, max_abs_err=worst_err, ms=ms,
-                             plain_ms=plain_ms, agree=worst_agree)
+                             plain_ms=plain_ms, agree=worst_agree,
+                             **roofline(48 * R + 36 * n, MT_FLOPS * R * n))
         print(f"kernel/{name}: {R} rays x {n} tris | prim agrees >= "
               f"{worst_agree:.5f} | max |dt| {worst_err:.3g} | hit share "
               f"(live case) {hits:.3f} | kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (median of 20)", flush=True)
+              f"{plain_ms:.4f} ms (median of 20) | bound "
+              f"{results[name]['bound_ms']:.5f} ms by "
+              f"{results[name]['bound_by']}", flush=True)
     check(not failures, "; ".join(failures))
     return results
 
@@ -239,10 +327,12 @@ def _gate(img, ref, what, flip_budget=0.03, mean_budget=0.02):
 
 
 def _reset_counts():
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
-    dense.reset_launch_count()
-    mega.reset_launch_count()
+    from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
+    for module in (dense, mega, hier, spt):
+        module.reset_launch_count()
 
 
 def slice_phase(device) -> dict:
@@ -299,8 +389,9 @@ def _megakernel_scenes(device):
     yield "Veach", SMALL_RES, scenes.create_veach_scene(device=device)
     yield "Veach mesh-light", SMALL_RES, scenes.create_veach_scene(
         with_mesh_light=True, device=device)
-    for name, build in scenes.TEST_SCENES.items():
-        yield name, SMALL_RES, build(device=device)
+    for name, builder in scenes.TEST_SCENES.items():
+        if name not in LARGE_SCENES:
+            yield name, SMALL_RES, builder(device=device)
 
 
 def megakernel_phase(device) -> dict:
@@ -357,6 +448,11 @@ def megakernel_phase(device) -> dict:
                 rates.append(acc_rays / dt)
             out["frame_ms"] = statistics.median(frame_ms)
             out["rays_per_s"] = statistics.median(rates)
+            # Per pixel 32 B of lanes in and 16 B out, the tables once; at
+            # least one Möller–Trumbore test per counted ray and triangle
+            # (shading is left out of the count, so the bound is low).
+            out.update(roofline(48 * res * res + 64 * out["n_tris"],
+                             MT_FLOPS * rays * out["n_tris"]))
             line += (f" | kernel {out['ms']:.3f} ms, plain "
                      f"{out['plain_ms']:.1f} ms (CUDA events) | "
                      f"render_sample_fast frame {out['frame_ms']:.2f} ms, "
@@ -409,36 +505,372 @@ def progressive_phase(device) -> dict:
                 peak_gib=peak_gib)
 
 
+def smallpt_kernel_phase(device) -> dict:
+    from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
+    from bifrost3d_tpu_torch.integrator.smallpt import (
+        render_smallpt_pooled_counted)
+    from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
+
+    scene = smallpt_scene(device=device)
+    w, h = SMALLPT_W, SMALLPT_H
+    worst_flips = worst_mean = worst_err = 0.0
+    for acc in (1, 2):
+        got = spt.smallpt_megakernel_cuda(scene, w, h, acc)
+        ref = spt.smallpt_megakernel_reference(scene, w, h, acc)
+        torch.cuda.synchronize()
+        check(got.shape == (h, w, 3), f"image shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), "smallpt image is not finite")
+        d = (got - ref).abs().amax(dim=-1)
+        flips = float((d > 1e-4).float().mean())
+        mean_rel = abs(float(got.mean()) - float(ref.mean())) / float(ref.mean())
+        check(flips < SMALLPT_FLIPS, f"smallpt accumulation {acc}: {flips:.5f} "
+              "of pixels differ from the plain version by > 1e-4")
+        check(mean_rel < SMALLPT_MEAN, f"smallpt accumulation {acc}: means "
+              f"{float(got.mean())} vs {float(ref.mean())}")
+        worst_flips = max(worst_flips, flips)
+        worst_mean = max(worst_mean, mean_rel)
+        worst_err = max(worst_err, float(d.max()))
+    ms = _median_ms(lambda: spt.smallpt_megakernel_cuda(scene, w, h, 1))
+    plain_ms = _median_ms(
+        lambda: spt.smallpt_megakernel_reference(scene, w, h, 1), repeats=3,
+        warmup=1)
+    # This frame's bounces, from the pooled wavefront's live-lane tally; a
+    # bounce tests every sphere and shades once. Bytes: the table in, 12 B
+    # per pixel out.
+    _, bounces = render_smallpt_pooled_counted(scene, w, h, 1)
+    bounces = int(bounces)
+    n = int(scene.position.shape[0])
+    out = dict(flips=worst_flips, mean_rel=worst_mean, max_abs_err=worst_err,
+               ms=ms, plain_ms=plain_ms, bounces=bounces,
+               **roofline(44 * n + 12 * w * h,
+                       bounces * (SPHERE_FLOPS * n + SMALLPT_SHADE_FLOPS)))
+    print(f"kernel/smallpt: {w}x{h}, accumulations 1 and 2 | vs plain "
+          f"{worst_flips:.5f} of pixels off by > 1e-4, means {worst_mean:.2e} "
+          f"apart, max |d| {worst_err:.3g} (a flipped path) | {bounces} bounces "
+          f"({bounces / (w * h):.2f} per pixel) | kernel {ms:.4f} ms (median "
+          f"of 20), plain {plain_ms:.1f} ms (median of 3) | bound "
+          f"{out['bound_ms']:.5f} ms by {out['bound_by']}", flush=True)
+    return out
+
+
+def _torus_rays(device):
+    """The two ray sets of the BVH kernel's check: the 65,536 coherent
+    camera rays of the JAX package's torus-grid bench, and 65,536 seeded
+    rays with origins spread through the grid's box and directions over the
+    sphere."""
+    from bifrost3d_tpu_torch.apps.scenes import TORUS_GRID_EYE
+    xs, ys = np.meshgrid(np.linspace(-1, 1, 256), np.linspace(-1, 1, 256))
+    d = np.stack([xs * 0.6, ys * 0.6 - 0.25, np.ones_like(xs)], -1)
+    d = d.reshape(-1, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(np.asarray(TORUS_GRID_EYE, np.float32), d.shape).copy()
+    rng = np.random.default_rng(3)
+    o2 = rng.uniform((-14.0, -2.0, -14.0), (11.0, 4.0, 11.0),
+                     size=(R, 3)).astype(np.float32)
+    d2 = rng.normal(size=(R, 3)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    return {"coherent": (torch.tensor(o, device=device),
+                         torch.tensor(d, device=device)),
+            "incoherent": (torch.tensor(o2, device=device),
+                           torch.tensor(d2, device=device))}
+
+
+def _compare_hits(got, ref, what, failures):
+    """prim equal off ties, t within rtol 1e-5 where prim agrees →
+    (share agreeing off ties, ties, max |dt|)."""
+    same = got.prim == ref.prim
+    both = (got.prim >= 0) & (ref.prim >= 0)
+    tie = ~same & both & ((got.t - ref.t).abs() <= 1e-6 * ref.t.abs())
+    agree = float((same | tie).float().mean())
+    if agree < 0.999:
+        failures.append(f"{what}: prim agrees off ties on {agree:.5f}")
+    hit = same & both
+    tg, tr = got.t[hit], ref.t[hit]
+    if not bool(torch.allclose(tg, tr, rtol=1e-5, atol=0.0)):
+        failures.append(f"{what}: t differs beyond rtol 1e-5")
+    err = float((tg - tr).abs().max()) if tg.numel() else 0.0
+    return agree, int(tie.sum()), err
+
+
+def bvh_kernel_phase(device, dense_soup) -> dict:
+    from bifrost3d_tpu_torch.apps.scenes import torus_grid_mesh
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+
+    mesh = torus_grid_mesh()
+    tris = torch.tensor(mesh.positions[mesh.indices], device=device)
+    t0 = time.perf_counter()
+    packed = hier.pack_hierarchical(tris)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    n_tris, n_nodes = packed.n_tris, int(packed.node_boxes.shape[0])
+    tree_bytes = 32 * n_nodes + 52 * n_tris
+    print(f"kernel/bvh: packed {n_tris} triangles, {n_nodes} nodes "
+          f"({tree_bytes / 2**20:.1f} MiB) in {pack_s:.2f} s with the native "
+          f"builder", flush=True)
+
+    results, failures = {}, []
+    inf = float("inf")
+    for name, (o, d) in _torus_rays(device).items():
+        stats = {}
+        ref = hier.hierarchical_intersect_reference(packed, o, d, 1e-4, inf,
+                                                    stats=stats)
+        got = hier.hierarchical_intersect_cuda(packed, o, d, 1e-4, inf)
+        agree, ties, err = _compare_hits(got, ref, f"bvh/{name}", failures)
+        srt = hier.hierarchical_intersect_sorted(packed, o, d, 1e-4, inf)
+        s_agree, s_ties, s_err = _compare_hits(srt, ref, f"bvh/{name}/sorted",
+                                               failures)
+        # Occlusion within a finite segment, and the live prefix.
+        t_max = torch.where(ref.prim >= 0, ref.t * 1.5, 20.0)
+        t_max[::2] *= 0.5
+        occ_ref = hier.hierarchical_intersect_reference(
+            packed, o, d, 1e-4, t_max, any_hit=True).prim >= 0
+        occ = hier.hierarchical_intersect_cuda(packed, o, d, 1e-4, t_max,
+                                               any_hit=True).prim >= 0
+        occ_agree = float((occ == occ_ref).float().mean())
+        if occ_agree < 0.999:
+            failures.append(f"bvh/{name}: occlusion agrees on {occ_agree:.5f}")
+        live = torch.tensor(R // 3, device=device)
+        part = hier.hierarchical_intersect_cuda(packed, o, d, 1e-4, inf,
+                                                live_count=live)
+        torch.cuda.synchronize()
+        if not bool((part.prim[R // 3:] == -1).all()) or not bool(
+                torch.equal(part.prim[:R // 3], got.prim[:R // 3])):
+            failures.append(f"bvh/{name}: the live prefix is not honoured")
+        hits = float((ref.prim >= 0).float().mean())
+        box_tests, tri_tests = int(stats["box_tests"]), int(stats["tri_tests"])
+        nodes_read = int(stats["unique_nodes"])
+        tris_read = int(stats["unique_tris"])
+        ms = _median_ms(lambda: hier.hierarchical_intersect_cuda(
+            packed, o, d, 1e-4, inf))
+        any_ms = _median_ms(lambda: hier.hierarchical_intersect_cuda(
+            packed, o, d, 1e-4, t_max, any_hit=True))
+        sorted_ms = _median_ms(lambda: hier.hierarchical_intersect_sorted(
+            packed, o, d, 1e-4, inf))
+        plain_ms = _median_ms(lambda: hier.hierarchical_intersect_reference(
+            packed, o, d, 1e-4, inf), repeats=2, warmup=1)
+        # Rays in (32 B) and hits out (16 B); of the tree, only what this
+        # ray set's walk reads, each record once: the 32-byte nodes popped
+        # and the 48-byte triangles of the leaves entered by at least one
+        # ray, and one 4-byte `order` entry per hit. Counts are the plain
+        # walk's (left-first: no fewer than a near-first walk needs).
+        n_hits = int((ref.prim >= 0).sum())
+        results[name] = dict(
+            agree=min(agree, s_agree), ties=ties + s_ties,
+            max_abs_err=max(err, s_err), occlusion_agree=occ_agree, hits=hits,
+            box_tests=box_tests, tri_tests=tri_tests, steps=stats["steps"],
+            ms=ms, any_ms=any_ms, sorted_ms=sorted_ms, plain_ms=plain_ms,
+            nodes_read=nodes_read, tris_read=tris_read,
+            **roofline(48 * R + 32 * nodes_read + 48 * tris_read + 4 * n_hits,
+                       BOX_FLOPS * box_tests + MT_FLOPS * tri_tests))
+        print(f"kernel/bvh/{name}: {R} rays x {n_tris} tris | hit share "
+              f"{hits:.3f} | prim agrees off ties >= {min(agree, s_agree):.5f} "
+              f"({ties + s_ties} ties), max |dt| {max(err, s_err):.3g}, "
+              f"occlusion agrees {occ_agree:.5f} | plain walk: "
+              f"{stats['steps']} steps, {box_tests / R:.1f} box and "
+              f"{tri_tests / R:.1f} triangle tests per ray, {nodes_read} "
+              f"distinct nodes and {tris_read} distinct triangles read | "
+              f"closest "
+              f"{ms:.4f} ms, any-hit {any_ms:.4f} ms, sorted wrapper "
+              f"{sorted_ms:.4f} ms (median of 20), plain {plain_ms:.1f} ms "
+              f"(median of 2) | bound {results[name]['bound_ms']:.5f} ms by "
+              f"{results[name]['bound_by']}", flush=True)
+
+    # The BVH kernel against the dense kernel on a soup both can take.
+    comp, n = dense.pack_triangles(dense_soup)
+    small = hier.pack_hierarchical(dense_soup)
+    o, d, _ = _rays(np.random.default_rng(5), "sphere", device)
+    ref = dense.dense_intersect_cuda(comp, n, o, d, 1e-4, inf)
+    got = hier.hierarchical_intersect_cuda(small, o, d, 1e-4, inf)
+    torch.cuda.synchronize()
+    agree, ties, err = _compare_hits(got, ref, "bvh vs dense", failures)
+    print(f"kernel/bvh vs dense: {R} rays x {n} tris | prim agrees off ties "
+          f"{agree:.5f} ({ties} ties), max |dt| {err:.3g}", flush=True)
+    check(not failures, "; ".join(failures))
+    return results
+
+
+def smallpt_path_phase(device) -> dict:
+    from bifrost3d_tpu_torch.apps import smallpt_app
+    from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
+    from bifrost3d_tpu_torch.integrator.smallpt import (
+        render_smallpt_pooled_counted)
+    from bifrost3d_tpu_torch.io.image import save_image
+    from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
+
+    w, h, n = SMALLPT_W, SMALLPT_H, ACCUMULATIONS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # Main path A, driven with every count at 0.
+    _reset_counts()
+    t0 = time.perf_counter()
+    img = smallpt_app.render_progressive(w, h, n, quiet=True, device=device)
+    seconds = time.perf_counter() - t0     # render_progressive synchronises
+    launches = spt.launch_count
+    check(launches == n, f"main path A launched the SmallPT kernel "
+          f"{launches} times for {n} frames")
+    check(img.shape == (h, w, 3), f"image shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), "smallpt image is not finite")
+    mean = float(img.mean())
+    check(mean > 0.1, f"smallpt image mean {mean} is not lit")
+    # Left wall red, right wall blue (the scene's own sanity check).
+    band, edge = img[h // 3:2 * h // 3], max(w // 25, 1)
+    left, right = band[:, :edge], band[:, -edge:]
+    check(float(left[..., 0].mean()) > 2 * float(left[..., 2].mean())
+          and float(right[..., 2].mean()) > 2 * float(right[..., 0].mean()),
+          "smallpt wall colours are wrong")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    png = os.path.join(REPO, "build", f"smallpt_{w}x{h}.png")
+    os.makedirs(os.path.dirname(png), exist_ok=True)
+    save_image(png, img.flip(0))
+    check(os.path.getsize(png) > 0, "PNG not written")
+
+    # One frame of the pooled torch wavefront, for comparison.
+    scene = smallpt_scene(device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, rays = render_smallpt_pooled_counted(scene, w, h, 1)
+    rays = int(rays)    # synchronises
+    pooled_s = time.perf_counter() - t0
+    out = dict(launches=launches, seconds=seconds, mean=mean,
+               frames_per_s=n / seconds,
+               pixel_samples_per_s=w * h * n / seconds, pooled_s=pooled_s)
+    print(f"smallpt: {w}x{h} x{n} through smallpt_app.render_progressive in "
+          f"{seconds:.4f} s | {out['frames_per_s']:.1f} frames/s, "
+          f"{out['pixel_samples_per_s'] / 1e6:.1f} M pixel-samples/s | "
+          f"SmallPT-kernel launches {launches} | mean {mean:.4f} | peak "
+          f"{peak_gib:.3f} GiB | {os.path.relpath(png, REPO)} | pooled torch "
+          f"wavefront: one frame in {pooled_s:.3f} s, {rays} bounces",
+          flush=True)
+    return out
+
+
+def torus_path_phase(device) -> dict:
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.io.image import save_image
+    from bifrost3d_tpu_torch.post.pipeline import process
+    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+
+    res = TORUS_RES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scene, cam = TEST_SCENES["torus_grid"](device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_tris = int(scene.tri_verts.shape[0])
+    check(n_tris == TORUS_TRIS, f"the torus grid has {n_tris} triangles")
+    check(scene.tri_components is None and scene.tri_clustered is not None,
+          "a scene over 65,536 triangles must carry the BVH packing only")
+    settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+    check(settings.sort_rays_every == 1, "a BVH scene sorts its pool")
+    path = pt.explain_render_path(scene, settings)
+    check(path.startswith("wavefront [BVH trace"), path)
+    print(f"torus_grid: {n_tris} triangles built in {build_s:.2f} s | "
+          f"{path}", flush=True)
+
+    # Main path B, driven with every count at 0.
+    _reset_counts()
+    img = pt.render_sample_fast(scene, cam, res, res, 0, settings)
+    torch.cuda.synchronize()
+    launches, dense_launches = hier.launch_count, dense.launch_count
+    check(launches > 0, "main path B launched no BVH trace kernel")
+    check(dense_launches == 0, f"main path B launched the dense kernel "
+          f"{dense_launches} times")
+    check(img.shape == (res, res, 3), f"image shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), "torus image is not finite")
+    mean = float(img.mean())
+    check(mean > 0.005, f"torus image mean {mean} is not lit")
+
+    # Frames with the pool sort (the scene's settings) and, in turns, without
+    # it (no sort, no live prefix): the same paths, lanes in another order.
+    unsorted = settings._replace(sort_rays_every=0)
+    frame_ms, rates, unsorted_ms, steps = [], [], [], 0
+    for acc in (1, 2, 3):
+        for which in (settings, unsorted):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, rays, iters = pt.render_pixels_pooled(
+                scene, cam, res, res, acc, which, with_iters=True)
+            rays = int(rays)   # synchronises
+            dt = time.perf_counter() - t0
+            if which is settings:
+                steps = iters
+                frame_ms.append(dt * 1e3)
+                rates.append(rays / dt)
+            else:
+                unsorted_ms.append(dt * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # The same small frame with the kernel and with its plain version.
+    small = 128
+    kern = pt.render_sample_fast(scene, cam, small, small, 1, settings)
+    with mock.patch.object(hier, "hierarchical_intersect",
+                           hier.hierarchical_intersect_reference):
+        plain = pt.render_sample_fast(scene, cam, small, small, 1, settings)
+    flips, _, _ = _gate(kern, plain, "torus_grid: kernel vs plain trace")
+
+    png = os.path.join(REPO, "build", f"torus_grid_{res}.png")
+    save_image(png, process(img, CameraEffectsSettings.preset()._replace(
+        film_grain=0.0)))
+    out = dict(launches=launches, steps=steps, mean=mean, flips=flips,
+               frame_ms=statistics.median(frame_ms),
+               rays_per_s=statistics.median(rates),
+               unsorted_frame_ms=statistics.median(unsorted_ms),
+               build_s=build_s, peak_gib=peak_gib)
+    print(f"torus_grid: {res}x{res} {BOUNCES} bounces through "
+          f"render_sample_fast | BVH-kernel launches {launches}, dense-kernel "
+          f"launches {dense_launches} | {steps} wavefront steps | mean "
+          f"{mean:.4f} | frame {out['frame_ms']:.1f} ms, "
+          f"{out['rays_per_s'] / 1e6:.2f} M rays/s (median of 3; without the "
+          f"pool sort {out['unsorted_frame_ms']:.1f} ms) | gate vs "
+          f"plain trace at {small}x{small}: {flips:.4f} flips | peak "
+          f"{peak_gib:.3f} GiB | {os.path.relpath(png, REPO)}", flush=True)
+    return out
+
+
+def _kernel_row(name, source, replaces, launches, result) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"bifrost3d_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": result["max_abs_err"], "ms": result["ms"],
+            "plain_ms": result["plain_ms"], "bound_ms": result["bound_ms"],
+            "bound_by": result["bound_by"], "library_ms": None}
+
+
 def main() -> int:
     device_phase()
     device = torch.device("cuda", 0)
     build_phase()
     rng_phase(device)
-    kernels = kernel_phase(device)
+    soups = _soups(device)
+    kernels = kernel_phase(device, soups)
     sliced = slice_phase(device)
     scenes = megakernel_phase(device)
     main = progressive_phase(device)
-    cornell, mega = kernels["cornell"], scenes["CornellBox"]
-    print(json.dumps({"kernels": [{
-        "name": "dense_intersect",
-        "route": "cuda",
-        "source": "bifrost3d_tpu_torch/csrc/dense_intersect.cu",
-        "replaces": "bifrost3d_tpu/geometry/pallas_intersect.py:74",
-        "launches": sliced["launches"],
-        "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
-        "ms": cornell["ms"],
-        "plain_ms": cornell["plain_ms"],
-    }, {
-        "name": "mesh_megakernel",
-        "route": "cuda",
-        "source": "bifrost3d_tpu_torch/csrc/mesh_megakernel.cu",
-        "replaces": "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
-        "launches": main["launches"],
-        "max_abs_err": mega["max_abs_err"],
-        "flip_share": max(s["flips"] for s in scenes.values()),
-        "ms": mega["ms"],
-        "plain_ms": mega["plain_ms"],
-    }]}))
+    smallpt = smallpt_kernel_phase(device)
+    bvh = bvh_kernel_phase(device, soups["sphere"])
+    path_a = smallpt_path_phase(device)
+    path_b = torus_path_phase(device)
+    # No single PyTorch call computes any of the four: library_ms is null.
+    print(json.dumps({"kernels": [
+        _kernel_row("dense_intersect", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    sliced["launches"], kernels["cornell"]),
+        _kernel_row("mesh_megakernel", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
+                    main["launches"], scenes["CornellBox"]),
+        _kernel_row("bvh_intersect", "bvh_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_bvh.py:240",
+                    path_b["launches"], bvh["incoherent"]),
+        _kernel_row("smallpt_megakernel", "smallpt_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_smallpt.py:137",
+                    path_a["launches"], smallpt),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,13 +11,23 @@ import numpy as np
 import pytest
 import torch
 
+from bifrost3d_tpu_torch.apps import smallpt_app
 from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES, create_cornell_box
+from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
 from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
-from bifrost3d_tpu_torch.geometry.creation import make_sphere
+from bifrost3d_tpu_torch.geometry import traverse
+from bifrost3d_tpu_torch.geometry.creation import make_plane, make_sphere
 from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
 from bifrost3d_tpu_torch.integrator import path_tracer as pt
+from bifrost3d_tpu_torch.sampling import hashes
 from bifrost3d_tpu_torch.sampling.sobol import path_rng_4d
-from torch_parity import assert_kernel_matches_plain, assert_statistical_gate
+from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
+from torch_parity import (
+    assert_kernel_matches_plain,
+    assert_smallpt_gate,
+    assert_statistical_gate,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +162,174 @@ def test_megakernel_failed_launch_raises(cuda, monkeypatch):
     assert mega.launch_count == before
     with pytest.raises(ValueError, match="n_tris"):
         mega.mesh_megakernel_cuda(*args[:-1], args[-1]._replace(n_tris=2000))
+
+
+# -- the SmallPT megakernel --------------------------------------------------------
+
+@pytest.mark.parametrize("accumulation", [1, 2, 7])
+def test_smallpt_kernel_matches_plain_version(cuda, accumulation):
+    """Same LCG bits on both sides; nvcc's FMA contraction flips a few
+    grazing hits on the 1e5-radius walls and roulette draws (0.63% of
+    pixels at 1024 x 768 on an H100), so the gate is that of
+    tests/test_smallpt.py: under 2% of pixels off by > 1e-4, means within
+    2% (at 12,288 pixels one flipped path to the light moves the mean by
+    0.1%)."""
+    scene = smallpt_scene(device=cuda)
+    before = spt.launch_count
+    got = spt.render_smallpt_megakernel(scene, 128, 96, accumulation)
+    torch.cuda.synchronize()
+    assert spt.launch_count == before + 1
+    assert got.shape == (96, 128, 3) and got.device.type == "cuda"
+    ref = spt.smallpt_megakernel_reference(scene, 128, 96, accumulation)
+    assert_smallpt_gate(got.cpu().numpy(), ref.cpu().numpy())
+    assert float(got.mean()) > 0.1
+
+
+@pytest.mark.parametrize("accumulation", [1, 2, 7])
+def test_smallpt_rng_is_bit_exact(cuda, accumulation):
+    rng = np.random.default_rng(accumulation)
+    width, steps = 1024, 32
+    x = torch.tensor(rng.integers(0, width, 4096), device=cuda)
+    y = torch.tensor(rng.integers(0, 768, 4096), device=cuda)
+    states, floats = spt.rng_probe(x, y, width, accumulation, steps)
+    index = hashes.u32((y * 2 + (accumulation >> 1) % 2) * (width * 2)
+                       + x * 2 + accumulation % 2)
+    state = hashes.jenkins_hash(index) ^ int(
+        hashes.reverse_bits(hashes.u32(accumulation)))
+    for k in range(steps):
+        state, u = hashes.lcg_next(state)
+        assert torch.equal(states[k], state)
+        assert torch.equal(floats[k].view(torch.int32), u.view(torch.int32))
+
+
+def test_smallpt_failed_launch_raises(cuda, monkeypatch):
+    scene = smallpt_scene(device=cuda)
+    before = spt.launch_count
+    # 2048 threads per block is past the card's limit of 1024.
+    monkeypatch.setattr(spt, "_THREADS", 2048)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        spt.smallpt_megakernel_cuda(scene, 16, 16, 1)
+    assert spt.launch_count == before
+    many = type(scene)(*(torch.cat([f] * 8) for f in scene))    # 72 spheres
+    with pytest.raises(ValueError, match="spheres outside"):
+        spt.smallpt_megakernel_cuda(many, 16, 16, 1)
+
+
+def test_smallpt_app_on_card(cuda):
+    before = spt.launch_count
+    img = smallpt_app.render_progressive(64, 48, 4, quiet=True, device=cuda)
+    assert spt.launch_count == before + 4      # one launch per frame
+    assert img.device.type == "cuda" and img.shape == (48, 64, 3)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.1
+
+
+# -- the BVH trace kernel -----------------------------------------------------------
+
+def _soup_16k(device):
+    """The 16,130-triangle sphere + floor soup both trace kernels can take."""
+    sphere = make_sphere(radius=0.5, slices=128, stacks=64)
+    floor = make_plane(size=4.0)
+    floor = floor._replace(positions=floor.positions
+                           + np.asarray([0, -0.5, 0], np.float32))
+    soup = np.concatenate([m.positions[m.indices] for m in (sphere, floor)])
+    return torch.tensor(soup, dtype=torch.float32, device=device)
+
+
+def _assert_hits_agree(got, ref):
+    """prim equal except between candidates whose t agree to 1e-6
+    relative (ties), on >= 99.9% of rays; t within rtol 1e-5 where equal."""
+    same = got.prim == ref.prim
+    both = (got.prim >= 0) & (ref.prim >= 0)
+    tie = ~same & both & ((got.t - ref.t).abs() <= 1e-6 * ref.t.abs())
+    assert float((same | tie).float().mean()) >= 0.999
+    hit = same & both
+    assert int(hit.sum()) > hit.numel() // 10
+    torch.testing.assert_close(got.t[hit], ref.t[hit], rtol=1e-5, atol=0.0)
+
+
+@pytest.fixture(scope="module")
+def packed_soup():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    soup = _soup_16k(torch.device("cuda"))
+    return soup, hier.pack_hierarchical(soup)
+
+
+@pytest.mark.parametrize("live", [None, 1000])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_bvh_kernel_matches_plain_version(cuda, packed_soup, bounded, live):
+    _, packed = packed_soup
+    o, d, t_max = _rays(5000, 4, -0.9, 0.9, cuda)
+    bound = t_max if bounded else float("inf")
+    live_count = None if live is None else torch.tensor(live, device=cuda)
+    before = hier.launch_count
+    got = hier.hierarchical_intersect(packed, o, d, 1e-4, bound,
+                                      live_count=live_count)
+    torch.cuda.synchronize()
+    assert hier.launch_count == before + 1
+    ref = hier.hierarchical_intersect_reference(packed, o, d, 1e-4, bound,
+                                                live_count=live)
+    rows = slice(0, live)
+    _assert_hits_agree(type(got)(*(f[rows] for f in got)),
+                       type(ref)(*(f[rows] for f in ref)))
+    if live is not None:
+        assert bool((got.prim[live:] == -1).all())
+        assert bool(torch.isinf(got.t[live:]).all())
+
+
+def test_bvh_kernel_any_hit_and_sorted(cuda, packed_soup):
+    _, packed = packed_soup
+    o, d, t_max = _rays(5000, 5, -0.9, 0.9, cuda)
+    ref = hier.hierarchical_intersect_reference(packed, o, d, 1e-4, t_max)
+    occluded = hier.hierarchical_intersect(packed, o, d, 1e-4, t_max,
+                                           any_hit=True).prim >= 0
+    assert float((occluded == (ref.prim >= 0)).float().mean()) >= 0.999
+    assert 0 < int(occluded.sum()) < 5000
+    srt = hier.hierarchical_intersect_sorted(packed, o, d, 1e-4, t_max)
+    _assert_hits_agree(srt, ref)
+
+
+def test_bvh_kernel_matches_dense_kernel(cuda, packed_soup):
+    soup, packed = packed_soup
+    comp, n = dense.pack_triangles(soup)
+    assert n == 16130
+    o, d, _ = _rays(5000, 6, -0.9, 0.9, cuda)
+    ref = dense.pallas_intersect(comp, n, o, d, 1e-4, float("inf"))
+    got = hier.hierarchical_intersect(packed, o, d, 1e-4, float("inf"))
+    _assert_hits_agree(got, ref)
+
+
+def test_bvh_kernel_failed_launch_raises(cuda, packed_soup, monkeypatch):
+    _, packed = packed_soup
+    o, d, _ = _rays(64, 7, -0.9, 0.9, cuda)
+    before = hier.launch_count
+    monkeypatch.setattr(hier, "_THREADS", 2048)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hier.hierarchical_intersect_cuda(packed, o, d, 1e-4, 1.0)
+    assert hier.launch_count == before
+    monkeypatch.undo()
+    with pytest.raises(TypeError, match="float32"):
+        hier.hierarchical_intersect_cuda(packed, o.double(), d.double(),
+                                         1e-4, 1.0)
+    with pytest.raises(ValueError, match=r"\[T, 12\]"):
+        hier.hierarchical_intersect_cuda(
+            packed._replace(tri_components=packed.tri_components[:, :9]),
+            o, d, 1e-4, 1.0)
+
+
+def test_bvh_path_render_on_card_matches_cpu(cuda, monkeypatch):
+    """A small scene forced onto the BVH path: the pooled wavefront on the
+    card (BVH kernel, sorted pool, live prefix as a device tensor) against
+    the same frame on the CPU (plain traversal)."""
+    monkeypatch.setattr(traverse, "PALLAS_MAX_TRIS", 100)
+    res = 64
+    scene, cam = TEST_SCENES["coated"](device=cuda)
+    cpu_scene, cpu_cam = TEST_SCENES["coated"](device="cpu")
+    assert scene.tri_clustered is not None and scene.tri_components is None
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    assert settings.sort_rays_every == 1
+    before, dense_before = hier.launch_count, dense.launch_count
+    img = pt.render_sample_pooled(scene, cam, res, res, 1, settings)
+    assert hier.launch_count > before and dense.launch_count == dense_before
+    ref = pt.render_sample_pooled(cpu_scene, cpu_cam, res, res, 1, settings)
+    assert_statistical_gate(img.cpu().numpy(), ref.numpy())

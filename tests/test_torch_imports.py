@@ -26,8 +26,28 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bifrost3d_tpu", "triton"))
 print(len(names), bad)
-assert len(names) >= 30, names
+assert len(names) >= 48, names
+for new in ("apps.smallpt_app", "integrator.smallpt", "integrator.smallvpt",
+            "integrator.pallas_smallpt", "scene.spheres", "scene.media",
+            "math.morton", "geometry.bvh", "geometry.native",
+            "geometry.pallas_bvh"):
+    assert pkg.__name__ + "." + new in names, new
 assert not bad, bad
+"""
+
+_NATIVE_BUILD = """
+import os, sys
+from bifrost3d_tpu_torch.geometry import native
+opened = []
+sys.addaudithook(lambda event, args: opened.append(str(args[0]))
+                 if event == "open" else None)
+available = native.native_available()
+jax_dir = os.path.join(native.REPO_DIR, "bifrost3d_tpu") + os.sep
+bad = [p for p in opened if os.path.abspath(p).startswith(jax_dir)]
+print(available, native.library_path(), bad)
+assert not bad, bad
+assert native.library_path().startswith(os.path.join(native.REPO_DIR, "build"))
+assert "jax" not in sys.modules and "bifrost3d_tpu" not in sys.modules
 """
 
 
@@ -39,6 +59,11 @@ def _run(args, cwd):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     proc = _run(["-c", _IMPORT_ALL], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_builder_opens_nothing_of_the_jax_package():
+    proc = _run(["-c", _NATIVE_BUILD], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

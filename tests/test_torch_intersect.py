@@ -96,7 +96,7 @@ def test_plain_version_matches_pallas_interpret(problem, case):
 
 def test_plain_version_matches_xla_brute_force(problem):
     tris, o, d, t_max, comp, refs = problem
-    got = ttr.intersect_scene(torch.tensor(tris), torch.tensor(o),
+    got = ttr.intersect_scene(None, torch.tensor(tris), torch.tensor(o),
                               torch.tensor(d), 1e-4, torch.tensor(t_max),
                               tri_components=torch.tensor(comp))
     _assert_hits_match(got, refs["brute"])
@@ -108,7 +108,7 @@ def test_plain_version_matches_xla_brute_force(problem):
 
 def test_any_hit_matches_jax(problem):
     tris, o, d, t_max, comp, _ = problem
-    got = ttr.intersect_scene_any(torch.tensor(tris), torch.tensor(o),
+    got = ttr.intersect_scene_any(None, torch.tensor(tris), torch.tensor(o),
                                   torch.tensor(d), 1e-4, torch.tensor(t_max),
                                   tri_components=torch.tensor(comp))
     ref = jtr.intersect_scene_any(None, jnp.asarray(tris), jnp.asarray(o),
@@ -134,7 +134,8 @@ def test_dispatch_by_device():
     tris = torch.tensor(_soup(8, 3))
     o = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="meta"):
-        ttr.intersect_scene(tris, o, o, tri_components=tpi.pack_triangles(tris)[0])
+        ttr.intersect_scene(None, tris, o, o,
+                            tri_components=tpi.pack_triangles(tris)[0])
     with pytest.raises(ValueError, match="meta"):
         tpi.pallas_intersect(tpi.pack_triangles(tris)[0], 8, o, o, 1e-4, 1.0)
 

@@ -18,9 +18,38 @@ def _to_numpy(value):
 
 
 def scene_arrays(scene) -> dict:
-    """A JAX RenderScene as the dict ``render_scene_from_numpy`` takes."""
-    return {k: _to_numpy(v) for k, v in scene._asdict().items()
-            if k != "bvh"}
+    """A JAX RenderScene as the dict ``render_scene_from_numpy`` takes, its
+    BVH included (so both renderers can trace the same tree); the JAX
+    packings ``tri_components`` (same layout in the port) and
+    ``tri_clustered`` (the port packs its own) ride along as they are."""
+    return {k: _to_numpy(v) for k, v in scene._asdict().items()}
+
+
+def sphere_scene_arrays(scene) -> dict:
+    """A JAX SphereScene as the dict ``sphere_scene_from_numpy`` takes."""
+    return _to_numpy(scene)
+
+
+def bvh_arrays(bvh) -> dict:
+    """A JAX BVH as the dict ``BVH.from_numpy`` takes."""
+    return _to_numpy(bvh)
+
+
+def assert_smallpt_gate(img, ref, flip_budget=0.02, mean_budget=0.02):
+    """The SmallPT frame gate of tests/test_smallpt.py:111-127: fewer than
+    ``flip_budget`` of the pixels differ by more than 1e-4 (a grazing hit on
+    a 1e5-radius wall or a roulette draw that float reassociation flips
+    gives a different but equally valid path), and, with a ``mean_budget``,
+    the means agree within it."""
+    img = np.asarray(img)
+    ref = np.asarray(ref)
+    assert img.shape == ref.shape
+    assert np.isfinite(img).all()
+    flips = float((np.abs(img - ref).max(axis=-1) > 1e-4).mean())
+    assert flips < flip_budget, flips
+    if mean_budget is not None:
+        np.testing.assert_allclose(img.mean(), ref.mean(), rtol=mean_budget)
+    return flips
 
 
 def camera_arrays(camera) -> dict:
