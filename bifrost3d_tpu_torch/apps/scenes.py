@@ -14,7 +14,12 @@ built-in scenes leave out. It also holds ``torus_grid``, the JAX package's
 own large scene (``bench.py::bench_torus_grid``: an 8 × 8 grid of tori,
 589,824 triangles) given the material, light and camera a frame needs: it
 is over the dense kernel's 65,536 triangles and renders through the BVH
-trace kernel.
+trace kernel. Between the dense megakernel's 1,024 triangles and the
+megakernel's cap of 262,144 sit ``mid_size`` (the JAX package's
+``tests/test_pallas_mesh.py::_mid_size_scene``, 2,494 triangles), the three
+``hier_bridge`` scenes of ``bench.py::bench_hier_bridge`` (3,054, 14,606 and
+49,678 triangles) and ``torus_grid_28``, the first 28 tori of the grid
+(258,048 triangles): they render through the megakernel's BVH branch.
 """
 
 from __future__ import annotations
@@ -251,14 +256,17 @@ TORUS_GRID_EYE = (0.0, 8.0, -30.0)
 
 
 def torus_grid_mesh(grid: int = 8, major_segments: int = 96,
-                    minor_segments: int = 48):
+                    minor_segments: int = 48, count=None):
     """``grid`` × ``grid`` tori 3 units apart, each lifted by a seeded
     uniform(-1, 1): the transforms and seed of
-    ``bench.py::bench_torus_grid``. The defaults give 589,824 triangles."""
+    ``bench.py::bench_torus_grid``. The defaults give 589,824 triangles;
+    ``count`` keeps the first that many tori only."""
     parts = []
     rng = np.random.default_rng(0)
     for i in range(grid):
         for j in range(grid):
+            if count is not None and len(parts) >= count:
+                break
             m = make_torus(major_segments=major_segments,
                            minor_segments=minor_segments)
             matrix = np.asarray([[1, 0, 0, i * 3 - 12],
@@ -270,10 +278,11 @@ def torus_grid_mesh(grid: int = 8, major_segments: int = 96,
 
 def create_torus_grid_scene(aspect=1.0, grid: int = 8,
                             major_segments: int = 96,
-                            minor_segments: int = 48, *, device):
+                            minor_segments: int = 48, count=None, *, device):
     """The torus grid under one sphere light above its centre, one Default
-    material, seen from the bench's eye looking at the grid's centre."""
-    mesh = torus_grid_mesh(grid, major_segments, minor_segments)
+    material, seen from the bench's eye looking at the grid's centre.
+    ``count`` keeps the first that many tori; light and camera stay."""
+    mesh = torus_grid_mesh(grid, major_segments, minor_segments, count)
     centre = (3.0 * (grid - 1) / 2 - 12.0, 0.0, 3.0 * (grid - 1) / 2 - 12.0)
     mats = MaterialArray.build([dielectric((0.7, 0.6, 0.5), 0.6)],
                                device=device)
@@ -287,12 +296,74 @@ def create_torus_grid_scene(aspect=1.0, grid: int = 8,
     return scene, camera
 
 
+def create_torus_grid_28_scene(*, device):
+    """The first 28 tori of the grid: 258,048 triangles, just under the
+    megakernel's cap."""
+    return create_torus_grid_scene(count=28, device=device)
+
+
+def create_hier_bridge_scene(slices: int = 128, stacks: int = 80,
+                             extra_tori: int = 4, second_sphere=None, *,
+                             device):
+    """``bench.py::bench_hier_bridge``'s scenes: a floor, a metal and a
+    blue sphere of ``slices`` × ``stacks``, a box and ``extra_tori`` tori
+    under one sphere light. (40, 20, 0), (64, 40, 2) and (128, 80, 4) give
+    3,054, 14,606 and 49,678 triangles. ``second_sphere`` = (slices,
+    stacks) tessellates the blue sphere on its own."""
+    second = second_sphere or (slices, stacks)
+    materials = [dielectric((0.7, 0.7, 0.7), 0.6),
+                 metal((0.95, 0.64, 0.54), 0.3),
+                 dielectric((0.2, 0.4, 0.8), 0.2)]
+    instances = [
+        (make_plane(size=4.0), 0, _trs((0, -0.5, 0))),
+        (make_sphere(slices=slices, stacks=stacks), 1,
+         _trs((-0.5, 0.0, 0.2))),
+        (make_sphere(slices=second[0], stacks=second[1]), 2,
+         _trs((0.6, -0.1, -0.2))),
+        (make_box(size=0.5), 0, _trs((0.0, -0.3, -0.8)))]
+    for i in range(extra_tori):
+        instances.append((make_torus(0.35, 0.12, 48, 24), 1,
+                          _trs((-1.2 + 0.8 * i, 0.3, -0.6))))
+    lights = [{"kind": LIGHT_SPHERE, "position": (0.0, 1.6, 0.5),
+               "radius": 0.2, "power": (40.0,) * 3}]
+    scene = build_render_scene(
+        instances, MaterialArray.build(materials, device=device),
+        LightArray.build(lights, device=device), device=device)
+    camera = perspective_camera(eye=(0.0, 0.6, 2.4), target=(0.0, -0.1, 0.0),
+                                device=device)
+    return scene, camera
+
+
+def create_mid_size_scene(*, device):
+    """``tests/test_pallas_mesh.py::_mid_size_scene``: the bridge scene with
+    a 40 × 20 and a 32 × 16 sphere and no torus, 2,494 triangles."""
+    return create_hier_bridge_scene(40, 20, 0, second_sphere=(32, 16),
+                                    device=device)
+
+
+HIER_BRIDGE_SIZES = {"hier_bridge_3k": ((40, 20, 0), 3054),
+                     "hier_bridge_15k": ((64, 40, 2), 14606),
+                     "hier_bridge_50k": ((128, 80, 4), 49678)}
+
+
+def _hier_bridge(name):
+    def build(*, device):
+        args, n_tris = HIER_BRIDGE_SIZES[name]
+        scene, camera = create_hier_bridge_scene(*args, device=device)
+        assert int(scene.tri_verts.shape[0]) == n_tris, scene.tri_verts.shape
+        return scene, camera
+    return build
+
+
 TEST_SCENES = {"coated": create_coated_scene,
                "spot": create_spot_light_scene,
                "diffuse": create_diffuse_scene,
                "emissive": create_emissive_scene,
                "directional": create_directional_scene,
-               "torus_grid": create_torus_grid_scene}
+               "torus_grid": create_torus_grid_scene,
+               "mid_size": create_mid_size_scene,
+               **{name: _hier_bridge(name) for name in HIER_BRIDGE_SIZES},
+               "torus_grid_28": create_torus_grid_28_scene}
 
 SCENES = {"CornellBox": create_cornell_box,
           "Veach": create_veach_scene,

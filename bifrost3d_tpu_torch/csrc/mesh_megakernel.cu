@@ -1,11 +1,12 @@
 // The mesh path tracer as one kernel: a whole progressive sample per pixel,
 // for Hopper (sm_90a).
 //
-// Replaces the dense branch of the TPU kernel
-// bifrost3d_tpu/integrator/pallas_mesh.py::_make_kernel (driven by
-// render_mesh_megakernel / _render_packed). It computes what that kernel
-// computes for every pixel lane, iteration by iteration in the same order:
-// the closest hit of a dense Möller–Trumbore trace; the nearest sphere-light
+// Replaces the TPU kernel bifrost3d_tpu/integrator/pallas_mesh.py
+// ::_make_kernel (driven by render_mesh_megakernel / _render_packed): its
+// dense branch (at most 1,024 triangles) and its BVH branch (_hier_tracers,
+// up to 262,144 triangles). It computes what that kernel computes for every
+// pixel lane, iteration by iteration in the same order: the closest hit of
+// the trace (dense Möller–Trumbore, or a BVH walk); the nearest sphere-light
 // or spot-disk hit; background tint on a miss; the light's radiance with
 // balance-heuristic MIS on a light hit; attributes of the hit triangle;
 // passthrough of a culled back face; Default shading (EON diffuse + GGX
@@ -35,20 +36,44 @@
 //     and the rho tables by index (a 4-tap bilinear fetch);
 //   - only the selected branch of each select is computed (the chosen light,
 //     the chosen lobe, the lane's shading model);
-//   - templates cover the coat lobe and the Diffuse model; light kinds are a
-//     runtime switch, uniform across a warp.
+//   - templates cover the coat lobe, the Diffuse model and the trace (kHier);
+//     light kinds are a runtime switch, uniform across a warp.
 //
-// The trace keeps the lowest triangle index on equal t (strict '<' over
-// ascending indices), as the TPU kernel's column-min does. RNG is bit-exact
+// The BVH branch (kHier). The TPU kernel walks a BVH of 128-triangle clusters
+// once per (8, 128) pixel block with a scalar stack, copies each entered leaf
+// and its attribute columns into fast memory, tests it densely and merges the
+// winner's attributes by a one-hot matrix product; dead lanes enter with
+// t_max = 0. None of that carries over. Here each thread walks the port's
+// triangle BVH (geometry/pallas_bvh.py::HierTriangles, leaves of at most 4
+// triangles) in global memory with a private stack — the walk of
+// csrc/bvh_walk.cuh, shared with csrc/bvh_intersect.cu — so the dense
+// instantiations keep their registers and their shared-memory table, and a
+// dead lane has left its loop and traces nothing. After a closest hit the
+// attributes are read by SLOT: the wrapper packs the attribute table in the
+// tree's leaf order (as the TPU kernel's does), so the hit's slot indexes it
+// directly, neighbouring hits read neighbouring columns, and no slot → id
+// table is read. Shadow rays take the walk's any-hit mode with
+// t_max = dist * 0.9999. Which thread renders which pixel is the wrapper's
+// choice (the pixel hash comes from x and y): it hands the lanes over in
+// small 2-D tiles, one per warp, so that a warp's rays stay close in the
+// tree; the TPU kernel's 32 x 32 tile remap is the same idea at its size.
+//
+// Ties: the dense trace keeps the lowest triangle index on equal t (strict
+// '<' over ascending indices), as the TPU kernel's column-min does; the BVH
+// walk keeps the first-found hit, leaves visited near-first, where the TPU
+// kernel keeps the lowest slot of a 128-triangle cluster. RNG is bit-exact
 // with the JAX package: uint32 hashes, __brev for the bit reversal, and
 // __uint2float_rn(x) * 2^-32 for the conversion, which the TPU kernel's
 // _u2f is defined to equal. megakernel_rng_probe exports the RNG so that a
 // test can hold it bit for bit against the port's torch path_rng_4d.
 //
-// What bounds it on an H100: per live lane-iteration the trace streams the
-// whole triangle table (~50 flops per test, two traces per iteration), so
+// What bounds it on an H100: per live lane-iteration the dense trace streams
+// the whole triangle table (~50 flops per test, two traces per iteration), so
 // at hundreds of triangles the kernel is FP32-issue-bound in the trace; at
 // Cornell's 34 triangles the shading math (transcendentals, RIS) dominates.
+// The BVH branch is bound by memory latency: some tens of dependent 64-byte
+// node reads and a few 48-byte triangle reads per ray through L2/L1, rays of
+// a warp diverging after the first bounce.
 // Divergence (paths end at different iterations; lanes pick different
 // lights and lobes) and register pressure (spills are reported by ptxas)
 // bound the achieved rate. This simple design does nothing about either:
@@ -63,6 +88,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bvh_walk.cuh"
 
 namespace {
 
@@ -90,8 +117,10 @@ constexpr int kSpot = 1;   // any other kind is directional
 }  // namespace
 
 struct MegakernelParams {
-  const float* tri;          // [t_pad, 16]: v0 0-2, e1 3-5, e2 6-8
-  const float* attr;         // [24, t_pad]
+  const float* tri;          // dense: [t_pad, 16]: v0 0-2, e1 3-5, e2 6-8;
+                             // hier: [t_pad, 12] records in slot order
+  const float* nodes;        // hier: [n_nodes, 8] records; dense: unused
+  const float* attr;         // [24, t_pad] (hier: columns in slot order)
   const float* mats;         // [n_mats, 16]
   const float* lights;       // [>= n_lights, 12]
   const float* rho_ggx;      // [32, 32], [roughness][cos_theta]
@@ -109,7 +138,7 @@ struct MegakernelParams {
   int n_iters, max_bounce, ris_count;
   float firefly_clamp, delta_light_clamp;
   float ris_offsets[kMaxRis * 4];
-  int has_coat, has_diffuse;
+  int has_coat, has_diffuse, hier;
 };
 
 namespace {
@@ -814,11 +843,13 @@ constexpr int kMatCols = 16;
 constexpr int kLightCols = 12;
 constexpr int kDimNee = 1, kDimBsdf = 2, kPerBounce = 8;
 
-template <bool kCoat, bool kDiffuse>
+// kHier: the trace walks the BVH in global memory, and no triangle is staged.
+template <bool kCoat, bool kDiffuse, bool kHier>
 __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   extern __shared__ float smem[];
-  float* s_tri = smem;                               // [n_tris, 9]
-  float* s_rho_ggx = s_tri + 9 * p.n_tris;           // [32, 32]
+  const int n_staged = kHier ? 0 : p.n_tris;
+  float* s_tri = smem;                               // [n_staged, 9]
+  float* s_rho_ggx = s_tri + 9 * n_staged;           // [32, 32]
   float* s_rho_fres = s_rho_ggx + kRho * kRho;       // [32, 32]
   float* s_mats = s_rho_fres + kRho * kRho;          // [n_mats, 16]
   float* s_lights = s_mats + kMatCols * p.n_mats;    // [n_lights, 12]
@@ -826,7 +857,7 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   uint32_t* s_sobol = reinterpret_cast<uint32_t*>(s_offsets + 4 * kMaxRis);  // [4, 32]
   int* s_kinds = reinterpret_cast<int*>(s_sobol + 128);   // [8] light kinds
 
-  for (int k = threadIdx.x; k < 9 * p.n_tris; k += blockDim.x)
+  for (int k = threadIdx.x; k < 9 * n_staged; k += blockDim.x)
     s_tri[k] = p.tri[(k / 9) * 16 + k % 9];
   for (int k = threadIdx.x; k < kRho * kRho; k += blockDim.x) {
     s_rho_ggx[k] = p.rho_ggx[k];
@@ -853,11 +884,19 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   uint32_t bounce = 0u;
   float rays = 0.0f;
   bool active = p.active[i] > 0.0f;
+  const float4* nodes4 = reinterpret_cast<const float4*>(p.nodes);
+  const float4* tris4 = reinterpret_cast<const float4*>(p.tri);
 
   for (int it = 0; it < p.n_iters && active; ++it) {
     rays += 2.0f;
     float t_hit, hu, hv;
-    const int prim = trace_closest(s_tri, p.n_tris, o, d, eps, t_hit, hu, hv);
+    int prim;
+    if constexpr (kHier) {
+      const bvh_walk::Ray ray = bvh_walk::make_ray(o.x, o.y, o.z, d.x, d.y, d.z, eps);
+      prim = bvh_walk::walk<false>(nodes4, tris4, ray, kBig, t_hit, hu, hv);
+    } else {
+      prim = trace_closest(s_tri, p.n_tris, o, d, eps, t_hit, hu, hv);
+    }
 
     float t_light = kBig;
     int light_idx = -1;
@@ -993,8 +1032,18 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
       if (max3(l_radiance) > 0.0f) {
         const float side = dot(res_dir, gf) >= 0.0f ? 1.0f : -1.0f;
         const V3 shadow_origin = offset_ray_origin(position, scale(gf, side));
-        if (!trace_any(s_tri, p.n_tris, shadow_origin, res_dir, eps, res_dist * 0.9999f))
-          radiance = add(radiance, l_radiance);
+        bool occluded;
+        if constexpr (kHier) {
+          const bvh_walk::Ray ray = bvh_walk::make_ray(shadow_origin.x, shadow_origin.y,
+                                                       shadow_origin.z, res_dir.x, res_dir.y,
+                                                       res_dir.z, eps);
+          float t_any, u_any, v_any;
+          occluded = bvh_walk::walk<true>(nodes4, tris4, ray, res_dist * 0.9999f, t_any, u_any,
+                                          v_any) >= 0;
+        } else {
+          occluded = trace_any(s_tri, p.n_tris, shadow_origin, res_dir, eps, res_dist * 0.9999f);
+        }
+        if (!occluded) radiance = add(radiance, l_radiance);
       }
     }
 
@@ -1034,12 +1083,13 @@ __global__ void rng_probe_kernel(const uint32_t* __restrict__ pixel_hash,
   for (int d = 0; d < 4; ++d) out[4 * i + d] = u[d];
 }
 
-template <bool kCoat, bool kDiffuse>
+template <bool kCoat, bool kDiffuse, bool kHier>
 int launch(const MegakernelParams& p, int threads, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (9 * p.n_tris + 2 * kRho * kRho + kMatCols * p.n_mats +
+  const int n_staged = kHier ? 0 : p.n_tris;
+  const size_t smem = sizeof(float) * (9 * n_staged + 2 * kRho * kRho + kMatCols * p.n_mats +
                                        kLightCols * p.n_lights + 4 * kMaxRis) +
                       sizeof(uint32_t) * 128 + sizeof(int) * kMaxLights;
-  auto kernel = mesh_megakernel_kernel<kCoat, kDiffuse>;
+  auto kernel = mesh_megakernel_kernel<kCoat, kDiffuse, kHier>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1048,6 +1098,16 @@ int launch(const MegakernelParams& p, int threads, cudaStream_t stream) {
   const int blocks = (p.n_pixels + threads - 1) / threads;
   kernel<<<blocks, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kHier>
+int launch_models(const MegakernelParams& p, int threads, cudaStream_t s) {
+  if (p.has_coat) {
+    return p.has_diffuse ? launch<true, true, kHier>(p, threads, s)
+                         : launch<true, false, kHier>(p, threads, s);
+  }
+  return p.has_diffuse ? launch<false, true, kHier>(p, threads, s)
+                       : launch<false, false, kHier>(p, threads, s);
 }
 
 }  // namespace
@@ -1060,10 +1120,7 @@ extern "C" int mesh_megakernel(const MegakernelParams* params, int threads, void
   if (p.n_pixels <= 0) return 0;
   if (threads <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.has_coat) {
-    return p.has_diffuse ? launch<true, true>(p, threads, s) : launch<true, false>(p, threads, s);
-  }
-  return p.has_diffuse ? launch<false, true>(p, threads, s) : launch<false, false>(p, threads, s);
+  return p.hier ? launch_models<true>(p, threads, s) : launch_models<false>(p, threads, s);
 }
 
 // path_rng_4d(accumulation, pixel_hash[i], dims[i]) → out[i, 0:4].

@@ -240,6 +240,16 @@ def _build_bvh_arrays(tri_min, tri_max, centroids, max_leaf: int) -> BVH:
                         node_a[:n_nodes], node_cnt[:n_nodes], prim_order)
 
 
+def build_soup_bvh(tri_verts) -> BVH:
+    """The BVH over a [t, 3, 3] soup (numpy array or tensor on any device),
+    built on the host: every triangle its own three vertices."""
+    if isinstance(tri_verts, torch.Tensor):
+        tri_verts = tri_verts.detach().cpu().numpy()
+    flat = np.asarray(tri_verts).reshape(-1, 3)
+    return build_bvh(flat, np.arange(flat.shape[0],
+                                     dtype=np.int32).reshape(-1, 3))
+
+
 def _check_stack_depth(bvh: BVH) -> BVH:
     """Refuse to hand back a tree deeper than the traversal stack.
 

@@ -20,10 +20,13 @@ import ctypes
 import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from bifrost3d_tpu_torch.geometry.bvh import BVH, STACK_SIZE, build_bvh
+from bifrost3d_tpu_torch.geometry.bvh import (
+    BVH,
+    STACK_SIZE,
+    build_soup_bvh,
+)
 from bifrost3d_tpu_torch.geometry.pallas_intersect import _check, _finish
 from bifrost3d_tpu_torch.geometry.traverse import (
     Hit,
@@ -81,9 +84,7 @@ def pack_hierarchical(tri_verts, bvh: BVH | None = None) -> HierTriangles:
     device = tv.device
     t = int(tv.shape[0])
     if bvh is None:
-        flat = tv.reshape(-1, 3).cpu().numpy()
-        idx = np.arange(flat.shape[0], dtype=np.int32).reshape(-1, 3)
-        bvh = build_bvh(flat, idx)
+        bvh = build_soup_bvh(tv)
     bvh = bvh.to(device)
     if bvh.prim_indices.shape[0] != t:
         raise ValueError(f"the BVH orders {bvh.prim_indices.shape[0]} "

@@ -13,9 +13,12 @@ slowest one is done. It is the plain version of the BVH trace kernel
 Scene queries dispatch on what the scene carries and on the device of the
 tensors, never on global state:
 
-- a scene with a BVH packing (``tri_clustered``, over ``PALLAS_MAX_TRIS``
-  triangles) → ``pallas_bvh.hierarchical_intersect``: the CUDA BVH kernel
-  on CUDA tensors, its plain version on CPU tensors;
+- a scene with a packing in ``tri_clustered`` → by the packing's type:
+  ``VmemTriangles`` → ``pallas_bvh_vmem.vmem_intersect``, ``HierTriangles``
+  (the default over ``PALLAS_MAX_TRIS`` triangles) →
+  ``pallas_bvh.hierarchical_intersect``, else (``ClusteredTriangles``) →
+  ``pallas_clustered.clustered_intersect``; each is its CUDA kernel on CUDA
+  tensors and its plain version on CPU tensors;
 - a scene with the dense table (``tri_components``) →
   ``pallas_intersect.pallas_intersect``: the CUDA dense kernel on CUDA
   tensors, its plain version on CPU tensors;
@@ -117,20 +120,34 @@ def intersect_scene(bvh: Optional[BVH], triangles, origin, direction,
     """Nearest hit of rays [r, 3] against the scene's triangle soup (with
     ``any_hit`` only ``prim >= 0`` is defined).
 
-    ``tri_clustered`` is the BVH packing of
-    :func:`~bifrost3d_tpu_torch.geometry.pallas_bvh.pack_hierarchical` and
-    ``tri_components`` the dense table of
+    ``tri_clustered`` is the packing of
+    :func:`~bifrost3d_tpu_torch.geometry.pallas_bvh.pack_hierarchical`,
+    :func:`~bifrost3d_tpu_torch.geometry.pallas_bvh_vmem.pack_vmem` or
+    :func:`~bifrost3d_tpu_torch.geometry.pallas_clustered.pack_clustered`
+    and ``tri_components`` the dense table of
     :func:`~bifrost3d_tpu_torch.geometry.pallas_intersect.pack_triangles`;
     a RenderScene carries one of the two. ``live_count`` (int or int
     tensor, optional): rays at an index >= it are known to be inactive and
-    report misses untraversed.
+    report misses untraversed. The cluster scan has neither an any-hit
+    mode nor a live prefix: it answers both with its closest hit.
     """
     if tri_clustered is not None:
         from bifrost3d_tpu_torch.geometry.pallas_bvh import (
-            hierarchical_intersect)
-        return hierarchical_intersect(tri_clustered, origin, direction,
-                                      t_min, t_max, any_hit=any_hit,
-                                      live_count=live_count)
+            HierTriangles, hierarchical_intersect)
+        from bifrost3d_tpu_torch.geometry.pallas_bvh_vmem import (
+            VmemTriangles, vmem_intersect)
+        if isinstance(tri_clustered, VmemTriangles):
+            return vmem_intersect(tri_clustered, origin, direction, t_min,
+                                  t_max, any_hit=any_hit,
+                                  live_count=live_count)
+        if isinstance(tri_clustered, HierTriangles):
+            return hierarchical_intersect(tri_clustered, origin, direction,
+                                          t_min, t_max, any_hit=any_hit,
+                                          live_count=live_count)
+        from bifrost3d_tpu_torch.geometry.pallas_clustered import (
+            clustered_intersect)
+        return clustered_intersect(tri_clustered, origin, direction, t_min,
+                                   t_max)
     if tri_components is not None:
         from bifrost3d_tpu_torch.geometry.pallas_intersect import (
             pallas_intersect)

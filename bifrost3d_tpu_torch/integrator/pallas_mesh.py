@@ -1,14 +1,19 @@
-"""The mesh path tracer as one CUDA megakernel (small scenes, dense trace).
+"""The mesh path tracer as one CUDA megakernel: scenes of up to 262,144
+triangles, one kernel launch per frame.
 
-Port of the dense branch of ``bifrost3d_tpu/integrator/pallas_mesh.py``
-(``MAX_TRIS``, ``MAX_MATERIALS``, ``MAX_LIGHTS``, ``ATTR_ROWS``,
+Port of ``bifrost3d_tpu/integrator/pallas_mesh.py`` (``MAX_TRIS``,
+``HIER_MAX_TRIS``, ``MAX_MATERIALS``, ``MAX_LIGHTS``, ``ATTR_ROWS``,
 ``megakernel_ineligibility_reasons``, ``mesh_megakernel_eligible``,
 ``_pack_scene``, ``_live_tables``, ``_static_info``, ``prewarm_megakernel``,
-``_rho_tables``, ``render_mesh_megakernel`` with ``_render_packed``). The
-TPU kernel ``_make_kernel`` becomes the hand-written CUDA kernel
-``csrc/mesh_megakernel.cu``: one thread per pixel runs the whole
-progressive sample — dense Möller–Trumbore trace over the scene's
-triangles in shared memory, attribute fetch by triangle index,
+``_rho_tables``, ``render_mesh_megakernel`` with ``_render_packed``): its
+dense branch (at most ``MAX_TRIS`` triangles) and its BVH branch
+(``_hier_tracers``, above that). The TPU kernel ``_make_kernel`` becomes
+the hand-written CUDA kernel ``csrc/mesh_megakernel.cu``: one thread per
+pixel runs the whole progressive sample — the trace (dense Möller–Trumbore
+over the scene's triangles in shared memory, or above ``MAX_TRIS`` a
+per-thread walk of the port's own triangle BVH,
+``geometry/pallas_bvh.py::HierTriangles``, in global memory), attribute
+fetch by triangle index (dense) or by slot of the tree's leaf order (BVH),
 Default (EON + GGX, optional coat) or Diffuse shading, RIS(≤ 8) NEE with
 MIS over sphere, spot and directional lights, a binary any-hit shadow ray,
 emission, the background tint, passthrough of back faces, and the
@@ -19,8 +24,12 @@ tensors launch the kernel, CPU tensors take the plain PyTorch version
 :func:`mesh_megakernel_reference`, anything else raises. A failed build or
 launch raises; nothing falls back. ``launch_count`` counts kernel launches.
 
-The kernel's environment-map, NEAREST-texture, cutout (coverage-aware
-shadow march) and hier (B3) branches are not ported: such scenes are
+On the BVH branch the lanes are handed to the kernel in small 2-D pixel
+tiles, one per warp (``HIER_PIXEL_TILE``), so that a warp's rays stay
+close in the tree; the image is put back in raster order afterwards.
+
+The kernel's environment-map, NEAREST-texture and cutout (coverage-aware
+shadow march) branches are not ported, on either trace: such scenes are
 listed as ineligible, and ``render_sample_fast`` sends them to the
 wavefront.
 """
@@ -34,6 +43,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bifrost3d_tpu_torch.geometry.bvh import STACK_SIZE
+from bifrost3d_tpu_torch.geometry.pallas_bvh import (
+    HierTriangles,
+    hierarchical_intersect_reference,
+    pack_hierarchical,
+)
 from bifrost3d_tpu_torch.geometry.pallas_intersect import (
     _check,
     dense_intersect_reference,
@@ -83,7 +98,10 @@ MAX_MATERIALS = 32
 MAX_LIGHTS = 8
 MAX_RIS = 8
 ATTR_ROWS = 24            # attr table rows (19 used; padded to 8-multiple)
-HIER_MAX_TRIS = 262144    # the JAX hier branch's cap (B3, not ported)
+HIER_MAX_TRIS = 262144    # the BVH branch's cap
+# Pixels per warp on the BVH branch, (width, height) of the tile a warp's 32
+# lanes cover; None = raster order.
+HIER_PIXEL_TILE = (8, 4)
 _BIG = 3.0e38
 _THREADS = 128            # the kernel's block size, one pixel per thread
 
@@ -108,9 +126,6 @@ def megakernel_ineligibility_reasons(scene: RenderScene,
         reasons.append("empty scene")
     elif t > HIER_MAX_TRIS:
         reasons.append(f"{t} triangles > HIER_MAX_TRIS {HIER_MAX_TRIS}")
-    if t > MAX_TRIS:
-        reasons.append(f"{t} triangles > MAX_TRIS {MAX_TRIS} "
-                       "(hier branch B3 not ported)")
     if scene.environment is not None:
         reasons.append("environment map (not ported)")
     mats = scene.materials
@@ -163,7 +178,14 @@ def _pack_scene(scene: RenderScene) -> dict:
     ``tri`` [t_pad, 16] (v0, e1, e2 in columns 0-8) and ``attr``
     [ATTR_ROWS, t_pad] (corner normals 0-8, material 9, unit geometric
     normal 10-12, corner uvs 13-18). Materials, lights, epsilon and the
-    background are read from the live scene on every call instead."""
+    background are read from the live scene on every call instead.
+
+    Above ``MAX_TRIS`` triangles (``hier``) ``tri`` is the packed BVH
+    instead — the scene's own ``HierTriangles`` when it carries one, else
+    one packed here over ``scene.bvh`` (built when the scene has none;
+    a tree deeper than the walk's stack raises) — with ``order`` replaced
+    by the identity, so that a walk answers with slots, and ``attr``
+    [ATTR_ROWS, t] has its columns in slot order."""
     key = (id(scene.tri_verts), id(scene.tri_normals_oct),
            id(scene.tri_material))
     if key in _PACK_CACHE:
@@ -172,16 +194,11 @@ def _pack_scene(scene: RenderScene) -> dict:
         _PACK_CACHE.clear()
     tv = scene.tri_verts.to(torch.float32)
     t = int(tv.shape[0])
-    if t > MAX_TRIS:
-        raise NotImplementedError(
-            f"{t} triangles > MAX_TRIS {MAX_TRIS}: the megakernel's hier "
-            "branch (B3) is not ported yet")
     device = tv.device
-    t_pad = max(8, ((t + 7) // 8) * 8)
+    hier = t > MAX_TRIS
+    t_pad = t if hier else max(8, ((t + 7) // 8) * 8)
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]
-    tri = torch.zeros((t_pad, 16), dtype=torch.float32, device=device)
-    tri[:t, 0:9] = torch.cat([tv[:, 0], e1, e2], dim=1)
 
     geo_n = torch.linalg.cross(e1, e2, dim=-1)
     geo_n = geo_n / torch.clamp_min(
@@ -193,10 +210,20 @@ def _pack_scene(scene: RenderScene) -> dict:
     attr[10:13, :t] = geo_n.T
     attr[13:16, :t] = uvs[:, :, 0].T
     attr[16:19, :t] = uvs[:, :, 1].T
+    if hier:
+        tree = scene.tri_clustered
+        if not isinstance(tree, HierTriangles):
+            tree = pack_hierarchical(tv, scene.bvh)
+        attr = attr[:, tree.order.long()].contiguous()
+        tri = tree._replace(order=torch.arange(t, dtype=torch.int32,
+                                               device=device))
+    else:
+        tri = torch.zeros((t_pad, 16), dtype=torch.float32, device=device)
+        tri[:t, 0:9] = torch.cat([tv[:, 0], e1, e2], dim=1)
     packed = dict(
         # Pin the keyed tensors: an id() key is sound only while they live.
         _pins=(scene.tri_verts, scene.tri_normals_oct, scene.tri_material),
-        tri=tri, attr=attr, n_tris=t)
+        tri=tri, attr=attr, n_tris=t, hier=hier)
     _PACK_CACHE[key] = packed
     return packed
 
@@ -280,6 +307,7 @@ class KernelConfig(NamedTuple):
     delta_light_clamp: float
     has_coat: bool
     has_diffuse: bool
+    hier: bool = False      # the trace walks the BVH (``tri`` is the tree)
 
 
 # -- the plain version --------------------------------------------------------
@@ -315,11 +343,54 @@ def _analytic_light_hits(lights, light_kinds, o, d):
     return t_light, idx
 
 
+def _reference_tracers(tri, cfg: KernelConfig, eps, stats):
+    """→ (closest(o, d, live) → Hit, occluded(o, d, t_max, live) → bool [p])
+    of the plain version: the dense trace over the [t_pad, 16] table, or
+    with ``cfg.hier`` the lockstep walk over the packed BVH ``tri`` (whose
+    ``order`` is the identity, so prim ids are slots). Lanes outside
+    ``live`` trace nothing on the BVH branch (t_max = 0 fails the root's
+    box); their results are unspecified and masked by the caller."""
+    if not cfg.hier:
+        comp = tri.T                       # the B1 [16, t_pad] layout, a view
+
+        def closest(o, d, live):
+            return dense_intersect_reference(comp, cfg.n_tris, o, d, eps,
+                                             float("inf"))
+
+        def occluded(o, d, t_max, live):
+            return dense_intersect_reference(comp, cfg.n_tris, o, d, eps,
+                                             t_max).prim >= 0
+        return closest, occluded
+
+    def walk(o, d, t_max, any_hit):
+        walk_stats = {} if stats is not None else None
+        hit = hierarchical_intersect_reference(tri, o, d, eps, t_max,
+                                               any_hit=any_hit,
+                                               stats=walk_stats)
+        if stats is not None:
+            for key in ("box_tests", "tri_tests"):
+                stats[key] = stats.get(key, 0) + int(walk_stats[key])
+        return hit
+
+    def closest(o, d, live):
+        return walk(o, d, torch.where(live, float("inf"), 0.0), False)
+
+    def occluded(o, d, t_max, live):
+        return walk(o, d, torch.where(live, t_max, 0.0), True).prim >= 0
+    return closest, occluded
+
+
 def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
                               origin, direction, pixel_hash, active,
-                              accumulation: int, scalars, cfg: KernelConfig):
+                              accumulation: int, scalars, cfg: KernelConfig,
+                              stats=None):
     """Plain PyTorch version of the kernel over all lanes at once →
-    (r, g, b, rays), each [p].
+    (r, g, b, rays), each [p]. ``tri`` is the dense [t_pad, 16] table, or
+    with ``cfg.hier`` the packed BVH (``_pack_scene``), whose walk is
+    :func:`~bifrost3d_tpu_torch.geometry.pallas_bvh.hierarchical_intersect_reference`
+    and whose hits index ``attr`` by slot. A ``stats`` dict, if given,
+    receives the BVH walks' ``box_tests`` and ``tri_tests`` summed over
+    the frame.
 
     Mirrors one iteration of the JAX ``_make_kernel`` step in order:
     closest hit, analytic-light hits, miss → background, light hit with
@@ -338,7 +409,7 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
                          "tables of shading/fittings.py only")
     p = origin.shape[0]
     eps, env_tint = scalars[0], scalars[1:4]
-    comp = tri.T                       # the B1 [16, t_pad] layout, a view
+    closest, occluded_by = _reference_tracers(tri, cfg, eps, stats)
     n_lights = len(cfg.light_kinds)
     light_arr = LightArray(
         kind=torch.tensor(cfg.light_kinds, dtype=torch.int32, device=device),
@@ -359,8 +430,7 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
     for _ in range(cfg.n_iters):
         live = act
         rays = rays + torch.where(live, 2.0, 0.0)
-        hit = dense_intersect_reference(comp, cfg.n_tris, o, d, eps,
-                                        float("inf"))
+        hit = closest(o, d, live)
         hit_mask = hit.prim >= 0
         t_hit = torch.where(hit_mask, hit.t, _BIG)
         t_light, light_idx = _analytic_light_hits(lights, cfg.light_kinds,
@@ -429,9 +499,8 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
             side = torch.where(dot(l_dir, gf) >= 0.0, 1.0, -1.0)
             shadow_origin = offset_ray_origin(position, gf * side[:, None])
             has_light = shade & (torch.amax(l_rad, dim=-1) > 0.0)
-            occluded = dense_intersect_reference(
-                comp, cfg.n_tris, shadow_origin, l_dir, eps,
-                l_dist * (1.0 - 1e-4)).prim >= 0
+            occluded = occluded_by(shadow_origin, l_dir,
+                                   l_dist * (1.0 - 1e-4), has_light)
             radiance = radiance + torch.where(
                 (has_light & ~occluded)[:, None], l_rad, 0.0)
 
@@ -469,7 +538,8 @@ class _Params(ctypes.Structure):
     """Mirror of ``MegakernelParams`` in csrc/mesh_megakernel.cu."""
 
     _fields_ = [
-        ("tri", ctypes.c_void_p), ("attr", ctypes.c_void_p),
+        ("tri", ctypes.c_void_p), ("nodes", ctypes.c_void_p),
+        ("attr", ctypes.c_void_p),
         ("mats", ctypes.c_void_p), ("lights", ctypes.c_void_p),
         ("rho_ggx", ctypes.c_void_p), ("rho_fres", ctypes.c_void_p),
         ("sobol", ctypes.c_void_p), ("origin", ctypes.c_void_p),
@@ -485,6 +555,7 @@ class _Params(ctypes.Structure):
         ("delta_light_clamp", ctypes.c_float),
         ("ris_offsets", ctypes.c_float * (4 * MAX_RIS)),
         ("has_coat", ctypes.c_int), ("has_diffuse", ctypes.c_int),
+        ("hier", ctypes.c_int),
     ]
 
 
@@ -524,7 +595,8 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
                          scalars, cfg: KernelConfig):
     """Launch ``csrc/mesh_megakernel.cu`` on the current stream →
     (r, g, b, rays), each [p]; the arguments are those of
-    :func:`mesh_megakernel_reference`."""
+    :func:`mesh_megakernel_reference` (``tri`` the dense table, or with
+    ``cfg.hier`` the packed BVH)."""
     global launch_count
     device = origin.device
     p = int(origin.shape[0])
@@ -533,12 +605,30 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
     if pixel_hash.shape != (p,) or active.shape != (p,):
         raise ValueError("pixel_hash and active must both be [p]")
     n_lights = len(cfg.light_kinds)
-    if not 0 < cfg.n_tris <= min(MAX_TRIS, tri.shape[0]):
-        raise ValueError(f"n_tris={cfg.n_tris} outside (0, {MAX_TRIS}] or "
-                         "the packed table")
-    if tri.shape[1] != 16 or attr.shape != (ATTR_ROWS, tri.shape[0]):
-        raise ValueError("tri must be [t_pad, 16] and attr "
-                         f"[{ATTR_ROWS}, t_pad]")
+    if cfg.hier != isinstance(tri, HierTriangles):
+        raise TypeError("tri must be the packed BVH with cfg.hier, the "
+                        "dense [t_pad, 16] table without")
+    nodes = None
+    if cfg.hier:
+        tree, nodes, tri = tri, tri.node_boxes, tri.tri_components
+        if not 0 < cfg.n_tris <= HIER_MAX_TRIS or cfg.n_tris != tree.n_tris \
+                or tri.shape != (cfg.n_tris, 12):
+            raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
+                             f"{HIER_MAX_TRIS}] or not the packed tree's")
+        if nodes.dim() != 2 or nodes.shape[1] != 8 or nodes.shape[0] < 1:
+            raise ValueError("node_boxes must be [n >= 1, 8]")
+        if tree.max_depth + 1 > STACK_SIZE:
+            raise ValueError(f"BVH depth {tree.max_depth} exceeds the "
+                             f"kernel stack ({STACK_SIZE})")
+        _check("node_boxes", nodes, torch.float32, device)
+    else:
+        if not 0 < cfg.n_tris <= min(MAX_TRIS, tri.shape[0]):
+            raise ValueError(f"n_tris={cfg.n_tris} outside (0, {MAX_TRIS}] "
+                             "or the packed table")
+        if tri.shape[1] != 16:
+            raise ValueError("tri must be [t_pad, 16]")
+    if attr.shape != (ATTR_ROWS, tri.shape[0]):
+        raise ValueError(f"attr must be [{ATTR_ROWS}, t_pad]")
     if mats.shape[0] > MAX_MATERIALS or mats.shape[1] != 16:
         raise ValueError(f"mats must be [<= {MAX_MATERIALS}, 16]")
     if n_lights > MAX_LIGHTS or lights.shape[1] != 12 \
@@ -567,7 +657,8 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
 
     out = torch.empty((4, p), dtype=torch.float32, device=device)
     params = _Params(
-        tri=tri.data_ptr(), attr=attr.data_ptr(), mats=mats.data_ptr(),
+        tri=tri.data_ptr(), nodes=0 if nodes is None else nodes.data_ptr(),
+        attr=attr.data_ptr(), mats=mats.data_ptr(),
         lights=lights.data_ptr(), rho_ggx=rho_ggx.data_ptr(),
         rho_fres=rho_fres.data_ptr(), sobol=sobol.data_ptr(),
         origin=origin.data_ptr(), direction=direction.data_ptr(),
@@ -579,7 +670,8 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
         max_bounce=cfg.max_bounce, ris_count=cfg.ris_count,
         firefly_clamp=cfg.firefly_clamp,
         delta_light_clamp=cfg.delta_light_clamp,
-        has_coat=int(cfg.has_coat), has_diffuse=int(cfg.has_diffuse))
+        has_coat=int(cfg.has_coat), has_diffuse=int(cfg.has_diffuse),
+        hier=int(cfg.hier))
     for k, kind in enumerate(cfg.light_kinds):
         params.light_kinds[k] = kind
     for k, v in enumerate(_reverse_halton_offsets(MAX_RIS).reshape(-1)):
@@ -613,17 +705,33 @@ def rng_probe(accumulation: int, pixel_hash, dimension):
 
 # -- entry point ---------------------------------------------------------------
 
+@functools.lru_cache(maxsize=8)
+def pixel_order(width: int, height: int, tile, device) -> torch.Tensor:
+    """int64 [width·height]: the flat raster index of the pixel each lane
+    renders. ``tile`` = (tw, th) hands consecutive runs of tw·th lanes one
+    tw × th pixel tile each, tiles in raster order; None, or a frame the
+    tile does not divide, gives raster order."""
+    flat = torch.arange(width * height, dtype=torch.int64, device=device)
+    if tile is None or width % tile[0] or height % tile[1]:
+        return flat
+    tw, th = tile
+    return flat.reshape(height // th, th, width // tw, tw).permute(
+        0, 2, 1, 3).reshape(-1)
+
+
 def megakernel_inputs(scene: RenderScene, camera, width: int, height: int,
                       accumulation: int,
-                      settings: RenderSettings = RenderSettings()) -> tuple:
+                      settings: RenderSettings = RenderSettings(),
+                      pixel_tile=None) -> tuple:
     """The kernel's arguments for one frame (those of
     :func:`mesh_megakernel_reference` and :func:`mesh_megakernel_cuda`).
 
     Geometry tables come from the per-identity pack cache; materials,
     lights, epsilon and the background are read from the live scene.
-    Camera rays, pcg2d pixel hashes and the active mask are made in torch;
-    pixels are in raster order, one lane each (the JAX dense branch's
-    identity layout).
+    Camera rays, pcg2d pixel hashes and the active mask are made in torch,
+    one lane per pixel in the order of :func:`pixel_order` (raster order
+    without a ``pixel_tile``: the JAX dense branch's identity layout). A
+    pixel's result does not depend on its lane.
     """
     packed = _pack_scene(scene)
     mats, _, lights = _live_tables(scene)
@@ -638,9 +746,10 @@ def megakernel_inputs(scene: RenderScene, camera, width: int, height: int,
         firefly_clamp=float(settings.firefly_clamp),
         delta_light_clamp=float(settings.delta_light_clamp),
         has_coat=info["has_coat"],
-        has_diffuse=SHADING_DIFFUSE in scene.shading_models)
+        has_diffuse=SHADING_DIFFUSE in scene.shading_models,
+        hier=packed["hier"])
     accumulation = int(accumulation)
-    flat = torch.arange(width * height, dtype=torch.int64, device=device)
+    flat = pixel_order(width, height, pixel_tile, device)
     lanes = _camera_lanes(camera, flat % width, flat // width, width, height,
                           accumulation, torch.ones_like(flat, dtype=torch.bool))
     scalars = torch.cat([scene.scene_epsilon.reshape(1).to(torch.float32),
@@ -656,9 +765,11 @@ def render_mesh_megakernel(scene: RenderScene, camera, width: int,
                            settings: RenderSettings = RenderSettings()):
     """One progressive frame through the mesh megakernel → (radiance
     [height, width, 3], rays [] — live lanes × 2 per iteration, the same
-    in-run tally the pooled wavefront reports)."""
+    in-run tally the pooled wavefront reports). A scene over ``MAX_TRIS``
+    triangles renders its lanes in ``HIER_PIXEL_TILE`` tiles."""
+    tile = HIER_PIXEL_TILE if _pack_scene(scene)["hier"] else None
     args = megakernel_inputs(scene, camera, width, height, accumulation,
-                             settings)
+                             settings, tile)
     device = scene.tri_verts.device
     if device.type == "cuda":
         r, g, b, rays = mesh_megakernel_cuda(*args)
@@ -666,5 +777,9 @@ def render_mesh_megakernel(scene: RenderScene, camera, width: int,
         r, g, b, rays = mesh_megakernel_reference(*args)
     else:
         raise ValueError(f"no mesh megakernel for a scene on {device}")
-    img = torch.stack([r, g, b], dim=-1).reshape(height, width, 3)
-    return img, rays.sum()
+    img = torch.stack([r, g, b], dim=-1)
+    if tile is not None:
+        raster = torch.empty_like(img)
+        raster[pixel_order(width, height, tile, device)] = img
+        img = raster
+    return img.reshape(height, width, 3), rays.sum()

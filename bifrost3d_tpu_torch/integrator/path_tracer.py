@@ -666,7 +666,9 @@ def explain_render_path(scene: RenderScene,
     """Which forward path :func:`render_sample_fast` takes, and why:
     ``"megakernel"`` or ``"wavefront: <reasons>"``; a scene that carries
     the BVH packing says ``"wavefront [BVH trace, pool sorted every n
-    step(s)]: <reasons>"`` (or ``pool not sorted``)."""
+    step(s)]: <reasons>"`` (or ``pool not sorted``), one that carries the
+    resident-cluster or the cluster-scan packing names that trace
+    instead."""
     from bifrost3d_tpu_torch.integrator.pallas_mesh import (
         megakernel_ineligibility_reasons)
     reasons = megakernel_ineligibility_reasons(scene, settings)
@@ -678,8 +680,11 @@ def explain_render_path(scene: RenderScene,
     trace = ""
     if scene.tri_clustered is not None:
         every = settings.sort_rays_every
-        trace = (f" [BVH trace, pool sorted every {every} step(s)]" if every
-                 else " [BVH trace, pool not sorted]")
+        kind = {"VmemTriangles": "resident-cluster",
+                "ClusteredTriangles": "cluster-scan"}.get(
+                    type(scene.tri_clustered).__name__, "BVH")
+        trace = (f" [{kind} trace, pool sorted every {every} step(s)]"
+                 if every else f" [{kind} trace, pool not sorted]")
     return "wavefront" + trace + ": " + ", ".join(reasons)
 
 

@@ -10,7 +10,8 @@ one device.
 A scene of at most ``PALLAS_MAX_TRIS`` triangles carries the dense table
 ``tri_components`` and traces through the dense kernel; a larger one
 carries the BVH packing ``tri_clustered`` instead and traces through the
-BVH kernel. Environment maps and textures are not ported yet; asking for
+BVH kernel (the other two packings, ``pack_vmem`` and ``pack_clustered``,
+are set by hand). Environment maps and textures are not ported yet; asking for
 one raises.
 
 :func:`render_scene_from_numpy` builds a ``RenderScene`` from another
@@ -20,13 +21,17 @@ scene.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from bifrost3d_tpu_torch.geometry import traverse
-from bifrost3d_tpu_torch.geometry.bvh import BVH, build_bvh, refit_bvh
+from bifrost3d_tpu_torch.geometry.bvh import (
+    BVH,
+    build_soup_bvh,
+    refit_bvh,
+)
 from bifrost3d_tpu_torch.geometry.mesh import (
     compute_smooth_normals,
     transform_mesh,
@@ -35,6 +40,8 @@ from bifrost3d_tpu_torch.geometry.pallas_bvh import (
     HierTriangles,
     pack_hierarchical,
 )
+from bifrost3d_tpu_torch.geometry.pallas_bvh_vmem import VmemTriangles
+from bifrost3d_tpu_torch.geometry.pallas_clustered import ClusteredTriangles
 from bifrost3d_tpu_torch.geometry.pallas_intersect import pack_triangles
 from bifrost3d_tpu_torch.lights.types import LightArray
 from bifrost3d_tpu_torch.math.octahedral import octahedral_encode
@@ -59,8 +66,13 @@ class RenderScene(NamedTuple):
     # The BVH over the soup, on the scene's device (None on a scene
     # carried over without one).
     bvh: Optional[BVH] = None
-    # The BVH kernel's packing; None on a scene the dense kernel takes.
-    tri_clustered: Optional[HierTriangles] = None
+    # The packing of a scene the dense kernel does not take (None on one it
+    # does): the BVH kernel's by default; ``scene._replace(tri_clustered=
+    # pack_vmem(...))`` or ``pack_clustered(...)`` puts a scene of any size
+    # on the resident-cluster walk or the cluster scan instead
+    # (``geometry/traverse.py`` dispatches on the type).
+    tri_clustered: Optional[Union[HierTriangles, VmemTriangles,
+                                  ClusteredTriangles]] = None
     # The environment map is not ported (lights/environment.py): the
     # builders raise on one, so this stays None; a scene given one is
     # ineligible for the megakernel and raises in the wavefront.
@@ -131,12 +143,6 @@ def _packed_clusters(tri_verts: torch.Tensor,
     return pack_hierarchical(tri_verts, bvh)
 
 
-def _build_soup_bvh(tri_verts: np.ndarray) -> BVH:
-    flat_pos = tri_verts.reshape(-1, 3)
-    flat_idx = np.arange(flat_pos.shape[0], dtype=np.int32).reshape(-1, 3)
-    return build_bvh(flat_pos, flat_idx)
-
-
 def _extent(tri_verts: np.ndarray) -> float:
     flat_pos = tri_verts.reshape(-1, 3)
     return (float(np.max(flat_pos.max(axis=0) - flat_pos.min(axis=0)))
@@ -159,7 +165,7 @@ def build_render_scene(instances, materials: MaterialArray,
             raise ValueError(f"scene {name} contain non-finite values")
     if lights is None:
         lights = LightArray.build([], device=device)
-    bvh = _build_soup_bvh(tri_verts).to(device)
+    bvh = build_soup_bvh(tri_verts).to(device)
     extent = _extent(tri_verts)
     verts = torch.as_tensor(tri_verts, device=device)
     return RenderScene(
@@ -225,7 +231,11 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
     must hold no texture (``data`` of length 0). A ``bvh`` entry (the JAX
     ``BVH`` fields as numpy) is carried over, so both renderers trace the
     same tree; without one the scene has no BVH unless it is over
-    ``PALLAS_MAX_TRIS`` triangles, where one is built for the packing.
+    ``PALLAS_MAX_TRIS`` triangles, where one is built for the packing. A
+    ``tri_clustered`` entry holding the JAX package's ``VmemTriangles`` or
+    ``ClusteredTriangles`` fields is carried over too, so both trace the
+    same clusters; its ``HierTriangles`` has another layout than the
+    port's, which packs its own.
     """
     if arrays.get("environment") is not None:
         raise NotImplementedError("environment maps are not ported yet")
@@ -243,7 +253,14 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
     if bvh is not None:
         bvh = BVH.from_numpy(bvh, device=device)
     elif verts.shape[0] > traverse.PALLAS_MAX_TRIS:
-        bvh = _build_soup_bvh(verts.cpu().numpy()).to(device)
+        bvh = build_soup_bvh(verts).to(device)
+    clustered = arrays.get("tri_clustered") or {}
+    if "tri_planes" in clustered:
+        clustered = VmemTriangles.from_numpy(clustered, device=device)
+    elif "cluster_boxes" in clustered:
+        clustered = ClusteredTriangles.from_numpy(clustered, device=device)
+    else:
+        clustered = _packed_clusters(verts, bvh)
     return RenderScene(
         tri_verts=verts,
         tri_normals_oct=t("tri_normals_oct", np.int16),
@@ -258,4 +275,4 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
                         else t("tri_components", np.float32)),
         shading_models=_check_materials(materials),
         bvh=bvh,
-        tri_clustered=_packed_clusters(verts, bvh))
+        tri_clustered=clustered)

@@ -4,7 +4,8 @@ The kernels have a plain C interface and are loaded with ``ctypes``:
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` builds one in seconds, where a PyTorch C++ extension takes minutes.
 The library goes to ``build/kernels/`` at the repository root, named by a
-hash of its source, and is built at first use. A missing ``nvcc`` or a
+hash of its source and of the ``csrc/`` headers it includes, and is built
+at first use. A missing ``nvcc`` or a
 failed build raises; nothing falls back to a plain version.
 """
 
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,12 +39,29 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_text(source: str, _seen=None) -> bytes:
+    """The text of ``csrc/<source>`` followed by that of every ``csrc/``
+    header it includes with quotes, transitively, each once."""
+    seen = set() if _seen is None else _seen
+    seen.add(source)
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        text = f.read()
+    for name in _LOCAL_INCLUDE.findall(text):
+        name = name.decode()
+        if name not in seen:
+            text += source_text(name, seen)
+    return text
+
+
 def library_path(source: str) -> str:
-    """Where ``csrc/<source>`` builds to: keyed by a hash of its text."""
-    path = os.path.join(CSRC_DIR, source)
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    """Where ``csrc/<source>`` builds to: keyed by a hash of its text, its
+    local headers' text and the compiler flags, so an edit to a shared
+    header never loads a stale library."""
+    digest = hashlib.sha256(source_text(source) + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 

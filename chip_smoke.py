@@ -10,11 +10,14 @@ the last line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and convolutions.
-2. build: compiles the four kernels (csrc/dense_intersect.cu,
-   csrc/mesh_megakernel.cu, csrc/smallpt_megakernel.cu and
-   csrc/bvh_intersect.cu) with nvcc into build/kernels/, one nvcc each,
-   started together, and the native BVH builder with g++ into
-   build/native/; prints each build's time and ptxas report.
+2. build: compiles the six sources of the seven kernels
+   (csrc/dense_intersect.cu, csrc/mesh_megakernel.cu with its dense and BVH
+   instantiations, csrc/smallpt_megakernel.cu, csrc/bvh_intersect.cu,
+   csrc/clustered_intersect.cu and csrc/vmem_intersect.cu) with nvcc into
+   build/kernels/, one nvcc each, started together, and
+   native/bvh_builder.cpp with g++ into build/native/; prints each build's
+   time and ptxas report (registers, stack frame, spills of every
+   instantiation).
 3. rng: the mesh megakernel's path_rng_4d (megakernel_rng_probe) must
    equal the port's torch path_rng_4d bit for bit on 65,536 seeded (pixel
    hash, dimension) pairs at accumulations 0, 1 and 7; the SmallPT
@@ -72,6 +75,35 @@ the last line):
    the frame must pass the statistical gate against the same frame traced
    with the plain version.
 
+12. kernel/clustered and kernel/vmem: the cluster scan and the
+   resident-cluster walk on the 49,678-triangle bridge scene's soup with
+   its 65,536 camera rays and 65,536 seeded incoherent rays, and on the
+   16,130-triangle soup: each against its plain version (prim equal off
+   ties on >= 99.9% of rays, t within rtol 1e-5, the walk's occlusion on
+   >= 99.9%) and against the dense and the BVH kernel on the same rays;
+   median times of all four traces side by side, the plain versions' work
+   counts.
+13. megakernel/hier: the 2,494-triangle mid-size scene and the three bridge
+   scenes (3,054, 14,606 and 49,678 triangles) at 256², 4 bounces through
+   the megakernel's BVH branch: the kernel against its plain version on the
+   same lanes (at most 0.2% of pixels off by > 1e-3, means within 0.5%) and
+   against the pooled wavefront (3%, 2%), ray counts within 2%; for the
+   largest at 512² the median kernel time with the lanes in 8 x 4 pixel
+   tiles and in raster order, in turns, and the plain version's time and
+   box and triangle test counts.
+14. hier_bridge: the 49,678-triangle scene at 512², 4 bounces, 8
+   accumulations through render_progressive, main path C:
+   explain_render_path says megakernel, exactly 8 megakernel launches and
+   no launch of a trace kernel; frame time and rays/s of
+   render_sample_fast beside one pooled-wavefront frame, which it must
+   match under the statistical gate; the other two bridge scenes and the
+   258,048-triangle torus_grid_28 one frame each.
+15. packings: one pooled-wavefront frame of the 14,606-triangle bridge
+   scene at 256² with tri_clustered set to the cluster-scan packing and one
+   with the resident-cluster packing: launches of the right kernel > 0, of
+   the other trace kernels 0, the frame under the statistical gate against
+   the dense trace's.
+
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s, counted from this run's inputs), and last the JSON
@@ -100,12 +132,17 @@ SMALL_RES = 256
 ACCUMULATIONS = 8
 BOUNCES = 4
 SOURCES = ("dense_intersect.cu", "mesh_megakernel.cu",
-           "smallpt_megakernel.cu", "bvh_intersect.cu")
+           "smallpt_megakernel.cu", "bvh_intersect.cu",
+           "clustered_intersect.cu", "vmem_intersect.cu")
 SMALLPT_W, SMALLPT_H = 1024, 768
 TORUS_RES = 512
 TORUS_TRIS = 589824
-# TEST_SCENES too large for the dense megakernel: main path B drives them.
-LARGE_SCENES = ("torus_grid",)
+# TEST_SCENES too large for the dense megakernel: main paths B and C drive
+# them.
+HIER_SCENES = ("mid_size", "hier_bridge_3k", "hier_bridge_15k",
+               "hier_bridge_50k")
+BRIDGE_SCENE, BRIDGE_TRIS = "hier_bridge_50k", 49678
+LARGE_SCENES = ("torus_grid", "torus_grid_28") + HIER_SCENES
 # Published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -328,10 +365,12 @@ def _gate(img, ref, what, flip_budget=0.03, mean_budget=0.02):
 
 def _reset_counts():
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
     from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
-    for module in (dense, mega, hier, spt):
+    for module in (dense, mega, hier, spt, clustered, vmem):
         module.reset_launch_count()
 
 
@@ -833,6 +872,432 @@ def torus_path_phase(device) -> dict:
     return out
 
 
+def _bridge_rays(scene, cam, device):
+    """The two ray sets of the cluster kernels' check on the bridge scene:
+    its 65,536 camera rays at 256 x 256 in raster order (a block of 256 is
+    one image row, a group of 32 a row segment), and 65,536 seeded rays
+    with origins spread through the scene's box and directions over the
+    sphere."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    args = mega.megakernel_inputs(scene, cam, 256, 256, 0,
+                                  pt.RenderSettings(max_bounce_count=1))
+    rng = np.random.default_rng(7)
+    o2 = rng.uniform((-2.0, -0.5, -2.0), (2.0, 1.0, 2.0),
+                     size=(R, 3)).astype(np.float32)
+    d2 = rng.normal(size=(R, 3)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    return {"coherent": (args[6].contiguous(), args[7].contiguous()),
+            "incoherent": (torch.tensor(o2, device=device),
+                           torch.tensor(d2, device=device))}
+
+
+def cluster_kernel_phase(device, dense_soup) -> dict:
+    """The cluster scan and the resident-cluster walk against their plain
+    versions, and all four trace kernels side by side."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.geometry.bvh import build_soup_bvh
+
+    scene, cam = TEST_SCENES[BRIDGE_SCENE](device=device)
+    sphere_o, sphere_d, _ = _rays(np.random.default_rng(5), "sphere", device)
+    cases = [("bridge", scene.tri_verts, scene.bvh, name, o, d)
+             for name, (o, d) in _bridge_rays(scene, cam, device).items()]
+    cases.append(("sphere", dense_soup, None, "around", sphere_o, sphere_d))
+    results, failures, packings = {}, [], {}
+    inf = float("inf")
+    for soup_name, tris, bvh, ray_name, o, d in cases:
+        if soup_name not in packings:
+            check(vmem.fits_vmem(int(tris.shape[0])),
+                  f"the {soup_name} soup does not fit the resident table")
+            bvh = bvh if bvh is not None else build_soup_bvh(tris)
+            packings[soup_name] = (
+                clustered.pack_clustered(tris, bvh), vmem.pack_vmem(tris, bvh),
+                hier.pack_hierarchical(tris, bvh), dense.pack_triangles(tris))
+        scan, walk, tree, (comp, n) = packings[soup_name]
+        what = f"{soup_name}/{ray_name}"
+        n_clusters = int(scan.cluster_boxes.shape[0])
+
+        by_dense = dense.dense_intersect_cuda(comp, n, o, d, 1e-4, inf)
+        by_tree = hier.hierarchical_intersect_cuda(tree, o, d, 1e-4, inf)
+        scan_stats, walk_stats = {}, {}
+        scan_ref = clustered.clustered_intersect_reference(
+            scan, o, d, 1e-4, inf, stats=scan_stats)
+        by_scan = clustered.clustered_intersect_cuda(scan, o, d, 1e-4, inf)
+        walk_ref = vmem.vmem_intersect_reference(walk, o, d, 1e-4, inf,
+                                                 stats=walk_stats)
+        by_walk = vmem.vmem_intersect_cuda(walk, o, d, 1e-4, inf)
+        torch.cuda.synchronize()
+        out = {}
+        for key, got, ref in (("clustered", by_scan, scan_ref),
+                              ("vmem", by_walk, walk_ref)):
+            agree, ties, err = _compare_hits(got, ref, f"{key}/{what}",
+                                             failures)
+            for other, name in ((by_dense, "dense"), (by_tree, "bvh")):
+                a2, t2, _ = _compare_hits(got, other,
+                                          f"{key} vs {name}/{what}", failures)
+                agree, ties = min(agree, a2), ties + t2
+            out[key] = dict(agree=agree, ties=ties, max_abs_err=err)
+
+        # The walk's occlusion within a finite segment, and its live prefix.
+        t_max = torch.where(walk_ref.prim >= 0, walk_ref.t * 1.5, 20.0)
+        t_max[::2] *= 0.5
+        occ_ref = vmem.vmem_intersect_reference(walk, o, d, 1e-4, t_max,
+                                                any_hit=True).prim >= 0
+        occ = vmem.vmem_intersect_cuda(walk, o, d, 1e-4, t_max,
+                                       any_hit=True).prim >= 0
+        occ_agree = float((occ == occ_ref).float().mean())
+        if occ_agree < 0.999:
+            failures.append(f"vmem/{what}: occlusion agrees on {occ_agree:.5f}")
+        live = R // 3 // vmem.GROUP_R * vmem.GROUP_R
+        part = vmem.vmem_intersect_cuda(
+            walk, o, d, 1e-4, inf,
+            live_count=torch.tensor(live, device=device))
+        torch.cuda.synchronize()
+        if not bool((part.prim[live:] == -1).all()) or not bool(
+                torch.equal(part.prim[:live], by_walk.prim[:live])):
+            failures.append(f"vmem/{what}: the live prefix is not honoured")
+
+        times = dict(
+            dense=_median_ms(lambda: dense.dense_intersect_cuda(
+                comp, n, o, d, 1e-4, inf), repeats=5, warmup=1),
+            bvh=_median_ms(lambda: hier.hierarchical_intersect_cuda(
+                tree, o, d, 1e-4, inf)),
+            clustered=_median_ms(lambda: clustered.clustered_intersect_cuda(
+                scan, o, d, 1e-4, inf), repeats=10, warmup=2),
+            vmem=_median_ms(lambda: vmem.vmem_intersect_cuda(
+                walk, o, d, 1e-4, inf), repeats=10, warmup=2),
+            vmem_any=_median_ms(lambda: vmem.vmem_intersect_cuda(
+                walk, o, d, 1e-4, t_max, any_hit=True), repeats=10, warmup=2))
+        plain = dict(
+            clustered=_median_ms(
+                lambda: clustered.clustered_intersect_reference(
+                    scan, o, d, 1e-4, inf), repeats=2, warmup=0),
+            vmem=_median_ms(lambda: vmem.vmem_intersect_reference(
+                walk, o, d, 1e-4, inf), repeats=2, warmup=0))
+        n_hits = int((scan_ref.prim >= 0).sum())
+        # The scan: rays in (32 B), hits out (16 B), every cluster's box
+        # (32 B), each fetched cluster's 512 x 9 floats once, one `order`
+        # entry per hit; a box test per ray and cluster, and per (block,
+        # cluster) fetch 256 x 512 triangle tests.
+        out["clustered"].update(
+            ms=times["clustered"], plain_ms=plain["clustered"],
+            fetches=scan_stats["fetches"],
+            clusters_read=scan_stats["clusters_read"],
+            **roofline(48 * R + 32 * n_clusters + 4 * n_hits
+                       + 36 * clustered.CLUSTER_T * scan_stats["clusters_read"],
+                       BOX_FLOPS * R * n_clusters + MT_FLOPS * clustered.BLOCK_R
+                       * clustered.CLUSTER_T * scan_stats["fetches"]))
+        # The walk: rays in, hits out, each node record read (32 B box and
+        # 4 B meta) and each entered cluster's 512 x 9 floats once; 32 box
+        # tests per group probe, 32 x 512 triangle tests per leaf entered.
+        out["vmem"].update(
+            ms=times["vmem"], any_ms=times["vmem_any"],
+            plain_ms=plain["vmem"], occlusion_agree=occ_agree,
+            probes=walk_stats["probes"], leaf_tests=walk_stats["leaf_tests"],
+            clusters_read=walk_stats["clusters_read"],
+            **roofline(48 * R + 36 * walk_stats["nodes_read"] + 4 * n_hits
+                       + 36 * vmem.CLUSTER_T * walk_stats["clusters_read"],
+                       BOX_FLOPS * vmem.GROUP_R * walk_stats["probes"]
+                       + MT_FLOPS * vmem.GROUP_R * vmem.CLUSTER_T
+                       * walk_stats["leaf_tests"]))
+        out["dense_ms"], out["bvh_ms"] = times["dense"], times["bvh"]
+        results[what] = out
+        n_blocks = -(-R // clustered.BLOCK_R)
+        n_groups = -(-R // vmem.GROUP_R)
+        for key in ("clustered", "vmem"):
+            k = out[key]
+            work = (f"{k['fetches'] / n_blocks:.1f} of {n_clusters} clusters "
+                    f"fetched per block of {clustered.BLOCK_R}"
+                    if key == "clustered" else
+                    f"{k['probes'] / n_groups:.1f} probes and "
+                    f"{k['leaf_tests'] / n_groups:.2f} leaves per group of "
+                    f"{vmem.GROUP_R}, occlusion agrees {occ_agree:.5f}, "
+                    f"any-hit {k['any_ms']:.4f} ms")
+            print(f"kernel/{key}/{what}: {R} rays x {n} tris | prim agrees off "
+                  f"ties >= {k['agree']:.5f} with the plain version, the "
+                  f"dense and the BVH kernel ({k['ties']} ties), max |dt| "
+                  f"{k['max_abs_err']:.3g} | {work} | kernel {k['ms']:.4f} ms "
+                  f"(median of 10), plain {k['plain_ms']:.1f} ms (median of "
+                  f"2) | dense kernel {out['dense_ms']:.4f} ms, BVH kernel "
+                  f"{out['bvh_ms']:.4f} ms on the same rays | bound "
+                  f"{k['bound_ms']:.5f} ms by {k['bound_by']}", flush=True)
+    check(not failures, "; ".join(failures))
+    return results
+
+
+def _raster(lanes, order, res):
+    """[p, 3] per-lane colours in the lane order ``order`` → the [res, res,
+    3] image."""
+    img = torch.empty_like(lanes)
+    img[order] = lanes
+    return img.reshape(res, res, 3)
+
+
+def megakernel_hier_phase(device) -> dict:
+    """The megakernel's BVH branch against its plain version and the pooled
+    wavefront; kernel times on the bridge scene at 512 x 512."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    results = {}
+    tile = mega.HIER_PIXEL_TILE
+    for name in HIER_SCENES:
+        res = SMALL_RES
+        scene, cam = TEST_SCENES[name](device=device)
+        settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+        path = pt.explain_render_path(scene, settings)
+        check(path == "megakernel", f"{name}: {path}")
+        args = mega.megakernel_inputs(scene, cam, res, res, 1, settings, tile)
+        check(args[-1].hier, f"{name}: not packed for the BVH branch")
+        got = mega.mesh_megakernel_cuda(*args)
+        ref = mega.mesh_megakernel_reference(*args)
+        torch.cuda.synchronize()
+        lanes = torch.stack(got[:3], dim=-1)
+        flips, max_err, mean_rel = _gate(
+            lanes, torch.stack(ref[:3], dim=-1), f"{name}: kernel vs plain",
+            KERNEL_FLIPS, KERNEL_MEAN)
+        rays, plain_rays = float(got[3].sum()), float(ref[3].sum())
+        img = _raster(lanes, mega.pixel_order(res, res, tile, device), res)
+        pooled, pooled_rays = pt.render_sample_pooled_counted(
+            scene, cam, res, res, 1, settings)
+        wf_flips, _, _ = _gate(img, pooled, f"{name}: kernel vs wavefront")
+        pooled_rays = int(pooled_rays)
+        for other, whose in ((plain_rays, "plain version"),
+                             (pooled_rays, "wavefront")):
+            check(abs(rays - other) <= 0.02 * other,
+                  f"{name}: {rays} rays vs the {whose}'s {other}")
+        out = dict(res=res, n_tris=int(scene.tri_verts.shape[0]), flips=flips,
+                   max_abs_err=max_err, mean_rel=mean_rel,
+                   wavefront_flips=wf_flips, rays=rays,
+                   wavefront_rays=pooled_rays, mean=float(img.mean()),
+                   pooled=pooled)
+        print(f"megakernel/hier/{name}: {res}x{res} {out['n_tris']} tris, "
+              f"tree depth {args[0].max_depth} | vs plain {flips:.5f} flips, "
+              f"max |d| {max_err:.3g}, means {mean_rel:.2e} apart | vs "
+              f"wavefront {wf_flips:.4f} flips | rays {rays:.0f} vs "
+              f"{pooled_rays} | mean {out['mean']:.4f}", flush=True)
+        results[name] = out
+
+    # Kernel times at the main path's size, lanes tiled and in raster order
+    # in turns; the plain version once more for its time and its counts.
+    res = RES
+    scene, cam = TEST_SCENES[BRIDGE_SCENE](device=device)
+    settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+    tiled = mega.megakernel_inputs(scene, cam, res, res, 1, settings, tile)
+    raster = mega.megakernel_inputs(scene, cam, res, res, 1, settings, None)
+    turns = {"tiled": [], "raster": []}
+    for which in ("tiled", "raster", "raster", "tiled"):
+        args = tiled if which == "tiled" else raster
+        turns[which].append(_median_ms(
+            lambda: mega.mesh_megakernel_cuda(*args), repeats=10, warmup=2))
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = mega.mesh_megakernel_reference(*tiled, stats=stats)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = mega.mesh_megakernel_cuda(*tiled)
+    flips, max_err, _ = _gate(torch.stack(got[:3], dim=-1),
+                              torch.stack(ref[:3], dim=-1),
+                              f"{BRIDGE_SCENE} {res}: kernel vs plain",
+                              KERNEL_FLIPS, KERNEL_MEAN)
+    rays = float(got[3].sum())
+    tree = tiled[0]
+    n_nodes, n_tris = int(tree.node_boxes.shape[0]), tree.n_tris
+    # Per pixel 32 B of lanes in and 16 B out; of the tree and the attribute
+    # table no more than each record once (a frame's walks touch most of
+    # it); the plain walks' box and triangle tests (shading is left out of
+    # the count, so the bound is low).
+    out = results[BRIDGE_SCENE]
+    out.update(
+        ms=statistics.median(turns["tiled"]),
+        raster_ms=statistics.median(turns["raster"]), plain_ms=plain_ms,
+        max_abs_err=max(max_err, out["max_abs_err"]),
+        box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
+        **roofline(48 * res * res + 32 * min(n_nodes, stats["box_tests"])
+                   + (48 + 4 * mega.ATTR_ROWS) * min(n_tris, stats["tri_tests"]),
+                   BOX_FLOPS * stats["box_tests"]
+                   + MT_FLOPS * stats["tri_tests"]))
+    print(f"megakernel/hier/{BRIDGE_SCENE}: {res}x{res} | kernel "
+          f"{out['ms']:.3f} ms with {tile[0]}x{tile[1]} pixel tiles "
+          f"({turns['tiled'][0]:.3f}, {turns['tiled'][1]:.3f}), "
+          f"{out['raster_ms']:.3f} ms in raster order "
+          f"({turns['raster'][0]:.3f}, {turns['raster'][1]:.3f}; medians of "
+          f"10, in turns) | plain {plain_ms:.0f} ms (one run) | vs plain "
+          f"{flips:.5f} flips | {rays:.0f} rays, "
+          f"{stats['box_tests'] / rays:.1f} box and "
+          f"{stats['tri_tests'] / rays:.1f} triangle tests per ray (plain "
+          f"walk) | bound {out['bound_ms']:.5f} ms by {out['bound_by']}",
+          flush=True)
+    return results
+
+
+def hier_path_phase(device) -> dict:
+    """Main path C: the bridge scene through render_progressive."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.io.image import save_image
+    from bifrost3d_tpu_torch.post.pipeline import process
+    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+
+    res = RES
+    t0 = time.perf_counter()
+    scene, cam = TEST_SCENES[BRIDGE_SCENE](device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_tris = int(scene.tri_verts.shape[0])
+    check(n_tris == BRIDGE_TRIS, f"the bridge scene has {n_tris} triangles")
+    settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+    path = pt.explain_render_path(scene, settings)
+    check(path == "megakernel", f"{BRIDGE_SCENE}: {path}")
+    t0 = time.perf_counter()
+    mega.prewarm_megakernel(scene)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    # Main path C, driven with every count at 0.
+    _reset_counts()
+    t0 = time.perf_counter()
+    hdr = pt.render_progressive(scene, cam, res, res, ACCUMULATIONS, settings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = mega.launch_count
+    trace_launches = dense.launch_count + hier.launch_count
+    check(launches == ACCUMULATIONS, f"main path C launched the megakernel "
+          f"{launches} times for {ACCUMULATIONS} frames")
+    check(trace_launches == 0, f"main path C launched a trace kernel "
+          f"{trace_launches} times")
+    check(hdr.shape == (res, res, 3), f"image shape {tuple(hdr.shape)}")
+    check(bool(torch.isfinite(hdr).all()), "bridge image is not finite")
+    mean = float(hdr.mean())
+    check(mean > 0.02, f"bridge image mean {mean} is not lit")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    png = os.path.join(REPO, "build", f"{BRIDGE_SCENE}_{res}.png")
+    os.makedirs(os.path.dirname(png), exist_ok=True)
+    save_image(png, process(hdr, CameraEffectsSettings.preset()._replace(
+        film_grain=0.0)))
+
+    frame_ms, rates = [], []
+    for acc in (1, 2, 3, 4, 5):
+        _, acc_rays = mega.render_mesh_megakernel(scene, cam, res, res, acc,
+                                                  settings)
+        acc_rays = float(acc_rays)   # synchronises
+        t0 = time.perf_counter()
+        img = pt.render_sample_fast(scene, cam, res, res, acc, settings)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        frame_ms.append(dt * 1e3)
+        rates.append(acc_rays / dt)
+    # One pooled-wavefront frame of the same accumulation, for the gate and
+    # for comparison.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pooled, pooled_rays = pt.render_sample_pooled_counted(scene, cam, res, res,
+                                                          5, settings)
+    pooled_rays = int(pooled_rays)   # synchronises
+    pooled_ms = (time.perf_counter() - t0) * 1e3
+    flips, _, _ = _gate(img, pooled, f"{BRIDGE_SCENE}: frame vs wavefront")
+    out = dict(launches=launches, seconds=seconds, mean=mean, flips=flips,
+               frame_ms=statistics.median(frame_ms),
+               rays_per_s=statistics.median(rates), pooled_ms=pooled_ms,
+               peak_gib=peak_gib)
+    print(f"hier_bridge: {BRIDGE_SCENE} {n_tris} triangles built in "
+          f"{build_s:.2f} s, packed in {pack_s:.2f} s | {res}x{res} {BOUNCES} "
+          f"bounces x{ACCUMULATIONS} through render_progressive in "
+          f"{seconds:.3f} s | megakernel launches {launches}, trace-kernel "
+          f"launches {trace_launches} | mean {mean:.4f} | render_sample_fast "
+          f"frame {out['frame_ms']:.2f} ms, {out['rays_per_s'] / 1e6:.1f} M "
+          f"rays/s (median of 5) | pooled wavefront frame {pooled_ms:.0f} ms, "
+          f"{pooled_rays} rays, gate {flips:.4f} flips | peak "
+          f"{peak_gib:.3f} GiB | {os.path.relpath(png, REPO)}", flush=True)
+
+    for name in ("hier_bridge_3k", "hier_bridge_15k", "torus_grid_28"):
+        t0 = time.perf_counter()
+        scene, cam = TEST_SCENES[name](device=device)
+        settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+        path = pt.explain_render_path(scene, settings)
+        check(path == "megakernel", f"{name}: {path}")
+        mega.prewarm_megakernel(scene)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        before = mega.launch_count
+        trace_before = dense.launch_count + hier.launch_count
+        times = []
+        for acc in (0, 1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = pt.render_sample_fast(scene, cam, res, res, acc, settings)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(mega.launch_count == before + 3
+              and dense.launch_count + hier.launch_count == trace_before,
+              f"{name}: not one megakernel launch per frame and nothing else")
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.005,
+              f"{name}: the frame is not finite and lit")
+        args = mega.megakernel_inputs(scene, cam, res, res, 1, settings,
+                                      mega.HIER_PIXEL_TILE)
+        kernel_ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args),
+                               repeats=10, warmup=2)
+        out[name] = dict(frame_ms=statistics.median(times),
+                         kernel_ms=kernel_ms)
+        print(f"hier_bridge: {name} {int(scene.tri_verts.shape[0])} triangles "
+              f"(scene and tree in {setup_s:.2f} s) | {res}x{res} frame "
+              f"{out[name]['frame_ms']:.2f} ms (median of 3), kernel "
+              f"{kernel_ms:.3f} ms (median of 10) | mean "
+              f"{float(img.mean()):.4f}", flush=True)
+    return out
+
+
+def packing_path_phase(device, dense_frame) -> dict:
+    """One pooled-wavefront frame with ``tri_clustered`` set to the
+    cluster-scan packing and one with the resident-cluster packing, each
+    driven with every count at 0."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    res = SMALL_RES
+    scene, cam = TEST_SCENES["hier_bridge_15k"](device=device)
+    out = {}
+    for name, module, pack in (
+            ("clustered", clustered, clustered.pack_clustered),
+            ("vmem", vmem, vmem.pack_vmem)):
+        packed = scene._replace(tri_clustered=pack(scene.tri_verts, scene.bvh),
+                                tri_components=None)
+        settings = pt.settings_for_scene(packed, max_bounce_count=BOUNCES)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pt.render_sample_pooled(packed, cam, res, res, 1, settings)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        launches = module.launch_count
+        others = (dense.launch_count + hier.launch_count
+                  + (vmem if module is clustered else clustered).launch_count)
+        check(launches > 0, f"the {name} packing launched no {name} kernel")
+        check(others == 0, f"the {name} packing launched another trace "
+              f"kernel {others} times")
+        flips, _, _ = _gate(img, dense_frame, f"{name} packing vs dense trace")
+        out[name] = dict(launches=launches, frame_ms=frame_ms, flips=flips)
+        print(f"packings/{name}: hier_bridge_15k {res}x{res} {BOUNCES} bounces "
+              f"pooled | {name}-kernel launches {launches}, other "
+              f"trace kernels {others} | frame {frame_ms:.0f} ms (one run) | "
+              f"gate vs the dense trace: {flips:.4f} flips", flush=True)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, result) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"bifrost3d_tpu_torch/csrc/{source}",
@@ -856,7 +1321,12 @@ def main() -> int:
     bvh = bvh_kernel_phase(device, soups["sphere"])
     path_a = smallpt_path_phase(device)
     path_b = torus_path_phase(device)
-    # No single PyTorch call computes any of the four: library_ms is null.
+    clusters = cluster_kernel_phase(device, soups["sphere"])
+    hier_scenes = megakernel_hier_phase(device)
+    path_c = hier_path_phase(device)
+    packings = packing_path_phase(device,
+                                  hier_scenes["hier_bridge_15k"]["pooled"])
+    # No single PyTorch call computes any of the seven: library_ms is null.
     print(json.dumps({"kernels": [
         _kernel_row("dense_intersect", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
@@ -870,6 +1340,17 @@ def main() -> int:
         _kernel_row("smallpt_megakernel", "smallpt_megakernel.cu",
                     "bifrost3d_tpu/integrator/pallas_smallpt.py:137",
                     path_a["launches"], smallpt),
+        _kernel_row("mesh_megakernel_hier", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:898",
+                    path_c["launches"], hier_scenes[BRIDGE_SCENE]),
+        _kernel_row("clustered_intersect", "clustered_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_clustered.py:96",
+                    packings["clustered"]["launches"],
+                    clusters["bridge/incoherent"]["clustered"]),
+        _kernel_row("vmem_intersect", "vmem_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_bvh_vmem.py:139",
+                    packings["vmem"]["launches"],
+                    clusters["bridge/incoherent"]["vmem"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,8 @@ import torch
 from bifrost3d_tpu_torch.apps import smallpt_app
 from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES, create_cornell_box
 from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
 from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
 from bifrost3d_tpu_torch.geometry import traverse
 from bifrost3d_tpu_torch.geometry.creation import make_plane, make_sphere
@@ -333,3 +335,170 @@ def test_bvh_path_render_on_card_matches_cpu(cuda, monkeypatch):
     assert hier.launch_count > before and dense.launch_count == dense_before
     ref = pt.render_sample_pooled(cpu_scene, cpu_cam, res, res, 1, settings)
     assert_statistical_gate(img.cpu().numpy(), ref.numpy())
+
+
+# -- the cluster-scan and resident-cluster trace kernels ---------------------------
+
+@pytest.fixture(scope="module")
+def cluster_packings(packed_soup):
+    soup, _ = packed_soup
+    return clustered.pack_clustered(soup), vmem.pack_vmem(soup)
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+def test_clustered_kernel_matches_plain_version(cuda, packed_soup,
+                                                cluster_packings, bounded):
+    soup, _ = packed_soup
+    packed, _ = cluster_packings
+    o, d, t_max = _rays(5000, 8, -0.9, 0.9, cuda)     # not a multiple of 256
+    bound = t_max if bounded else float("inf")
+    before = clustered.launch_count
+    got = clustered.clustered_intersect(packed, o, d, 1e-4, bound)
+    torch.cuda.synchronize()
+    assert clustered.launch_count == before + 1
+    _assert_hits_agree(got, clustered.clustered_intersect_reference(
+        packed, o, d, 1e-4, bound))
+    comp, n = dense.pack_triangles(soup)
+    _assert_hits_agree(got, dense.pallas_intersect(comp, n, o, d, 1e-4, bound))
+
+
+@pytest.mark.parametrize("live", [None, 1000])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_vmem_kernel_matches_plain_version(cuda, cluster_packings, bounded,
+                                           live):
+    _, packed = cluster_packings
+    o, d, t_max = _rays(5000, 9, -0.9, 0.9, cuda)     # not a multiple of 32
+    bound = t_max if bounded else float("inf")
+    live_count = None if live is None else torch.tensor(live, device=cuda)
+    before = vmem.launch_count
+    got = vmem.vmem_intersect(packed, o, d, 1e-4, bound,
+                              live_count=live_count)
+    torch.cuda.synchronize()
+    assert vmem.launch_count == before + 1
+    ref = vmem.vmem_intersect_reference(packed, o, d, 1e-4, bound,
+                                        live_count=live)
+    # The live prefix is honoured by whole groups of 32 rays.
+    covered = None if live is None else -(-live // vmem.GROUP_R) * vmem.GROUP_R
+    rows = slice(0, covered)
+    _assert_hits_agree(type(got)(*(f[rows] for f in got)),
+                       type(ref)(*(f[rows] for f in ref)))
+    if live is not None:
+        assert bool((got.prim[covered:] == -1).all())
+        assert bool(torch.isinf(got.t[covered:]).all())
+
+
+def test_vmem_kernel_any_hit_and_bvh_kernel(cuda, packed_soup,
+                                            cluster_packings):
+    _, tree = packed_soup
+    _, packed = cluster_packings
+    o, d, t_max = _rays(5000, 10, -0.9, 0.9, cuda)
+    ref = hier.hierarchical_intersect(tree, o, d, 1e-4, t_max)
+    _assert_hits_agree(vmem.vmem_intersect(packed, o, d, 1e-4, t_max), ref)
+    occluded = vmem.vmem_intersect(packed, o, d, 1e-4, t_max,
+                                   any_hit=True).prim >= 0
+    assert float((occluded == (ref.prim >= 0)).float().mean()) >= 0.999
+    assert 0 < int(occluded.sum()) < 5000
+
+
+@pytest.mark.parametrize("module, name", [(clustered, "clustered_intersect"),
+                                          (vmem, "vmem_intersect")])
+def test_cluster_kernels_failed_launch_raises(cuda, cluster_packings,
+                                              monkeypatch, module, name):
+    packed = cluster_packings[0 if module is clustered else 1]
+    o, d, _ = _rays(64, 11, -0.9, 0.9, cuda)
+    launch = getattr(module, name + "_cuda")
+    before = module.launch_count
+    monkeypatch.setattr(module, "_THREADS", 2048)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch(packed, o, d, 1e-4, 1.0)
+    assert module.launch_count == before
+    monkeypatch.undo()
+    with pytest.raises(TypeError, match="float32"):
+        launch(packed, o.double(), d.double(), 1e-4, 1.0)
+    # A packing made on the CPU handed to rays on the card raises.
+    on_cpu = type(packed)(*(f.cpu() if isinstance(f, torch.Tensor) else f
+                            for f in packed))
+    with pytest.raises(ValueError, match="is on cpu"):
+        launch(on_cpu, o, d, 1e-4, 1.0)
+
+
+@pytest.mark.parametrize("packing", ["clustered", "vmem"])
+def test_cluster_packings_render_on_card_match_cpu(cuda, packing):
+    """A wavefront frame with tri_clustered set to each packing: the right
+    kernel launches, the dense and BVH kernels do not, and the frame passes
+    the statistical gate against the CPU's dense trace."""
+    res = 64
+    scene, cam = TEST_SCENES["coated"](device=cuda)
+    cpu_scene, cpu_cam = TEST_SCENES["coated"](device="cpu")
+    if packing == "clustered":
+        module, packed = clustered, clustered.pack_clustered(scene.tri_verts,
+                                                             scene.bvh)
+    else:
+        module, packed = vmem, vmem.pack_vmem(scene.tri_verts, scene.bvh)
+    scene = scene._replace(tri_clustered=packed, tri_components=None)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    before = module.launch_count
+    others = hier.launch_count, dense.launch_count
+    img = pt.render_sample_pooled(scene, cam, res, res, 1, settings)
+    assert module.launch_count > before
+    assert (hier.launch_count, dense.launch_count) == others
+    ref = pt.render_sample_pooled(cpu_scene, cpu_cam, res, res, 1,
+                                  pt.settings_for_scene(cpu_scene,
+                                                        max_bounce_count=2))
+    assert_statistical_gate(img.cpu().numpy(), ref.numpy())
+
+
+# -- the megakernel's BVH branch -----------------------------------------------------
+
+@pytest.mark.parametrize("name", ["mid_size", "hier_bridge_15k"])
+def test_hier_megakernel_matches_plain_version(cuda, name):
+    res = 64
+    scene, cam = TEST_SCENES[name](device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    assert pt.explain_render_path(scene, settings) == "megakernel"
+    args = mega.megakernel_inputs(scene, cam, res, res, 1, settings)
+    assert args[-1].hier and isinstance(args[0], hier.HierTriangles)
+    before = mega.launch_count
+    got = mega.mesh_megakernel_cuda(*args)
+    torch.cuda.synchronize()
+    assert mega.launch_count == before + 1
+    ref = mega.mesh_megakernel_reference(*args)
+    img = torch.stack(got[:3], dim=-1).cpu().numpy()
+    assert_statistical_gate(img, torch.stack(ref[:3], dim=-1).cpu().numpy(),
+                            KERNEL_FLIPS, KERNEL_MEAN)
+    rays, ref_rays = float(got[3].sum()), float(ref[3].sum())
+    assert abs(rays - ref_rays) <= 0.02 * ref_rays
+    assert img.mean() > 0.01
+
+
+def test_hier_megakernel_frame_matches_wavefront(cuda, monkeypatch):
+    """render_sample_fast on a 2,494-triangle scene: one megakernel launch,
+    no trace-kernel launch, lanes in pixel tiles put back in raster order,
+    under the statistical gate against the pooled wavefront."""
+    res = 64
+    scene, cam = TEST_SCENES["mid_size"](device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    before = mega.launch_count, dense.launch_count, hier.launch_count
+    img = pt.render_sample_fast(scene, cam, res, res, 1, settings)
+    torch.cuda.synchronize()
+    assert (mega.launch_count, dense.launch_count, hier.launch_count) == (
+        before[0] + 1, before[1], before[2])
+    ref = pt.render_sample_pooled(scene, cam, res, res, 1, settings)
+    assert_statistical_gate(img.cpu().numpy(), ref.cpu().numpy())
+    # Tiled lanes and raster lanes render the same pixels.
+    monkeypatch.setattr(mega, "HIER_PIXEL_TILE", None)
+    raster = pt.render_sample_fast(scene, cam, res, res, 1, settings)
+    torch.testing.assert_close(img, raster, rtol=0.0, atol=0.0)
+
+
+def test_hier_megakernel_wrapper_validates(cuda):
+    scene, cam = TEST_SCENES["mid_size"](device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    args = mega.megakernel_inputs(scene, cam, 16, 16, 0, settings)
+    with pytest.raises(TypeError, match="packed BVH"):
+        mega.mesh_megakernel_cuda(*args[:-1], args[-1]._replace(hier=False))
+    with pytest.raises(ValueError, match="n_tris"):
+        mega.mesh_megakernel_cuda(*args[:-1], args[-1]._replace(n_tris=7))
+    deep = args[0]._replace(max_depth=64)
+    with pytest.raises(ValueError, match="exceeds the kernel stack"):
+        mega.mesh_megakernel_cuda(deep, *args[1:])

@@ -252,8 +252,8 @@ def test_ineligibility_reasons_cover_jax(jax_scenes, case):
     ("environment", "environment map (not ported)"),
     ("texture", "textures (not ported)"),
     ("cutout", "cutouts / coverage-aware shadows (not ported)"),
-    ("triangles", "1200 triangles > MAX_TRIS 1024 (hier branch B3 not "
-                  "ported)"),
+    ("triangles", f"{tpm.HIER_MAX_TRIS + 1} triangles > HIER_MAX_TRIS "
+                  f"{tpm.HIER_MAX_TRIS}"),
 ])
 def test_unported_branches_are_ineligible(jax_scenes, change, reason):
     _, _, scene, _ = jax_scenes("cornell")
@@ -270,7 +270,14 @@ def test_unported_branches_are_ineligible(jax_scenes, change, reason):
         flags[0] = 2
         scene = scene._replace(materials=mats._replace(flags=flags))
     else:
-        scene = scene._replace(tri_verts=torch.zeros((1200, 3, 3)))
+        # Above the dense branch's 1,024 triangles the BVH branch takes
+        # over: no triangle-count reason up to its cap.
+        mid = scene._replace(tri_verts=torch.zeros((1200, 3, 3)))
+        assert not any("triangles" in r for r in
+                       tpm.megakernel_ineligibility_reasons(
+                           mid, tpt.RenderSettings()))
+        scene = scene._replace(
+            tri_verts=torch.zeros((tpm.HIER_MAX_TRIS + 1, 3, 3)))
     settings = tpt.RenderSettings()
     reasons = tpm.megakernel_ineligibility_reasons(scene, settings)
     assert reason in reasons, reasons

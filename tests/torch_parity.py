@@ -21,8 +21,16 @@ def scene_arrays(scene) -> dict:
     """A JAX RenderScene as the dict ``render_scene_from_numpy`` takes, its
     BVH included (so both renderers can trace the same tree); the JAX
     packings ``tri_components`` (same layout in the port) and
-    ``tri_clustered`` (the port packs its own) ride along as they are."""
+    ``tri_clustered`` ride along as they are: a ``VmemTriangles`` or a
+    ``ClusteredTriangles`` is carried into the port's, so both trace the
+    same clusters, and for a ``HierTriangles`` the port packs its own."""
     return {k: _to_numpy(v) for k, v in scene._asdict().items()}
+
+
+def packing_arrays(packed) -> dict:
+    """A JAX ``VmemTriangles`` or ``ClusteredTriangles`` as the dict the
+    port's ``from_numpy`` of the same name takes."""
+    return _to_numpy(packed)
 
 
 def sphere_scene_arrays(scene) -> dict:
