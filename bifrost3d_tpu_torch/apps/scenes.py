@@ -1,9 +1,10 @@
 """Built-in test scenes.
 
 Port of ``bifrost3d_tpu/apps/scenes.py`` (``_trs``,
-``create_cornell_box``, ``create_veach_scene``,
-``create_sphere_light_scene``, ``SCENES``). Each builder returns
-(RenderScene, PinholeCamera) on the given device.
+``create_cornell_box``, ``create_veach_scene``, ``create_sphere_scene``,
+``create_sphere_light_scene``, ``_checkered_floor_parts``,
+``create_opacity_scene``, ``SCENES``). Each builder returns (RenderScene,
+PinholeCamera) on the given device.
 
 ``TEST_SCENES`` holds the small scenes that the JAX package's megakernel
 tests build inline (``tests/test_pallas_mesh.py``: coated materials, a
@@ -20,6 +21,13 @@ megakernel's cap of 262,144 sit ``mid_size`` (the JAX package's
 ``hier_bridge`` scenes of ``bench.py::bench_hier_bridge`` (3,054, 14,606 and
 49,678 triangles) and ``torus_grid_28``, the first 28 tori of the grid
 (258,048 triangles): they render through the megakernel's BVH branch.
+
+Four more drive the megakernel's environment, texture and cutout branches:
+``textured_cornell`` (``tests/test_pallas_mesh.py:84-120``: a box over the
+checkered floor), ``sphere_sun`` (the Sphere scene under a map that is not
+uniform), and on the BVH branch ``hier_bridge_15k_env`` (that map over the
+14,606-triangle bridge scene) and ``opacity_hier`` (Opacity plus a
+2,494-triangle sphere of the cutout material).
 """
 
 from __future__ import annotations
@@ -34,12 +42,14 @@ from bifrost3d_tpu_torch.geometry.creation import (
     make_torus,
 )
 from bifrost3d_tpu_torch.geometry.mesh import combine_meshes, transform_mesh
+from bifrost3d_tpu_torch.io.texture import FILTER_NONE, TextureBank
 from bifrost3d_tpu_torch.lights.types import (
     LIGHT_DIRECTIONAL,
     LIGHT_SPHERE,
     LIGHT_SPOT,
     LightArray,
 )
+from bifrost3d_tpu_torch.math.color import srgb_to_linear
 from bifrost3d_tpu_torch.math.quaternion import (
     quat_from_axis_angle,
     quat_to_matrix,
@@ -47,6 +57,7 @@ from bifrost3d_tpu_torch.math.quaternion import (
 from bifrost3d_tpu_torch.scene.camera import perspective_camera
 from bifrost3d_tpu_torch.scene.materials import (
     COPPER_TINT,
+    FLAG_CUTOUT,
     FLAG_THIN_WALLED,
     IRON_TINT,
     MaterialArray,
@@ -147,6 +158,26 @@ def create_veach_scene(with_mesh_light: bool = False, aspect=1.0, *, device):
     return scene, camera
 
 
+def create_sphere_scene(aspect=1.0, environment_map=None, *, device):
+    """Sphere.h: a single sphere on a plane under an environment, by default
+    a constant 0.8 map of 16 x 32 texels; the pool holds 8,192 samples."""
+    mats = MaterialArray.build([
+        dielectric((0.5, 0.5, 0.5), 0.8),
+        dielectric((0.8, 0.2, 0.2), 0.3)], device=device)
+    instances = [
+        (make_plane(size=20.0), 0, _trs((0, -0.5, 0))),
+        (make_sphere(radius=0.5), 1, _trs((0, 0, 0)))]
+    if environment_map is None:
+        environment_map = np.full((16, 32, 3), 0.8, F32)
+    scene = build_render_scene(instances, mats,
+                               environment_map=environment_map,
+                               presample_environment=8192, device=device)
+    camera = perspective_camera(eye=(0, 0.5, -2.5), target=(0, 0, 0),
+                                fov_radians=PI / 4, aspect=aspect,
+                                device=device)
+    return scene, camera
+
+
 def create_sphere_light_scene(aspect=1.0, *, device):
     """SphereLight.h: a diffuse 960-triangle sphere lit by a large nearby
     sphere light."""
@@ -160,6 +191,133 @@ def create_sphere_light_scene(aspect=1.0, *, device):
     camera = perspective_camera(eye=(0, 0.5, -2.5), target=(0, 0, 0),
                                 fov_radians=PI / 4, aspect=aspect,
                                 device=device)
+    return scene, camera
+
+
+def _checkered_floor_parts(floor_size=400.0, checker_size=1.0,
+                           tint=(0.02, 0.27, 0.33), roughness=0.3):
+    """Scenes/Utils.cpp create_checkered_floor: a thin-walled plane with a
+    2x2 sRGB checker tint-roughness texture repeated across the floor →
+    (mesh, material dict, texture dict)."""
+    checker = np.zeros((2, 2, 4), F32)
+    for y in range(2):
+        for x in range(2):
+            is_black = (x & 1) != (y & 1)
+            intensity = 1 / 255.0 if is_black else 1.0
+            checker[y, x, :3] = float(srgb_to_linear(intensity))
+            checker[y, x, 3] = 15 / 255.0 if is_black else 1.0
+    texture = {"image": checker, "filter": FILTER_NONE}
+
+    mesh = make_plane(size=floor_size)
+    # Texcoords match the checker size, centred for precision
+    # (Utils.cpp: uv_scale = floor_size / (2 * checker_size)).
+    uv_scale = floor_size / (2.0 * checker_size)
+    mesh = mesh._replace(
+        texcoords=(np.asarray(mesh.texcoords) - 0.5) * uv_scale)
+    material = dict(tint=tint, roughness=roughness, flags=FLAG_THIN_WALLED)
+    return mesh, material, texture
+
+
+def create_opacity_scene(aspect=1.0, extra_instances=(), *, device):
+    """Opacity.h: checkered floor, a 0.1-radius sphere light inside a
+    17x17-grid cutout box ("Swizz box"), and two thin-walled coverage-0.75
+    planes in front (Opacity.h:27-107). ``extra_instances`` are appended;
+    material 1 is the cutout."""
+    floor_mesh, floor_mat, floor_tex = _checkered_floor_parts()
+
+    # 17x17 Alpha8 grid: opaque lines, holes in the cell centres
+    # (Opacity.h:57-68); sampled with nearest filtering.
+    grid = np.zeros((17, 17, 1), F32)
+    for y in range(17):
+        for x in range(17):
+            grid[y, x, 0] = 1.0 if ((x & 1) == 0 or (y & 1) == 0) else 0.0
+
+    textures = TextureBank.build([
+        floor_tex, {"image": grid, "filter": FILTER_NONE}], device=device)
+
+    floor_mat["tint_roughness_texture"] = 0
+    mats = MaterialArray.build([
+        floor_mat,
+        dict(tint=(0.005, 0.01, 0.25), roughness=0.05, coverage=1.0,
+             flags=FLAG_CUTOUT, coverage_texture=1),
+        dict(tint=(0.25, 0.25, 0.25), roughness=0.95, coverage=0.75,
+             flags=FLAG_THIN_WALLED)], device=device)
+
+    plane = make_plane(size=1.0)
+    instances = [
+        (floor_mesh, 0, _trs((0, -0.0005, 0))),
+        (make_box(size=1.0), 1, _trs((0, 0.5, 0))),
+        (plane, 2, _trs((1.0, 1.0, -2.0), (1, 0, 0), HALF_PI, 2.0)),
+        (plane, 2, _trs((0.0, 0.25, -3.0), (1, 0, 0), HALF_PI, 1.0)),
+        *extra_instances]
+    lights = LightArray.build([
+        {"kind": LIGHT_SPHERE, "position": (0, 0.5, 0), "radius": 0.1,
+         "power": (50.0, 50.0, 50.0)}], device=device)
+    scene = build_render_scene(instances, mats, lights, textures=textures,
+                               device=device)
+    camera = perspective_camera(eye=(0, 1.0, -6.0), target=(0, 1.0, 0),
+                                fov_radians=PI / 4, aspect=aspect,
+                                device=device)
+    return scene, camera
+
+
+def create_opacity_hier_scene(*, device):
+    """Opacity plus the two spheres of the ``mid_size`` scene (40 x 20 and
+    32 x 16, 2,480 triangles) carrying the cutout material, left and right
+    of the box: 2,498 triangles, over the dense megakernel's 1,024, so the
+    frame takes the BVH branch with textures, cutouts and the shadow
+    march."""
+    extra = [(make_sphere(radius=0.6, slices=40, stacks=20), 1,
+              _trs((-1.6, 0.6, -0.5))),
+             (make_sphere(radius=0.5, slices=32, stacks=16), 1,
+              _trs((1.5, 0.5, 0.5)))]
+    return create_opacity_scene(extra_instances=extra, device=device)
+
+
+def sun_environment_map(height: int = 32, width: int = 64) -> np.ndarray:
+    """A latlong map [height, width, 3] that is not uniform: a seeded
+    gradient (brighter towards one side and the top, tinted per channel)
+    with one bright patch off both axes. A flipped u or v, a wrong pdf cell
+    or a pool that is not weighted by its pdf changes the frame."""
+    rng = np.random.default_rng(11)
+    v = (np.arange(height, dtype=F32)[:, None] + 0.5) / height
+    u = (np.arange(width, dtype=F32)[None, :] + 0.5) / width
+    base = 0.15 + 0.5 * (1.0 - v) + 0.25 * u
+    env = base[..., None] * np.asarray([1.0, 0.9, 0.7], F32)
+    env = env * rng.uniform(0.9, 1.1, size=env.shape).astype(F32)
+    # The patch: rows 5-8 of 32 (above the horizon of the -y-up mapping),
+    # columns 43-47 of 64.
+    env[height * 5 // 32:height * 9 // 32,
+        width * 43 // 64:width * 48 // 64] = (40.0, 36.0, 28.0)
+    return env.astype(F32)
+
+
+def create_sphere_sun_scene(*, device):
+    """The Sphere scene under :func:`sun_environment_map`."""
+    return create_sphere_scene(environment_map=sun_environment_map(),
+                               device=device)
+
+
+def create_textured_cornell_scene(*, device):
+    """``tests/test_pallas_mesh.py:84-120``: a box over the Utils.cpp
+    checkered floor (4 units, 0.5-unit checkers) under one sphere light."""
+    floor_mesh, floor_mat, floor_tex = _checkered_floor_parts(
+        floor_size=4.0, checker_size=0.5)
+    textures = TextureBank.build([floor_tex], device=device)
+    floor_mat["tint_roughness_texture"] = 0
+    mats = MaterialArray.build([
+        floor_mat, dielectric((0.6, 0.3, 0.2), 0.4)], device=device)
+    instances = [
+        (floor_mesh, 0, _trs((0, -0.5, 0))),
+        (make_box(size=0.6), 1, _trs((0, -0.2, 0.3))),
+    ]
+    lights = LightArray.build([
+        {"kind": LIGHT_SPHERE, "position": (0.0, 1.4, -0.5),
+         "radius": 0.2, "power": (30.0,) * 3}], device=device)
+    scene = build_render_scene(instances, mats, lights, textures=textures,
+                               device=device)
+    camera = perspective_camera(eye=(0, 0.6, -2.2), target=(0, -0.2, 0),
+                                fov_radians=PI / 4, aspect=1.0, device=device)
     return scene, camera
 
 
@@ -303,13 +461,14 @@ def create_torus_grid_28_scene(*, device):
 
 
 def create_hier_bridge_scene(slices: int = 128, stacks: int = 80,
-                             extra_tori: int = 4, second_sphere=None, *,
-                             device):
+                             extra_tori: int = 4, second_sphere=None,
+                             environment_map=None, *, device):
     """``bench.py::bench_hier_bridge``'s scenes: a floor, a metal and a
     blue sphere of ``slices`` × ``stacks``, a box and ``extra_tori`` tori
     under one sphere light. (40, 20, 0), (64, 40, 2) and (128, 80, 4) give
     3,054, 14,606 and 49,678 triangles. ``second_sphere`` = (slices,
-    stacks) tessellates the blue sphere on its own."""
+    stacks) tessellates the blue sphere on its own; an ``environment_map``
+    lights the scene too, through a pool of 8,192 samples."""
     second = second_sphere or (slices, stacks)
     materials = [dielectric((0.7, 0.7, 0.7), 0.6),
                  metal((0.95, 0.64, 0.54), 0.3),
@@ -328,7 +487,10 @@ def create_hier_bridge_scene(slices: int = 128, stacks: int = 80,
                "radius": 0.2, "power": (40.0,) * 3}]
     scene = build_render_scene(
         instances, MaterialArray.build(materials, device=device),
-        LightArray.build(lights, device=device), device=device)
+        LightArray.build(lights, device=device),
+        environment_map=environment_map,
+        presample_environment=8192 if environment_map is not None else 0,
+        device=device)
     camera = perspective_camera(eye=(0.0, 0.6, 2.4), target=(0.0, -0.1, 0.0),
                                 device=device)
     return scene, camera
@@ -346,10 +508,12 @@ HIER_BRIDGE_SIZES = {"hier_bridge_3k": ((40, 20, 0), 3054),
                      "hier_bridge_50k": ((128, 80, 4), 49678)}
 
 
-def _hier_bridge(name):
+def _hier_bridge(name, environment_map=None):
     def build(*, device):
         args, n_tris = HIER_BRIDGE_SIZES[name]
-        scene, camera = create_hier_bridge_scene(*args, device=device)
+        env = None if environment_map is None else environment_map()
+        scene, camera = create_hier_bridge_scene(
+            *args, environment_map=env, device=device)
         assert int(scene.tri_verts.shape[0]) == n_tris, scene.tri_verts.shape
         return scene, camera
     return build
@@ -363,8 +527,15 @@ TEST_SCENES = {"coated": create_coated_scene,
                "torus_grid": create_torus_grid_scene,
                "mid_size": create_mid_size_scene,
                **{name: _hier_bridge(name) for name in HIER_BRIDGE_SIZES},
-               "torus_grid_28": create_torus_grid_28_scene}
+               "torus_grid_28": create_torus_grid_28_scene,
+               "textured_cornell": create_textured_cornell_scene,
+               "sphere_sun": create_sphere_sun_scene,
+               "hier_bridge_15k_env": _hier_bridge("hier_bridge_15k",
+                                                   sun_environment_map),
+               "opacity_hier": create_opacity_hier_scene}
 
 SCENES = {"CornellBox": create_cornell_box,
           "Veach": create_veach_scene,
-          "SphereLight": create_sphere_light_scene}
+          "Sphere": create_sphere_scene,
+          "SphereLight": create_sphere_light_scene,
+          "Opacity": create_opacity_scene}

@@ -1,8 +1,15 @@
 """SimpleViewer: the offline CLI renderer, path-tracer branch.
 
 Port of ``bifrost3d_tpu/apps/simple_viewer.py::main`` for the built-in
-scenes: render progressively through the pooled wavefront, apply the
-camera-effects chain and write a PNG.
+scenes (CornellBox, Veach, Sphere, SphereLight, Opacity): render
+progressively through ``render_sample_fast`` (on a card the mesh megakernel,
+one launch per frame), apply the camera-effects chain and write a PNG. The
+render settings are the reference viewer's: a plain ``RenderSettings`` with
+the bounce count, so shadow rays are binary any-hit queries on every scene
+(Opacity too; ``settings_for_scene`` is what turns the coverage-aware march
+on for a library caller). ``--environment-tint`` sets the background of a
+scene without a map; ``--environment-map`` needs an image reader, which the
+port does not have yet.
 
 Usage::
 
@@ -24,6 +31,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="PyTorch/CUDA path tracer")
     parser.add_argument("--scene", "-s", default="CornellBox",
                         help="built-in scene name")
+    parser.add_argument("--environment-map", "-e", default=None,
+                        help="latlong environment image (not ported: the "
+                             "port has no image reader yet)")
     parser.add_argument("--environment-tint", default="0.68,0.92,1.0",
                         help="R,G,B background tint (SimpleViewer default, "
                              "main.cpp:58)")
@@ -47,6 +57,10 @@ def main(argv=None):
     from bifrost3d_tpu_torch.post.pipeline import process
     from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
 
+    if args.environment_map is not None:
+        raise NotImplementedError(
+            "--environment-map: the port has no image reader yet (png, jpg, "
+            "hdr, exr); the Sphere scene carries its own map")
     if args.scene not in SCENES:
         raise NotImplementedError(
             f"scene {args.scene!r}: only {sorted(SCENES)} are ported yet")

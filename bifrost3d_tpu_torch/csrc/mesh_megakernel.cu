@@ -14,8 +14,11 @@
 // Diffuse shading (EON only) by the material's model; emission; RIS over up
 // to 8 NEE candidates with one binary any-hit shadow ray; a BSDF sample; the
 // Owen-scrambled Sobol RNG keyed by (accumulation, pixel hash, 8·bounce +
-// dimension). The environment-map, NEAREST-texture and cutout branches of
-// the TPU kernel are not here (their scenes go to the wavefront).
+// dimension). And, behind the template flag kExtras, the kernel's three
+// further branches: the environment map (bilinear latlong evaluation with
+// MIS against the per-pixel pdf grid on a miss, the presampled pool as NEE
+// candidate n_lights), NEAREST textures (tint-roughness and coverage) and
+// cutouts with stochastic coverage and the coverage-aware shadow march.
 //
 // The TPU layout does not carry over. There, (8, 128) pixel tiles run every
 // branch as masked vector math, the triangle trace is a (T, 128) broadcast,
@@ -38,6 +41,29 @@
 //     the chosen lobe, the lane's shading model);
 //   - templates cover the coat lobe, the Diffuse model and the trace (kHier);
 //     light kinds are a runtime switch, uniform across a warp.
+//
+// The environment, texture and coverage branches (kExtras). The TPU kernel
+// reads texels, the map, its pdf grid and the pool with a one-hot product on
+// the MXU over tables packed (A·R, 128), and does its index arithmetic in
+// float32. Here each is a table of plain records in global memory (texels
+// [n, 4], map [h·w, 3], pdf [ph·pw], pool [n, 7]: 64 + 48 + 32 + 224 KB at
+// the caps, too much to stage beside the triangles), read with one indexed
+// load per lane through the read-only path, and indices are integers, which
+// give the same cell below the caps. Which textures a material binds, and
+// whether it is a cutout, is static on the TPU; here it is a small int table
+// beside the material table, staged in shared memory. The shadow march makes
+// up to shadow_steps closest-hit traces in place of the one any-hit trace,
+// multiplying the transmittance by 1 − coverage at each surface, and, where
+// the TPU kernel runs every step for every lane, a thread stops at the first
+// step that hits nothing (a later step searches a part of the same segment)
+// or at zero transmittance. atan2f and asinf take the place of the TPU
+// kernel's Cephes polynomials; texel and cell coordinates are computed
+// without FMA contraction, so that a fetch lands on the plain version's
+// texel. All of it sits behind one flag with run-time branches inside, in
+// two instantiations (one per trace, with the coat lobe and the Diffuse model
+// compiled in and chosen per material at run time): a scene with no map, no
+// bound texture, no cutout and binary shadows launches the instantiation it
+// launched before this code existed.
 //
 // The BVH branch (kHier). The TPU kernel walks a BVH of 128-triangle clusters
 // once per (8, 128) pixel block with a scalar stack, copies each entered leaf
@@ -132,6 +158,15 @@ struct MegakernelParams {
   const float* active;       // [n_pixels] 0/1
   const float* scalars;      // epsilon, background rgb
   float* out;                // [4, n_pixels]: r, g, b, rays
+  // kExtras only (null otherwise):
+  const float* texels;       // [n_texels, 4]: level 0 of every texture in turn
+  const int* tex_meta;       // [n_tex, 6]: first texel, width, height, wrap_u,
+                             // wrap_v (1 = repeat, 0 = clamp), filter
+  const int* mat_tex;        // [n_mats, 4]: tint-roughness texture, coverage
+                             // texture (-1 = none), is cutout
+  const float* env_img;      // [env_h * env_w, 3] latlong radiance
+  const float* env_pdf;      // [env_ph * env_pw] solid-angle pdf without 1/sin
+  const float* env_pool;     // [env_pool_n, 7]: direction, radiance, pdf
   int n_pixels, n_tris, t_pad, n_mats, n_lights;
   int light_kinds[kMaxLights];
   uint32_t accumulation;
@@ -139,6 +174,13 @@ struct MegakernelParams {
   float firefly_clamp, delta_light_clamp;
   float ris_offsets[kMaxRis * 4];
   int has_coat, has_diffuse, hier;
+  int extras;                // launch the kExtras instantiation
+  int n_tex;
+  int any_coverage;          // discard hits by coverage
+  int shadow_steps;          // 0 = one binary any-hit shadow ray
+  int has_env;               // scalars[1:4] is then the map's tint
+  int env_w, env_h, env_pw, env_ph, env_pool_n;
+  int n_nee_total;           // n_lights, + 1 when the pool holds > 1 sample
 };
 
 namespace {
@@ -836,6 +878,161 @@ __device__ bool trace_any(const float* __restrict__ s_tri, int n_tris, V3 o, V3 
   return false;
 }
 
+
+// Closest hit in (t_min, t_max): prim -1 on a miss.
+__device__ int trace_closest_within(const float* __restrict__ s_tri, int n_tris, V3 o, V3 d,
+                                    float t_min, float t_max, float& best_t, float& best_u,
+                                    float& best_v) {
+  best_t = t_max;
+  best_u = 0.0f;
+  best_v = 0.0f;
+  int best = -1;
+  for (int k = 0; k < n_tris; ++k) {
+    float t, u, v;
+    if (mt_test(s_tri + 9 * k, o, d, t, u, v) && t > t_min && t < best_t) {
+      best_t = t;
+      best_u = u;
+      best_v = v;
+      best = k;
+    }
+  }
+  return best;
+}
+
+// -- environment map, textures, coverage (kExtras) ------------------------------
+
+__device__ __forceinline__ int floor_mod(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+__device__ __forceinline__ int clampi(int i, int lo, int hi) { return min(max(i, lo), hi); }
+
+struct EnvTables {
+  const float* img;
+  const float* pdf;
+  int w, h, pw, ph;
+};
+
+// lights/environment.py direction_to_latlong_uv.
+__device__ __forceinline__ void dir_to_latlong_uv(V3 d, float& u, float& v) {
+  u = (atan2f(d.z, d.x) + kPi) * (0.5f / kPi);
+  v = (asinf(fminf(fmaxf(d.y, -1.0f), 1.0f)) + kPi * 0.5f) / kPi;
+}
+
+__device__ __forceinline__ V3 env_texel(const float* __restrict__ img, int i) {
+  return mk(__ldg(img + 3 * i), __ldg(img + 3 * i + 1), __ldg(img + 3 * i + 2));
+}
+
+// Bilinear latlong fetch (u wraps by a floor-mod, v clamps) times the tint.
+__device__ V3 env_evaluate(const EnvTables& e, V3 tint, float u, float v) {
+  const float x = __fsub_rn(__fmul_rn(u, static_cast<float>(e.w)), 0.5f);
+  const float y = __fsub_rn(__fmul_rn(v, static_cast<float>(e.h)), 0.5f);
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = x - x0f, fy = y - y0f;
+  const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
+  const int x0w = floor_mod(x0, e.w), x1w = floor_mod(x0 + 1, e.w);
+  const int y0c = clampi(y0, 0, e.h - 1), y1c = clampi(y0 + 1, 0, e.h - 1);
+  const V3 p00 = env_texel(e.img, y0c * e.w + x0w), p10 = env_texel(e.img, y0c * e.w + x1w);
+  const V3 p01 = env_texel(e.img, y1c * e.w + x0w), p11 = env_texel(e.img, y1c * e.w + x1w);
+  const V3 top = add(scale(p00, 1.0f - fx), scale(p10, fx));
+  const V3 bot = add(scale(p01, 1.0f - fx), scale(p11, fx));
+  return mul(add(scale(top, 1.0f - fy), scale(bot, fy)), tint);
+}
+
+// The pdf of the grid cell that holds (u, v), over sin(theta).
+__device__ float env_pdf_at(const EnvTables& e, V3 d, float u, float v) {
+  const float sin_theta = sqrtf(fmaxf(1.0f - d.y * d.y, 0.0f));
+  const int xi = clampi(static_cast<int>(__fmul_rn(u, static_cast<float>(e.pw))), 0, e.pw - 1);
+  const int yi = clampi(static_cast<int>(__fmul_rn(v, static_cast<float>(e.ph))), 0, e.ph - 1);
+  if (sin_theta == 0.0f) return 0.0f;
+  return __ldg(e.pdf + yi * e.pw + xi) / fmaxf(sin_theta, 1e-10f);
+}
+
+struct TexTables {
+  const float4* texels;
+  const int* meta;      // [n_tex, 6]
+  const int* s_mat_tex;  // [n_mats, 4], in shared memory
+};
+
+// NEAREST fetch, texel for texel io/texture.py sample_texture: v flip, wrap
+// in float space, - 0.5, round half to even, then integer wrap or clamp.
+__device__ float4 tex_fetch_nearest(const TexTables& t, int tex, float u, float v) {
+  const int* m = t.meta + 6 * tex;
+  const int base = __ldg(m), w = __ldg(m + 1), h = __ldg(m + 2);
+  const bool rep_u = __ldg(m + 3) == 1, rep_v = __ldg(m + 4) == 1;
+  const float vv = 1.0f - v;
+  const float fu = rep_u ? u - floorf(u) : fminf(fmaxf(u, 0.0f), 1.0f);
+  const float fv = rep_v ? vv - floorf(vv) : fminf(fmaxf(vv, 0.0f), 1.0f);
+  int x = static_cast<int>(rintf(__fsub_rn(__fmul_rn(fu, static_cast<float>(w)), 0.5f)));
+  int y = static_cast<int>(rintf(__fsub_rn(__fmul_rn(fv, static_cast<float>(h)), 0.5f)));
+  x = rep_u ? floor_mod(x, w) : clampi(x, 0, w - 1);
+  y = rep_v ? floor_mod(y, h) : clampi(y, 0, h - 1);
+  return __ldg(t.texels + base + y * w + x);
+}
+
+// The hit's texcoords from attribute rows 13-18 of column `a`.
+__device__ __forceinline__ void interpolated_uv(const float* __restrict__ a, int ts, float hu,
+                                                float hv, float& u, float& v) {
+  const float b0 = 1.0f - hu - hv;
+  u = a[13 * ts] * b0 + a[14 * ts] * hu + a[15 * ts] * hv;
+  v = a[16 * ts] * b0 + a[17 * ts] * hu + a[18 * ts] * hv;
+}
+
+// Coverage of material `mat` at (u, v): material coverage times the coverage
+// texture's red, or for a cutout the sample binarized against the stored
+// threshold (path_tracer._surface_material_params).
+__device__ float coverage_at(const TexTables& t, int mat, float cov_base, float u, float v) {
+  const int cov_tex = t.s_mat_tex[4 * mat + 1];
+  const bool is_cutout = t.s_mat_tex[4 * mat + 2] != 0;
+  if (cov_tex < 0 && !is_cutout) return cov_base;
+  const float samp = cov_tex >= 0 ? tex_fetch_nearest(t, cov_tex, u, v).x : 1.0f;
+  return is_cutout ? (samp < cov_base ? 0.0f : 1.0f) : cov_base * samp;
+}
+
+struct TraceTables {
+  const float* s_tri;    // dense: [n_tris, 9] in shared memory
+  int n_tris;
+  const float4* nodes4;  // hier
+  const float4* tris4;   // hier
+  const float* attr;     // [24, t_pad]
+  int t_pad;
+  const float* s_mats;   // [n_mats, 16] in shared memory
+};
+
+// The coverage-aware shadow march (path_tracer._shadow_transmittance): up
+// to `steps` closest hits along the segment, each but the last multiplying
+// the transmittance by 1 - coverage and moving the origin past the surface
+// by t + eps; what the last step still hits occludes fully. A step that
+// hits nothing ends the march: the next would search a part of the same
+// segment.
+template <bool kHier>
+__device__ float shadow_march(const TraceTables& g, const TexTables& tex, V3 o, V3 d, float t_max,
+                              float eps, int steps) {
+  float trans = 1.0f;
+  float t_rem = t_max;
+  for (int s = 0; s < steps && trans > 0.0f; ++s) {
+    float t, hu, hv;
+    int prim;
+    if constexpr (kHier) {
+      const bvh_walk::Ray ray = bvh_walk::make_ray(o.x, o.y, o.z, d.x, d.y, d.z, eps);
+      prim = bvh_walk::walk<false>(g.nodes4, g.tris4, ray, t_rem, t, hu, hv);
+    } else {
+      prim = trace_closest_within(g.s_tri, g.n_tris, o, d, eps, t_rem, t, hu, hv);
+    }
+    if (prim < 0) break;
+    if (s == steps - 1) return 0.0f;
+    const float* a = g.attr + prim;
+    const int mat = static_cast<int>(a[9 * g.t_pad]);
+    float u, v;
+    interpolated_uv(a, g.t_pad, hu, hv, u, v);
+    trans *= 1.0f - coverage_at(tex, mat, g.s_mats[16 * mat + 10], u, v);
+    const float advance = t + eps;
+    o = add(o, scale(d, advance));
+    t_rem -= advance;
+  }
+  return trans;
+}
+
 // -- the kernel -----------------------------------------------------------------
 
 constexpr int kAttrRows = 24;
@@ -844,7 +1041,8 @@ constexpr int kLightCols = 12;
 constexpr int kDimNee = 1, kDimBsdf = 2, kPerBounce = 8;
 
 // kHier: the trace walks the BVH in global memory, and no triangle is staged.
-template <bool kCoat, bool kDiffuse, bool kHier>
+// kExtras: the environment map, textures, coverage and the shadow march.
+template <bool kCoat, bool kDiffuse, bool kHier, bool kExtras>
 __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   extern __shared__ float smem[];
   const int n_staged = kHier ? 0 : p.n_tris;
@@ -856,6 +1054,7 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   float* s_offsets = s_lights + kLightCols * p.n_lights;  // [8, 4] RIS offsets
   uint32_t* s_sobol = reinterpret_cast<uint32_t*>(s_offsets + 4 * kMaxRis);  // [4, 32]
   int* s_kinds = reinterpret_cast<int*>(s_sobol + 128);   // [8] light kinds
+  int* s_mat_tex = s_kinds + kMaxLights;                  // kExtras: [n_mats, 4]
 
   for (int k = threadIdx.x; k < 9 * n_staged; k += blockDim.x)
     s_tri[k] = p.tri[(k / 9) * 16 + k % 9];
@@ -868,6 +1067,9 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   for (int k = threadIdx.x; k < 128; k += blockDim.x) s_sobol[k] = p.sobol[k];
   if (threadIdx.x < 4 * kMaxRis) s_offsets[threadIdx.x] = p.ris_offsets[threadIdx.x];
   if (threadIdx.x < kMaxLights) s_kinds[threadIdx.x] = p.light_kinds[threadIdx.x];
+  if constexpr (kExtras) {
+    for (int k = threadIdx.x; k < 4 * p.n_mats; k += blockDim.x) s_mat_tex[k] = p.mat_tex[k];
+  }
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -886,6 +1088,11 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   bool active = p.active[i] > 0.0f;
   const float4* nodes4 = reinterpret_cast<const float4*>(p.nodes);
   const float4* tris4 = reinterpret_cast<const float4*>(p.tri);
+  const EnvTables env = {p.env_img, p.env_pdf, p.env_w, p.env_h, p.env_pw, p.env_ph};
+  const TexTables tex = {reinterpret_cast<const float4*>(p.texels), p.tex_meta, s_mat_tex};
+  const TraceTables geo = {s_tri, p.n_tris, nodes4, tris4, p.attr, p.t_pad, s_mats};
+  // NEE candidates: the lights, and with kExtras the environment's pool.
+  const int n_nee = kExtras ? p.n_nee_total : p.n_lights;
 
   for (int it = 0; it < p.n_iters && active; ++it) {
     rays += 2.0f;
@@ -911,7 +1118,17 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
       }
     }
     const bool light_first = t_light < t_hit;
-    if (!light_first && prim < 0) {   // miss: the background tint
+    if (!light_first && prim < 0) {   // miss: the environment map, or the background tint
+      if constexpr (kExtras) {
+        if (p.has_env) {
+          float eu, ev;
+          dir_to_latlong_uv(d, eu, ev);
+          const float e_pdf = env_pdf_at(env, d, eu, ev);
+          const float w = bsdf_pdf > 0.0f ? mis_weight(bsdf_pdf, e_pdf) : 1.0f;
+          radiance = add(radiance, mul(throughput, scale(env_evaluate(env, env_tint, eu, ev), w)));
+          break;
+        }
+      }
       radiance = add(radiance, mul(throughput, env_tint));
       break;
     }
@@ -957,8 +1174,24 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
     const V3 wo = to_local(wo_world, sn);
     const float cos_theta_o = (hit_from_front || thin_walled) ? wo.z : -wo.z;
 
-    const V3 tint = mk(m[0], m[1], m[2]);
-    const float rough = m[3];
+    V3 tint = mk(m[0], m[1], m[2]);
+    float rough = m[3];
+    if constexpr (kExtras) {
+      const int tr_tex = s_mat_tex[4 * mat_idx];
+      float tu = 0.0f, tv = 0.0f;
+      if (tr_tex >= 0 || p.any_coverage) interpolated_uv(a, ts, hu, hv, tu, tv);
+      // Stochastic transparency: coverage below the bounce's fourth BSDF
+      // number lets the ray pass, as a culled back face does.
+      if (p.any_coverage && coverage_at(tex, mat_idx, m[10], tu, tv) < u_bsdf[3]) {
+        o = offset_ray_origin(position, neg(gf));
+        continue;
+      }
+      if (tr_tex >= 0) {
+        const float4 tr = tex_fetch_nearest(tex, tr_tex, tu, tv);
+        tint = mul(tint, mk(tr.x, tr.y, tr.z));
+        rough *= tr.w;
+      }
+    }
     Shading sh;
     if (kDiffuse && m[13] == 1.0f) {
       sh.tint = tint;
@@ -973,12 +1206,13 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
     // Surface emission.
     radiance = add(radiance, mul(throughput, mk(m[7], m[8], m[9])));
 
-    // NEE: RIS over ris_count candidates, then one any-hit shadow ray.
+    // NEE: RIS over ris_count candidates, then one any-hit shadow ray or
+    // the march through semi-transparent surfaces.
     bool nee_valid = false;
-    if (p.n_lights > 0 && p.ris_count > 0) {
+    if (n_nee > 0 && p.ris_count > 0) {
       V3 res_dir = mk(0.0f, 0.0f, 0.0f), res_rad = mk(0.0f, 0.0f, 0.0f);
       float res_dist = 0.0f;
-      const float n_total = static_cast<float>(p.n_lights);
+      const float n_total = static_cast<float>(n_nee);
       for (int s = 0; s < p.ris_count; ++s) {
         const float* off = s_offsets + 4 * s;
         const float c0 = toroidal_shift(u_nee[0], off[0]);
@@ -986,19 +1220,34 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
         const float c2 = toroidal_shift(u_nee[2], off[2]);
         const float c3 = toroidal_shift(u_nee[3], off[3]);
         const int pick = static_cast<int>(fminf(floorf(c2 * n_total), n_total - 1.0f));
-        const int kind = s_kinds[pick];
-        const Light l = load_light(s_lights + kLightCols * pick);
         LightSample ls;
-        if (kind == kSphere) {
-          ls = sphere_light_sample(l, position, c0, c1);
-        } else if (kind == kSpot) {
-          ls = spot_light_sample(l, position, c0, c1);
-        } else {   // directional
-          ls.dir = neg(l.dir);
+        if (kExtras && pick == p.n_lights) {
+          // The environment: entry floor(c0 * n) of the presampled pool,
+          // whose radiance holds the tint already.
+          const int n_pool = p.env_pool_n;
+          const int idx =
+              clampi(static_cast<int>(floorf(__fmul_rn(c0, static_cast<float>(n_pool)))), 0,
+                     n_pool - 1);
+          const float* rec = p.env_pool + 7 * idx;
+          ls.dir = mk(__ldg(rec), __ldg(rec + 1), __ldg(rec + 2));
           ls.dist = 1e30f;
-          ls.radiance = l.power;
-          ls.pdf = 1.0f;
-          ls.is_delta = true;
+          ls.radiance = mk(__ldg(rec + 3), __ldg(rec + 4), __ldg(rec + 5));
+          ls.pdf = __ldg(rec + 6);
+          ls.is_delta = false;
+        } else {
+          const int kind = s_kinds[pick];
+          const Light l = load_light(s_lights + kLightCols * pick);
+          if (kind == kSphere) {
+            ls = sphere_light_sample(l, position, c0, c1);
+          } else if (kind == kSpot) {
+            ls = spot_light_sample(l, position, c0, c1);
+          } else {   // directional
+            ls.dir = neg(l.dir);
+            ls.dist = 1e30f;
+            ls.radiance = l.power;
+            ls.pdf = 1.0f;
+            ls.is_delta = true;
+          }
         }
         // Uniform light pick, |N·L| / pdf, MIS and the material's f.
         V3 cand = scale(scale(ls.radiance, n_total), fabsf(dot(sn, ls.dir)) / fmaxf(ls.pdf, 1e-12f));
@@ -1032,18 +1281,24 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
       if (max3(l_radiance) > 0.0f) {
         const float side = dot(res_dir, gf) >= 0.0f ? 1.0f : -1.0f;
         const V3 shadow_origin = offset_ray_origin(position, scale(gf, side));
-        bool occluded;
-        if constexpr (kHier) {
-          const bvh_walk::Ray ray = bvh_walk::make_ray(shadow_origin.x, shadow_origin.y,
-                                                       shadow_origin.z, res_dir.x, res_dir.y,
-                                                       res_dir.z, eps);
-          float t_any, u_any, v_any;
-          occluded = bvh_walk::walk<true>(nodes4, tris4, ray, res_dist * 0.9999f, t_any, u_any,
-                                          v_any) >= 0;
+        if (kExtras && p.shadow_steps > 0) {
+          const float trans = shadow_march<kHier>(geo, tex, shadow_origin, res_dir,
+                                                  res_dist * 0.9999f, eps, p.shadow_steps);
+          radiance = add(radiance, scale(l_radiance, trans));
         } else {
-          occluded = trace_any(s_tri, p.n_tris, shadow_origin, res_dir, eps, res_dist * 0.9999f);
+          bool occluded;
+          if constexpr (kHier) {
+            const bvh_walk::Ray ray = bvh_walk::make_ray(shadow_origin.x, shadow_origin.y,
+                                                         shadow_origin.z, res_dir.x, res_dir.y,
+                                                         res_dir.z, eps);
+            float t_any, u_any, v_any;
+            occluded = bvh_walk::walk<true>(nodes4, tris4, ray, res_dist * 0.9999f, t_any, u_any,
+                                            v_any) >= 0;
+          } else {
+            occluded = trace_any(s_tri, p.n_tris, shadow_origin, res_dir, eps, res_dist * 0.9999f);
+          }
+          if (!occluded) radiance = add(radiance, l_radiance);
         }
-        if (!occluded) radiance = add(radiance, l_radiance);
       }
     }
 
@@ -1083,13 +1338,14 @@ __global__ void rng_probe_kernel(const uint32_t* __restrict__ pixel_hash,
   for (int d = 0; d < 4; ++d) out[4 * i + d] = u[d];
 }
 
-template <bool kCoat, bool kDiffuse, bool kHier>
+template <bool kCoat, bool kDiffuse, bool kHier, bool kExtras = false>
 int launch(const MegakernelParams& p, int threads, cudaStream_t stream) {
   const int n_staged = kHier ? 0 : p.n_tris;
   const size_t smem = sizeof(float) * (9 * n_staged + 2 * kRho * kRho + kMatCols * p.n_mats +
                                        kLightCols * p.n_lights + 4 * kMaxRis) +
-                      sizeof(uint32_t) * 128 + sizeof(int) * kMaxLights;
-  auto kernel = mesh_megakernel_kernel<kCoat, kDiffuse, kHier>;
+                      sizeof(uint32_t) * 128 + sizeof(int) * kMaxLights +
+                      (kExtras ? sizeof(int) * 4 * p.n_mats : 0);
+  auto kernel = mesh_megakernel_kernel<kCoat, kDiffuse, kHier, kExtras>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1102,6 +1358,9 @@ int launch(const MegakernelParams& p, int threads, cudaStream_t stream) {
 
 template <bool kHier>
 int launch_models(const MegakernelParams& p, int threads, cudaStream_t s) {
+  // The one kExtras instantiation per trace compiles the coat lobe and the
+  // Diffuse model in: both are chosen per material at run time.
+  if (p.extras) return launch<true, true, kHier, true>(p, threads, s);
   if (p.has_coat) {
     return p.has_diffuse ? launch<true, true, kHier>(p, threads, s)
                          : launch<true, false, kHier>(p, threads, s);

@@ -3,9 +3,11 @@ triangles, one kernel launch per frame.
 
 Port of ``bifrost3d_tpu/integrator/pallas_mesh.py`` (``MAX_TRIS``,
 ``HIER_MAX_TRIS``, ``MAX_MATERIALS``, ``MAX_LIGHTS``, ``ATTR_ROWS``,
+``MAX_TEX_TEXELS``, ``MAX_ENV_TEXELS``, ``MAX_ENV_PDF``, ``MAX_ENV_POOL``,
 ``megakernel_ineligibility_reasons``, ``mesh_megakernel_eligible``,
-``_pack_scene``, ``_live_tables``, ``_static_info``, ``prewarm_megakernel``,
-``_rho_tables``, ``render_mesh_megakernel`` with ``_render_packed``): its
+``_pack_scene``, ``_pack_env``, ``_pack_textures``, ``_live_tables``,
+``_static_info``, ``prewarm_megakernel``, ``_rho_tables``,
+``render_mesh_megakernel`` with ``_render_packed``): its
 dense branch (at most ``MAX_TRIS`` triangles) and its BVH branch
 (``_hier_tracers``, above that). The TPU kernel ``_make_kernel`` becomes
 the hand-written CUDA kernel ``csrc/mesh_megakernel.cu``: one thread per
@@ -15,9 +17,13 @@ per-thread walk of the port's own triangle BVH,
 ``geometry/pallas_bvh.py::HierTriangles``, in global memory), attribute
 fetch by triangle index (dense) or by slot of the tree's leaf order (BVH),
 Default (EON + GGX, optional coat) or Diffuse shading, RIS(≤ 8) NEE with
-MIS over sphere, spot and directional lights, a binary any-hit shadow ray,
-emission, the background tint, passthrough of back faces, and the
-Owen-scrambled Sobol RNG — with the path state in registers.
+MIS over sphere, spot and directional lights and the environment's
+presampled pool, a binary any-hit shadow ray or the coverage-aware march of
+closest hits, emission, the background tint or the environment map
+(bilinear latlong fetch with MIS), NEAREST tint-roughness and coverage
+textures, cutouts and stochastic coverage, passthrough of back faces and
+discarded hits, and the Owen-scrambled Sobol RNG — with the path state in
+registers.
 
 :func:`render_mesh_megakernel` dispatches on the scene's device: CUDA
 tensors launch the kernel, CPU tensors take the plain PyTorch version
@@ -28,17 +34,18 @@ On the BVH branch the lanes are handed to the kernel in small 2-D pixel
 tiles, one per warp (``HIER_PIXEL_TILE``), so that a warp's rays stay
 close in the tree; the image is put back in raster order afterwards.
 
-The kernel's environment-map, NEAREST-texture and cutout (coverage-aware
-shadow march) branches are not ported, on either trace: such scenes are
-listed as ineligible, and ``render_sample_fast`` sends them to the
-wavefront.
+A scene with an environment map, a bound texture, a cutout or
+coverage-aware shadows launches the kernel's ``kExtras`` instantiation (one
+per trace); every other scene launches the instantiation it launched before
+those branches existed. Texels, the map, its pdf grid and the pool are plain
+records in global memory (``KernelExtras``), indexed with integers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,7 +69,15 @@ from bifrost3d_tpu_torch.integrator.path_tracer import (
     _reverse_halton_offsets,
     mis_weight,
 )
+from bifrost3d_tpu_torch.io.texture import FILTER_NONE, WRAP_REPEAT
 from bifrost3d_tpu_torch.lights.analytic import evaluate_light, light_pdf
+from bifrost3d_tpu_torch.lights.environment import (
+    EnvironmentLight,
+    PresampledEnvironmentLight,
+    environment_evaluate,
+    environment_pdf,
+    presampled_environment_sample,
+)
 from bifrost3d_tpu_torch.lights.types import (
     LIGHT_DIRECTIONAL,
     LIGHT_SPHERE,
@@ -99,6 +114,10 @@ MAX_LIGHTS = 8
 MAX_RIS = 8
 ATTR_ROWS = 24            # attr table rows (19 used; padded to 8-multiple)
 HIER_MAX_TRIS = 262144    # the BVH branch's cap
+MAX_TEX_TEXELS = 4096     # level-0 texels of the whole bank
+MAX_ENV_TEXELS = 4096     # latlong radiance map budget (h*w)
+MAX_ENV_PDF = 8192        # pdf grid budget (ph*pw)
+MAX_ENV_POOL = 8192       # presampled pool entries
 # Pixels per warp on the BVH branch, (width, height) of the tile a warp's 32
 # lanes cover; None = raster order.
 HIER_PIXEL_TILE = (8, 4)
@@ -119,7 +138,7 @@ def megakernel_ineligibility_reasons(scene: RenderScene,
                                      settings: RenderSettings) -> list:
     """Every feature of this scene/settings combination outside the
     kernel's scope, as readable strings (empty = eligible): the JAX
-    package's reasons, plus one for each branch not ported yet."""
+    package's reasons, word for word."""
     reasons = []
     t = int(scene.tri_verts.shape[0])
     if t == 0:
@@ -127,7 +146,25 @@ def megakernel_ineligibility_reasons(scene: RenderScene,
     elif t > HIER_MAX_TRIS:
         reasons.append(f"{t} triangles > HIER_MAX_TRIS {HIER_MAX_TRIS}")
     if scene.environment is not None:
-        reasons.append("environment map (not ported)")
+        env = scene.environment
+        h, w = int(env.image.shape[0]), int(env.image.shape[1])
+        if h * w > MAX_ENV_TEXELS:
+            reasons.append(f"environment map {h}x{w} > MAX_ENV_TEXELS "
+                           f"{MAX_ENV_TEXELS}")
+        ph, pw = env.pdf_size
+        if int(ph) * int(pw) > MAX_ENV_PDF:
+            reasons.append(f"environment pdf grid {ph}x{pw} > "
+                           f"MAX_ENV_PDF {MAX_ENV_PDF}")
+        pool = scene.environment_presampled
+        if pool is None:
+            reasons.append("environment without presampled pool "
+                           "(build_render_scene presample_environment)")
+        elif pool.sample_count > MAX_ENV_POOL:
+            reasons.append(f"environment pool {pool.sample_count} > "
+                           f"MAX_ENV_POOL {MAX_ENV_POOL}")
+        if not settings.use_presampled_environment:
+            reasons.append("CDF-search environment NEE "
+                           "(use_presampled_environment=False)")
     mats = scene.materials
     m = int(mats.shading_model.shape[0])
     if m == 0 or m > MAX_MATERIALS:
@@ -136,13 +173,25 @@ def megakernel_ineligibility_reasons(scene: RenderScene,
         reasons.append("Transmissive shading model")
     if bool(torch.any(mats.metallic_texture >= 0)):
         reasons.append("metallic textures")
-    if any(bool(torch.any(slot >= 0)) for slot in (
-            mats.tint_roughness_texture, mats.metallic_texture,
-            mats.coverage_texture)):
-        reasons.append("textures (not ported)")
-    if (settings.coverage_aware_shadows
-            or bool(torch.any((mats.flags & FLAG_CUTOUT) != 0))):
-        reasons.append("cutouts / coverage-aware shadows (not ported)")
+    # Tint-roughness and coverage textures are in scope when the bank's
+    # level-0 texels fit the budget and every bound texture is NEAREST (the
+    # procedural checkers and cutout grids of Opacity.h / Utils.cpp).
+    bound = set()
+    for slot in (mats.tint_roughness_texture, mats.coverage_texture):
+        bound |= {int(b) for b in slot.tolist() if b >= 0}
+    if bound:
+        bank = scene.textures
+        if bank is None or bank.count == 0:
+            reasons.append("texture bindings without a texture bank")
+        else:
+            sizes = bank.sizes.cpu().numpy()
+            total = int((sizes[:, 0] * sizes[:, 1]).sum())
+            if total > MAX_TEX_TEXELS:
+                reasons.append(
+                    f"{total} texels > MAX_TEX_TEXELS {MAX_TEX_TEXELS}")
+            filters = bank.filters.tolist()
+            if any(int(filters[b]) != FILTER_NONE for b in bound):
+                reasons.append("non-nearest texture filtering")
     if not bool(torch.all(scene.tri_tint_roughness == 1.0)):
         reasons.append("per-vertex tint-roughness")
     kinds = scene.lights.kind
@@ -228,6 +277,68 @@ def _pack_scene(scene: RenderScene) -> dict:
     return packed
 
 
+_ENV_CACHE = {}
+_TEX_CACHE = {}
+
+
+def _pack_env(scene: RenderScene):
+    """Environment tables for the kernel → (map [h·w, 3], pdf [ph·pw], pool
+    [n, 7] (direction 0-2, radiance 3-5, pdf 6) or None, meta) with meta =
+    (w, h, pw, ph, n_pool, nee enabled); all None without a map. Plain
+    records, cached per environment identity (and pool identity)."""
+    env = scene.environment
+    if env is None:
+        return None, None, None, None
+    pool = scene.environment_presampled
+    key = (id(env.image), id(pool.pdfs) if pool is not None else None)
+    if key in _ENV_CACHE:
+        return _ENV_CACHE[key][:4]
+    if len(_ENV_CACHE) > 16:
+        _ENV_CACHE.clear()
+    h, w = int(env.image.shape[0]), int(env.image.shape[1])
+    ph, pw = env.pdf_size
+    img = env.image.to(torch.float32).reshape(h * w, 3).contiguous()
+    pdf = env.per_pixel_pdf.to(torch.float32).reshape(-1).contiguous()
+    if pool is not None and pool.nee_enabled:
+        n_pool = pool.sample_count
+        pool_tab = torch.cat([pool.directions, pool.radiances,
+                              pool.pdfs[:, None]], dim=1).to(
+                                  torch.float32).contiguous()
+    else:
+        n_pool, pool_tab = 0, None
+    meta = (w, h, int(pw), int(ph), n_pool, n_pool > 1)
+    # Pin the keyed tensors: an id() key is sound only while they live.
+    _ENV_CACHE[key] = (img, pdf, pool_tab, meta, env.image, pool)
+    return img, pdf, pool_tab, meta
+
+
+def _pack_textures(scene: RenderScene):
+    """Level 0 of every texture, flattened into one table → (texels [N, 4],
+    tex_meta) with tex_meta[i] = (first texel, width, height, wrap_u,
+    wrap_v, filter) as Python ints; (None, ()) for a bank of no texture.
+    Cached per bank identity."""
+    bank = scene.textures
+    if bank is None or bank.count == 0:
+        return None, ()
+    key = id(bank.data)
+    if key in _TEX_CACHE:
+        return _TEX_CACHE[key][:2]
+    if len(_TEX_CACHE) > 16:
+        _TEX_CACHE.clear()
+    sizes, filters, wraps = (bank.sizes.tolist(), bank.filters.tolist(),
+                             bank.wraps.tolist())
+    metas, blocks, base = [], [], 0
+    for i in range(bank.count):
+        h, w = int(sizes[i][0]), int(sizes[i][1])
+        blocks.append(bank.data[i, :h, :w, :].reshape(h * w, 4))
+        metas.append((base, w, h, int(wraps[i][0]), int(wraps[i][1]),
+                      int(filters[i])))
+        base += h * w
+    texels = torch.cat(blocks, dim=0).to(torch.float32).contiguous()
+    _TEX_CACHE[key] = (texels, tuple(metas), bank.data)
+    return texels, tuple(metas)
+
+
 def _live_tables(scene: RenderScene):
     """→ (materials [m, 16], m, lights [n, 12]) from the live scene, laid
     out as in JAX. Material columns: tint 0-2, roughness 3, specularity 4,
@@ -266,17 +377,26 @@ def _live_tables(scene: RenderScene):
 
 def _static_info(scene: RenderScene) -> dict:
     """Kernel-structure statics read on the host and cached per identity:
-    the light kinds (a runtime switch in the kernel) and whether any
-    material has a coat (a template parameter)."""
-    key = (id(scene.lights.kind), id(scene.materials.coat))
+    the light kinds (a runtime switch in the kernel), whether any material
+    has a coat (a template parameter) and ``mat_tex``, per material
+    (tint-roughness texture, coverage texture, is cutout)."""
+    mats = scene.materials
+    keyed = (scene.lights.kind, mats.flags, mats.tint_roughness_texture,
+             mats.coverage_texture, mats.coat)
+    key = tuple(id(t) for t in keyed)
     if key in _STATIC_CACHE:
         return _STATIC_CACHE[key][0]
     if len(_STATIC_CACHE) > 32:
         _STATIC_CACHE.clear()
     info = dict(
         light_kinds=tuple(int(k) for k in scene.lights.kind.tolist()),
-        has_coat=bool(torch.any(scene.materials.coat > 0.0)))
-    _STATIC_CACHE[key] = (info, (scene.lights.kind, scene.materials.coat))
+        mat_tex=tuple(
+            (int(tr), int(cv), int(bool(fl & FLAG_CUTOUT)))
+            for tr, cv, fl in zip(mats.tint_roughness_texture.tolist(),
+                                  mats.coverage_texture.tolist(),
+                                  mats.flags.tolist())),
+        has_coat=bool(torch.any(mats.coat > 0.0)))
+    _STATIC_CACHE[key] = (info, keyed)
     return info
 
 
@@ -290,6 +410,8 @@ def prewarm_megakernel(scene: RenderScene) -> None:
     """Fill the host-side caches for ``scene`` and, on a card, build the
     kernel, so that the first frame pays for neither."""
     _pack_scene(scene)
+    _pack_textures(scene)
+    _pack_env(scene)
     _static_info(scene)
     if scene.tri_verts.device.type == "cuda":
         _library()
@@ -308,6 +430,46 @@ class KernelConfig(NamedTuple):
     has_coat: bool
     has_diffuse: bool
     hier: bool = False      # the trace walks the BVH (``tri`` is the tree)
+    # Per material (tint-roughness texture, coverage texture, is cutout);
+    # () = no material binds a texture or is a cutout.
+    mat_tex: tuple = ()
+    # Per texture (first texel, width, height, wrap_u, wrap_v, filter).
+    tex_meta: tuple = ()
+    shadow_steps: int = 0   # 0 = one binary any-hit shadow ray
+    # (w, h, pw, ph, n_pool, nee enabled); None = tint-only background.
+    env_meta: Optional[tuple] = None
+
+    @property
+    def any_coverage(self) -> bool:
+        """Hits are discarded by coverage (as in the TPU kernel, only when
+        shadows march or a material has a coverage texture or is a
+        cutout)."""
+        return self.shadow_steps > 0 or any(
+            mt[1] >= 0 or mt[2] for mt in self.mat_tex)
+
+    @property
+    def extras(self) -> bool:
+        """The frame needs the environment, texture or coverage code: the
+        kernel's ``kExtras`` instantiation."""
+        return (self.env_meta is not None or self.any_coverage
+                or any(mt[0] >= 0 for mt in self.mat_tex))
+
+    @property
+    def n_nee_total(self) -> int:
+        """NEE candidates: the lights, and the environment when its pool
+        holds more than one sample."""
+        return len(self.light_kinds) + int(
+            self.env_meta is not None and bool(self.env_meta[5]))
+
+
+class KernelExtras(NamedTuple):
+    """The tables of the environment and texture branches, plain records
+    on the scene's device (None where the scene has none)."""
+
+    texels: Optional[torch.Tensor] = None    # [N, 4] level-0 texels
+    env_img: Optional[torch.Tensor] = None   # [h·w, 3]
+    env_pdf: Optional[torch.Tensor] = None   # [ph·pw]
+    env_pool: Optional[torch.Tensor] = None  # [n, 7]
 
 
 # -- the plain version --------------------------------------------------------
@@ -344,18 +506,18 @@ def _analytic_light_hits(lights, light_kinds, o, d):
 
 
 def _reference_tracers(tri, cfg: KernelConfig, eps, stats):
-    """→ (closest(o, d, live) → Hit, occluded(o, d, t_max, live) → bool [p])
-    of the plain version: the dense trace over the [t_pad, 16] table, or
-    with ``cfg.hier`` the lockstep walk over the packed BVH ``tri`` (whose
-    ``order`` is the identity, so prim ids are slots). Lanes outside
-    ``live`` trace nothing on the BVH branch (t_max = 0 fails the root's
-    box); their results are unspecified and masked by the caller."""
+    """→ (closest(o, d, live, t_max=inf) → Hit, occluded(o, d, t_max, live)
+    → bool [p]) of the plain version: the dense trace over the [t_pad, 16]
+    table, or with ``cfg.hier`` the lockstep walk over the packed BVH
+    ``tri`` (whose ``order`` is the identity, so prim ids are slots). Lanes
+    outside ``live`` trace nothing on the BVH branch (t_max = 0 fails the
+    root's box); their results are unspecified and masked by the caller."""
     if not cfg.hier:
         comp = tri.T                       # the B1 [16, t_pad] layout, a view
 
-        def closest(o, d, live):
+        def closest(o, d, live, t_max=float("inf")):
             return dense_intersect_reference(comp, cfg.n_tris, o, d, eps,
-                                             float("inf"))
+                                             t_max)
 
         def occluded(o, d, t_max, live):
             return dense_intersect_reference(comp, cfg.n_tris, o, d, eps,
@@ -372,33 +534,83 @@ def _reference_tracers(tri, cfg: KernelConfig, eps, stats):
                 stats[key] = stats.get(key, 0) + int(walk_stats[key])
         return hit
 
-    def closest(o, d, live):
-        return walk(o, d, torch.where(live, float("inf"), 0.0), False)
+    def closest(o, d, live, t_max=float("inf")):
+        return walk(o, d, torch.where(live, t_max, 0.0), False)
 
     def occluded(o, d, t_max, live):
         return walk(o, d, torch.where(live, t_max, 0.0), True).prim >= 0
     return closest, occluded
 
 
+def _tex_fetch_nearest(texels, meta, u, v):
+    """NEAREST fetch of texture ``meta`` = (first texel, w, h, wrap_u,
+    wrap_v, filter) at uv [p] → rgba [p, 4]: ``io/texture.sample_texture``
+    texel for texel (v flip, wrap in float space, − 0.5, round half to
+    even, integer wrap or clamp), as the TPU kernel's fetch."""
+    base, w, h, wrap_u, wrap_v, _ = meta
+    vv = 1.0 - v
+    fu = u - torch.floor(u) if wrap_u == WRAP_REPEAT else \
+        torch.clamp(u, 0.0, 1.0)
+    fv = vv - torch.floor(vv) if wrap_v == WRAP_REPEAT else \
+        torch.clamp(vv, 0.0, 1.0)
+    x = torch.round(fu * w - 0.5).long()
+    y = torch.round(fv * h - 0.5).long()
+    x = torch.remainder(x, w) if wrap_u == WRAP_REPEAT else \
+        torch.clamp(x, 0, w - 1)
+    y = torch.remainder(y, h) if wrap_v == WRAP_REPEAT else \
+        torch.clamp(y, 0, h - 1)
+    return texels[base + y * w + x]
+
+
+def _interpolated_uv(a, hu, hv):
+    """The hit's texcoords from attribute rows 13-18 [24, p]."""
+    bary0 = 1.0 - hu - hv
+    return (a[13] * bary0 + a[14] * hu + a[15] * hv,
+            a[16] * bary0 + a[17] * hu + a[18] * hv)
+
+
+def _coverage_lanes(cfg: KernelConfig, texels, mat_idx, cov_base, u, v):
+    """Per-lane coverage with cutout binarization (the coverage path of
+    ``path_tracer._surface_material_params``); ``cov_base`` is the
+    material's coverage, or for a cutout its threshold."""
+    cov = cov_base
+    for k, (_, cov_tex, is_cutout) in enumerate(cfg.mat_tex):
+        if cov_tex < 0 and not is_cutout:
+            continue
+        samp = (_tex_fetch_nearest(texels, cfg.tex_meta[cov_tex], u, v)[:, 0]
+                if cov_tex >= 0 else torch.ones_like(cov_base))
+        ck = (torch.where(samp < cov_base, 0.0, 1.0) if is_cutout
+              else cov_base * samp)
+        cov = torch.where(mat_idx == k, ck, cov)
+    return cov
+
+
 def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
                               origin, direction, pixel_hash, active,
-                              accumulation: int, scalars, cfg: KernelConfig,
-                              stats=None):
+                              accumulation: int, scalars, extras,
+                              cfg: KernelConfig, stats=None):
     """Plain PyTorch version of the kernel over all lanes at once →
     (r, g, b, rays), each [p]. ``tri`` is the dense [t_pad, 16] table, or
     with ``cfg.hier`` the packed BVH (``_pack_scene``), whose walk is
     :func:`~bifrost3d_tpu_torch.geometry.pallas_bvh.hierarchical_intersect_reference`
     and whose hits index ``attr`` by slot. A ``stats`` dict, if given,
     receives the BVH walks' ``box_tests`` and ``tri_tests`` summed over
-    the frame.
+    the frame, and the shadow rays traced: ``shadow_traces`` (one any-hit
+    query per shaded hit whose light sample carries radiance) or, with the
+    march, ``march_traces``.
 
     Mirrors one iteration of the JAX ``_make_kernel`` step in order:
-    closest hit, analytic-light hits, miss → background, light hit with
-    MIS, attributes by triangle, material row, passthrough of culled back
-    faces, shading, emission, RIS NEE with one any-hit shadow ray, BSDF
+    closest hit, analytic-light hits, miss → background or the environment
+    map with MIS, light hit with MIS, attributes by triangle, material row,
+    NEAREST tint-roughness texture, coverage (texture, cutout) and the
+    stochastic discard, passthrough of culled back faces and discarded
+    hits, shading, emission, RIS NEE over the lights and the environment's
+    pool with one any-hit shadow ray or the coverage-aware march, BSDF
     sample. ``origin``/``direction`` [p, 3], ``pixel_hash`` int64 holding
     uint32 [p], ``active`` float 0/1 [p], ``scalars`` = (epsilon,
-    background rgb). ``rho_ggx``/``rho_fres`` must be the device's own
+    background rgb, or with a map the environment's tint), ``extras`` the
+    :class:`KernelExtras` (None for a frame whose ``cfg.extras`` is false).
+    ``rho_ggx``/``rho_fres`` must be the device's own
     tables (:func:`_rho_tables`), which the shading reads. Runs on any
     device.
     """
@@ -411,6 +623,22 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
     eps, env_tint = scalars[0], scalars[1:4]
     closest, occluded_by = _reference_tracers(tri, cfg, eps, stats)
     n_lights = len(cfg.light_kinds)
+    extras = extras if extras is not None else KernelExtras()
+    texels = extras.texels
+    env_light = env_sampler = None
+    if cfg.env_meta is not None:
+        w, h, pw, ph, n_pool, env_nee = cfg.env_meta
+        env_light = EnvironmentLight(
+            image=extras.env_img.reshape(h, w, 3), tint=env_tint,
+            distribution=None, per_pixel_pdf=extras.env_pdf.reshape(ph, pw))
+        if env_nee:
+            pool = PresampledEnvironmentLight(
+                light=env_light, directions=extras.env_pool[:, 0:3],
+                radiances=extras.env_pool[:, 3:6], pdfs=extras.env_pool[:, 6])
+
+            def env_sampler(u3):
+                return presampled_environment_sample(pool, u3[..., 0])
+    tint_textured = any(mt[0] >= 0 for mt in cfg.mat_tex)
     light_arr = LightArray(
         kind=torch.tensor(cfg.light_kinds, dtype=torch.int32, device=device),
         position=lights[:n_lights, 0:3], radius=lights[:n_lights, 3],
@@ -440,8 +668,15 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
         light_hit = live & light_first & (light_idx >= 0)
         miss = live & ~hit_mask & ~light_first
 
+        if env_light is not None:
+            e_pdf = environment_pdf(env_light, d)
+            w_env = torch.where(bsdf_pdf > 0.0, mis_weight(bsdf_pdf, e_pdf),
+                                1.0)
+            env_rad = environment_evaluate(env_light, d) * w_env[:, None]
+        else:
+            env_rad = env_tint
         radiance = radiance + torch.where(miss[:, None],
-                                          throughput * env_tint, 0.0)
+                                          throughput * env_rad, 0.0)
         if hits_lights:
             li = torch.clamp_min(light_idx, 0)
             l_rad = evaluate_light(light_arr, li, o, d)
@@ -467,6 +702,18 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
         model = m[:, 13].to(torch.int32) if cfg.has_diffuse else \
             zero.to(torch.int32)
         thin_walled = m[:, 6] > 0.5
+        m_tint, m_rough = m[:, 0:3], m[:, 3]
+        if tint_textured or cfg.any_coverage:
+            u_uv, v_uv = _interpolated_uv(a, hu, hv)
+        if tint_textured:
+            tex = torch.ones((p, 4), dtype=torch.float32, device=device)
+            for k, (tr_tex, _, _) in enumerate(cfg.mat_tex):
+                if tr_tex >= 0:
+                    tex = torch.where(
+                        (a[9] == k)[:, None],
+                        _tex_fetch_nearest(texels, cfg.tex_meta[tr_tex],
+                                           u_uv, v_uv), tex)
+            m_tint, m_rough = m_tint * tex[:, 0:3], m_rough * tex[:, 3]
 
         u_bsdf = path_rng_4d(accumulation, pixel_hash,
                              bounce * Dimension.PER_BOUNCE + Dimension.BSDF)
@@ -474,9 +721,14 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
                             bounce * Dimension.PER_BOUNCE + Dimension.NEE)
 
         hit_from_front = dot(geo_n, d) < 0.0
-        backside_cull = ~hit_from_front & ~thin_walled
-        passthrough = mesh_hit & backside_cull
-        shade = mesh_hit & ~backside_cull
+        skip = ~hit_from_front & ~thin_walled       # a culled back face
+        if cfg.any_coverage:
+            # Stochastic transparency: a hit whose coverage is below the
+            # bounce's fourth BSDF number lets the ray pass.
+            cov = _coverage_lanes(cfg, texels, a[9], m[:, 10], u_uv, v_uv)
+            skip = skip | (cov < u_bsdf[:, 3])
+        passthrough = mesh_hit & skip
+        shade = mesh_hit & ~skip
         front = hit_from_front[:, None]
         gf = torch.where(front, geo_n, -geo_n)
         sn = _fix_backfacing_shading_normal(
@@ -484,25 +736,34 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
         wo = to_local(-d, sn)
         cos_theta_o = torch.where(hit_from_front | thin_walled, wo[:, 2],
                                   -wo[:, 2])
-        bundle = _create_shading(present, model, m[:, 0:3], m[:, 3], m[:, 4],
+        bundle = _create_shading(present, model, m_tint, m_rough, m[:, 4],
                                  m[:, 5], coat, coat_r,
                                  torch.abs(cos_theta_o))
         radiance = radiance + torch.where(shade[:, None],
                                           throughput * m[:, 7:10], 0.0)
 
         nee_valid = torch.zeros(p, dtype=torch.bool, device=device)
-        if n_lights > 0 and cfg.ris_count > 0:
+        if cfg.n_nee_total > 0 and cfg.ris_count > 0:
             l_dir, l_dist, l_rad, nee_valid = _reestimated_light_samples(
                 light_arr, bundle, position, wo, sn, u_nee, cfg.ris_count,
-                cfg.delta_light_clamp)
+                cfg.delta_light_clamp, env_sampler)
             l_rad = l_rad * throughput
             side = torch.where(dot(l_dir, gf) >= 0.0, 1.0, -1.0)
             shadow_origin = offset_ray_origin(position, gf * side[:, None])
             has_light = shade & (torch.amax(l_rad, dim=-1) > 0.0)
-            occluded = occluded_by(shadow_origin, l_dir,
-                                   l_dist * (1.0 - 1e-4), has_light)
-            radiance = radiance + torch.where(
-                (has_light & ~occluded)[:, None], l_rad, 0.0)
+            t_shadow = l_dist * (1.0 - 1e-4)
+            if cfg.shadow_steps > 0:
+                trans = _shadow_march(cfg, closest, attr, mats, texels,
+                                      shadow_origin, l_dir, t_shadow, eps,
+                                      has_light, stats)
+            else:
+                if stats is not None:
+                    stats["shadow_traces"] = stats.get(
+                        "shadow_traces", 0) + int(has_light.sum())
+                trans = torch.where(occluded_by(shadow_origin, l_dir,
+                                                t_shadow, has_light), 0.0, 1.0)
+            radiance = radiance + torch.where(has_light[:, None],
+                                              l_rad * trans[:, None], 0.0)
 
         s = bundle.sample(wo, u_bsdf[:, :3])
         new_dir = to_world(s.direction, sn)
@@ -532,6 +793,39 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
     return radiance[:, 0], radiance[:, 1], radiance[:, 2], rays
 
 
+def _shadow_march(cfg: KernelConfig, closest, attr, mats, texels, origin,
+                  direction, t_max, eps, live, stats=None):
+    """The coverage-aware shadow march of the kernel → transmittance [p]
+    (``path_tracer._shadow_transmittance`` over the kernel's tables): up to
+    ``cfg.shadow_steps`` closest hits, each but the last multiplying by
+    1 − coverage and moving the origin past the surface by t + eps; what
+    the last one still hits occludes fully. A lane whose step hit nothing,
+    or whose transmittance is 0, has its answer (a later step searches a
+    part of the same segment) and marches no further, as a thread of the
+    kernel; ``stats["march_traces"]`` counts the traces made."""
+    trans = torch.ones_like(t_max)
+    t_rem = t_max
+    for step in range(cfg.shadow_steps):
+        if stats is not None:
+            stats["march_traces"] = stats.get("march_traces", 0) + int(
+                live.sum())
+        hit = closest(origin, direction, live, t_rem)
+        hit_mask = live & (hit.prim >= 0)
+        blocked = hit_mask & (trans > 0.0)
+        if step == cfg.shadow_steps - 1:
+            return torch.where(blocked, 0.0, trans)
+        a = attr[:, torch.clamp_min(hit.prim, 0).long()]
+        u_uv, v_uv = _interpolated_uv(a, hit.u, hit.v)
+        cov = _coverage_lanes(cfg, texels, a[9], mats[a[9].long(), 10],
+                              u_uv, v_uv)
+        trans = torch.where(blocked, trans * (1.0 - cov), trans)
+        live = blocked & (trans > 0.0)
+        advance = torch.where(hit_mask, hit.t, 0.0) + eps
+        origin = origin + direction * advance[:, None]
+        t_rem = t_rem - advance
+    return trans
+
+
 # -- the CUDA kernel ---------------------------------------------------------------
 
 class _Params(ctypes.Structure):
@@ -546,6 +840,9 @@ class _Params(ctypes.Structure):
         ("direction", ctypes.c_void_p), ("pixel_hash", ctypes.c_void_p),
         ("active", ctypes.c_void_p), ("scalars", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
+        ("texels", ctypes.c_void_p), ("tex_meta", ctypes.c_void_p),
+        ("mat_tex", ctypes.c_void_p), ("env_img", ctypes.c_void_p),
+        ("env_pdf", ctypes.c_void_p), ("env_pool", ctypes.c_void_p),
         ("n_pixels", ctypes.c_int), ("n_tris", ctypes.c_int),
         ("t_pad", ctypes.c_int), ("n_mats", ctypes.c_int),
         ("n_lights", ctypes.c_int), ("light_kinds", ctypes.c_int * MAX_LIGHTS),
@@ -556,6 +853,12 @@ class _Params(ctypes.Structure):
         ("ris_offsets", ctypes.c_float * (4 * MAX_RIS)),
         ("has_coat", ctypes.c_int), ("has_diffuse", ctypes.c_int),
         ("hier", ctypes.c_int),
+        ("extras", ctypes.c_int), ("n_tex", ctypes.c_int),
+        ("any_coverage", ctypes.c_int), ("shadow_steps", ctypes.c_int),
+        ("has_env", ctypes.c_int), ("env_w", ctypes.c_int),
+        ("env_h", ctypes.c_int), ("env_pw", ctypes.c_int),
+        ("env_ph", ctypes.c_int), ("env_pool_n", ctypes.c_int),
+        ("n_nee_total", ctypes.c_int),
     ]
 
 
@@ -590,13 +893,63 @@ def _as_int32_bits(x):
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=64)
+def _int_table(rows: tuple, width: int, device: torch.device) -> torch.Tensor:
+    """A tuple of int tuples as an int32 [n, width] tensor on ``device``
+    (rows padded with zeros), kept per value."""
+    table = np.zeros((max(len(rows), 1), width), np.int32)
+    for k, row in enumerate(rows):
+        table[k, :len(row)] = row
+    return torch.tensor(table, device=device)
+
+
+def _check_extras(extras: KernelExtras, cfg: KernelConfig, n_mats: int,
+                  device) -> None:
+    """Hold the extras' tables against what ``cfg`` says of them."""
+    if len(cfg.mat_tex) != n_mats:
+        raise ValueError("mat_tex must hold one entry per material")
+    bound = {b for mt in cfg.mat_tex for b in mt[:2] if b >= 0}
+    if bound:
+        if extras.texels is None or max(bound) >= len(cfg.tex_meta):
+            raise ValueError("a material binds a texture the tables lack")
+        n_texels = sum(meta[1] * meta[2] for meta in cfg.tex_meta)
+        if n_texels > MAX_TEX_TEXELS or \
+                extras.texels.shape != (n_texels, 4):
+            raise ValueError(f"texels must be [<= {MAX_TEX_TEXELS}, 4], "
+                             "level 0 of every texture in turn")
+        if any(cfg.tex_meta[b][5] != FILTER_NONE for b in bound):
+            raise ValueError("the kernel fetches NEAREST textures only")
+        _check("texels", extras.texels, torch.float32, device)
+    if cfg.env_meta is not None:
+        w, h, pw, ph, n_pool, env_nee = cfg.env_meta
+        if w * h > MAX_ENV_TEXELS or pw * ph > MAX_ENV_PDF \
+                or n_pool > MAX_ENV_POOL:
+            raise ValueError("the environment's map, pdf grid or pool is "
+                             "over the kernel's budget")
+        if extras.env_img is None or extras.env_img.shape != (h * w, 3) \
+                or extras.env_pdf is None \
+                or extras.env_pdf.shape != (ph * pw,):
+            raise ValueError("env_img must be [h·w, 3] and env_pdf [ph·pw]")
+        _check("env_img", extras.env_img, torch.float32, device)
+        _check("env_pdf", extras.env_pdf, torch.float32, device)
+        if bool(env_nee) != (n_pool > 1):
+            raise ValueError("environment NEE needs a pool of more than "
+                             "one sample, and such a pool enables it")
+        if env_nee:
+            if extras.env_pool is None or \
+                    extras.env_pool.shape != (n_pool, 7):
+                raise ValueError("env_pool must be [n_pool, 7]")
+            _check("env_pool", extras.env_pool, torch.float32, device)
+
+
 def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
                          direction, pixel_hash, active, accumulation: int,
-                         scalars, cfg: KernelConfig):
+                         scalars, extras, cfg: KernelConfig):
     """Launch ``csrc/mesh_megakernel.cu`` on the current stream →
     (r, g, b, rays), each [p]; the arguments are those of
     :func:`mesh_megakernel_reference` (``tri`` the dense table, or with
-    ``cfg.hier`` the packed BVH)."""
+    ``cfg.hier`` the packed BVH). A frame whose ``cfg.extras`` is true
+    launches the ``kExtras`` instantiation."""
     global launch_count
     device = origin.device
     p = int(origin.shape[0])
@@ -654,6 +1007,18 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
         _check(name, x, dtype, device)
     if scalars.shape != (4,):
         raise ValueError("scalars must be [4]: epsilon, background rgb")
+    if not 0 <= cfg.shadow_steps <= 16:
+        raise ValueError(f"shadow_steps {cfg.shadow_steps} outside [0, 16]")
+    extras = extras if extras is not None else KernelExtras()
+    tex_meta = mat_tex = None
+    if cfg.extras:
+        _check_extras(extras, cfg, int(mats.shape[0]), device)
+        tex_meta = _int_table(cfg.tex_meta, 6, device)
+        mat_tex = _int_table(cfg.mat_tex, 4, device)
+    env = cfg.env_meta or (0, 0, 0, 0, 0, False)
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
 
     out = torch.empty((4, p), dtype=torch.float32, device=device)
     params = _Params(
@@ -664,6 +1029,14 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
         origin=origin.data_ptr(), direction=direction.data_ptr(),
         pixel_hash=hashes.data_ptr(), active=active.data_ptr(),
         scalars=scalars.data_ptr(), out=out.data_ptr(),
+        texels=ptr(extras.texels), tex_meta=ptr(tex_meta),
+        mat_tex=ptr(mat_tex), env_img=ptr(extras.env_img),
+        env_pdf=ptr(extras.env_pdf), env_pool=ptr(extras.env_pool),
+        extras=int(cfg.extras), n_tex=len(cfg.tex_meta),
+        any_coverage=int(cfg.any_coverage), shadow_steps=cfg.shadow_steps,
+        has_env=int(cfg.env_meta is not None), env_w=env[0], env_h=env[1],
+        env_pw=env[2], env_ph=env[3], env_pool_n=env[4],
+        n_nee_total=cfg.n_nee_total,
         n_pixels=p, n_tris=cfg.n_tris, t_pad=int(tri.shape[0]),
         n_mats=int(mats.shape[0]), n_lights=n_lights,
         accumulation=int(accumulation) & 0xFFFFFFFF, n_iters=cfg.n_iters,
@@ -726,8 +1099,9 @@ def megakernel_inputs(scene: RenderScene, camera, width: int, height: int,
     """The kernel's arguments for one frame (those of
     :func:`mesh_megakernel_reference` and :func:`mesh_megakernel_cuda`).
 
-    Geometry tables come from the per-identity pack cache; materials,
-    lights, epsilon and the background are read from the live scene.
+    Geometry, texture and environment tables come from the per-identity
+    pack caches; materials, lights, epsilon and the background are read
+    from the live scene.
     Camera rays, pcg2d pixel hashes and the active mask are made in torch,
     one lane per pixel in the order of :func:`pixel_order` (raster order
     without a ``pixel_tile``: the JAX dense branch's identity layout). A
@@ -738,6 +1112,8 @@ def megakernel_inputs(scene: RenderScene, camera, width: int, height: int,
     info = _static_info(scene)
     device = scene.tri_verts.device
     rho_ggx, rho_fres = _rho_tables(device)
+    texels, tex_meta = _pack_textures(scene)
+    env_img, env_pdf, env_pool, env_meta = _pack_env(scene)
     cfg = KernelConfig(
         n_tris=packed["n_tris"], light_kinds=info["light_kinds"],
         n_iters=settings.max_bounce_count + 1 + settings.passthrough_slack,
@@ -747,17 +1123,27 @@ def megakernel_inputs(scene: RenderScene, camera, width: int, height: int,
         delta_light_clamp=float(settings.delta_light_clamp),
         has_coat=info["has_coat"],
         has_diffuse=SHADING_DIFFUSE in scene.shading_models,
-        hier=packed["hier"])
+        hier=packed["hier"], mat_tex=info["mat_tex"], tex_meta=tex_meta,
+        shadow_steps=(settings.shadow_coverage_steps
+                      if settings.coverage_aware_shadows else 0),
+        env_meta=env_meta)
+    extras = (KernelExtras(texels, env_img, env_pdf, env_pool)
+              if cfg.extras else None)
     accumulation = int(accumulation)
     flat = pixel_order(width, height, pixel_tile, device)
     lanes = _camera_lanes(camera, flat % width, flat // width, width, height,
                           accumulation, torch.ones_like(flat, dtype=torch.bool))
+    # With a map the tint slot carries the environment's own tint (its
+    # evaluation multiplies it in); a tint-only background keeps the
+    # scene's.
+    tint = (scene.environment.tint if scene.environment is not None
+            else scene.environment_tint)
     scalars = torch.cat([scene.scene_epsilon.reshape(1).to(torch.float32),
-                         scene.environment_tint.to(torch.float32)])
+                         tint.to(torch.float32)])
     return (packed["tri"], packed["attr"], mats, lights, rho_ggx, rho_fres,
             lanes.origin.contiguous(), lanes.direction.contiguous(),
             lanes.pixel_hash, lanes.active.to(torch.float32), accumulation,
-            scalars, cfg)
+            scalars, extras, cfg)
 
 
 def render_mesh_megakernel(scene: RenderScene, camera, width: int,

@@ -11,12 +11,13 @@ A scene of at most ``PALLAS_MAX_TRIS`` triangles carries the dense table
 ``tri_components`` and traces through the dense kernel; a larger one
 carries the BVH packing ``tri_clustered`` instead and traces through the
 BVH kernel (the other two packings, ``pack_vmem`` and ``pack_clustered``,
-are set by hand). Environment maps and textures are not ported yet; asking for
-one raises.
+are set by hand). An environment map becomes an ``EnvironmentLight`` (and,
+with ``presample_environment``, its presampled pool), textures ride along as
+a ``TextureBank``.
 
 :func:`render_scene_from_numpy` builds a ``RenderScene`` from another
-renderer's scene arrays, so two implementations can render the very same
-scene.
+renderer's scene arrays (environment tables, pool and texture atlas
+included), so two implementations can render the very same scene.
 """
 
 from __future__ import annotations
@@ -43,6 +44,13 @@ from bifrost3d_tpu_torch.geometry.pallas_bvh import (
 from bifrost3d_tpu_torch.geometry.pallas_bvh_vmem import VmemTriangles
 from bifrost3d_tpu_torch.geometry.pallas_clustered import ClusteredTriangles
 from bifrost3d_tpu_torch.geometry.pallas_intersect import pack_triangles
+from bifrost3d_tpu_torch.io.texture import TextureBank
+from bifrost3d_tpu_torch.lights.environment import (
+    EnvironmentLight,
+    PresampledEnvironmentLight,
+    build_environment_light,
+    presample_environment as _presample,
+)
 from bifrost3d_tpu_torch.lights.types import LightArray
 from bifrost3d_tpu_torch.math.octahedral import octahedral_encode
 from bifrost3d_tpu_torch.scene.materials import MaterialArray
@@ -73,10 +81,15 @@ class RenderScene(NamedTuple):
     # (``geometry/traverse.py`` dispatches on the type).
     tri_clustered: Optional[Union[HierTriangles, VmemTriangles,
                                   ClusteredTriangles]] = None
-    # The environment map is not ported (lights/environment.py): the
-    # builders raise on one, so this stays None; a scene given one is
-    # ineligible for the megakernel and raises in the wavefront.
-    environment: Optional[object] = None
+    # None = tint-only background.
+    environment: Optional[EnvironmentLight] = None
+    # The presampled pool, the default environment NEE path (built when
+    # ``presample_environment`` > 0); the integrator indexes it instead of
+    # searching the CDFs when RenderSettings.use_presampled_environment is
+    # set.
+    environment_presampled: Optional[PresampledEnvironmentLight] = None
+    # None, like a bank of no texture, samples as the default.
+    textures: Optional[TextureBank] = None
 
 
 def _assemble_soup(instances):
@@ -117,14 +130,8 @@ def _safe_unit(n: np.ndarray) -> np.ndarray:
     return unit
 
 
-def _check_materials(materials: MaterialArray) -> tuple:
-    """→ the sorted shading models present; raises on features that are
-    not ported yet."""
-    for slot in ("tint_roughness_texture", "metallic_texture",
-                 "coverage_texture"):
-        if bool(torch.any(getattr(materials, slot) >= 0)):
-            raise NotImplementedError(
-                f"textured materials ({slot}) are not ported yet")
+def _shading_models(materials: MaterialArray) -> tuple:
+    """→ the sorted shading models present."""
     return tuple(sorted(set(int(m) for m in materials.shading_model.tolist())))
 
 
@@ -152,11 +159,12 @@ def _extent(tri_verts: np.ndarray) -> float:
 def build_render_scene(instances, materials: MaterialArray,
                        lights: Optional[LightArray] = None,
                        environment_map=None,
-                       environment_tint=(0.0, 0.0, 0.0), *,
+                       environment_tint=(0.0, 0.0, 0.0),
+                       textures: Optional[TextureBank] = None,
+                       presample_environment: int = 0, *,
                        device) -> RenderScene:
-    """instances: list of (TriangleMesh, material_index[, matrix3x4])."""
-    if environment_map is not None:
-        raise NotImplementedError("environment maps are not ported yet")
+    """instances: list of (TriangleMesh, material_index[, matrix3x4]);
+    ``environment_map`` a latlong radiance map [h, w, 3] (numpy)."""
     tri_verts, tri_normals, tri_uvs, tri_tr, tri_material = \
         _assemble_soup(instances)
     for name, arr in (("positions", tri_verts), ("normals", tri_normals),
@@ -166,6 +174,12 @@ def build_render_scene(instances, materials: MaterialArray,
     if lights is None:
         lights = LightArray.build([], device=device)
     bvh = build_soup_bvh(tri_verts).to(device)
+    env = env_pool = None
+    if environment_map is not None:
+        env = build_environment_light(environment_map, tint=(1.0, 1.0, 1.0),
+                                      device=device)
+        if presample_environment:
+            env_pool = _presample(env, presample_environment)
     extent = _extent(tri_verts)
     verts = torch.as_tensor(tri_verts, device=device)
     return RenderScene(
@@ -182,15 +196,20 @@ def build_render_scene(instances, materials: MaterialArray,
         scene_epsilon=torch.tensor(max(extent, 1e-3) * 1e-4,
                                    dtype=torch.float32, device=device),
         tri_components=_packed_components(verts),
-        shading_models=_check_materials(materials),
+        shading_models=_shading_models(materials),
         bvh=bvh,
-        tri_clustered=_packed_clusters(verts, bvh))
+        tri_clustered=_packed_clusters(verts, bvh),
+        environment=env,
+        environment_presampled=env_pool,
+        textures=(textures if textures is not None
+                  else TextureBank.build([], device=device)))
 
 
 def refit_render_scene(scene: RenderScene, instances) -> RenderScene:
     """Transform-only scene update: rebuild the world-space soup and refit
     the existing BVH topology (``geometry.bvh.refit_bvh``) instead of a SAH
-    rebuild. Materials and lights are reused by identity.
+    rebuild. Materials, textures, lights and the environment are reused by
+    identity.
 
     ``instances`` must bind the same meshes in the same order as the
     original build (only the matrices may differ); the triangle count is
@@ -226,9 +245,11 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
     """A RenderScene from scene arrays held as numpy.
 
     ``arrays`` maps the JAX ``RenderScene`` field names to numpy arrays;
-    ``materials`` and ``lights`` map their own field names to arrays.
-    ``environment`` must be ``None`` and a ``textures`` entry, if present,
-    must hold no texture (``data`` of length 0). A ``bvh`` entry (the JAX
+    ``materials``, ``lights``, ``textures``, ``environment`` (with its
+    ``distribution``) and ``environment_presampled`` (``directions``,
+    ``radiances``, ``pdfs``) map their own field names to arrays, so the
+    image, tint, CDFs, per-pixel pdf, pool and atlas are the other
+    renderer's own. A ``bvh`` entry (the JAX
     ``BVH`` fields as numpy) is carried over, so both renderers trace the
     same tree; without one the scene has no BVH unless it is over
     ``PALLAS_MAX_TRIS`` triangles, where one is built for the packing. A
@@ -237,11 +258,19 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
     same clusters; its ``HierTriangles`` has another layout than the
     port's, which packs its own.
     """
-    if arrays.get("environment") is not None:
-        raise NotImplementedError("environment maps are not ported yet")
+    env = arrays.get("environment")
+    if env is not None:
+        env = EnvironmentLight.from_numpy(env, device=device)
+    pool = arrays.get("environment_presampled")
+    if pool is not None:
+        if env is None:
+            raise ValueError("a presampled pool needs its environment")
+        pool = PresampledEnvironmentLight(light=env, **{
+            f: torch.tensor(np.asarray(pool[f], np.float32), device=device)
+            for f in ("directions", "radiances", "pdfs")})
     textures = arrays.get("textures")
-    if textures is not None and np.asarray(textures["data"]).shape[0] > 0:
-        raise NotImplementedError("textures are not ported yet")
+    textures = (TextureBank.build([], device=device) if textures is None
+                else TextureBank.from_numpy(textures, device=device))
 
     def t(name, dtype):
         return torch.tensor(np.asarray(arrays[name], dtype), device=device)
@@ -273,6 +302,9 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
         scene_epsilon=t("scene_epsilon", np.float32),
         tri_components=(_packed_components(verts) if comp is None
                         else t("tri_components", np.float32)),
-        shading_models=_check_materials(materials),
+        shading_models=_shading_models(materials),
         bvh=bvh,
-        tri_clustered=clustered)
+        tri_clustered=clustered,
+        environment=env,
+        environment_presampled=pool,
+        textures=textures)

@@ -12,7 +12,8 @@ the last line):
    versions; TF32 is switched off for matmuls and convolutions.
 2. build: compiles the six sources of the seven kernels
    (csrc/dense_intersect.cu, csrc/mesh_megakernel.cu with its dense and BVH
-   instantiations, csrc/smallpt_megakernel.cu, csrc/bvh_intersect.cu,
+   instantiations, each with and without the environment, texture and
+   cutout branches, csrc/smallpt_megakernel.cu, csrc/bvh_intersect.cu,
    csrc/clustered_intersect.cu and csrc/vmem_intersect.cu) with nvcc into
    build/kernels/, one nvcc each, started together, and
    native/bvh_builder.cpp with g++ into build/native/; prints each build's
@@ -104,6 +105,32 @@ the last line):
    the other trace kernels 0, the frame under the statistical gate against
    the dense trace's.
 
+16. megakernel/extras: the megakernel's environment, texture and cutout
+   branches (its kExtras instantiations): Sphere, sphere_sun, Opacity and
+   textured_cornell at 256² on the dense trace, hier_bridge_15k_env and
+   opacity_hier on the BVH trace, 4 bounces, settings_for_scene's settings
+   (coverage-aware shadows where the scene is semi-transparent): for each,
+   explain_render_path (megakernel), the kernel against its plain version
+   on the same lanes (at most 0.2% of pixels off by > 1e-3, means within
+   0.5%) and against the pooled wavefront (3%, 2%), ray counts within 2%;
+   Opacity's mean above 1e-4; the checker must show on textured_cornell's
+   floor (a row's maximum over twice its minimum).
+17. extras paths, main path D: Sphere and Opacity, then
+   hier_bridge_15k_env, each 512², 4 bounces, 8 accumulations through
+   render_progressive, tonemapped and written as a PNG: exactly 8
+   megakernel launches and no launch of a trace kernel; frame time and
+   rays/s of render_sample_fast (median of 5), the kernel's median time
+   (CUDA events) beside its plain version's (one run) and its bound, which
+   counts the shadow traces that the plain version made (one any-hit query
+   per lit shaded hit, or the march's steps one by one) and the tables'
+   bytes.
+18. viewer: apps/simple_viewer --scene Sphere and --scene Opacity at its
+   defaults' size (512², 4 bounces) with -n 8, the entry point of main
+   path D: exactly 8 megakernel launches and no trace-kernel launch each,
+   a PNG written. The viewer renders with a plain RenderSettings (binary
+   shadow rays, as the reference viewer), so one frame of Opacity at these
+   settings is also held against the plain version.
+
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s, counted from this run's inputs), and last the JSON
@@ -143,6 +170,12 @@ HIER_SCENES = ("mid_size", "hier_bridge_3k", "hier_bridge_15k",
                "hier_bridge_50k")
 BRIDGE_SCENE, BRIDGE_TRIS = "hier_bridge_50k", 49678
 LARGE_SCENES = ("torus_grid", "torus_grid_28") + HIER_SCENES
+# The scenes of the environment, texture and cutout branches (main path D
+# and its gates): name, whether a viewer scene (SCENES) or a TEST_SCENES one.
+EXTRAS_SCENES = (("Sphere", True), ("sphere_sun", False), ("Opacity", True),
+                 ("textured_cornell", False), ("hier_bridge_15k_env", False),
+                 ("opacity_hier", False))
+EXTRAS_PATHS = ("Sphere", "Opacity", "hier_bridge_15k_env")
 # Published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -428,8 +461,9 @@ def _megakernel_scenes(device):
     yield "Veach", SMALL_RES, scenes.create_veach_scene(device=device)
     yield "Veach mesh-light", SMALL_RES, scenes.create_veach_scene(
         with_mesh_light=True, device=device)
+    later = LARGE_SCENES + tuple(name for name, _ in EXTRAS_SCENES)
     for name, builder in scenes.TEST_SCENES.items():
-        if name not in LARGE_SCENES:
+        if name not in later:
             yield name, SMALL_RES, builder(device=device)
 
 
@@ -444,7 +478,8 @@ def megakernel_phase(device) -> dict:
         check(path == "megakernel", f"{name}: {path}")
         args = mega.megakernel_inputs(scene, cam, res, res, 1, settings)
         got = mega.mesh_megakernel_cuda(*args)
-        ref = mega.mesh_megakernel_reference(*args)
+        stats = {}
+        ref = mega.mesh_megakernel_reference(*args, stats=stats)
         torch.cuda.synchronize()
         img = torch.stack(got[:3], dim=-1)
         flips, max_err, mean_rel = _gate(
@@ -487,12 +522,16 @@ def megakernel_phase(device) -> dict:
                 rates.append(acc_rays / dt)
             out["frame_ms"] = statistics.median(frame_ms)
             out["rays_per_s"] = statistics.median(rates)
-            # Per pixel 32 B of lanes in and 16 B out, the tables once; at
-            # least one Möller–Trumbore test per counted ray and triangle
-            # (shading is left out of the count, so the bound is low).
+            # Per pixel 32 B of lanes in and 16 B out, the tables once; one
+            # Möller–Trumbore test per triangle for every trace made: a
+            # closest hit per counted iteration (rays / 2) and the shadow
+            # rays that the plain version traced (shading is left out of
+            # the count, so the bound is low).
+            traces = rays / 2 + stats.get("shadow_traces", 0)
             out.update(roofline(48 * res * res + 64 * out["n_tris"],
-                             MT_FLOPS * rays * out["n_tris"]))
-            line += (f" | kernel {out['ms']:.3f} ms, plain "
+                                MT_FLOPS * traces * out["n_tris"]))
+            line += (f" | {traces:.0f} traces | kernel {out['ms']:.3f} ms, "
+                     f"plain "
                      f"{out['plain_ms']:.1f} ms (CUDA events) | "
                      f"render_sample_fast frame {out['frame_ms']:.2f} ms, "
                      f"{out['rays_per_s'] / 1e6:.1f} M rays/s (median of 5)")
@@ -1037,6 +1076,43 @@ def _raster(lanes, order, res):
     return img.reshape(res, res, 3)
 
 
+def _gate_tiled_scene(name, scene, cam, res, settings, device):
+    """One frame of a megakernel scene, lanes in pixel tiles on the BVH
+    branch: the kernel against its plain version on the same lanes
+    (KERNEL_FLIPS, KERNEL_MEAN) and against the pooled wavefront (3%, 2%),
+    ray counts within 2% → (results, the kernel's arguments, the image)."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    path = pt.explain_render_path(scene, settings)
+    check(path == "megakernel", f"{name}: {path}")
+    tile = mega.HIER_PIXEL_TILE if mega._pack_scene(scene)["hier"] else None
+    args = mega.megakernel_inputs(scene, cam, res, res, 1, settings, tile)
+    got = mega.mesh_megakernel_cuda(*args)
+    ref = mega.mesh_megakernel_reference(*args)
+    torch.cuda.synchronize()
+    lanes = torch.stack(got[:3], dim=-1)
+    flips, max_err, mean_rel = _gate(
+        lanes, torch.stack(ref[:3], dim=-1), f"{name}: kernel vs plain",
+        KERNEL_FLIPS, KERNEL_MEAN)
+    rays, plain_rays = float(got[3].sum()), float(ref[3].sum())
+    img = _raster(lanes, mega.pixel_order(res, res, tile, device), res)
+    pooled, pooled_rays = pt.render_sample_pooled_counted(
+        scene, cam, res, res, 1, settings)
+    wf_flips, _, _ = _gate(img, pooled, f"{name}: kernel vs wavefront")
+    pooled_rays = int(pooled_rays)
+    for other, whose in ((plain_rays, "plain version"),
+                         (pooled_rays, "wavefront")):
+        check(abs(rays - other) <= 0.02 * other,
+              f"{name}: {rays} rays vs the {whose}'s {other}")
+    out = dict(res=res, n_tris=int(scene.tri_verts.shape[0]), flips=flips,
+               max_abs_err=max_err, mean_rel=mean_rel,
+               wavefront_flips=wf_flips, rays=rays,
+               wavefront_rays=pooled_rays, mean=float(img.mean()),
+               pooled=pooled)
+    return out, args, img
+
+
 def megakernel_hier_phase(device) -> dict:
     """The megakernel's BVH branch against its plain version and the pooled
     wavefront; kernel times on the bridge scene at 512 x 512."""
@@ -1050,37 +1126,16 @@ def megakernel_hier_phase(device) -> dict:
         res = SMALL_RES
         scene, cam = TEST_SCENES[name](device=device)
         settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-        path = pt.explain_render_path(scene, settings)
-        check(path == "megakernel", f"{name}: {path}")
-        args = mega.megakernel_inputs(scene, cam, res, res, 1, settings, tile)
+        out, args, _ = _gate_tiled_scene(name, scene, cam, res, settings,
+                                         device)
         check(args[-1].hier, f"{name}: not packed for the BVH branch")
-        got = mega.mesh_megakernel_cuda(*args)
-        ref = mega.mesh_megakernel_reference(*args)
-        torch.cuda.synchronize()
-        lanes = torch.stack(got[:3], dim=-1)
-        flips, max_err, mean_rel = _gate(
-            lanes, torch.stack(ref[:3], dim=-1), f"{name}: kernel vs plain",
-            KERNEL_FLIPS, KERNEL_MEAN)
-        rays, plain_rays = float(got[3].sum()), float(ref[3].sum())
-        img = _raster(lanes, mega.pixel_order(res, res, tile, device), res)
-        pooled, pooled_rays = pt.render_sample_pooled_counted(
-            scene, cam, res, res, 1, settings)
-        wf_flips, _, _ = _gate(img, pooled, f"{name}: kernel vs wavefront")
-        pooled_rays = int(pooled_rays)
-        for other, whose in ((plain_rays, "plain version"),
-                             (pooled_rays, "wavefront")):
-            check(abs(rays - other) <= 0.02 * other,
-                  f"{name}: {rays} rays vs the {whose}'s {other}")
-        out = dict(res=res, n_tris=int(scene.tri_verts.shape[0]), flips=flips,
-                   max_abs_err=max_err, mean_rel=mean_rel,
-                   wavefront_flips=wf_flips, rays=rays,
-                   wavefront_rays=pooled_rays, mean=float(img.mean()),
-                   pooled=pooled)
         print(f"megakernel/hier/{name}: {res}x{res} {out['n_tris']} tris, "
-              f"tree depth {args[0].max_depth} | vs plain {flips:.5f} flips, "
-              f"max |d| {max_err:.3g}, means {mean_rel:.2e} apart | vs "
-              f"wavefront {wf_flips:.4f} flips | rays {rays:.0f} vs "
-              f"{pooled_rays} | mean {out['mean']:.4f}", flush=True)
+              f"tree depth {args[0].max_depth} | vs plain "
+              f"{out['flips']:.5f} flips, max |d| {out['max_abs_err']:.3g}, "
+              f"means {out['mean_rel']:.2e} apart | vs wavefront "
+              f"{out['wavefront_flips']:.4f} flips | rays {out['rays']:.0f} "
+              f"vs {out['wavefront_rays']} | mean {out['mean']:.4f}",
+              flush=True)
         results[name] = out
 
     # Kernel times at the main path's size, lanes tiled and in raster order
@@ -1298,6 +1353,248 @@ def packing_path_phase(device, dense_frame) -> dict:
     return out
 
 
+def _extras_scene(name, viewer, device):
+    from bifrost3d_tpu_torch.apps import scenes
+    builder = scenes.SCENES[name] if viewer else scenes.TEST_SCENES[name]
+    return builder(device=device)
+
+
+def megakernel_extras_phase(device) -> dict:
+    """The kExtras instantiations (environment map, textures, cutouts and
+    the shadow march) against the plain version and the pooled wavefront,
+    on both traces."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    results = {}
+    res = SMALL_RES
+    for name, viewer in EXTRAS_SCENES:
+        t0 = time.perf_counter()
+        scene, cam = _extras_scene(name, viewer, device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+        check(mega.megakernel_ineligibility_reasons(scene, settings) == [],
+              f"{name}: not eligible")
+        out, args, img = _gate_tiled_scene(name, scene, cam, res, settings,
+                                           device)
+        cfg = args[-1]
+        check(cfg.extras, f"{name}: does not take the kExtras instantiation")
+        check(out["mean"] > 1e-4, f"{name}: image mean {out['mean']} is not "
+              "lit")
+        if name == "textured_cornell":
+            # tests/test_pallas_mesh.py:118-120: the checker shows.
+            row = img[-res // 8].amax(dim=-1)
+            check(float(row.max()) > 2.0 * max(float(row.min()), 1e-4),
+                  "textured_cornell: the floor's checker does not show")
+        results[name] = out
+        env = cfg.env_meta
+        features = ", ".join(f for f, on in (
+            (f"map {env[1]}x{env[0]}, pdf {env[3]}x{env[2]}, pool {env[4]}"
+             if env else "", env is not None),
+            (f"{len(cfg.tex_meta)} textures", bool(cfg.tex_meta)),
+            ("coverage", cfg.any_coverage),
+            (f"shadow march {cfg.shadow_steps}", cfg.shadow_steps > 0)) if on)
+        print(f"megakernel/{name}: "
+              f"{pt.explain_render_path(scene, settings)} | {res}x{res} "
+              f"{out['n_tris']} tris, {'BVH' if cfg.hier else 'dense'} "
+              f"trace, {features} (scene in {build_s:.2f} s) | vs plain "
+              f"{out['flips']:.5f} flips, max |d| {out['max_abs_err']:.3g}, "
+              f"means {out['mean_rel']:.2e} apart | vs wavefront "
+              f"{out['wavefront_flips']:.4f} flips | rays {out['rays']:.0f} "
+              f"vs {out['wavefront_rays']} | mean {out['mean']:.5f}",
+              flush=True)
+    return results
+
+
+def extras_path_phase(device) -> dict:
+    """Main path D: Sphere and Opacity (dense trace) and
+    hier_bridge_15k_env (BVH trace) through render_progressive."""
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.io.image import save_image
+    from bifrost3d_tpu_torch.post.pipeline import process
+    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+
+    res, out = RES, {}
+    for name in EXTRAS_PATHS:
+        scene, cam = _extras_scene(name, dict(EXTRAS_SCENES)[name], device)
+        settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+        path = pt.explain_render_path(scene, settings)
+        check(path == "megakernel", f"{name}: {path}")
+        mega.prewarm_megakernel(scene)
+        torch.cuda.synchronize()
+
+        # The path, driven with every count at 0.
+        _reset_counts()
+        t0 = time.perf_counter()
+        hdr = pt.render_progressive(scene, cam, res, res, ACCUMULATIONS,
+                                    settings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = mega.launch_count
+        trace_launches = (dense.launch_count + hier.launch_count
+                          + clustered.launch_count + vmem.launch_count)
+        check(launches == ACCUMULATIONS, f"{name}: the path launched the "
+              f"megakernel {launches} times for {ACCUMULATIONS} frames")
+        check(trace_launches == 0, f"{name}: the path launched a trace "
+              f"kernel {trace_launches} times")
+        check(hdr.shape == (res, res, 3), f"image shape {tuple(hdr.shape)}")
+        check(bool(torch.isfinite(hdr).all()), f"{name}: image is not finite")
+        mean = float(hdr.mean())
+        check(mean > 1e-3, f"{name}: image mean {mean} is not lit")
+        png = os.path.join(REPO, "build", f"{name.lower()}_{res}.png")
+        os.makedirs(os.path.dirname(png), exist_ok=True)
+        save_image(png, process(hdr, CameraEffectsSettings.preset()._replace(
+            film_grain=0.0)))
+        check(os.path.getsize(png) > 0, "PNG not written")
+
+        frame_ms, rates = [], []
+        for acc in (1, 2, 3, 4, 5):
+            _, acc_rays = mega.render_mesh_megakernel(scene, cam, res, res,
+                                                      acc, settings)
+            acc_rays = float(acc_rays)   # synchronises
+            t0 = time.perf_counter()
+            pt.render_sample_fast(scene, cam, res, res, acc, settings)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            frame_ms.append(dt * 1e3)
+            rates.append(acc_rays / dt)
+
+        # The kernel at the path's shape beside its plain version.
+        packed = mega._pack_scene(scene)
+        tile = mega.HIER_PIXEL_TILE if packed["hier"] else None
+        args = mega.megakernel_inputs(scene, cam, res, res, 1, settings, tile)
+        cfg, extras = args[-1], args[-2]
+        ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args), repeats=10,
+                        warmup=2)
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = mega.mesh_megakernel_reference(*args, stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = mega.mesh_megakernel_cuda(*args)
+        flips, max_err, _ = _gate(torch.stack(got[:3], dim=-1),
+                                  torch.stack(ref[:3], dim=-1),
+                                  f"{name} {res}: kernel vs plain",
+                                  KERNEL_FLIPS, KERNEL_MEAN)
+        rays = float(got[3].sum())
+        # Bytes: per pixel 32 B of lanes in and 16 B out; the triangle (or
+        # tree) and attribute tables and every table of the extras once.
+        # Operations: one closest trace per counted iteration (rays / 2)
+        # and the shadow traces that the plain version made, counted one
+        # by one (an any-hit query per lit shaded hit, or the march's
+        # steps); a dense trace tests every triangle, a BVH trace what the
+        # plain walk counted. Shading is left out, so the bound is low.
+        march = stats.get("march_traces", 0)
+        shadow = stats.get("shadow_traces", 0)
+        table_bytes = sum(t.numel() * 4 for t in extras if t is not None)
+        n_tris = packed["n_tris"]
+        if packed["hier"]:
+            tree = args[0]
+            table_bytes += 32 * int(tree.node_boxes.shape[0]) + (
+                48 + 4 * mega.ATTR_ROWS) * n_tris
+            flops = (BOX_FLOPS * stats["box_tests"]
+                     + MT_FLOPS * stats["tri_tests"])
+            work = (f"{stats['box_tests'] / rays:.1f} box and "
+                    f"{stats['tri_tests'] / rays:.1f} triangle tests per ray")
+        else:
+            table_bytes += (64 + 4 * mega.ATTR_ROWS) * n_tris
+            traces = rays / 2 + shadow + march
+            flops = MT_FLOPS * n_tris * traces
+            work = f"{traces:.0f} traces of {n_tris} triangles"
+        out[name] = dict(
+            launches=launches, seconds=seconds, mean=mean, ms=ms,
+            plain_ms=plain_ms, max_abs_err=max_err, flips=flips, rays=rays,
+            march_traces=march, shadow_traces=shadow,
+            frame_ms=statistics.median(frame_ms),
+            rays_per_s=statistics.median(rates),
+            **roofline(48 * res * res + table_bytes, flops))
+        print(f"extras_path/{name}: {path} | {res}x{res} {BOUNCES} bounces "
+              f"x{ACCUMULATIONS} through render_progressive in {seconds:.3f} "
+              f"s | megakernel launches {launches}, trace-kernel launches "
+              f"{trace_launches} | mean {mean:.4f} | render_sample_fast frame "
+              f"{out[name]['frame_ms']:.2f} ms, "
+              f"{out[name]['rays_per_s'] / 1e6:.1f} M rays/s (median of 5) | "
+              f"kernel {ms:.3f} ms (median of 10), plain {plain_ms:.0f} ms "
+              f"(one run), vs plain {flips:.5f} flips | {rays:.0f} rays, "
+              f"{shadow} shadow and {march} march traces, {work}, tables "
+              f"{table_bytes / 1024:.0f} KiB | bound "
+              f"{out[name]['bound_ms']:.5f} ms by {out[name]['bound_by']} | "
+              f"{os.path.relpath(png, REPO)}", flush=True)
+    return out
+
+
+def viewer_phase(device) -> dict:
+    """Main path D from its entry point: the viewer's CLI on Sphere and
+    Opacity. The viewer's settings are a plain RenderSettings, so Opacity's
+    shadow rays are any-hit queries here: that frame against the plain
+    version too."""
+    from bifrost3d_tpu_torch.apps import simple_viewer
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    out = {}
+    for name in ("Sphere", "Opacity"):
+        png = os.path.join(REPO, "build", f"viewer_{name.lower()}.png")
+        if os.path.exists(png):
+            os.remove(png)
+        _reset_counts()
+        t0 = time.perf_counter()
+        simple_viewer.main(["--scene", name, "-n", str(ACCUMULATIONS), "-o",
+                            png])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = mega.launch_count
+        trace_launches = (dense.launch_count + hier.launch_count
+                          + clustered.launch_count + vmem.launch_count)
+        check(launches == ACCUMULATIONS, f"viewer {name}: launched the "
+              f"megakernel {launches} times for {ACCUMULATIONS} frames")
+        check(trace_launches == 0, f"viewer {name}: launched a trace kernel "
+              f"{trace_launches} times")
+        check(os.path.getsize(png) > 0, "PNG not written")
+        out[name] = dict(launches=launches, seconds=seconds)
+        print(f"viewer/{name}: simple_viewer --scene {name} -n "
+              f"{ACCUMULATIONS} ({RES}x{RES}, {BOUNCES} bounces) in "
+              f"{seconds:.3f} s with the scene's build | megakernel launches "
+              f"{launches}, trace-kernel launches {trace_launches} | "
+              f"{os.path.relpath(png, REPO)}", flush=True)
+
+    scene, cam = _extras_scene("Opacity", True, device)
+    settings = pt.RenderSettings(max_bounce_count=BOUNCES)
+    check(pt.explain_render_path(scene, settings) == "megakernel",
+          "Opacity at the viewer's settings: not the megakernel")
+    args = mega.megakernel_inputs(scene, cam, SMALL_RES, SMALL_RES, 1,
+                                  settings)
+    cfg = args[-1]
+    check(cfg.extras and cfg.any_coverage and cfg.shadow_steps == 0,
+          "Opacity at the viewer's settings: cutouts with any-hit shadows")
+    got = mega.mesh_megakernel_cuda(*args)
+    ref = mega.mesh_megakernel_reference(*args)
+    flips, max_err, mean_rel = _gate(
+        torch.stack(got[:3], dim=-1), torch.stack(ref[:3], dim=-1),
+        "Opacity at the viewer's settings: kernel vs plain", KERNEL_FLIPS,
+        KERNEL_MEAN)
+    rays, plain_rays = float(got[3].sum()), float(ref[3].sum())
+    check(abs(rays - plain_rays) <= 0.02 * plain_rays,
+          f"Opacity at the viewer's settings: {rays} rays vs the plain "
+          f"version's {plain_rays}")
+    print(f"viewer/Opacity settings: {SMALL_RES}x{SMALL_RES} cutouts with "
+          f"any-hit shadow rays | vs plain {flips:.5f} flips, max |d| "
+          f"{max_err:.3g}, means {mean_rel:.2e} apart | rays {rays:.0f} vs "
+          f"{plain_rays:.0f}", flush=True)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, result) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"bifrost3d_tpu_torch/csrc/{source}",
@@ -1326,7 +1623,12 @@ def main() -> int:
     path_c = hier_path_phase(device)
     packings = packing_path_phase(device,
                                   hier_scenes["hier_bridge_15k"]["pooled"])
+    megakernel_extras_phase(device)
+    path_d = extras_path_phase(device)
+    viewer_phase(device)
     # No single PyTorch call computes any of the seven: library_ms is null.
+    # The first seven rows are the seven kernels; the last three are B2 and
+    # B3 again, through their kExtras instantiations.
     print(json.dumps({"kernels": [
         _kernel_row("dense_intersect", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
@@ -1351,6 +1653,19 @@ def main() -> int:
                     "bifrost3d_tpu/geometry/pallas_bvh_vmem.py:139",
                     packings["vmem"]["launches"],
                     clusters["bridge/incoherent"]["vmem"]),
+        # The same two kernels through their kExtras instantiations, on
+        # main path D.
+        _kernel_row("mesh_megakernel/Sphere", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
+                    path_d["Sphere"]["launches"], path_d["Sphere"]),
+        _kernel_row("mesh_megakernel/Opacity", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
+                    path_d["Opacity"]["launches"], path_d["Opacity"]),
+        _kernel_row("mesh_megakernel_hier/hier_bridge_15k_env",
+                    "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:898",
+                    path_d["hier_bridge_15k_env"]["launches"],
+                    path_d["hier_bridge_15k_env"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

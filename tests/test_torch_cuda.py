@@ -502,3 +502,129 @@ def test_hier_megakernel_wrapper_validates(cuda):
     deep = args[0]._replace(max_depth=64)
     with pytest.raises(ValueError, match="exceeds the kernel stack"):
         mega.mesh_megakernel_cuda(deep, *args[1:])
+
+
+# -- the megakernel's environment, texture and cutout branches ---------------------
+
+def _extras_scene(name, device):
+    from bifrost3d_tpu_torch.apps.scenes import SCENES
+    builder = SCENES[name] if name in SCENES else TEST_SCENES[name]
+    return builder(device=device)
+
+
+@pytest.mark.parametrize("name, hier_trace, feature", [
+    ("Sphere", False, "environment"),
+    ("sphere_sun", False, "environment"),
+    ("textured_cornell", False, "texture"),
+    ("Opacity", False, "march"),
+    ("hier_bridge_15k_env", True, "environment"),
+    ("opacity_hier", True, "march"),
+    # The viewer's plain RenderSettings: cutouts with any-hit shadow rays.
+    ("Opacity", False, "any_hit"),
+    ("opacity_hier", True, "any_hit"),
+])
+def test_extras_megakernel_matches_plain_version(cuda, name, hier_trace,
+                                                 feature):
+    """Each new branch, kernel against plain version, on both traces."""
+    res = 64
+    scene, cam = _extras_scene(name, cuda)
+    settings = (pt.RenderSettings(max_bounce_count=2) if feature == "any_hit"
+                else pt.settings_for_scene(scene, max_bounce_count=2))
+    assert mega.megakernel_ineligibility_reasons(scene, settings) == []
+    assert pt.explain_render_path(scene, settings) == "megakernel"
+    args = mega.megakernel_inputs(scene, cam, res, res, 1, settings)
+    cfg = args[-1]
+    assert cfg.extras and cfg.hier == hier_trace
+    assert {"environment": cfg.env_meta is not None and cfg.n_nee_total
+            == scene.lights.count + 1,
+            "texture": any(mt[0] >= 0 for mt in cfg.mat_tex),
+            "march": cfg.shadow_steps == 4 and cfg.any_coverage,
+            "any_hit": cfg.shadow_steps == 0 and cfg.any_coverage}[feature]
+    before = mega.launch_count
+    got = mega.mesh_megakernel_cuda(*args)
+    torch.cuda.synchronize()
+    assert mega.launch_count == before + 1
+    ref = mega.mesh_megakernel_reference(*args)
+    img = torch.stack(got[:3], dim=-1).cpu().numpy()
+    assert_statistical_gate(img, torch.stack(ref[:3], dim=-1).cpu().numpy(),
+                            KERNEL_FLIPS, KERNEL_MEAN)
+    rays, ref_rays = float(got[3].sum()), float(ref[3].sum())
+    assert abs(rays - ref_rays) <= 0.02 * ref_rays
+    assert img.mean() > 1e-4
+
+
+@pytest.mark.parametrize("name", ["Sphere", "Opacity", "opacity_hier"])
+def test_extras_frame_matches_wavefront(cuda, name):
+    """render_sample_fast: one megakernel launch, no trace-kernel launch,
+    under the statistical gate against the pooled wavefront."""
+    res = 64
+    scene, cam = _extras_scene(name, cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    before = mega.launch_count, dense.launch_count, hier.launch_count
+    img = pt.render_sample_fast(scene, cam, res, res, 1, settings)
+    torch.cuda.synchronize()
+    assert (mega.launch_count, dense.launch_count, hier.launch_count) == (
+        before[0] + 1, before[1], before[2])
+    ref = pt.render_sample_pooled(scene, cam, res, res, 1, settings)
+    assert_statistical_gate(img.cpu().numpy(), ref.cpu().numpy())
+
+
+def test_environment_frame_matches_cpu_wavefront(cuda):
+    """The map's conventions (u, v, pdf cell, pool weights) on the card
+    against the wavefront on the CPU, whose tests hold it to JAX."""
+    res = 48
+    scene, cam = TEST_SCENES["sphere_sun"](device=cuda)
+    cpu_scene, cpu_cam = TEST_SCENES["sphere_sun"](device="cpu")
+    img = pt.render_sample_fast(
+        scene, cam, res, res, 2,
+        pt.settings_for_scene(scene, max_bounce_count=2))
+    ref = pt.render_sample_pooled(
+        cpu_scene, cpu_cam, res, res, 2,
+        pt.settings_for_scene(cpu_scene, max_bounce_count=2))
+    assert_statistical_gate(img.cpu().numpy(), ref.numpy())
+
+
+def test_untouched_scene_keeps_its_instantiation(cuda):
+    """A scene with no map, texture, cutout or march launches without the
+    extras: no table is handed over, the flag is off, and forcing the
+    extras instantiation on the same inputs gives the same frame."""
+    scene, cam = create_cornell_box(device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    args = mega.megakernel_inputs(scene, cam, 64, 64, 1, settings)
+    assert not args[-1].extras and args[-2] is None
+    assert not args[-1].any_coverage and args[-1].shadow_steps == 0
+    plain = mega.mesh_megakernel_cuda(*args)
+    # Binary shadows through the march (steps = 1: the last step occludes
+    # fully) take the extras instantiation and must agree.
+    forced = args[-1]._replace(shadow_steps=1)
+    assert forced.extras
+    marched = mega.mesh_megakernel_cuda(*args[:-1], forced)
+    torch.cuda.synchronize()
+    a = torch.stack(plain[:3], dim=-1).cpu().numpy()
+    b = torch.stack(marched[:3], dim=-1).cpu().numpy()
+    assert_statistical_gate(b, a, KERNEL_FLIPS, KERNEL_MEAN)
+
+
+def test_extras_wrapper_validates(cuda):
+    scene, cam = _extras_scene("Opacity", cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    args = mega.megakernel_inputs(scene, cam, 16, 16, 0, settings)
+    cfg, extras = args[-1], args[-2]
+    with pytest.raises(ValueError, match="binds a texture"):
+        mega.mesh_megakernel_cuda(*args[:-2], extras._replace(texels=None),
+                                  cfg)
+    linear = tuple(m[:5] + (1,) for m in cfg.tex_meta)
+    with pytest.raises(ValueError, match="NEAREST"):
+        mega.mesh_megakernel_cuda(*args[:-1], cfg._replace(tex_meta=linear))
+    with pytest.raises(ValueError, match="one entry per material"):
+        mega.mesh_megakernel_cuda(*args[:-1],
+                                  cfg._replace(mat_tex=cfg.mat_tex[:1]))
+    sphere, scam = _extras_scene("sphere_sun", cuda)
+    sargs = mega.megakernel_inputs(sphere, scam, 16, 16, 0, settings)
+    with pytest.raises(ValueError, match="env_pool"):
+        mega.mesh_megakernel_cuda(
+            *sargs[:-2], sargs[-2]._replace(env_pool=None), sargs[-1])
+    with pytest.raises(ValueError, match="env_img"):
+        mega.mesh_megakernel_cuda(
+            *sargs[:-2], sargs[-2]._replace(env_img=sargs[-2].env_img[:5]),
+            sargs[-1])

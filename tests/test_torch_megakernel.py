@@ -249,17 +249,25 @@ def test_ineligibility_reasons_cover_jax(jax_scenes, case):
 
 
 @pytest.mark.parametrize("change, reason", [
-    ("environment", "environment map (not ported)"),
-    ("texture", "textures (not ported)"),
-    ("cutout", "cutouts / coverage-aware shadows (not ported)"),
+    ("environment", "environment without presampled pool "
+                    "(build_render_scene presample_environment)"),
+    ("texture", "texture bindings without a texture bank"),
+    ("cutout", None),
     ("triangles", f"{tpm.HIER_MAX_TRIS + 1} triangles > HIER_MAX_TRIS "
                   f"{tpm.HIER_MAX_TRIS}"),
 ])
 def test_unported_branches_are_ineligible(jax_scenes, change, reason):
+    """What keeps a changed Cornell from the megakernel now that its
+    environment, texture and cutout branches are ported: a map without its
+    pool, a binding without a bank, a scene over the cap; a cutout
+    nothing."""
     _, _, scene, _ = jax_scenes("cornell")
     mats = scene.materials
     if change == "environment":
-        scene = scene._replace(environment=object())
+        from bifrost3d_tpu_torch.lights.environment import (
+            build_environment_light)
+        scene = scene._replace(environment=build_environment_light(
+            np.full((4, 8, 3), 0.5, np.float32), device="cpu"))
     elif change == "texture":
         slot = mats.tint_roughness_texture.clone()
         slot[0] = 0
@@ -280,7 +288,14 @@ def test_unported_branches_are_ineligible(jax_scenes, change, reason):
             tri_verts=torch.zeros((tpm.HIER_MAX_TRIS + 1, 3, 3)))
     settings = tpt.RenderSettings()
     reasons = tpm.megakernel_ineligibility_reasons(scene, settings)
-    assert reason in reasons, reasons
+    if reason is None:
+        assert reasons == []
+        assert tpm.megakernel_ineligibility_reasons(
+            scene, tpt.settings_for_scene(scene)) == []
+        assert tpt.explain_render_path(scene, settings) == \
+            "wavefront: device is cpu, not cuda"
+        return
+    assert reasons == [reason], reasons
     assert tpt.explain_render_path(scene, settings) == (
         "wavefront: device is cpu, not cuda, " + ", ".join(reasons))
 
