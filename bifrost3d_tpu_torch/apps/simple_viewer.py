@@ -3,7 +3,9 @@
 Port of ``bifrost3d_tpu/apps/simple_viewer.py::main`` for the built-in
 scenes (CornellBox, Veach, Sphere, SphereLight, Opacity): render
 progressively through ``render_sample_fast`` (on a card the mesh megakernel,
-one launch per frame), apply the camera-effects chain and write a PNG. The
+one launch per frame), apply the camera-effects chain and write a PNG.
+``--camera-position`` / ``--camera-target`` replace the scene's camera as
+in the JAX viewer. The
 render settings are the reference viewer's: a plain ``RenderSettings`` with
 the bounce count, so shadow rays are binary any-hit queries on every scene
 (Opacity too; ``settings_for_scene`` is what turns the coverage-aware march
@@ -20,11 +22,25 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
 
 _TONEMAPPERS = ("linear", "filmic", "agx", "khronos")
+
+
+def viewer_camera(position, target, width: int, height: int, device):
+    """The camera of ``--camera-position`` / ``--camera-target`` ("x,y,z"
+    strings, None for the default eye (0, 0, -2) or target (0, 0, 0)): a
+    45-degree perspective camera at the window's aspect, as the JAX
+    viewer's."""
+    from bifrost3d_tpu_torch.scene.camera import perspective_camera
+    eye = tuple(float(v) for v in (position or "0,0,-2").split(","))
+    target = tuple(float(v) for v in (target or "0,0,0").split(","))
+    return perspective_camera(eye=eye, target=target,
+                              fov_radians=math.pi / 4, aspect=width / height,
+                              device=device)
 
 
 def main(argv=None):
@@ -38,6 +54,8 @@ def main(argv=None):
                         help="R,G,B background tint (SimpleViewer default, "
                              "main.cpp:58)")
     parser.add_argument("--window-size", default="512x512")
+    parser.add_argument("--camera-position", default=None, help="x,y,z")
+    parser.add_argument("--camera-target", default=None, help="x,y,z")
     parser.add_argument("--accumulations", "-n", type=int, default=64)
     parser.add_argument("--max-bounces", type=int, default=4)
     parser.add_argument("--output", "-o", default="render.png")
@@ -71,6 +89,9 @@ def main(argv=None):
     scene, camera = SCENES[args.scene](aspect=width / height, device=device)
     scene = scene._replace(environment_tint=torch.tensor(
         tint, dtype=torch.float32, device=device))
+    if args.camera_position or args.camera_target:
+        camera = viewer_camera(args.camera_position, args.camera_target,
+                               width, height, device)
 
     t0 = time.time()
     settings = RenderSettings(max_bounce_count=args.max_bounces)

@@ -29,12 +29,23 @@
 //     SimpleRGPs.cu + MonteCarlo.cu); the path state stays in registers and
 //     a thread leaves its loop when its path ends (a dead lane's state never
 //     changes again, so the result is the TPU kernel's);
-//   - the triangle table (v0, e1, e2; 9 floats each, ≤ 1024 triangles, at
-//     most 36 KB), the two 32×32 rho tables, the material and light tables,
-//     the light kinds, the RIS offsets and the 4×32 Sobol direction numbers
-//     are staged in shared memory once per block (≤ 48 KB in all); every
-//     thread of a warp reads the same triangle at the same step, so those
-//     reads are broadcasts;
+//   - a thread makes its own camera lane: its pixel (raster order, or on the
+//     BVH branch one small tile per warp), the pcg2d pixel hash, the Sobol
+//     camera jitter and the ray through the camera's matrices, as
+//     path_tracer._camera_lanes does; it writes its radiance at its pixel in
+//     raster order, so a frame is this one launch;
+//   - the triangle table (v0, e1, e2 as three float4 records, ≤ 1024
+//     triangles, at most 48 KB, copied with cp.async) with one padded box
+//     per chunk of 32 consecutive triangles, the two 32×32 rho tables, the
+//     material and light tables, the light kinds, the RIS offsets and the
+//     4×32 Sobol direction numbers are staged in shared memory once per
+//     block (≤ 60 KB in all, above the 48 KB that needs the opt-in);
+//   - the dense trace visits the chunks in index order and skips one whose
+//     box the ray misses or enters no nearer than its best hit, so a shadow
+//     ray towards the open sky tests a few chunks' triangles instead of all
+//     of them; skipped chunks hold nothing strict '<' would take, so the hit
+//     is the full scan's, and a triangle test takes its reciprocal only when
+//     its numerators leave it a chance;
 //   - attributes are read from global memory by triangle index, materials
 //     and the rho tables by index (a 4-tap bilinear fetch);
 //   - only the selected branch of each select is computed (the chosen light,
@@ -79,32 +90,35 @@
 // tree's leaf order (as the TPU kernel's does), so the hit's slot indexes it
 // directly, neighbouring hits read neighbouring columns, and no slot → id
 // table is read. Shadow rays take the walk's any-hit mode with
-// t_max = dist * 0.9999. Which thread renders which pixel is the wrapper's
-// choice (the pixel hash comes from x and y): it hands the lanes over in
-// small 2-D tiles, one per warp, so that a warp's rays stay close in the
-// tree; the TPU kernel's 32 x 32 tile remap is the same idea at its size.
+// t_max = dist * 0.9999. The wrapper chooses which thread renders which
+// pixel (the pixel hash comes from x and y): on this branch small 2-D tiles,
+// one per warp, so that a warp's rays stay close in the tree; the TPU
+// kernel's 32 x 32 tile remap is the same idea at its size.
 //
 // Ties: the dense trace keeps the lowest triangle index on equal t (strict
-// '<' over ascending indices), as the TPU kernel's column-min does; the BVH
+// '<' over ascending indices, chunks in index order), as the TPU kernel's
+// column-min does; the BVH
 // walk keeps the first-found hit, leaves visited near-first, where the TPU
 // kernel keeps the lowest slot of a 128-triangle cluster. RNG is bit-exact
 // with the JAX package: uint32 hashes, __brev for the bit reversal, and
 // __uint2float_rn(x) * 2^-32 for the conversion, which the TPU kernel's
 // _u2f is defined to equal. megakernel_rng_probe exports the RNG so that a
-// test can hold it bit for bit against the port's torch path_rng_4d.
+// test can hold it bit for bit against the port's torch path_rng_4d,
+// megakernel_camera_probe the camera lanes, and megakernel_trace_probe the
+// culled dense trace, for holding against csrc/dense_intersect.cu.
 //
-// What bounds it on an H100: per live lane-iteration the dense trace streams
-// the whole triangle table (~50 flops per test, two traces per iteration), so
-// at hundreds of triangles the kernel is FP32-issue-bound in the trace; at
-// Cornell's 34 triangles the shading math (transcendentals, RIS) dominates.
+// What bounds it on an H100: per trace the dense branch tests every chunk
+// box (~24 flops each) and every triangle of the chunks it enters (~50
+// flops per test), so at hundreds of triangles it is FP32-issue-bound in
+// the trace; at Cornell's 34 triangles the shading math (transcendentals,
+// RIS) dominates.
 // The BVH branch is bound by memory latency: some tens of dependent 64-byte
 // node reads and a few 48-byte triangle reads per ray through L2/L1, rays of
 // a warp diverging after the first bounce.
 // Divergence (paths end at different iterations; lanes pick different
 // lights and lobes) and register pressure (spills are reported by ptxas)
-// bound the achieved rate. This simple design does nothing about either:
-// no path regeneration, no ray packets, no culling. Making it fast is later
-// work.
+// bound the achieved rate. This design does nothing about either: no path
+// regeneration, no ray packets.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math: IEEE division and square root,
@@ -152,12 +166,14 @@ struct MegakernelParams {
   const float* rho_ggx;      // [32, 32], [roughness][cos_theta]
   const float* rho_fres;     // [32, 32]
   const uint32_t* sobol;     // [4, 32] direction numbers
-  const float* origin;       // [n_pixels, 3]
-  const float* direction;    // [n_pixels, 3]
-  const uint32_t* pixel_hash;  // [n_pixels]
-  const float* active;       // [n_pixels] 0/1
+  // The camera (scene/camera.PinholeCamera), on the device:
+  const float* cam_inv_proj;     // [4, 4] inverse projection, row-major
+  const float* cam_translation;  // [3]
+  const float* cam_rotation;     // [4] quaternion x, y, z, w
+  const float* cam_scale;        // [1]
   const float* scalars;      // epsilon, background rgb
-  float* out;                // [4, n_pixels]: r, g, b, rays
+  float* out;                // [n_pixels, 3] radiance, then [n_pixels] rays,
+                             // both in raster order
   // kExtras only (null otherwise):
   const float* texels;       // [n_texels, 4]: level 0 of every texture in turn
   const int* tex_meta;       // [n_tex, 6]: first texel, width, height, wrap_u,
@@ -167,6 +183,8 @@ struct MegakernelParams {
   const float* env_img;      // [env_h * env_w, 3] latlong radiance
   const float* env_pdf;      // [env_ph * env_pw] solid-angle pdf without 1/sin
   const float* env_pool;     // [env_pool_n, 7]: direction, radiance, pdf
+  int width, height;         // the frame; n_pixels = width * height
+  int tile_w, tile_h;        // pixel tile per warp, or 0 = raster order
   int n_pixels, n_tris, t_pad, n_mats, n_lights;
   int light_kinds[kMaxLights];
   uint32_t accumulation;
@@ -826,77 +844,157 @@ __device__ LightSample spot_light_sample(const Light& l, V3 lit, float u0, float
   return s;
 }
 
-// -- trace (dense Möller–Trumbore, as csrc/dense_intersect.cu) -----------------
+// -- trace (dense Möller–Trumbore, culled by chunk) ----------------------------
+//
+// The staged table holds one 48-byte record per triangle (v0, e1, e2 and a
+// pad, three float4: q0 = v0.xyz e1.x, q1 = e1.yz e2.xy, q2 = e2.z), and one
+// padded box per chunk of kChunk consecutive triangles. A trace visits the
+// chunks in index order and skips one whose box the ray misses or whose
+// entry distance is not below the best hit so far (or t_max); inside a chunk
+// it tests every triangle. A skipped chunk can hold no triangle that strict
+// '<' in index order would take, so the answer is the full scan's.
 
-__device__ __forceinline__ bool mt_test(const float* __restrict__ tri, V3 o, V3 d, float& t,
-                                        float& u, float& v) {
-  const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+constexpr int kChunk = 32;
+// Box padding, relative to the chunk's largest coordinate and extent: far
+// above the rounding of the slab test and of a hit's t, so the cull never
+// drops a triangle the full scan would take.
+constexpr float kChunkPad = 1e-4f;
+
+__device__ __forceinline__ float safe_inv(float x) {
+  return __fdiv_rn(x < 0.0f ? -1.0f : 1.0f, fmaxf(fabsf(x), 1e-12f));
+}
+
+// Slab test of chunk box `c` (two float4 in shared memory: lo.xyz, hi.xyz)
+// → whether the ray enters it in [t_min, t_far] before t_lim. Its own
+// function because bvh_walk::box_hit reads global memory through __ldg.
+__device__ __forceinline__ bool chunk_hit(const float4* __restrict__ s_box, int c, V3 o, V3 inv,
+                                          float t_min, float t_lim) {
+  const float4 a = s_box[2 * c], b = s_box[2 * c + 1];
+  const float x0 = (a.x - o.x) * inv.x, x1 = (b.x - o.x) * inv.x;
+  const float y0 = (a.y - o.y) * inv.y, y1 = (b.y - o.y) * inv.y;
+  const float z0 = (a.z - o.z) * inv.z, z1 = (b.z - o.z) * inv.z;
+  const float t_near = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fmaxf(fminf(z0, z1), t_min));
+  const float t_far = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
+  return t_near <= t_far && t_near < t_lim;
+}
+
+// Möller–Trumbore with the arithmetic of csrc/dense_intersect.cu → a valid
+// hit in (t_min, t_lim). The three numerators come first; a test that they
+// show to fail (with a margin far above rounding) is rejected without the
+// quotient, and a survivor takes the correctly rounded reciprocal, which
+// equals the dense kernel's __fdiv_rn(1, det): its t, u, v are that
+// kernel's bit for bit.
+__device__ __forceinline__ bool mt_hit(const float4* __restrict__ rec, V3 o, V3 d, float t_min,
+                                       float t_lim, float& t, float& u, float& v) {
+  const float4 q0 = rec[0], q1 = rec[1], q2 = rec[2];
+  const float v0x = q0.x, v0y = q0.y, v0z = q0.z;
+  const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
+  const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
+  // pvec = d x e2
   const float px = d.y * e2z - d.z * e2y;
   const float py = d.z * e2x - d.x * e2z;
   const float pz = d.x * e2y - d.y * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
-  const bool det_ok = fabsf(det) > kEpsDet;
-  const float inv_det = __fdiv_rn(det_ok ? 1.0f : 0.0f, det == 0.0f ? 1.0f : det);
+  // tvec = o - v0
   const float tx = o.x - v0x, ty = o.y - v0y, tz = o.z - v0z;
-  u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float u_num = tx * px + ty * py + tz * pz;
+  // qvec = tvec x e1
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
-  v = (d.x * qx + d.y * qy + d.z * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
+  const float v_num = d.x * qx + d.y * qy + d.z * qz;
+  const float t_num = e2x * qx + e2y * qy + e2z * qz;
+  const float ad = fabsf(det);
+  const float sg = det < 0.0f ? -1.0f : 1.0f;
+  const float us = u_num * sg, vs = v_num * sg, ts = t_num * sg;
+  const float tiny = ad * 1e-30f;
+  if (!(ad > kEpsDet) || us < -tiny || vs < -tiny || us + vs > ad * 1.00001f ||
+      ts < t_min * ad * 0.99999f || ts > t_lim * ad * 1.00001f)
+    return false;
+  const float inv_det = __frcp_rn(det);
+  u = u_num * inv_det;
+  v = v_num * inv_det;
+  t = t_num * inv_det;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min && t < t_lim;
 }
 
-// Closest hit in (t_min, inf): prim -1 and t = kBig on a miss.
-__device__ int trace_closest(const float* __restrict__ s_tri, int n_tris, V3 o, V3 d, float t_min,
-                             float& best_t, float& best_u, float& best_v) {
-  best_t = kBig;
-  best_u = 0.0f;
-  best_v = 0.0f;
-  int best = -1;
-  for (int k = 0; k < n_tris; ++k) {
-    float t, u, v;
-    if (mt_test(s_tri + 9 * k, o, d, t, u, v) && t > t_min && t < best_t) {
-      best_t = t;
-      best_u = u;
-      best_v = v;
-      best = k;
-    }
-  }
-  return best;
-}
-
-// Any hit in (t_min, t_max); stops at the first.
-__device__ bool trace_any(const float* __restrict__ s_tri, int n_tris, V3 o, V3 d, float t_min,
-                          float t_max) {
-  for (int k = 0; k < n_tris; ++k) {
-    float t, u, v;
-    if (mt_test(s_tri + 9 * k, o, d, t, u, v) && t > t_min && t < t_max) return true;
-  }
-  return false;
-}
-
-
-// Closest hit in (t_min, t_max): prim -1 on a miss.
-__device__ int trace_closest_within(const float* __restrict__ s_tri, int n_tris, V3 o, V3 d,
-                                    float t_min, float t_max, float& best_t, float& best_u,
-                                    float& best_v) {
+// Closest hit in (t_min, t_max) → its triangle, or -1 (best_t = t_max); with
+// kAnyHit the first hit found.
+template <bool kAnyHit>
+__device__ int trace_dense(const float4* __restrict__ s_tri4, const float4* __restrict__ s_box,
+                           int n_tris, V3 o, V3 d, float t_min, float t_max, float& best_t,
+                           float& best_u, float& best_v) {
+  const V3 inv = mk(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   best_t = t_max;
   best_u = 0.0f;
   best_v = 0.0f;
   int best = -1;
-  for (int k = 0; k < n_tris; ++k) {
-    float t, u, v;
-    if (mt_test(s_tri + 9 * k, o, d, t, u, v) && t > t_min && t < best_t) {
-      best_t = t;
-      best_u = u;
-      best_v = v;
-      best = k;
+  const int n_chunks = (n_tris + kChunk - 1) / kChunk;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (!chunk_hit(s_box, c, o, inv, t_min, best_t)) continue;
+    const int end = min(n_tris, (c + 1) * kChunk);
+    for (int k = c * kChunk; k < end; ++k) {
+      float t, u, v;
+      if (mt_hit(s_tri4 + 3 * k, o, d, t_min, best_t, t, u, v)) {
+        best_t = t;
+        best_u = u;
+        best_v = v;
+        best = k;
+        if (kAnyHit) return k;
+      }
     }
   }
   return best;
+}
+
+// Stages the first 12 floats of each [n_tris, 16] row of `tri` into s_tri4
+// with cp.async, then builds the chunk boxes, one warp per chunk (lane k of
+// the warp reads triangle k of the chunk; min/max through shuffles). Ends
+// with the block synchronised.
+__device__ void stage_triangles(const float* __restrict__ tri, int n_tris, float4* s_tri4,
+                                float4* s_box) {
+  for (int k = threadIdx.x; k < 3 * n_tris; k += blockDim.x) {
+    const float* src = tri + 16 * (k / 3) + 4 * (k % 3);
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(s_tri4 + k));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = (n_tris + kChunk - 1) / kChunk;
+  for (int c = threadIdx.x >> 5; c < n_chunks; c += blockDim.x >> 5) {
+    const int k = c * kChunk + lane;
+    float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
+    if (k < n_tris) {
+      const float4 q0 = s_tri4[3 * k], q1 = s_tri4[3 * k + 1], q2 = s_tri4[3 * k + 2];
+      const float v0[3] = {q0.x, q0.y, q0.z};
+      const float v1[3] = {q0.x + q0.w, q0.y + q1.x, q0.z + q1.y};
+      const float v2[3] = {q0.x + q1.z, q0.y + q1.w, q0.z + q2.x};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = fminf(fminf(v0[a], v1[a]), v2[a]);
+        hi[a] = fmaxf(fmaxf(v0[a], v1[a]), v2[a]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = fminf(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], off));
+        hi[a] = fmaxf(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], off));
+      }
+    }
+    if (lane == 0) {
+      const float ext = fmaxf(fmaxf(hi[0] - lo[0], hi[1] - lo[1]), hi[2] - lo[2]);
+      float mag = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) mag = fmaxf(mag, fmaxf(fabsf(lo[a]), fabsf(hi[a])));
+      const float pad = kChunkPad * (mag + ext);
+      s_box[2 * c] = make_float4(lo[0] - pad, lo[1] - pad, lo[2] - pad, 0.0f);
+      s_box[2 * c + 1] = make_float4(hi[0] + pad, hi[1] + pad, hi[2] + pad, 0.0f);
+    }
+  }
+  __syncthreads();
 }
 
 // -- environment map, textures, coverage (kExtras) ------------------------------
@@ -990,7 +1088,8 @@ __device__ float coverage_at(const TexTables& t, int mat, float cov_base, float 
 }
 
 struct TraceTables {
-  const float* s_tri;    // dense: [n_tris, 9] in shared memory
+  const float4* s_tri4;  // dense: [n_tris, 3] records in shared memory
+  const float4* s_box;   // dense: [n_chunks, 2] padded chunk boxes
   int n_tris;
   const float4* nodes4;  // hier
   const float4* tris4;   // hier
@@ -1017,7 +1116,7 @@ __device__ float shadow_march(const TraceTables& g, const TexTables& tex, V3 o, 
       const bvh_walk::Ray ray = bvh_walk::make_ray(o.x, o.y, o.z, d.x, d.y, d.z, eps);
       prim = bvh_walk::walk<false>(g.nodes4, g.tris4, ray, t_rem, t, hu, hv);
     } else {
-      prim = trace_closest_within(g.s_tri, g.n_tris, o, d, eps, t_rem, t, hu, hv);
+      prim = trace_dense<false>(g.s_tri4, g.s_box, g.n_tris, o, d, eps, t_rem, t, hu, hv);
     }
     if (prim < 0) break;
     if (s == steps - 1) return 0.0f;
@@ -1040,14 +1139,91 @@ constexpr int kMatCols = 16;
 constexpr int kLightCols = 12;
 constexpr int kDimNee = 1, kDimBsdf = 2, kPerBounce = 8;
 
+constexpr int kDimCamera = 0;
+
+// The pixel that thread `i` renders: raster order, or with tile_w > 0 runs of
+// tile_w * tile_h threads (one warp) over one tile each, tiles in raster
+// order — pallas_mesh.pixel_order, which the wrapper checks divides the frame.
+__device__ __forceinline__ void lane_pixel(const MegakernelParams& p, int i, int& x, int& y) {
+  if (p.tile_w > 0) {
+    const int per_tile = p.tile_w * p.tile_h;
+    const int tile = i / per_tile, r = i - tile * per_tile;
+    const int tiles_x = p.width / p.tile_w;
+    const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
+    x = tx * p.tile_w + r % p.tile_w;
+    y = ty * p.tile_h + r / p.tile_w;
+  } else {
+    y = i / p.width;
+    x = i - y * p.width;
+  }
+}
+
+struct CameraRay {
+  V3 o, d;
+  uint32_t hash;
+  bool active;
+};
+
+__device__ __forceinline__ V3 quat_rotate(const float* __restrict__ q, V3 v) {
+  const V3 qv = mk(q[0], q[1], q[2]);
+  const V3 t = scale(cross(qv, v), 2.0f);
+  return add(add(v, scale(t, q[3])), cross(qv, t));
+}
+
+// path_tracer._camera_lanes for pixel (x, y): the pcg2d pixel hash, the
+// Sobol camera jitter (0.5 at accumulation 0) and the viewport point, rounded
+// op by op as the torch code is, then scene/camera.camera_ray_directions
+// through the inverse projection [4, 4] and the camera's transform
+// (translation, quaternion x y z w, scale). nvcc contracts the 4 x 4 product
+// and the rotation, so the ray agrees with the torch lanes to a few ulps and
+// the hash bit for bit.
+__device__ CameraRay camera_ray(const MegakernelParams& p, int x, int y,
+                                const uint32_t* __restrict__ sobol) {
+  CameraRay r;
+  r.hash = pcg2d_x(static_cast<uint32_t>(x), static_cast<uint32_t>(y));
+  float xf = static_cast<float>(x), yf = static_cast<float>(y);
+  if (p.accumulation == 0u) {
+    xf = __fadd_rn(xf, 0.5f);
+    yf = __fadd_rn(yf, 0.5f);
+  } else {
+    float u[4];
+    path_rng_4d(p.accumulation, r.hash, kDimCamera, sobol, u);
+    xf = __fadd_rn(xf, u[0]);
+    yf = __fadd_rn(yf, u[1]);
+  }
+  const float vx = __fdiv_rn(xf, static_cast<float>(p.width));
+  const float vy = __fsub_rn(1.0f, __fdiv_rn(yf, static_cast<float>(p.height)));
+  const float nx = __fsub_rn(__fmul_rn(vx, 2.0f), 1.0f);
+  const float ny = __fsub_rn(__fmul_rn(vy, 2.0f), 1.0f);
+  const float* m = p.cam_inv_proj;
+  float sn[4], sf[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    sn[k] = nx * m[4 * k] + ny * m[4 * k + 1] - m[4 * k + 2] + m[4 * k + 3];
+    sf[k] = sn[k] + 2.0f * m[4 * k + 2];
+  }
+  const V3 ray_near = mk(sn[0] / sn[3], sn[1] / sn[3], sn[2] / sn[3]);
+  const V3 ray_far = mk(sf[0] / sf[3], sf[1] / sf[3], sf[2] / sf[3]);
+  const V3 dv = sub(ray_far, ray_near);
+  const float len2 = dot(dv, dv);
+  const V3 dir_view = scale(dv, (len2 > 1e-20f ? 1.0f : 0.0f) / sqrtf(fmaxf(len2, 1e-20f)));
+  const float* tr = p.cam_translation;
+  r.o = add(mk(tr[0], tr[1], tr[2]), quat_rotate(p.cam_rotation, scale(ray_near, p.cam_scale[0])));
+  r.d = quat_rotate(p.cam_rotation, dir_view);
+  r.active = isfinite(r.o.x);
+  return r;
+}
+
 // kHier: the trace walks the BVH in global memory, and no triangle is staged.
 // kExtras: the environment map, textures, coverage and the shadow march.
 template <bool kCoat, bool kDiffuse, bool kHier, bool kExtras>
 __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   const int n_staged = kHier ? 0 : p.n_tris;
-  float* s_tri = smem;                               // [n_staged, 9]
-  float* s_rho_ggx = s_tri + 9 * n_staged;           // [32, 32]
+  const int n_chunks = (n_staged + kChunk - 1) / kChunk;
+  float4* s_tri4 = smem4;                            // [n_staged, 3] records
+  float4* s_box = s_tri4 + 3 * n_staged;             // [n_chunks, 2] boxes
+  float* s_rho_ggx = reinterpret_cast<float*>(s_box + 2 * n_chunks);  // [32, 32]
   float* s_rho_fres = s_rho_ggx + kRho * kRho;       // [32, 32]
   float* s_mats = s_rho_fres + kRho * kRho;          // [n_mats, 16]
   float* s_lights = s_mats + kMatCols * p.n_mats;    // [n_lights, 12]
@@ -1056,8 +1232,6 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   int* s_kinds = reinterpret_cast<int*>(s_sobol + 128);   // [8] light kinds
   int* s_mat_tex = s_kinds + kMaxLights;                  // kExtras: [n_mats, 4]
 
-  for (int k = threadIdx.x; k < 9 * n_staged; k += blockDim.x)
-    s_tri[k] = p.tri[(k / 9) * 16 + k % 9];
   for (int k = threadIdx.x; k < kRho * kRho; k += blockDim.x) {
     s_rho_ggx[k] = p.rho_ggx[k];
     s_rho_fres[k] = p.rho_fres[k];
@@ -1070,27 +1244,34 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   if constexpr (kExtras) {
     for (int k = threadIdx.x; k < 4 * p.n_mats; k += blockDim.x) s_mat_tex[k] = p.mat_tex[k];
   }
-  __syncthreads();
+  if constexpr (kHier) {
+    __syncthreads();
+  } else {
+    stage_triangles(p.tri, n_staged, s_tri4, s_box);   // ends synchronised
+  }
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n_pixels) return;
 
+  int px, py;
+  lane_pixel(p, i, px, py);
+  const CameraRay cam = camera_ray(p, px, py, s_sobol);
   const float eps = p.scalars[0];
   const V3 env_tint = mk(p.scalars[1], p.scalars[2], p.scalars[3]);
-  const uint32_t pixel_hash = p.pixel_hash[i];
-  V3 o = mk(p.origin[3 * i], p.origin[3 * i + 1], p.origin[3 * i + 2]);
-  V3 d = mk(p.direction[3 * i], p.direction[3 * i + 1], p.direction[3 * i + 2]);
+  const uint32_t pixel_hash = cam.hash;
+  V3 o = cam.o;
+  V3 d = cam.d;
   V3 throughput = mk(1.0f, 1.0f, 1.0f);
   V3 radiance = mk(0.0f, 0.0f, 0.0f);
   float bsdf_pdf = 0.0f;
   uint32_t bounce = 0u;
   float rays = 0.0f;
-  bool active = p.active[i] > 0.0f;
+  bool active = cam.active;
   const float4* nodes4 = reinterpret_cast<const float4*>(p.nodes);
   const float4* tris4 = reinterpret_cast<const float4*>(p.tri);
   const EnvTables env = {p.env_img, p.env_pdf, p.env_w, p.env_h, p.env_pw, p.env_ph};
   const TexTables tex = {reinterpret_cast<const float4*>(p.texels), p.tex_meta, s_mat_tex};
-  const TraceTables geo = {s_tri, p.n_tris, nodes4, tris4, p.attr, p.t_pad, s_mats};
+  const TraceTables geo = {s_tri4, s_box, p.n_tris, nodes4, tris4, p.attr, p.t_pad, s_mats};
   // NEE candidates: the lights, and with kExtras the environment's pool.
   const int n_nee = kExtras ? p.n_nee_total : p.n_lights;
 
@@ -1102,7 +1283,7 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
       const bvh_walk::Ray ray = bvh_walk::make_ray(o.x, o.y, o.z, d.x, d.y, d.z, eps);
       prim = bvh_walk::walk<false>(nodes4, tris4, ray, kBig, t_hit, hu, hv);
     } else {
-      prim = trace_closest(s_tri, p.n_tris, o, d, eps, t_hit, hu, hv);
+      prim = trace_dense<false>(s_tri4, s_box, p.n_tris, o, d, eps, kBig, t_hit, hu, hv);
     }
 
     float t_light = kBig;
@@ -1295,7 +1476,9 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
             occluded = bvh_walk::walk<true>(nodes4, tris4, ray, res_dist * 0.9999f, t_any, u_any,
                                             v_any) >= 0;
           } else {
-            occluded = trace_any(s_tri, p.n_tris, shadow_origin, res_dir, eps, res_dist * 0.9999f);
+            float t_any, u_any, v_any;
+            occluded = trace_dense<true>(s_tri4, s_box, p.n_tris, shadow_origin, res_dir, eps,
+                                         res_dist * 0.9999f, t_any, u_any, v_any) >= 0;
           }
           if (!occluded) radiance = add(radiance, l_radiance);
         }
@@ -1321,10 +1504,12 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
     active = max3(throughput) > 0.0f && bounce <= static_cast<uint32_t>(p.max_bounce);
   }
 
-  p.out[i] = radiance.x;
-  p.out[p.n_pixels + i] = radiance.y;
-  p.out[2 * p.n_pixels + i] = radiance.z;
-  p.out[3 * p.n_pixels + i] = rays;
+  // Raster order: the image [height, width, 3], then the rays [height, width].
+  const int pix = py * p.width + px;
+  p.out[3 * pix] = radiance.x;
+  p.out[3 * pix + 1] = radiance.y;
+  p.out[3 * pix + 2] = radiance.z;
+  p.out[3 * p.n_pixels + pix] = rays;
 }
 
 __global__ void rng_probe_kernel(const uint32_t* __restrict__ pixel_hash,
@@ -1338,19 +1523,74 @@ __global__ void rng_probe_kernel(const uint32_t* __restrict__ pixel_hash,
   for (int d = 0; d < 4; ++d) out[4 * i + d] = u[d];
 }
 
+// Camera-lane probe: the ray, hash and active flag that thread i's prologue
+// makes, written at its pixel in raster order → out[pix, 0:8] = origin,
+// direction, active (0/1), hash (uint32 bits).
+__global__ void camera_probe_kernel(const MegakernelParams p, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n_pixels) return;
+  int x, y;
+  lane_pixel(p, i, x, y);
+  const CameraRay r = camera_ray(p, x, y, p.sobol);
+  float* row = out + 8 * (y * p.width + x);
+  row[0] = r.o.x;
+  row[1] = r.o.y;
+  row[2] = r.o.z;
+  row[3] = r.d.x;
+  row[4] = r.d.y;
+  row[5] = r.d.z;
+  row[6] = r.active ? 1.0f : 0.0f;
+  row[7] = __uint_as_float(r.hash);
+}
+
+// Trace probe: the dense branch's staged, chunk-culled trace for rays [n, 3]
+// over a [n_tris, 16] table → out [4, n]: t (3e38 on a miss), prim (int
+// bits), u, v.
+template <bool kAnyHit>
+__global__ void trace_probe_kernel(const float* __restrict__ tri, int n_tris,
+                                   const float* __restrict__ origin,
+                                   const float* __restrict__ direction, int n_rays, float t_min,
+                                   float t_max, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float4* s_box = smem4 + 3 * n_tris;
+  stage_triangles(tri, n_tris, smem4, s_box);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const V3 o = mk(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+  const V3 d = mk(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+  float t, u, v;
+  const int prim = trace_dense<kAnyHit>(smem4, s_box, n_tris, o, d, t_min, t_max, t, u, v);
+  out[i] = prim < 0 ? kBig : t;
+  out[n_rays + i] = __int_as_float(prim);
+  out[2 * n_rays + i] = prim < 0 ? 0.0f : u;
+  out[3 * n_rays + i] = prim < 0 ? 0.0f : v;
+}
+
+// Dynamic shared memory of the dense trace's tables: the records and the
+// chunk boxes.
+__host__ __device__ constexpr size_t staged_bytes(int n_tris) {
+  return sizeof(float4) * (3 * static_cast<size_t>(n_tris) + 2 * ((n_tris + kChunk - 1) / kChunk));
+}
+
+// Above 48 KB a kernel's dynamic shared memory needs the opt-in, per
+// instantiation; a refused opt-in comes back as its error.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <bool kCoat, bool kDiffuse, bool kHier, bool kExtras = false>
 int launch(const MegakernelParams& p, int threads, cudaStream_t stream) {
-  const int n_staged = kHier ? 0 : p.n_tris;
-  const size_t smem = sizeof(float) * (9 * n_staged + 2 * kRho * kRho + kMatCols * p.n_mats +
+  const size_t smem = staged_bytes(kHier ? 0 : p.n_tris) +
+                      sizeof(float) * (2 * kRho * kRho + kMatCols * p.n_mats +
                                        kLightCols * p.n_lights + 4 * kMaxRis) +
                       sizeof(uint32_t) * 128 + sizeof(int) * kMaxLights +
                       (kExtras ? sizeof(int) * 4 * p.n_mats : 0);
   auto kernel = mesh_megakernel_kernel<kCoat, kDiffuse, kHier, kExtras>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (p.n_pixels + threads - 1) / threads;
   kernel<<<blocks, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -1391,4 +1631,39 @@ extern "C" int megakernel_rng_probe(const uint32_t* pixel_hash, const uint32_t* 
   rng_probe_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       pixel_hash, dims, n, accumulation, sobol, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The camera lanes of a frame → out [n_pixels, 8] (camera_probe_kernel).
+extern "C" int megakernel_camera_probe(const MegakernelParams* params, float* out, void* stream) {
+  const MegakernelParams& p = *params;
+  if (p.n_pixels <= 0) return 0;
+  const int threads = 128;
+  camera_probe_kernel<<<(p.n_pixels + threads - 1) / threads, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dense branch's trace on its own (trace_probe_kernel): rays [n_rays, 3],
+// tri [n_tris, 16] (n_tris <= 1024), out [4, n_rays].
+extern "C" int megakernel_trace_probe(const float* tri, int n_tris, const float* origin,
+                                      const float* direction, int n_rays, float t_min,
+                                      float t_max, int any_hit, float* out, void* stream) {
+  if (n_rays <= 0) return 0;
+  const int threads = 128;
+  const size_t smem = staged_bytes(n_tris);
+  const int blocks = (n_rays + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (any_hit) {
+    e = allow_smem(trace_probe_kernel<true>, smem);
+    if (e == cudaSuccess)
+      trace_probe_kernel<true><<<blocks, threads, smem, s>>>(tri, n_tris, origin, direction,
+                                                             n_rays, t_min, t_max, out);
+  } else {
+    e = allow_smem(trace_probe_kernel<false>, smem);
+    if (e == cudaSuccess)
+      trace_probe_kernel<false><<<blocks, threads, smem, s>>>(tri, n_tris, origin, direction,
+                                                              n_rays, t_min, t_max, out);
+  }
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

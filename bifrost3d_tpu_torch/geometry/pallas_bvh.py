@@ -4,7 +4,9 @@ Port of ``bifrost3d_tpu/geometry/pallas_bvh.py`` (``HierTriangles``,
 ``pack_hierarchical``, ``hierarchical_intersect``,
 ``hierarchical_intersect_sorted``). The TPU kernel ``_make_hier_kernel``
 becomes the hand-written CUDA kernel ``csrc/bvh_intersect.cu`` (one thread
-per ray with a private stack; its header says what bounds it on an H100).
+per ray with a private stack, persistent warps taking 32-ray batches; it
+reads the rays and bounds as given and writes the final hits, so a call is
+one memset and one launch; its header says what bounds it on an H100).
 
 :func:`hierarchical_intersect` dispatches on the device of the rays: CUDA
 tensors launch the kernel, CPU tensors take the plain PyTorch version
@@ -27,7 +29,7 @@ from bifrost3d_tpu_torch.geometry.bvh import (
     STACK_SIZE,
     build_soup_bvh,
 )
-from bifrost3d_tpu_torch.geometry.pallas_intersect import _check, _finish
+from bifrost3d_tpu_torch.geometry.pallas_intersect import _check
 from bifrost3d_tpu_torch.geometry.traverse import (
     Hit,
     ray_bounds,
@@ -135,22 +137,55 @@ def hierarchical_intersect_reference(packed: HierTriangles, origin, direction,
 def _library():
     from bifrost3d_tpu_torch.utils import cuda_build
     lib = cuda_build.load("bvh_intersect.cu")
-    fn = lib.bvh_intersect
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.bvh_intersect.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.bvh_intersect.restype = ctypes.c_int
+    lib.bvh_intersect_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.bvh_intersect_blocks_per_sm.restype = ctypes.c_int
+    return lib
+
+
+def _kernel_bound(value, r: int, device, name: str):
+    """A t bound as the kernel takes it → (value, pointer, stride, the
+    tensor to keep alive): a number by value; a one-element tensor through
+    its pointer with stride 0 (no host sync); an [r] tensor with stride
+    1."""
+    if not isinstance(value, torch.Tensor):
+        return float(value), 0, 0, None
+    if value.numel() == 1:
+        stride = 0
+    elif value.shape == (r,):
+        stride = 1
+    else:
+        raise ValueError(f"{name} must be a number, one value or [r]")
+    value = value.to(device=device, dtype=torch.float32).contiguous()
+    return 0.0, value.data_ptr(), stride, value
+
+
+def blocks_per_sm(any_hit: bool = False) -> int:
+    """Blocks of ``_THREADS`` that one SM of the card holds at once: the
+    kernel's occupancy, from the CUDA runtime."""
+    n = _library().bvh_intersect_blocks_per_sm(int(any_hit), _THREADS)
+    if n < 0:
+        raise RuntimeError(f"bvh_intersect occupancy query failed: "
+                           f"cudaError {-n}")
+    return n
 
 
 def hierarchical_intersect_cuda(packed: HierTriangles, origin, direction,
                                 t_min, t_max, any_hit: bool = False,
                                 live_count=None) -> Hit:
-    """Launch ``csrc/bvh_intersect.cu`` on the current stream. A
-    ``live_count`` tensor stays on the device: the kernel reads it through
-    a pointer, so a pool's live sum costs no host sync."""
+    """Launch ``csrc/bvh_intersect.cu`` on the current stream. The kernel
+    reads ``origin`` and ``direction`` [r, 3] as they are, each bound as a
+    number, a one-element tensor or an [r] tensor, and a ``live_count``
+    tensor (int32 or int64, one element) on the device, so a pool's live
+    sum costs no host sync; it writes the final hits into one allocation,
+    whose views the returned Hit holds."""
     global launch_count
     device = origin.device
     r = int(origin.shape[0])
@@ -166,35 +201,41 @@ def hierarchical_intersect_cuda(packed: HierTriangles, origin, direction,
     if packed.max_depth + 1 > STACK_SIZE:
         raise ValueError(f"BVH depth {packed.max_depth} exceeds the kernel "
                          f"stack ({STACK_SIZE})")
-    if 8 * r >= 2**31:
+    if 4 * r + 1 >= 2**31:
         raise ValueError(f"{r} rays overflow the kernel's int32 indexing")
-    rays = torch.cat([origin.T, direction.T,
-                      ray_bounds(t_min, r, origin)[None],
-                      ray_bounds(t_max, r, origin)[None]], dim=0).contiguous()
-    if isinstance(live_count, torch.Tensor):
-        live = live_count.to(device=device, dtype=torch.int32).reshape(1)
-    else:
-        live = torch.tensor([r if live_count is None else int(live_count)],
-                            dtype=torch.int32, device=device)
-    _check("rays", rays, torch.float32, device)
+    origin, direction = origin.contiguous(), direction.contiguous()
+    _check("origin", origin, torch.float32, device)
+    _check("direction", direction, torch.float32, device)
     _check("tri_components", packed.tri_components, torch.float32, device)
     _check("node_boxes", packed.node_boxes, torch.float32, device)
     _check("order", packed.order, torch.int32, device)
+    # The bound tensors stay referenced until the launch is enqueued.
+    lo, lo_ptr, lo_stride, _lo = _kernel_bound(t_min, r, device, "t_min")
+    hi, hi_ptr, hi_stride, _hi = _kernel_bound(t_max, r, device, "t_max")
+    n_live, live_ptr, live_bits = r, 0, 0
+    if isinstance(live_count, torch.Tensor):
+        if live_count.numel() != 1 or live_count.dtype not in (
+                torch.int32, torch.int64):
+            raise ValueError("a live_count tensor must be one int32 or int64")
+        live_count = live_count.to(device)
+        live_ptr = live_count.data_ptr()
+        live_bits = 32 if live_count.dtype == torch.int32 else 64
+    elif live_count is not None:
+        n_live = max(0, min(int(live_count), r))
 
-    t = torch.empty(r, dtype=torch.float32, device=device)
-    prim = torch.empty(r, dtype=torch.int32, device=device)
-    u = torch.empty(r, dtype=torch.float32, device=device)
-    v = torch.empty(r, dtype=torch.float32, device=device)
+    out = torch.empty(4 * r + 1, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library()(rays.data_ptr(), r, live.data_ptr(),
-                     packed.node_boxes.data_ptr(),
-                     packed.tri_components.data_ptr(), packed.order.data_ptr(),
-                     int(any_hit), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
-                     v.data_ptr(), _THREADS, stream)
+    err = _library().bvh_intersect(
+        origin.data_ptr(), direction.data_ptr(), r, lo, lo_ptr, lo_stride,
+        hi, hi_ptr, hi_stride, n_live, live_ptr, live_bits,
+        packed.node_boxes.data_ptr(), packed.tri_components.data_ptr(),
+        packed.order.data_ptr(), int(any_hit), out.data_ptr(), _THREADS,
+        stream)
     if err != 0:
         raise RuntimeError(f"bvh_intersect launch failed: cudaError {err}")
     launch_count += 1
-    return _finish(t, prim, u, v)
+    return Hit(t=out[:r], prim=out[r:2 * r].view(torch.int32),
+               u=out[2 * r:3 * r], v=out[3 * r:4 * r])
 
 
 def hierarchical_intersect(packed: HierTriangles, origin, direction, t_min,

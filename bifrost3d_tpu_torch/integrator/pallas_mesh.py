@@ -30,9 +30,16 @@ tensors launch the kernel, CPU tensors take the plain PyTorch version
 :func:`mesh_megakernel_reference`, anything else raises. A failed build or
 launch raises; nothing falls back. ``launch_count`` counts kernel launches.
 
-On the BVH branch the lanes are handed to the kernel in small 2-D pixel
-tiles, one per warp (``HIER_PIXEL_TILE``), so that a warp's rays stay
-close in the tree; the image is put back in raster order afterwards.
+A frame on the card is one launch: each thread makes its own camera lane
+(pixel, pcg2d hash, Sobol jitter, ray through the camera's matrices) and
+writes its pixel in raster order; on the BVH branch a warp's 32 threads
+cover one small 2-D pixel tile (``HIER_PIXEL_TILE``), so that its rays stay
+close in the tree. The dense trace skips chunks of 32 triangles whose
+padded box the ray misses or enters beyond its best hit. The plain version
+takes the lanes made in torch (:func:`megakernel_inputs`). Every table a
+frame reads is cached per (identity, version) of the scene tensors it comes
+from, and so is the eligibility verdict: after a scene's first frame a
+frame reads nothing back from the card.
 
 A scene with an environment map, a bound texture, a cutout or
 coverage-aware shadows launches the kernel's ``kExtras`` instantiation (one
@@ -58,8 +65,11 @@ from bifrost3d_tpu_torch.geometry.pallas_bvh import (
 )
 from bifrost3d_tpu_torch.geometry.pallas_intersect import (
     _check,
+    _finish,
+    _mt_block,
     dense_intersect_reference,
 )
+from bifrost3d_tpu_torch.geometry.traverse import Hit, ray_bounds
 from bifrost3d_tpu_torch.integrator.path_tracer import (
     RenderSettings,
     _camera_lanes,
@@ -99,6 +109,7 @@ from bifrost3d_tpu_torch.sampling.sobol import (
     path_rng_4d,
     sobol_direction_numbers,
 )
+from bifrost3d_tpu_torch.scene.camera import PinholeCamera
 from bifrost3d_tpu_torch.scene.materials import (
     FLAG_CUTOUT,
     SHADING_DEFAULT,
@@ -107,6 +118,7 @@ from bifrost3d_tpu_torch.scene.materials import (
 )
 from bifrost3d_tpu_torch.scene.render_scene import RenderScene
 from bifrost3d_tpu_torch.shading.fittings import get_fittings
+from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
 MAX_TRIS = 1024
 MAX_MATERIALS = 32
@@ -121,6 +133,11 @@ MAX_ENV_POOL = 8192       # presampled pool entries
 # Pixels per warp on the BVH branch, (width, height) of the tile a warp's 32
 # lanes cover; None = raster order.
 HIER_PIXEL_TILE = (8, 4)
+# The dense trace's cull: chunks of consecutive triangles, each with a box
+# padded by CHUNK_PAD of its largest coordinate and extent (csrc kChunk,
+# kChunkPad).
+CHUNK = 32
+CHUNK_PAD = 1e-4
 _BIG = 3.0e38
 _THREADS = 128            # the kernel's block size, one pixel per thread
 
@@ -209,21 +226,66 @@ def megakernel_ineligibility_reasons(scene: RenderScene,
     return reasons
 
 
+def _fields(obj) -> tuple:
+    """The tensor fields of a NamedTuple (nested ones left out); () for
+    None."""
+    return () if obj is None else tuple(
+        f for f in obj if isinstance(f, torch.Tensor))
+
+
+def _scene_sources(scene: RenderScene) -> tuple:
+    """Every scene tensor that the eligibility check or a frame's tables
+    read: the keys of the per-frame caches."""
+    return ((scene.tri_verts, scene.tri_normals_oct, scene.tri_uvs,
+             scene.tri_tint_roughness, scene.tri_material,
+             scene.environment_tint, scene.scene_epsilon)
+            + _fields(scene.materials) + _fields(scene.lights)
+            + _fields(scene.bvh) + _fields(scene.tri_clustered)
+            + _fields(scene.environment)
+            + _fields(scene.environment_presampled)
+            + _fields(scene.textures))
+
+
+def _scene_shape(scene: RenderScene) -> tuple:
+    """Which optional parts the scene has (part of the cache keys)."""
+    return tuple(x is None for x in (
+        scene.bvh, scene.tri_clustered, scene.environment,
+        scene.environment_presampled, scene.textures))
+
+
+_ELIGIBLE_CACHE = VersionedCache(32)
+
+
 def mesh_megakernel_eligible(scene: RenderScene,
                              settings: RenderSettings) -> bool:
     """True when the scene/settings combination is within the kernel's
-    scope; everything else renders through the wavefront."""
-    return not megakernel_ineligibility_reasons(scene, settings)
+    scope; everything else renders through the wavefront. The verdict is
+    cached per (identity, version) of the scene's tensors and the settings,
+    so a frame after a scene's first makes no host sync for it."""
+    sources = _scene_sources(scene)
+    key, verdict = _ELIGIBLE_CACHE.lookup(sources,
+                                          (settings, _scene_shape(scene)))
+    if verdict is None:
+        verdict = _ELIGIBLE_CACHE.store(
+            key, sources, not megakernel_ineligibility_reasons(scene, settings))
+    return verdict
 
 
 # -- packing ------------------------------------------------------------------------
 
-_PACK_CACHE = {}
-_STATIC_CACHE = {}
+# Host-side caches, each keyed by (identity, version) of the tensors it is
+# built from (utils/versioned.py): a ``_replace`` or an in-place write of a
+# source tensor is a miss.
+_PACK_CACHE = VersionedCache(32)
+_STATIC_CACHE = VersionedCache(32)
+_ENV_CACHE = VersionedCache(16)
+_TEX_CACHE = VersionedCache(16)
+_FRAME_CACHE = VersionedCache(32)
 
 
 def _pack_scene(scene: RenderScene) -> dict:
-    """Geometry tables on the scene's device, cached per scene identity:
+    """Geometry tables on the scene's device, cached per (identity,
+    version) of the geometry tensors:
     ``tri`` [t_pad, 16] (v0, e1, e2 in columns 0-8) and ``attr``
     [ATTR_ROWS, t_pad] (corner normals 0-8, material 9, unit geometric
     normal 10-12, corner uvs 13-18). Materials, lights, epsilon and the
@@ -235,12 +297,12 @@ def _pack_scene(scene: RenderScene) -> dict:
     a tree deeper than the walk's stack raises) — with ``order`` replaced
     by the identity, so that a walk answers with slots, and ``attr``
     [ATTR_ROWS, t] has its columns in slot order."""
-    key = (id(scene.tri_verts), id(scene.tri_normals_oct),
-           id(scene.tri_material))
-    if key in _PACK_CACHE:
-        return _PACK_CACHE[key]
-    if len(_PACK_CACHE) > 32:
-        _PACK_CACHE.clear()
+    sources = ((scene.tri_verts, scene.tri_normals_oct, scene.tri_material,
+                scene.tri_uvs) + _fields(scene.bvh)
+               + _fields(scene.tri_clustered))
+    key, packed = _PACK_CACHE.lookup(sources, _scene_shape(scene)[:2])
+    if packed is not None:
+        return packed
     tv = scene.tri_verts.to(torch.float32)
     t = int(tv.shape[0])
     device = tv.device
@@ -267,34 +329,37 @@ def _pack_scene(scene: RenderScene) -> dict:
         tri = tree._replace(order=torch.arange(t, dtype=torch.int32,
                                                device=device))
     else:
-        tri = torch.zeros((t_pad, 16), dtype=torch.float32, device=device)
-        tri[:t, 0:9] = torch.cat([tv[:, 0], e1, e2], dim=1)
-    packed = dict(
-        # Pin the keyed tensors: an id() key is sound only while they live.
-        _pins=(scene.tri_verts, scene.tri_normals_oct, scene.tri_material),
-        tri=tri, attr=attr, n_tris=t, hier=hier)
-    _PACK_CACHE[key] = packed
-    return packed
+        tri = dense_table(tv)
+    return _PACK_CACHE.store(key, sources, dict(tri=tri, attr=attr,
+                                                n_tris=t, hier=hier))
 
 
-_ENV_CACHE = {}
-_TEX_CACHE = {}
+def dense_table(tri_verts) -> torch.Tensor:
+    """[t, 3, 3] triangles → the dense branch's [t_pad, 16] table (v0, e1,
+    e2 in columns 0-8, rows padded to a multiple of 8)."""
+    tv = tri_verts.to(torch.float32)
+    t = int(tv.shape[0])
+    tri = torch.zeros((max(8, -(-t // 8) * 8), 16), dtype=torch.float32,
+                      device=tv.device)
+    tri[:t, 0:9] = torch.cat([tv[:, 0], tv[:, 1] - tv[:, 0],
+                              tv[:, 2] - tv[:, 0]], dim=1)
+    return tri
 
 
 def _pack_env(scene: RenderScene):
     """Environment tables for the kernel → (map [h·w, 3], pdf [ph·pw], pool
     [n, 7] (direction 0-2, radiance 3-5, pdf 6) or None, meta) with meta =
     (w, h, pw, ph, n_pool, nee enabled); all None without a map. Plain
-    records, cached per environment identity (and pool identity)."""
+    records, cached per (identity, version) of the map, its pdf grid and
+    the pool."""
     env = scene.environment
     if env is None:
         return None, None, None, None
     pool = scene.environment_presampled
-    key = (id(env.image), id(pool.pdfs) if pool is not None else None)
-    if key in _ENV_CACHE:
-        return _ENV_CACHE[key][:4]
-    if len(_ENV_CACHE) > 16:
-        _ENV_CACHE.clear()
+    sources = (env.image, env.per_pixel_pdf) + _fields(pool)
+    key, packed = _ENV_CACHE.lookup(sources, pool is None)
+    if packed is not None:
+        return packed
     h, w = int(env.image.shape[0]), int(env.image.shape[1])
     ph, pw = env.pdf_size
     img = env.image.to(torch.float32).reshape(h * w, 3).contiguous()
@@ -307,24 +372,21 @@ def _pack_env(scene: RenderScene):
     else:
         n_pool, pool_tab = 0, None
     meta = (w, h, int(pw), int(ph), n_pool, n_pool > 1)
-    # Pin the keyed tensors: an id() key is sound only while they live.
-    _ENV_CACHE[key] = (img, pdf, pool_tab, meta, env.image, pool)
-    return img, pdf, pool_tab, meta
+    return _ENV_CACHE.store(key, sources, (img, pdf, pool_tab, meta))
 
 
 def _pack_textures(scene: RenderScene):
     """Level 0 of every texture, flattened into one table → (texels [N, 4],
     tex_meta) with tex_meta[i] = (first texel, width, height, wrap_u,
     wrap_v, filter) as Python ints; (None, ()) for a bank of no texture.
-    Cached per bank identity."""
+    Cached per (identity, version) of the bank's tensors."""
     bank = scene.textures
     if bank is None or bank.count == 0:
         return None, ()
-    key = id(bank.data)
-    if key in _TEX_CACHE:
-        return _TEX_CACHE[key][:2]
-    if len(_TEX_CACHE) > 16:
-        _TEX_CACHE.clear()
+    sources = _fields(bank)
+    key, packed = _TEX_CACHE.lookup(sources)
+    if packed is not None:
+        return packed
     sizes, filters, wraps = (bank.sizes.tolist(), bank.filters.tolist(),
                              bank.wraps.tolist())
     metas, blocks, base = [], [], 0
@@ -335,8 +397,7 @@ def _pack_textures(scene: RenderScene):
                       int(filters[i])))
         base += h * w
     texels = torch.cat(blocks, dim=0).to(torch.float32).contiguous()
-    _TEX_CACHE[key] = (texels, tuple(metas), bank.data)
-    return texels, tuple(metas)
+    return _TEX_CACHE.store(key, sources, (texels, tuple(metas)))
 
 
 def _live_tables(scene: RenderScene):
@@ -344,7 +405,8 @@ def _live_tables(scene: RenderScene):
     out as in JAX. Material columns: tint 0-2, roughness 3, specularity 4,
     metallic 5, thin-walled 6 (cutouts too), emission 7-9, coverage 10,
     coat 11, coat roughness 12, shading model 13. Light columns: position
-    0-2, radius 3, power 4-6, direction 7-9, cos_angle 10."""
+    0-2, radius 3, power 4-6, direction 7-9, cos_angle 10. A frame reads
+    them through ``_frame_tables``' cache."""
     mats = scene.materials
     m = int(mats.shading_model.shape[0])
     device = scene.tri_verts.device
@@ -376,18 +438,17 @@ def _live_tables(scene: RenderScene):
 
 
 def _static_info(scene: RenderScene) -> dict:
-    """Kernel-structure statics read on the host and cached per identity:
+    """Kernel-structure statics read on the host and cached per (identity,
+    version) of their tensors:
     the light kinds (a runtime switch in the kernel), whether any material
     has a coat (a template parameter) and ``mat_tex``, per material
     (tint-roughness texture, coverage texture, is cutout)."""
     mats = scene.materials
-    keyed = (scene.lights.kind, mats.flags, mats.tint_roughness_texture,
-             mats.coverage_texture, mats.coat)
-    key = tuple(id(t) for t in keyed)
-    if key in _STATIC_CACHE:
-        return _STATIC_CACHE[key][0]
-    if len(_STATIC_CACHE) > 32:
-        _STATIC_CACHE.clear()
+    sources = (scene.lights.kind, mats.flags, mats.tint_roughness_texture,
+               mats.coverage_texture, mats.coat)
+    key, info = _STATIC_CACHE.lookup(sources)
+    if info is not None:
+        return info
     info = dict(
         light_kinds=tuple(int(k) for k in scene.lights.kind.tolist()),
         mat_tex=tuple(
@@ -396,8 +457,7 @@ def _static_info(scene: RenderScene) -> dict:
                                   mats.coverage_texture.tolist(),
                                   mats.flags.tolist())),
         has_coat=bool(torch.any(mats.coat > 0.0)))
-    _STATIC_CACHE[key] = (info, keyed)
-    return info
+    return _STATIC_CACHE.store(key, sources, info)
 
 
 def _rho_tables(device):
@@ -505,13 +565,103 @@ def _analytic_light_hits(lights, light_kinds, o, d):
     return t_light, idx
 
 
+def chunk_boxes(tri, n_tris: int):
+    """The dense trace's chunk boxes, as the kernel builds them in shared
+    memory → (lo, hi) [n_chunks, 3]: the corners v0, v0 + e1, v0 + e2 of
+    each run of ``CHUNK`` consecutive triangles of the [t_pad, 16] table,
+    padded by ``CHUNK_PAD`` × (largest |coordinate| + largest extent)."""
+    v0 = tri[:n_tris, 0:3]
+    corners = torch.stack([v0, v0 + tri[:n_tris, 3:6], v0 + tri[:n_tris, 6:9]])
+    n_chunks = -(-n_tris // CHUNK)
+    fill = corners.new_full((3, n_chunks * CHUNK - n_tris, 3), _BIG)
+    lo = torch.cat([corners, fill], dim=1).amin(dim=0).reshape(
+        n_chunks, CHUNK, 3).amin(dim=1)
+    hi = torch.cat([corners, -fill], dim=1).amax(dim=0).reshape(
+        n_chunks, CHUNK, 3).amax(dim=1)
+    ext = (hi - lo).amax(dim=-1, keepdim=True)
+    mag = torch.maximum(lo.abs(), hi.abs()).amax(dim=-1, keepdim=True)
+    pad = CHUNK_PAD * (mag + ext)
+    return lo - pad, hi + pad
+
+
+def culled_dense_intersect_reference(tri, n_tris: int, origin, direction,
+                                     t_min, t_max, any_hit: bool = False,
+                                     live=None, stats=None) -> Hit:
+    """Plain version of the kernel's dense trace with its chunk cull: the
+    chunks of :func:`chunk_boxes` in index order, a chunk entered when the
+    ray meets its box in [t_min, t_far] before the best hit so far (t_max
+    with ``any_hit``, which stops at the first hit in index order), every
+    triangle of an entered chunk tested. Hits equal
+    :func:`~bifrost3d_tpu_torch.geometry.pallas_intersect.dense_intersect_reference`'s.
+    ``stats``, if given, gains the chunk box tests and triangle tests of
+    the lanes in ``live`` (all lanes by default) under ``box_tests`` and
+    ``tri_tests``."""
+    r = origin.shape[0]
+    device = origin.device
+    lo, hi = chunk_boxes(tri, n_tris)
+    inv = torch.where(direction < 0, -1.0, 1.0) / torch.clamp_min(
+        direction.abs(), 1e-12)
+    t_lo = ray_bounds(t_min, r, origin)
+    best_t = torch.clamp_max(ray_bounds(t_max, r, origin), _BIG)
+    best_prim = torch.full((r,), -1, dtype=torch.int32, device=device)
+    best_u = torch.zeros(r, dtype=torch.float32, device=device)
+    best_v = torch.zeros(r, dtype=torch.float32, device=device)
+    counted = (torch.ones(r, dtype=torch.bool, device=device) if live is None
+               else live)
+    searching = torch.ones(r, dtype=torch.bool, device=device)
+    o = tuple(origin[:, c:c + 1] for c in range(3))
+    d = tuple(direction[:, c:c + 1] for c in range(3))
+    box_tests = tri_tests = 0
+    for c in range(lo.shape[0]):
+        start, stop = c * CHUNK, min(n_tris, (c + 1) * CHUNK)
+        t0, t1 = (lo[c] - origin) * inv, (hi[c] - origin) * inv
+        t_near = torch.maximum(torch.minimum(t0, t1).amax(dim=-1), t_lo)
+        t_far = torch.maximum(t0, t1).amin(dim=-1)
+        enter = searching & (t_near <= t_far) & (t_near < best_t)
+        t, u, v, valid = _mt_block(o, d, tri[start:stop, 0:9].T,
+                                   t_lo[:, None])
+        valid = valid & (t < best_t[:, None]) & enter[:, None]
+        k = torch.argmin(torch.where(valid, t, _BIG), dim=1, keepdim=True)
+        if any_hit:
+            k = torch.argmax(valid.to(torch.int32), dim=1, keepdim=True)
+        found = torch.gather(valid, 1, k)[:, 0]
+        best_t = torch.where(found, torch.gather(t, 1, k)[:, 0], best_t)
+        best_prim = torch.where(found, (k[:, 0] + start).to(torch.int32),
+                                best_prim)
+        best_u = torch.where(found, torch.gather(u, 1, k)[:, 0], best_u)
+        best_v = torch.where(found, torch.gather(v, 1, k)[:, 0], best_v)
+        if stats is not None:
+            box_tests += int((searching & counted).sum())
+            tests = torch.where(found, k[:, 0] + 1, stop - start) \
+                if any_hit else stop - start
+            tri_tests += int(torch.where(enter & counted, tests, 0).sum())
+        if any_hit:
+            searching = searching & ~found
+    if stats is not None:
+        stats["box_tests"] = stats.get("box_tests", 0) + box_tests
+        stats["tri_tests"] = stats.get("tri_tests", 0) + tri_tests
+    return _finish(best_t, best_prim, best_u, best_v)
+
+
 def _reference_tracers(tri, cfg: KernelConfig, eps, stats):
     """→ (closest(o, d, live, t_max=inf) → Hit, occluded(o, d, t_max, live)
     → bool [p]) of the plain version: the dense trace over the [t_pad, 16]
-    table, or with ``cfg.hier`` the lockstep walk over the packed BVH
+    table (with ``stats``, the kernel's chunk-culled one, which counts its
+    tests), or with ``cfg.hier`` the lockstep walk over the packed BVH
     ``tri`` (whose ``order`` is the identity, so prim ids are slots). Lanes
     outside ``live`` trace nothing on the BVH branch (t_max = 0 fails the
     root's box); their results are unspecified and masked by the caller."""
+    if not cfg.hier and stats is not None:
+        # The kernel's culled trace, counting its box and triangle tests.
+        def closest(o, d, live, t_max=float("inf")):
+            return culled_dense_intersect_reference(
+                tri, cfg.n_tris, o, d, eps, t_max, live=live, stats=stats)
+
+        def occluded(o, d, t_max, live):
+            return culled_dense_intersect_reference(
+                tri, cfg.n_tris, o, d, eps, t_max, any_hit=True, live=live,
+                stats=stats).prim >= 0
+        return closest, occluded
     if not cfg.hier:
         comp = tri.T                       # the B1 [16, t_pad] layout, a view
 
@@ -594,8 +744,10 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
     with ``cfg.hier`` the packed BVH (``_pack_scene``), whose walk is
     :func:`~bifrost3d_tpu_torch.geometry.pallas_bvh.hierarchical_intersect_reference`
     and whose hits index ``attr`` by slot. A ``stats`` dict, if given,
-    receives the BVH walks' ``box_tests`` and ``tri_tests`` summed over
-    the frame, and the shadow rays traced: ``shadow_traces`` (one any-hit
+    receives the traces' ``box_tests`` and ``tri_tests`` summed over the
+    frame (the BVH walks' nodes and triangles, or the dense trace's chunk
+    boxes and the triangles of the chunks it entered), and the shadow rays
+    traced: ``shadow_traces`` (one any-hit
     query per shaded hit whose light sample carries radiance) or, with the
     march, ``march_traces``.
 
@@ -836,13 +988,16 @@ class _Params(ctypes.Structure):
         ("attr", ctypes.c_void_p),
         ("mats", ctypes.c_void_p), ("lights", ctypes.c_void_p),
         ("rho_ggx", ctypes.c_void_p), ("rho_fres", ctypes.c_void_p),
-        ("sobol", ctypes.c_void_p), ("origin", ctypes.c_void_p),
-        ("direction", ctypes.c_void_p), ("pixel_hash", ctypes.c_void_p),
-        ("active", ctypes.c_void_p), ("scalars", ctypes.c_void_p),
-        ("out", ctypes.c_void_p),
+        ("sobol", ctypes.c_void_p),
+        ("cam_inv_proj", ctypes.c_void_p),
+        ("cam_translation", ctypes.c_void_p),
+        ("cam_rotation", ctypes.c_void_p), ("cam_scale", ctypes.c_void_p),
+        ("scalars", ctypes.c_void_p), ("out", ctypes.c_void_p),
         ("texels", ctypes.c_void_p), ("tex_meta", ctypes.c_void_p),
         ("mat_tex", ctypes.c_void_p), ("env_img", ctypes.c_void_p),
         ("env_pdf", ctypes.c_void_p), ("env_pool", ctypes.c_void_p),
+        ("width", ctypes.c_int), ("height", ctypes.c_int),
+        ("tile_w", ctypes.c_int), ("tile_h", ctypes.c_int),
         ("n_pixels", ctypes.c_int), ("n_tris", ctypes.c_int),
         ("t_pad", ctypes.c_int), ("n_mats", ctypes.c_int),
         ("n_lights", ctypes.c_int), ("light_kinds", ctypes.c_int * MAX_LIGHTS),
@@ -878,6 +1033,14 @@ def _library():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.megakernel_rng_probe.restype = ctypes.c_int
+    lib.megakernel_camera_probe.argtypes = [
+        ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_void_p]
+    lib.megakernel_camera_probe.restype = ctypes.c_int
+    lib.megakernel_trace_probe.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.megakernel_trace_probe.restype = ctypes.c_int
     return lib
 
 
@@ -891,6 +1054,30 @@ def _sobol_dirs(device: torch.device) -> torch.Tensor:
 def _as_int32_bits(x):
     """int64 tensor of uint32 values → int32 with the same 32 bits."""
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+_RIS_OFFSETS = tuple(float(v) for v in
+                     _reverse_halton_offsets(MAX_RIS).reshape(-1))
+
+
+class CameraFrame(NamedTuple):
+    """What the kernel makes its camera lanes from: the camera (its
+    inverse projection and transform, read on the device), the frame's
+    size and the pixel tile a warp covers (None = raster order; a tile
+    that does not divide the frame means raster order too, as
+    :func:`pixel_order`)."""
+
+    camera: PinholeCamera
+    width: int
+    height: int
+    tile: Optional[tuple] = None
+
+    def tile_dims(self) -> tuple:
+        """(tile_w, tile_h) for the kernel; (0, 0) for raster order."""
+        t = self.tile
+        if t is None or self.width % t[0] or self.height % t[1]:
+            return 0, 0
+        return int(t[0]), int(t[1])
 
 
 @functools.lru_cache(maxsize=64)
@@ -942,21 +1129,39 @@ def _check_extras(extras: KernelExtras, cfg: KernelConfig, n_mats: int,
             _check("env_pool", extras.env_pool, torch.float32, device)
 
 
-def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
-                         direction, pixel_hash, active, accumulation: int,
-                         scalars, extras, cfg: KernelConfig):
-    """Launch ``csrc/mesh_megakernel.cu`` on the current stream →
-    (r, g, b, rays), each [p]; the arguments are those of
+def _camera_params(frame: CameraFrame, device) -> dict:
+    """The camera's pointers and the frame's size for ``_Params``, checked."""
+    cam = frame.camera
+    width, height = int(frame.width), int(frame.height)
+    if width <= 0 or height <= 0 or width * height >= 2**31 // 4:
+        raise ValueError(f"frame {width}x{height} outside the kernel's range")
+    t = cam.transform
+    for name, x, numel in (("inverse_projection", cam.inverse_projection, 16),
+                           ("translation", t.translation, 3),
+                           ("rotation", t.rotation, 4), ("scale", t.scale, 1)):
+        _check(f"camera {name}", x, torch.float32, device)
+        if x.numel() != numel:
+            raise ValueError(f"camera {name} must hold {numel} floats")
+    tile_w, tile_h = frame.tile_dims()
+    return dict(cam_inv_proj=cam.inverse_projection.data_ptr(),
+                cam_translation=t.translation.data_ptr(),
+                cam_rotation=t.rotation.data_ptr(),
+                cam_scale=t.scale.data_ptr(), width=width, height=height,
+                tile_w=tile_w, tile_h=tile_h, n_pixels=width * height)
+
+
+def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres,
+                         frame: CameraFrame, accumulation: int, scalars,
+                         extras, cfg: KernelConfig):
+    """Launch ``csrc/mesh_megakernel.cu`` on the current stream → (radiance
+    [height, width, 3], rays [height·width]) in raster order, both views of
+    one allocation. The kernel makes its own camera lanes from ``frame``
+    (:func:`megakernel_frame_inputs`); the other arguments are those of
     :func:`mesh_megakernel_reference` (``tri`` the dense table, or with
     ``cfg.hier`` the packed BVH). A frame whose ``cfg.extras`` is true
     launches the ``kExtras`` instantiation."""
     global launch_count
-    device = origin.device
-    p = int(origin.shape[0])
-    if origin.shape != (p, 3) or direction.shape != (p, 3):
-        raise ValueError("origin and direction must both be [p, 3]")
-    if pixel_hash.shape != (p,) or active.shape != (p,):
-        raise ValueError("pixel_hash and active must both be [p]")
+    device = scalars.device
     n_lights = len(cfg.light_kinds)
     if cfg.hier != isinstance(tri, HierTriangles):
         raise TypeError("tri must be the packed BVH with cfg.hier, the "
@@ -992,23 +1197,15 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
         raise ValueError(f"ris_count {cfg.ris_count} outside [0, {MAX_RIS}]")
     if rho_ggx.shape != (32, 32) or rho_fres.shape != (32, 32):
         raise ValueError("the rho tables must be [32, 32]")
-    hashes = _as_int32_bits(pixel_hash).contiguous()
-    sobol = _sobol_dirs(device)
-    for name, x, dtype in (
-            ("tri", tri, torch.float32), ("attr", attr, torch.float32),
-            ("mats", mats, torch.float32), ("lights", lights, torch.float32),
-            ("rho_ggx", rho_ggx, torch.float32),
-            ("rho_fres", rho_fres, torch.float32),
-            ("origin", origin, torch.float32),
-            ("direction", direction, torch.float32),
-            ("pixel_hash", hashes, torch.int32),
-            ("active", active, torch.float32),
-            ("scalars", scalars, torch.float32)):
-        _check(name, x, dtype, device)
+    for name, x in (("tri", tri), ("attr", attr), ("mats", mats),
+                    ("lights", lights), ("rho_ggx", rho_ggx),
+                    ("rho_fres", rho_fres), ("scalars", scalars)):
+        _check(name, x, torch.float32, device)
     if scalars.shape != (4,):
         raise ValueError("scalars must be [4]: epsilon, background rgb")
     if not 0 <= cfg.shadow_steps <= 16:
         raise ValueError(f"shadow_steps {cfg.shadow_steps} outside [0, 16]")
+    camera = _camera_params(frame, device)
     extras = extras if extras is not None else KernelExtras()
     tex_meta = mat_tex = None
     if cfg.extras:
@@ -1020,15 +1217,14 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
     def ptr(x):
         return 0 if x is None else x.data_ptr()
 
-    out = torch.empty((4, p), dtype=torch.float32, device=device)
+    p = camera["n_pixels"]
+    out = torch.empty(4 * p, dtype=torch.float32, device=device)
     params = _Params(
-        tri=tri.data_ptr(), nodes=0 if nodes is None else nodes.data_ptr(),
-        attr=attr.data_ptr(), mats=mats.data_ptr(),
-        lights=lights.data_ptr(), rho_ggx=rho_ggx.data_ptr(),
-        rho_fres=rho_fres.data_ptr(), sobol=sobol.data_ptr(),
-        origin=origin.data_ptr(), direction=direction.data_ptr(),
-        pixel_hash=hashes.data_ptr(), active=active.data_ptr(),
-        scalars=scalars.data_ptr(), out=out.data_ptr(),
+        tri=tri.data_ptr(), nodes=ptr(nodes), attr=attr.data_ptr(),
+        mats=mats.data_ptr(), lights=lights.data_ptr(),
+        rho_ggx=rho_ggx.data_ptr(), rho_fres=rho_fres.data_ptr(),
+        sobol=_sobol_dirs(device).data_ptr(), scalars=scalars.data_ptr(),
+        out=out.data_ptr(),
         texels=ptr(extras.texels), tex_meta=ptr(tex_meta),
         mat_tex=ptr(mat_tex), env_img=ptr(extras.env_img),
         env_pdf=ptr(extras.env_pdf), env_pool=ptr(extras.env_pool),
@@ -1036,25 +1232,73 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres, origin,
         any_coverage=int(cfg.any_coverage), shadow_steps=cfg.shadow_steps,
         has_env=int(cfg.env_meta is not None), env_w=env[0], env_h=env[1],
         env_pw=env[2], env_ph=env[3], env_pool_n=env[4],
-        n_nee_total=cfg.n_nee_total,
-        n_pixels=p, n_tris=cfg.n_tris, t_pad=int(tri.shape[0]),
-        n_mats=int(mats.shape[0]), n_lights=n_lights,
+        n_nee_total=cfg.n_nee_total, n_tris=cfg.n_tris,
+        t_pad=int(tri.shape[0]), n_mats=int(mats.shape[0]),
+        n_lights=n_lights,
         accumulation=int(accumulation) & 0xFFFFFFFF, n_iters=cfg.n_iters,
         max_bounce=cfg.max_bounce, ris_count=cfg.ris_count,
         firefly_clamp=cfg.firefly_clamp,
         delta_light_clamp=cfg.delta_light_clamp,
         has_coat=int(cfg.has_coat), has_diffuse=int(cfg.has_diffuse),
-        hier=int(cfg.hier))
+        hier=int(cfg.hier), **camera)
     for k, kind in enumerate(cfg.light_kinds):
         params.light_kinds[k] = kind
-    for k, v in enumerate(_reverse_halton_offsets(MAX_RIS).reshape(-1)):
-        params.ris_offsets[k] = float(v)
+    params.ris_offsets[:] = _RIS_OFFSETS
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _library().mesh_megakernel(ctypes.byref(params), _THREADS, stream)
     if err != 0:
         raise RuntimeError(f"mesh_megakernel launch failed: cudaError {err}")
     launch_count += 1
-    return out[0], out[1], out[2], out[3]
+    return out[:3 * p].view(frame.height, frame.width, 3), out[3 * p:]
+
+
+def camera_probe(frame: CameraFrame, accumulation: int):
+    """The camera lanes the kernel's prologue makes for ``frame`` → (pixel
+    hash int64 [n] of uint32 values, origin [n, 3], direction [n, 3],
+    active bool [n]), in raster order, for holding against
+    ``path_tracer._camera_lanes``. Every pixel not written stays NaN."""
+    device = frame.camera.inverse_projection.device
+    camera = _camera_params(frame, device)
+    out = torch.full((camera["n_pixels"], 8), float("nan"),
+                     dtype=torch.float32, device=device)
+    params = _Params(sobol=_sobol_dirs(device).data_ptr(),
+                     accumulation=int(accumulation) & 0xFFFFFFFF, **camera)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _library().megakernel_camera_probe(ctypes.byref(params),
+                                             out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel_camera_probe launch failed: "
+                           f"cudaError {err}")
+    hashes = out[:, 7].contiguous().view(torch.int32).to(torch.int64) \
+        & 0xFFFFFFFF
+    return hashes, out[:, 0:3], out[:, 3:6], out[:, 6] > 0.5
+
+
+def trace_probe(tri, n_tris: int, origin, direction, t_min: float,
+                t_max: float, any_hit: bool = False) -> Hit:
+    """The dense branch's staged, chunk-culled trace on its own, for rays
+    [r, 3] over the [t_pad, 16] table (``_pack_scene``'s layout, at most
+    ``MAX_TRIS`` triangles) → Hit (t = inf, prim = -1 on a miss; with
+    ``any_hit`` the first hit in index order)."""
+    device = origin.device
+    r = int(origin.shape[0])
+    if origin.shape != (r, 3) or direction.shape != (r, 3):
+        raise ValueError("origin and direction must both be [r, 3]")
+    if not 0 < n_tris <= min(MAX_TRIS, tri.shape[0]) or tri.shape[1] != 16:
+        raise ValueError(f"tri must be [t_pad, 16] with 0 < n_tris <= "
+                         f"{MAX_TRIS}")
+    for name, x in (("tri", tri), ("origin", origin),
+                    ("direction", direction)):
+        _check(name, x, torch.float32, device)
+    out = torch.empty((4, r), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _library().megakernel_trace_probe(
+        tri.data_ptr(), int(n_tris), origin.data_ptr(), direction.data_ptr(),
+        r, float(t_min), float(t_max), int(any_hit), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel_trace_probe launch failed: "
+                           f"cudaError {err}")
+    return _finish(out[0], out[1].view(torch.int32), out[2], out[3])
 
 
 def rng_probe(accumulation: int, pixel_hash, dimension):
@@ -1083,7 +1327,8 @@ def pixel_order(width: int, height: int, tile, device) -> torch.Tensor:
     """int64 [width·height]: the flat raster index of the pixel each lane
     renders. ``tile`` = (tw, th) hands consecutive runs of tw·th lanes one
     tw × th pixel tile each, tiles in raster order; None, or a frame the
-    tile does not divide, gives raster order."""
+    tile does not divide, gives raster order. The kernel computes the same
+    map per thread (``lane_pixel``)."""
     flat = torch.arange(width * height, dtype=torch.int64, device=device)
     if tile is None or width % tile[0] or height % tile[1]:
         return flat
@@ -1092,21 +1337,18 @@ def pixel_order(width: int, height: int, tile, device) -> torch.Tensor:
         0, 2, 1, 3).reshape(-1)
 
 
-def megakernel_inputs(scene: RenderScene, camera, width: int, height: int,
-                      accumulation: int,
-                      settings: RenderSettings = RenderSettings(),
-                      pixel_tile=None) -> tuple:
-    """The kernel's arguments for one frame (those of
-    :func:`mesh_megakernel_reference` and :func:`mesh_megakernel_cuda`).
-
-    Geometry, texture and environment tables come from the per-identity
-    pack caches; materials, lights, epsilon and the background are read
-    from the live scene.
-    Camera rays, pcg2d pixel hashes and the active mask are made in torch,
-    one lane per pixel in the order of :func:`pixel_order` (raster order
-    without a ``pixel_tile``: the JAX dense branch's identity layout). A
-    pixel's result does not depend on its lane.
-    """
+def _frame_tables(scene: RenderScene, settings: RenderSettings) -> tuple:
+    """(tri, attr, mats, lights, rho_ggx, rho_fres, scalars, extras, cfg)
+    of a frame: the pack caches' tables, the live material and light
+    tables, and epsilon with the background tint (with a map, the
+    environment's own tint, which its evaluation multiplies in). Cached
+    per (identity, version) of every scene tensor and the settings, so a
+    frame after a scene's first reads nothing on the host."""
+    sources = _scene_sources(scene)
+    key, tables = _FRAME_CACHE.lookup(sources,
+                                      (settings, _scene_shape(scene)))
+    if tables is not None:
+        return tables
     packed = _pack_scene(scene)
     mats, _, lights = _live_tables(scene)
     info = _static_info(scene)
@@ -1129,21 +1371,52 @@ def megakernel_inputs(scene: RenderScene, camera, width: int, height: int,
         env_meta=env_meta)
     extras = (KernelExtras(texels, env_img, env_pdf, env_pool)
               if cfg.extras else None)
-    accumulation = int(accumulation)
-    flat = pixel_order(width, height, pixel_tile, device)
-    lanes = _camera_lanes(camera, flat % width, flat // width, width, height,
-                          accumulation, torch.ones_like(flat, dtype=torch.bool))
-    # With a map the tint slot carries the environment's own tint (its
-    # evaluation multiplies it in); a tint-only background keeps the
-    # scene's.
     tint = (scene.environment.tint if scene.environment is not None
             else scene.environment_tint)
     scalars = torch.cat([scene.scene_epsilon.reshape(1).to(torch.float32),
                          tint.to(torch.float32)])
-    return (packed["tri"], packed["attr"], mats, lights, rho_ggx, rho_fres,
+    return _FRAME_CACHE.store(key, sources, (
+        packed["tri"], packed["attr"], mats, lights, rho_ggx, rho_fres,
+        scalars, extras, cfg))
+
+
+def megakernel_inputs(scene: RenderScene, camera, width: int, height: int,
+                      accumulation: int,
+                      settings: RenderSettings = RenderSettings(),
+                      pixel_tile=None) -> tuple:
+    """The plain version's arguments for one frame (those of
+    :func:`mesh_megakernel_reference`): the frame's tables and its camera
+    lanes, made in torch (``path_tracer._camera_lanes``), one lane per
+    pixel in the order of :func:`pixel_order` (raster order without a
+    ``pixel_tile``: the JAX dense branch's identity layout). A pixel's
+    result does not depend on its lane. The kernel makes the same lanes
+    itself (:func:`megakernel_frame_inputs`)."""
+    tri, attr, mats, lights, rho_ggx, rho_fres, scalars, extras, cfg = \
+        _frame_tables(scene, settings)
+    accumulation = int(accumulation)
+    flat = pixel_order(width, height, pixel_tile, scene.tri_verts.device)
+    lanes = _camera_lanes(camera, flat % width, flat // width, width, height,
+                          accumulation, torch.ones_like(flat, dtype=torch.bool))
+    return (tri, attr, mats, lights, rho_ggx, rho_fres,
             lanes.origin.contiguous(), lanes.direction.contiguous(),
             lanes.pixel_hash, lanes.active.to(torch.float32), accumulation,
             scalars, extras, cfg)
+
+
+def megakernel_frame_inputs(scene: RenderScene, camera, width: int,
+                            height: int, accumulation: int,
+                            settings: RenderSettings = RenderSettings()
+                            ) -> tuple:
+    """The kernel's arguments for one frame (those of
+    :func:`mesh_megakernel_cuda`): the frame's tables and a
+    :class:`CameraFrame`, whose tile is ``HIER_PIXEL_TILE`` on the BVH
+    branch and raster order on the dense one."""
+    tri, attr, mats, lights, rho_ggx, rho_fres, scalars, extras, cfg = \
+        _frame_tables(scene, settings)
+    frame = CameraFrame(camera, int(width), int(height),
+                        HIER_PIXEL_TILE if cfg.hier else None)
+    return (tri, attr, mats, lights, rho_ggx, rho_fres, frame,
+            int(accumulation), scalars, extras, cfg)
 
 
 def render_mesh_megakernel(scene: RenderScene, camera, width: int,
@@ -1151,21 +1424,17 @@ def render_mesh_megakernel(scene: RenderScene, camera, width: int,
                            settings: RenderSettings = RenderSettings()):
     """One progressive frame through the mesh megakernel → (radiance
     [height, width, 3], rays [] — live lanes × 2 per iteration, the same
-    in-run tally the pooled wavefront reports). A scene over ``MAX_TRIS``
-    triangles renders its lanes in ``HIER_PIXEL_TILE`` tiles."""
-    tile = HIER_PIXEL_TILE if _pack_scene(scene)["hier"] else None
-    args = megakernel_inputs(scene, camera, width, height, accumulation,
-                             settings, tile)
+    in-run tally the pooled wavefront reports; on the card it stays there
+    until read). On the card this is one launch of the kernel (and one for
+    the ray sum); on the CPU the plain version renders raster lanes."""
     device = scene.tri_verts.device
     if device.type == "cuda":
-        r, g, b, rays = mesh_megakernel_cuda(*args)
-    elif device.type == "cpu":
-        r, g, b, rays = mesh_megakernel_reference(*args)
-    else:
+        img, rays = mesh_megakernel_cuda(*megakernel_frame_inputs(
+            scene, camera, width, height, accumulation, settings))
+        return img, rays.sum()
+    if device.type != "cpu":
         raise ValueError(f"no mesh megakernel for a scene on {device}")
-    img = torch.stack([r, g, b], dim=-1)
-    if tile is not None:
-        raster = torch.empty_like(img)
-        raster[pixel_order(width, height, tile, device)] = img
-        img = raster
-    return img.reshape(height, width, 3), rays.sum()
+    r, g, b, rays = mesh_megakernel_reference(*megakernel_inputs(
+        scene, camera, width, height, accumulation, settings))
+    return torch.stack([r, g, b], dim=-1).reshape(height, width, 3), \
+        rays.sum()

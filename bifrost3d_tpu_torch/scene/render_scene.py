@@ -54,6 +54,7 @@ from bifrost3d_tpu_torch.lights.environment import (
 from bifrost3d_tpu_torch.lights.types import LightArray
 from bifrost3d_tpu_torch.math.octahedral import octahedral_encode
 from bifrost3d_tpu_torch.scene.materials import MaterialArray
+from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
 
 class RenderScene(NamedTuple):
@@ -69,8 +70,6 @@ class RenderScene(NamedTuple):
     # [16, T_pad] packed (v0, e1, e2) for the dense kernel; None on a
     # scene over PALLAS_MAX_TRIS triangles.
     tri_components: Optional[torch.Tensor]
-    # Shading models present in the material table (host-side, sorted).
-    shading_models: tuple = (0,)
     # The BVH over the soup, on the scene's device (None on a scene
     # carried over without one).
     bvh: Optional[BVH] = None
@@ -90,6 +89,28 @@ class RenderScene(NamedTuple):
     environment_presampled: Optional[PresampledEnvironmentLight] = None
     # None, like a bank of no texture, samples as the default.
     textures: Optional[TextureBank] = None
+
+    @property
+    def shading_models(self) -> tuple:
+        """The shading models of the material table, sorted: read from
+        ``materials.shading_model`` itself, so a ``_replace`` of the
+        materials or a write into them is always seen."""
+        return shading_models_present(self.materials)
+
+
+_MODELS_CACHE = VersionedCache(64)
+
+
+def shading_models_present(materials: MaterialArray) -> tuple:
+    """→ the sorted shading models of ``materials``; read on the host once
+    per (identity, version) of ``materials.shading_model``, so a frame
+    after the first makes no host sync for it."""
+    models = materials.shading_model
+    key, present = _MODELS_CACHE.lookup((models,))
+    if present is None:
+        present = _MODELS_CACHE.store(key, (models,), tuple(sorted(set(
+            int(m) for m in models.tolist()))))
+    return present
 
 
 def _assemble_soup(instances):
@@ -128,11 +149,6 @@ def _safe_unit(n: np.ndarray) -> np.ndarray:
     unit = np.divide(n, norm, out=np.zeros_like(n), where=norm > 1e-20)
     unit[..., 2] = np.where(norm[..., 0] > 1e-20, unit[..., 2], 1.0)
     return unit
-
-
-def _shading_models(materials: MaterialArray) -> tuple:
-    """→ the sorted shading models present."""
-    return tuple(sorted(set(int(m) for m in materials.shading_model.tolist())))
 
 
 def _packed_components(tri_verts: torch.Tensor) -> Optional[torch.Tensor]:
@@ -196,7 +212,6 @@ def build_render_scene(instances, materials: MaterialArray,
         scene_epsilon=torch.tensor(max(extent, 1e-3) * 1e-4,
                                    dtype=torch.float32, device=device),
         tri_components=_packed_components(verts),
-        shading_models=_shading_models(materials),
         bvh=bvh,
         tri_clustered=_packed_clusters(verts, bvh),
         environment=env,
@@ -302,7 +317,6 @@ def render_scene_from_numpy(arrays: dict, *, device) -> RenderScene:
         scene_epsilon=t("scene_epsilon", np.float32),
         tri_components=(_packed_components(verts) if comp is None
                         else t("tri_components", np.float32)),
-        shading_models=_shading_models(materials),
         bvh=bvh,
         tri_clustered=clustered,
         environment=env,

@@ -25,6 +25,16 @@ the last line):
    kernel's pixel seed and LCG chain (smallpt_rng_probe) must equal
    jenkins_hash / lcg_next bit for bit, states and floats, on 65,536
    seeded pixels x 48 steps at accumulations 1, 2 and 7.
+   camera: the megakernel makes its own camera lanes; its prologue
+   (megakernel_camera_probe) against path_tracer._camera_lanes at 512²,
+   raster order and 8 x 4 tiles, accumulations 0, 1, 7: every pixel
+   written once, the pixel hash bit for bit, origin and direction within
+   1e-6 of their length.
+   trace probe: the megakernel's chunk-culled dense trace
+   (megakernel_trace_probe) against the dense trace kernel on Sphere's 962
+   triangles and a seeded random 1,024: the same prim on every ray off
+   ties, t/u/v bit for bit where prim agrees, the same any-hit occlusion;
+   times of both, the culled trace's test counts.
 4. kernel: the dense trace kernel against its plain PyTorch version on the
    card, on 65,536 random rays (numpy seed 0) against the CornellBox soup
    (rays from the room's free space) and a ~16k-triangle sphere + floor
@@ -41,12 +51,13 @@ the last line):
 6. megakernel: CornellBox and SphereLight at 512² and Veach, Veach
    mesh-light and the coated, spot-light, Default+Diffuse, emissive and
    directional-light test scenes at 256², 4 bounces, one accumulation
-   each: the kernel against its plain version on the same inputs (the
-   same RNG bits, only FMA contraction differs: at most 0.2% of pixels off
-   by > 1e-3, means within 0.5%) and against the pooled wavefront (the
-   statistical gate: 3%, 2%), ray counts within 2% of the wavefront's. For
-   CornellBox and SphereLight also the median kernel and plain times (CUDA
-   events) and the frame time and rays/s of render_sample_fast.
+   each: the kernel (its own camera lanes) against its plain version (the
+   torch lanes; the same RNG bits, only FMA contraction differs: at most
+   0.2% of pixels off by > 1e-3, means within 0.5%) and against the pooled
+   wavefront (the statistical gate: 3%, 2%), ray counts within 2% of the
+   wavefront's. For CornellBox and SphereLight also the median kernel and
+   plain times (CUDA events), the chunk-box and triangle tests per trace,
+   and the frame time and rays/s of render_sample_fast.
 7. progressive: CornellBox 512² × 8 accumulations through
    render_progressive, the main path: the megakernel's launch count must
    rise by exactly 8, the image be finite and lit; it is tonemapped and
@@ -61,8 +72,10 @@ the last line):
    version (the lockstep traversal over the same packed tree): prim must
    agree off ties (two candidates whose t agree to 1e-6 relative) on
    >= 99.9% of rays and t within rtol 1e-5 where it does; occlusion must
-   agree on >= 99.9%; and against the dense kernel on the 16,130-triangle
-   soup. Median times, the plain walk's box and triangle test counts.
+   agree on >= 99.9%; the live prefix (a device int64 and an int) honoured
+   by closest and any-hit queries; and against the dense kernel on the
+   16,130-triangle soup. The persistent grid's blocks per SM, median
+   times, the plain walk's box and triangle test counts.
 10. smallpt: smallpt_app.render_progressive(1024, 768, 8) on the card,
    main path A: exactly 8 SmallPT-kernel launches, frames/s and
    pixel-samples/s, the image finite and lit and written to
@@ -130,6 +143,11 @@ the last line):
    a PNG written. The viewer renders with a plain RenderSettings (binary
    shadow rays, as the reference viewer), so one frame of Opacity at these
    settings is also held against the plain version.
+19. profile: render_sample_fast at 512² after a scene's first frame, for
+   CornellBox, Sphere, Opacity and the bridge: CUDA launches (at most 10)
+   and host syncs (none) per frame from torch.profiler over three frames,
+   with torch's sync debug mode raising on a synchronising op; frame time
+   beside the kernel's.
 
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
@@ -286,6 +304,104 @@ def rng_phase(device) -> None:
           f"accumulations 1, 2, 7", flush=True)
 
 
+def camera_phase(device) -> dict:
+    """The megakernel's own camera lanes (megakernel_camera_probe) against
+    path_tracer._camera_lanes at 512², raster order and 8 x 4 tiles,
+    accumulations 0, 1 and 7: every pixel written, the pcg2d hash bit for
+    bit, origin and direction within 1e-6 of their length, the same active
+    lanes."""
+    from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    _, cam = create_cornell_box(device=device)
+    flat = torch.arange(RES * RES, device=device)
+    worst = {"origin": 0.0, "direction": 0.0}
+    for tile in (None, mega.HIER_PIXEL_TILE):
+        for acc in (0, 1, 7):
+            hashes, o, d, active = mega.camera_probe(
+                mega.CameraFrame(cam, RES, RES, tile), acc)
+            lanes = pt._camera_lanes(cam, flat % RES, flat // RES, RES, RES,
+                                     acc, torch.ones_like(flat,
+                                                          dtype=torch.bool))
+            torch.cuda.synchronize()
+            what = f"camera lanes, tile {tile}, accumulation {acc}"
+            check(bool(torch.isfinite(o).all() & torch.isfinite(d).all()),
+                  f"{what}: a pixel was not written")
+            check(bool(torch.equal(hashes, lanes.pixel_hash)),
+                  f"{what}: pixel hashes differ")
+            check(bool(torch.equal(active, lanes.active)),
+                  f"{what}: active lanes differ")
+            for name, got, ref in (("origin", o, lanes.origin),
+                                   ("direction", d, lanes.direction)):
+                rel = float(((got - ref).abs().amax(dim=-1)
+                             / ref.norm(dim=-1)).max())
+                check(rel <= 1e-6, f"{what}: {name} off by {rel:.3g} of "
+                      "its length")
+                worst[name] = max(worst[name], rel)
+    print(f"camera: the megakernel's lanes at {RES}x{RES}, raster and "
+          f"{mega.HIER_PIXEL_TILE[0]}x{mega.HIER_PIXEL_TILE[1]} tiles, "
+          f"accumulations 0, 1, 7 | hash bit-exact | origin within "
+          f"{worst['origin']:.3g}, direction within {worst['direction']:.3g} "
+          f"of their length (gate 1e-6)", flush=True)
+    return worst
+
+
+def trace_probe_phase(device) -> dict:
+    """The megakernel's chunk-culled dense trace (megakernel_trace_probe)
+    against the dense trace kernel (B1) on the same table: Sphere's 962
+    triangles and a seeded random 1,024, 65,536 rays each. The same prim
+    on every ray off ties, t/u/v bit for bit where prim agrees; any-hit
+    within a finite t_max gives B1's occlusion on every ray. Times of both
+    and the plain version's test counts."""
+    from bifrost3d_tpu_torch.apps.scenes import SCENES
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    rng = np.random.default_rng(17)
+    random = (rng.uniform(-1.0, 1.0, size=(1024, 1, 3))
+              + rng.normal(scale=0.15, size=(1024, 3, 3))).astype(np.float32)
+    sphere = SCENES["Sphere"](device=device)[0].tri_verts
+    out, inf = {}, float("inf")
+    for name, tris in (("sphere", sphere),
+                       ("random", torch.tensor(random, device=device))):
+        n = int(tris.shape[0])
+        table, (comp, _) = mega.dense_table(tris), dense.pack_triangles(tris)
+        o, d, _ = _rays(rng, "sphere", device)
+        got = mega.trace_probe(table, n, o, d, 1e-4, inf)
+        ref = dense.dense_intersect_cuda(comp, n, o, d, 1e-4, inf)
+        torch.cuda.synchronize()
+        same = got.prim == ref.prim
+        tie = ~same & ((got.t - ref.t).abs() <= 1e-6 * ref.t.abs())
+        check(bool((same | tie).all()), f"trace probe/{name}: prim differs "
+              f"off ties on {int((~(same | tie)).sum())} rays")
+        for field in ("t", "u", "v"):
+            check(bool(torch.equal(getattr(got, field)[same],
+                                   getattr(ref, field)[same])),
+                  f"trace probe/{name}: {field} not bit-equal to B1's")
+        occ = mega.trace_probe(table, n, o, d, 1e-4, 1.0, any_hit=True)
+        occ_ref = dense.dense_intersect_cuda(comp, n, o, d, 1e-4, 1.0)
+        check(bool(torch.equal(occ.prim >= 0, occ_ref.prim >= 0)),
+              f"trace probe/{name}: any-hit occlusion differs from B1's")
+        stats = {}
+        mega.culled_dense_intersect_reference(table, n, o, d, 1e-4, inf,
+                                              stats=stats)
+        ms = _median_ms(lambda: mega.trace_probe(table, n, o, d, 1e-4, inf))
+        b1_ms = _median_ms(lambda: dense.dense_intersect_cuda(
+            comp, n, o, d, 1e-4, inf))
+        hits = float((ref.prim >= 0).float().mean())
+        out[name] = dict(ties=int(tie.sum()), ms=ms, b1_ms=b1_ms, hits=hits,
+                         tri_tests=stats["tri_tests"] / R,
+                         box_tests=stats["box_tests"] / R)
+        print(f"trace probe/{name}: {R} rays x {n} tris | prim equal to "
+              f"B1's off ties on every ray ({int(tie.sum())} ties), t/u/v "
+              f"bit-equal where equal, any-hit occlusion equal | hit share "
+              f"{hits:.3f} | culled trace {ms:.4f} ms vs B1's full scan "
+              f"{b1_ms:.4f} ms (median of 20) | "
+              f"{out[name]['tri_tests']:.1f} triangle and "
+              f"{out[name]['box_tests']:.1f} chunk-box tests per ray "
+              f"(full scan: {n})", flush=True)
+    return out
+
+
 def _soups(device):
     from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
     from bifrost3d_tpu_torch.geometry.creation import make_plane, make_sphere
@@ -396,6 +512,38 @@ def _gate(img, ref, what, flip_budget=0.03, mean_budget=0.02):
     return flips, float(d.max()), rel
 
 
+def _expect_megakernel(scene, settings, name) -> str:
+    """explain_render_path must name the megakernel, and above MAX_TRIS its
+    BVH branch, in the JAX package's words."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    path = pt.explain_render_path(scene, settings)
+    want = ("megakernel (hier: cluster-BVH DMA trace)"
+            if int(scene.tri_verts.shape[0]) > mega.MAX_TRIS else "megakernel")
+    check(path == want, f"{name}: {path}")
+    return path
+
+
+def _kernel_frame(scene, cam, res, accumulation, settings):
+    """One frame of the kernel, which makes its own camera lanes → (its
+    arguments, image [res², 3] and rays [res²] in raster order)."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    args = mega.megakernel_frame_inputs(scene, cam, res, res, accumulation,
+                                        settings)
+    img, rays = mega.mesh_megakernel_cuda(*args)
+    return args, img.reshape(-1, 3), rays
+
+
+def _plain_frame(scene, cam, res, accumulation, settings, stats=None):
+    """The same frame through the plain version on the torch lanes, in
+    raster order → (its arguments, image [res², 3], rays [res²])."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    args = mega.megakernel_inputs(scene, cam, res, res, accumulation,
+                                  settings)
+    r, g, b, rays = mega.mesh_megakernel_reference(*args, stats=stats)
+    return args, torch.stack([r, g, b], dim=-1), rays
+
+
 def _reset_counts():
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
@@ -474,18 +622,15 @@ def megakernel_phase(device) -> dict:
     results = {}
     for name, res, (scene, cam) in _megakernel_scenes(device):
         settings = pt.RenderSettings(max_bounce_count=BOUNCES)
-        path = pt.explain_render_path(scene, settings)
-        check(path == "megakernel", f"{name}: {path}")
-        args = mega.megakernel_inputs(scene, cam, res, res, 1, settings)
-        got = mega.mesh_megakernel_cuda(*args)
+        _expect_megakernel(scene, settings, name)
+        args, img, got_rays = _kernel_frame(scene, cam, res, 1, settings)
         stats = {}
-        ref = mega.mesh_megakernel_reference(*args, stats=stats)
+        plain_args, ref, _ = _plain_frame(scene, cam, res, 1, settings,
+                                          stats)
         torch.cuda.synchronize()
-        img = torch.stack(got[:3], dim=-1)
-        flips, max_err, mean_rel = _gate(
-            img, torch.stack(ref[:3], dim=-1), f"{name}: kernel vs plain",
-            KERNEL_FLIPS, KERNEL_MEAN)
-        rays = float(got[3].sum())
+        flips, max_err, mean_rel = _gate(img, ref, f"{name}: kernel vs plain",
+                                         KERNEL_FLIPS, KERNEL_MEAN)
+        rays = float(got_rays.sum())
         pooled, pooled_rays = pt.render_sample_pooled_counted(
             scene, cam, res, res, 1, settings)
         wf_flips, _, _ = _gate(img.reshape(res, res, 3), pooled,
@@ -507,8 +652,8 @@ def megakernel_phase(device) -> dict:
             out["ms"] = _median_ms(lambda: mega.mesh_megakernel_cuda(*args),
                                    repeats=10, warmup=2)
             out["plain_ms"] = _median_ms(
-                lambda: mega.mesh_megakernel_reference(*args), repeats=3,
-                warmup=1)
+                lambda: mega.mesh_megakernel_reference(*plain_args),
+                repeats=3, warmup=1)
             frame_ms, rates = [], []
             for acc in (1, 2, 3, 4, 5):
                 _, acc_rays = mega.render_mesh_megakernel(
@@ -522,16 +667,24 @@ def megakernel_phase(device) -> dict:
                 rates.append(acc_rays / dt)
             out["frame_ms"] = statistics.median(frame_ms)
             out["rays_per_s"] = statistics.median(rates)
-            # Per pixel 32 B of lanes in and 16 B out, the tables once; one
-            # Möller–Trumbore test per triangle for every trace made: a
-            # closest hit per counted iteration (rays / 2) and the shadow
-            # rays that the plain version traced (shading is left out of
-            # the count, so the bound is low).
+            # Per pixel 16 B out (radiance and rays), the triangle and
+            # attribute tables once; a closest hit per counted iteration
+            # (rays / 2) and the shadow rays that the plain version traced,
+            # each testing the chunk boxes and the triangles of the chunks
+            # it entered, as the plain version counted them (shading is
+            # left out of the count, so the bound is low).
             traces = rays / 2 + stats.get("shadow_traces", 0)
-            out.update(roofline(48 * res * res + 64 * out["n_tris"],
-                                MT_FLOPS * traces * out["n_tris"]))
-            line += (f" | {traces:.0f} traces | kernel {out['ms']:.3f} ms, "
-                     f"plain "
+            out.update(box_tests=stats["box_tests"],
+                       tri_tests=stats["tri_tests"],
+                       **roofline(16 * res * res
+                                  + (64 + 4 * mega.ATTR_ROWS) * out["n_tris"],
+                                  BOX_FLOPS * stats["box_tests"]
+                                  + MT_FLOPS * stats["tri_tests"]))
+            line += (f" | {traces:.0f} traces, "
+                     f"{stats['tri_tests'] / traces:.1f} triangle and "
+                     f"{stats['box_tests'] / traces:.1f} chunk-box tests per "
+                     f"trace (full scan: {out['n_tris']}) | kernel "
+                     f"{out['ms']:.3f} ms, plain "
                      f"{out['plain_ms']:.1f} ms (CUDA events) | "
                      f"render_sample_fast frame {out['frame_ms']:.2f} ms, "
                      f"{out['rays_per_s'] / 1e6:.1f} M rays/s (median of 5)")
@@ -689,6 +842,11 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
 
     results, failures = {}, []
     inf = float("inf")
+    occupancy = (hier.blocks_per_sm(False), hier.blocks_per_sm(True))
+    print(f"kernel/bvh: persistent grid of {occupancy[0]} (any-hit "
+          f"{occupancy[1]}) blocks of {hier._THREADS} threads per SM x "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+          f"SMs", flush=True)
     for name, (o, d) in _torus_rays(device).items():
         stats = {}
         ref = hier.hierarchical_intersect_reference(packed, o, d, 1e-4, inf,
@@ -708,13 +866,21 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
         occ_agree = float((occ == occ_ref).float().mean())
         if occ_agree < 0.999:
             failures.append(f"bvh/{name}: occlusion agrees on {occ_agree:.5f}")
+        # The live prefix, as a device int64 (the pool's live sum) and as
+        # an int, closest and any-hit.
         live = torch.tensor(R // 3, device=device)
         part = hier.hierarchical_intersect_cuda(packed, o, d, 1e-4, inf,
                                                 live_count=live)
+        occ_part = hier.hierarchical_intersect_cuda(
+            packed, o, d, 1e-4, t_max, any_hit=True, live_count=R // 3)
         torch.cuda.synchronize()
         if not bool((part.prim[R // 3:] == -1).all()) or not bool(
                 torch.equal(part.prim[:R // 3], got.prim[:R // 3])):
             failures.append(f"bvh/{name}: the live prefix is not honoured")
+        if not bool((occ_part.prim[R // 3:] == -1).all()) or not bool(
+                torch.equal(occ_part.prim[:R // 3] >= 0, occ[:R // 3])):
+            failures.append(f"bvh/{name}: the any-hit live prefix is not "
+                            "honoured")
         hits = float((ref.prim >= 0).float().mean())
         box_tests, tri_tests = int(stats["box_tests"]), int(stats["tri_tests"])
         nodes_read = int(stats["unique_nodes"])
@@ -727,7 +893,7 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
             packed, o, d, 1e-4, inf))
         plain_ms = _median_ms(lambda: hier.hierarchical_intersect_reference(
             packed, o, d, 1e-4, inf), repeats=2, warmup=1)
-        # Rays in (32 B) and hits out (16 B); of the tree, only what this
+        # Rays in (24 B) and hits out (16 B); of the tree, only what this
         # ray set's walk reads, each record once: the 32-byte nodes popped
         # and the 48-byte triangles of the leaves entered by at least one
         # ray, and one 4-byte `order` entry per hit. Counts are the plain
@@ -738,8 +904,9 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
             max_abs_err=max(err, s_err), occlusion_agree=occ_agree, hits=hits,
             box_tests=box_tests, tri_tests=tri_tests, steps=stats["steps"],
             ms=ms, any_ms=any_ms, sorted_ms=sorted_ms, plain_ms=plain_ms,
+            blocks_per_sm=occupancy[0],
             nodes_read=nodes_read, tris_read=tris_read,
-            **roofline(48 * R + 32 * nodes_read + 48 * tris_read + 4 * n_hits,
+            **roofline(40 * R + 32 * nodes_read + 48 * tris_read + 4 * n_hits,
                        BOX_FLOPS * box_tests + MT_FLOPS * tri_tests))
         print(f"kernel/bvh/{name}: {R} rays x {n_tris} tris | hit share "
               f"{hits:.3f} | prim agrees off ties >= {min(agree, s_agree):.5f} "
@@ -1068,35 +1235,22 @@ def cluster_kernel_phase(device, dense_soup) -> dict:
     return results
 
 
-def _raster(lanes, order, res):
-    """[p, 3] per-lane colours in the lane order ``order`` → the [res, res,
-    3] image."""
-    img = torch.empty_like(lanes)
-    img[order] = lanes
-    return img.reshape(res, res, 3)
-
-
 def _gate_tiled_scene(name, scene, cam, res, settings, device):
-    """One frame of a megakernel scene, lanes in pixel tiles on the BVH
-    branch: the kernel against its plain version on the same lanes
-    (KERNEL_FLIPS, KERNEL_MEAN) and against the pooled wavefront (3%, 2%),
-    ray counts within 2% → (results, the kernel's arguments, the image)."""
-    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    """One frame of a megakernel scene (the kernel's lanes in pixel tiles
+    on the BVH branch, its image in raster order): the kernel against its
+    plain version on the torch lanes in raster order (KERNEL_FLIPS,
+    KERNEL_MEAN) and against the pooled wavefront (3%, 2%), ray counts
+    within 2% → (results, the kernel's arguments, the image)."""
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
 
-    path = pt.explain_render_path(scene, settings)
-    check(path == "megakernel", f"{name}: {path}")
-    tile = mega.HIER_PIXEL_TILE if mega._pack_scene(scene)["hier"] else None
-    args = mega.megakernel_inputs(scene, cam, res, res, 1, settings, tile)
-    got = mega.mesh_megakernel_cuda(*args)
-    ref = mega.mesh_megakernel_reference(*args)
+    _expect_megakernel(scene, settings, name)
+    args, lanes, got_rays = _kernel_frame(scene, cam, res, 1, settings)
+    _, ref, ref_rays = _plain_frame(scene, cam, res, 1, settings)
     torch.cuda.synchronize()
-    lanes = torch.stack(got[:3], dim=-1)
-    flips, max_err, mean_rel = _gate(
-        lanes, torch.stack(ref[:3], dim=-1), f"{name}: kernel vs plain",
-        KERNEL_FLIPS, KERNEL_MEAN)
-    rays, plain_rays = float(got[3].sum()), float(ref[3].sum())
-    img = _raster(lanes, mega.pixel_order(res, res, tile, device), res)
+    flips, max_err, mean_rel = _gate(lanes, ref, f"{name}: kernel vs plain",
+                                     KERNEL_FLIPS, KERNEL_MEAN)
+    rays, plain_rays = float(got_rays.sum()), float(ref_rays.sum())
+    img = lanes.reshape(res, res, 3)
     pooled, pooled_rays = pt.render_sample_pooled_counted(
         scene, cam, res, res, 1, settings)
     wf_flips, _, _ = _gate(img, pooled, f"{name}: kernel vs wavefront")
@@ -1143,8 +1297,9 @@ def megakernel_hier_phase(device) -> dict:
     res = RES
     scene, cam = TEST_SCENES[BRIDGE_SCENE](device=device)
     settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-    tiled = mega.megakernel_inputs(scene, cam, res, res, 1, settings, tile)
-    raster = mega.megakernel_inputs(scene, cam, res, res, 1, settings, None)
+    tiled = mega.megakernel_frame_inputs(scene, cam, res, res, 1, settings)
+    check(tiled[6].tile == tile, "the BVH branch renders in pixel tiles")
+    raster = tiled[:6] + (tiled[6]._replace(tile=None),) + tiled[7:]
     turns = {"tiled": [], "raster": []}
     for which in ("tiled", "raster", "raster", "tiled"):
         args = tiled if which == "tiled" else raster
@@ -1153,18 +1308,17 @@ def megakernel_hier_phase(device) -> dict:
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = mega.mesh_megakernel_reference(*tiled, stats=stats)
+    _, ref, _ = _plain_frame(scene, cam, res, 1, settings, stats)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    got = mega.mesh_megakernel_cuda(*tiled)
-    flips, max_err, _ = _gate(torch.stack(got[:3], dim=-1),
-                              torch.stack(ref[:3], dim=-1),
+    img, got_rays = mega.mesh_megakernel_cuda(*tiled)
+    flips, max_err, _ = _gate(img.reshape(-1, 3), ref,
                               f"{BRIDGE_SCENE} {res}: kernel vs plain",
                               KERNEL_FLIPS, KERNEL_MEAN)
-    rays = float(got[3].sum())
+    rays = float(got_rays.sum())
     tree = tiled[0]
     n_nodes, n_tris = int(tree.node_boxes.shape[0]), tree.n_tris
-    # Per pixel 32 B of lanes in and 16 B out; of the tree and the attribute
+    # Per pixel 16 B out; of the tree and the attribute
     # table no more than each record once (a frame's walks touch most of
     # it); the plain walks' box and triangle tests (shading is left out of
     # the count, so the bound is low).
@@ -1174,7 +1328,7 @@ def megakernel_hier_phase(device) -> dict:
         raster_ms=statistics.median(turns["raster"]), plain_ms=plain_ms,
         max_abs_err=max(max_err, out["max_abs_err"]),
         box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
-        **roofline(48 * res * res + 32 * min(n_nodes, stats["box_tests"])
+        **roofline(16 * res * res + 32 * min(n_nodes, stats["box_tests"])
                    + (48 + 4 * mega.ATTR_ROWS) * min(n_tris, stats["tri_tests"]),
                    BOX_FLOPS * stats["box_tests"]
                    + MT_FLOPS * stats["tri_tests"]))
@@ -1211,8 +1365,7 @@ def hier_path_phase(device) -> dict:
     n_tris = int(scene.tri_verts.shape[0])
     check(n_tris == BRIDGE_TRIS, f"the bridge scene has {n_tris} triangles")
     settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-    path = pt.explain_render_path(scene, settings)
-    check(path == "megakernel", f"{BRIDGE_SCENE}: {path}")
+    path = _expect_megakernel(scene, settings, BRIDGE_SCENE)
     t0 = time.perf_counter()
     mega.prewarm_megakernel(scene)
     torch.cuda.synchronize()
@@ -1279,8 +1432,7 @@ def hier_path_phase(device) -> dict:
         t0 = time.perf_counter()
         scene, cam = TEST_SCENES[name](device=device)
         settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-        path = pt.explain_render_path(scene, settings)
-        check(path == "megakernel", f"{name}: {path}")
+        _expect_megakernel(scene, settings, name)
         mega.prewarm_megakernel(scene)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
@@ -1298,8 +1450,7 @@ def hier_path_phase(device) -> dict:
               f"{name}: not one megakernel launch per frame and nothing else")
         check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.005,
               f"{name}: the frame is not finite and lit")
-        args = mega.megakernel_inputs(scene, cam, res, res, 1, settings,
-                                      mega.HIER_PIXEL_TILE)
+        args = mega.megakernel_frame_inputs(scene, cam, res, res, 1, settings)
         kernel_ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args),
                                repeats=10, warmup=2)
         out[name] = dict(frame_ms=statistics.median(times),
@@ -1424,8 +1575,7 @@ def extras_path_phase(device) -> dict:
     for name in EXTRAS_PATHS:
         scene, cam = _extras_scene(name, dict(EXTRAS_SCENES)[name], device)
         settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-        path = pt.explain_render_path(scene, settings)
-        check(path == "megakernel", f"{name}: {path}")
+        path = _expect_megakernel(scene, settings, name)
         mega.prewarm_megakernel(scene)
         torch.cuda.synchronize()
 
@@ -1466,55 +1616,54 @@ def extras_path_phase(device) -> dict:
             rates.append(acc_rays / dt)
 
         # The kernel at the path's shape beside its plain version.
-        packed = mega._pack_scene(scene)
-        tile = mega.HIER_PIXEL_TILE if packed["hier"] else None
-        args = mega.megakernel_inputs(scene, cam, res, res, 1, settings, tile)
+        args = mega.megakernel_frame_inputs(scene, cam, res, res, 1,
+                                            settings)
         cfg, extras = args[-1], args[-2]
         ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args), repeats=10,
                         warmup=2)
         stats = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = mega.mesh_megakernel_reference(*args, stats=stats)
+        _, ref, _ = _plain_frame(scene, cam, res, 1, settings, stats)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        got = mega.mesh_megakernel_cuda(*args)
-        flips, max_err, _ = _gate(torch.stack(got[:3], dim=-1),
-                                  torch.stack(ref[:3], dim=-1),
+        img, got_rays = mega.mesh_megakernel_cuda(*args)
+        flips, max_err, _ = _gate(img.reshape(-1, 3), ref,
                                   f"{name} {res}: kernel vs plain",
                                   KERNEL_FLIPS, KERNEL_MEAN)
-        rays = float(got[3].sum())
-        # Bytes: per pixel 32 B of lanes in and 16 B out; the triangle (or
-        # tree) and attribute tables and every table of the extras once.
-        # Operations: one closest trace per counted iteration (rays / 2)
-        # and the shadow traces that the plain version made, counted one
-        # by one (an any-hit query per lit shaded hit, or the march's
-        # steps); a dense trace tests every triangle, a BVH trace what the
-        # plain walk counted. Shading is left out, so the bound is low.
+        rays = float(got_rays.sum())
+        # Bytes: per pixel 16 B out; the triangle (or tree) and attribute
+        # tables and every table of the extras once. Operations: one
+        # closest trace per counted iteration (rays / 2) and the shadow
+        # traces that the plain version made, counted one by one (an
+        # any-hit query per lit shaded hit, or the march's steps), each
+        # with the box and triangle tests that the plain version counted
+        # for it (the BVH walk's, or the dense trace's chunk boxes and the
+        # triangles of the chunks it entered). Shading is left out, so the
+        # bound is low.
         march = stats.get("march_traces", 0)
         shadow = stats.get("shadow_traces", 0)
         table_bytes = sum(t.numel() * 4 for t in extras if t is not None)
-        n_tris = packed["n_tris"]
-        if packed["hier"]:
+        n_tris = cfg.n_tris
+        traces = rays / 2 + shadow + march
+        if cfg.hier:
             tree = args[0]
             table_bytes += 32 * int(tree.node_boxes.shape[0]) + (
                 48 + 4 * mega.ATTR_ROWS) * n_tris
-            flops = (BOX_FLOPS * stats["box_tests"]
-                     + MT_FLOPS * stats["tri_tests"])
-            work = (f"{stats['box_tests'] / rays:.1f} box and "
-                    f"{stats['tri_tests'] / rays:.1f} triangle tests per ray")
         else:
             table_bytes += (64 + 4 * mega.ATTR_ROWS) * n_tris
-            traces = rays / 2 + shadow + march
-            flops = MT_FLOPS * n_tris * traces
-            work = f"{traces:.0f} traces of {n_tris} triangles"
+        flops = BOX_FLOPS * stats["box_tests"] + MT_FLOPS * stats["tri_tests"]
+        work = (f"{traces:.0f} traces, {stats['box_tests'] / traces:.1f} "
+                f"{'node' if cfg.hier else 'chunk'} box and "
+                f"{stats['tri_tests'] / traces:.1f} triangle tests per trace")
         out[name] = dict(
             launches=launches, seconds=seconds, mean=mean, ms=ms,
             plain_ms=plain_ms, max_abs_err=max_err, flips=flips, rays=rays,
             march_traces=march, shadow_traces=shadow,
+            box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
             frame_ms=statistics.median(frame_ms),
             rays_per_s=statistics.median(rates),
-            **roofline(48 * res * res + table_bytes, flops))
+            **roofline(16 * res * res + table_bytes, flops))
         print(f"extras_path/{name}: {path} | {res}x{res} {BOUNCES} bounces "
               f"x{ACCUMULATIONS} through render_progressive in {seconds:.3f} "
               f"s | megakernel launches {launches}, trace-kernel launches "
@@ -1571,20 +1720,16 @@ def viewer_phase(device) -> dict:
 
     scene, cam = _extras_scene("Opacity", True, device)
     settings = pt.RenderSettings(max_bounce_count=BOUNCES)
-    check(pt.explain_render_path(scene, settings) == "megakernel",
-          "Opacity at the viewer's settings: not the megakernel")
-    args = mega.megakernel_inputs(scene, cam, SMALL_RES, SMALL_RES, 1,
-                                  settings)
+    _expect_megakernel(scene, settings, "Opacity at the viewer's settings")
+    args, img, got_rays = _kernel_frame(scene, cam, SMALL_RES, 1, settings)
     cfg = args[-1]
     check(cfg.extras and cfg.any_coverage and cfg.shadow_steps == 0,
           "Opacity at the viewer's settings: cutouts with any-hit shadows")
-    got = mega.mesh_megakernel_cuda(*args)
-    ref = mega.mesh_megakernel_reference(*args)
+    _, ref, ref_rays = _plain_frame(scene, cam, SMALL_RES, 1, settings)
     flips, max_err, mean_rel = _gate(
-        torch.stack(got[:3], dim=-1), torch.stack(ref[:3], dim=-1),
-        "Opacity at the viewer's settings: kernel vs plain", KERNEL_FLIPS,
-        KERNEL_MEAN)
-    rays, plain_rays = float(got[3].sum()), float(ref[3].sum())
+        img, ref, "Opacity at the viewer's settings: kernel vs plain",
+        KERNEL_FLIPS, KERNEL_MEAN)
+    rays, plain_rays = float(got_rays.sum()), float(ref_rays.sum())
     check(abs(rays - plain_rays) <= 0.02 * plain_rays,
           f"Opacity at the viewer's settings: {rays} rays vs the plain "
           f"version's {plain_rays}")
@@ -1592,6 +1737,79 @@ def viewer_phase(device) -> dict:
           f"any-hit shadow rays | vs plain {flips:.5f} flips, max |d| "
           f"{max_err:.3g}, means {mean_rel:.2e} apart | rays {rays:.0f} vs "
           f"{plain_rays:.0f}", flush=True)
+    return out
+
+
+PROFILED_SCENES = (("CornellBox", True), ("Sphere", True), ("Opacity", True),
+                   (BRIDGE_SCENE, False))
+MAX_FRAME_LAUNCHES = 10
+
+
+def frame_profile_phase(device) -> dict:
+    """render_sample_fast's frame after a scene's first, for CornellBox,
+    Sphere, Opacity and the 49,678-triangle bridge at 512²: CUDA launches
+    and host syncs per frame over three frames from torch.profiler (at most
+    MAX_FRAME_LAUNCHES launches, no sync), with torch's sync debug mode set
+    to raise, so a synchronising torch op fails the phase; frame time
+    (host clock to a synchronise, median of 5) beside the kernel's."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from torch.profiler import ProfilerActivity, profile, record_function
+    out = {}
+    for name, viewer in PROFILED_SCENES:
+        scene, cam = _extras_scene(name, viewer, device)
+        settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+        pt.render_sample_fast(scene, cam, RES, RES, 0, settings)
+        torch.cuda.synchronize()
+        frames = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with record_function("chip_smoke_frames"):
+                    for acc in range(1, frames + 1):
+                        pt.render_sample_fast(scene, cam, RES, RES, acc,
+                                              settings)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        # Runtime calls on the host inside the frames' window; kernels that
+        # ran on the card over the whole profile (only the frames).
+        events = prof.events()
+        window = next(e for e in events if e.name == "chip_smoke_frames")
+        inside = [e for e in events if window.time_range.start
+                  <= e.time_range.start <= window.time_range.end]
+        launches = sum("LaunchKernel" in e.name for e in inside) / frames
+        memsets = sum("Memset" in e.name for e in inside) / frames
+        syncs = sum("Synchronize" in e.name or e.name == "cudaMemcpy"
+                    for e in inside) / frames
+        kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                      for e in events) / frames
+        check(syncs == 0, f"profile/{name}: {syncs} host syncs per frame")
+        check(max(launches + memsets, kernels) <= MAX_FRAME_LAUNCHES,
+              f"profile/{name}: {launches + memsets} launches, {kernels} "
+              "kernels per frame")
+        frame_ms = []
+        for acc in range(4, 9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pt.render_sample_fast(scene, cam, RES, RES, acc, settings)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        args = mega.megakernel_frame_inputs(scene, cam, RES, RES, 1, settings)
+        kernel_ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args),
+                               repeats=10, warmup=2)
+        out[name] = dict(launches=launches, memsets=memsets, syncs=syncs,
+                         kernels=kernels,
+                         frame_ms=statistics.median(frame_ms),
+                         kernel_ms=kernel_ms)
+        print(f"profile/{name}: render_sample_fast {RES}x{RES} after the "
+              f"scene's first frame | per frame {launches:.1f} kernel-launch "
+              f"calls, {memsets:.1f} memsets, {kernels:.1f} device activities "
+              f"and {syncs:.0f} host syncs (torch.profiler over {frames} "
+              f"frames; sync debug mode raised nothing) | frame "
+              f"{out[name]['frame_ms']:.3f} ms (median of 5), kernel "
+              f"{kernel_ms:.3f} ms (median of 10)", flush=True)
     return out
 
 
@@ -1609,6 +1827,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     build_phase()
     rng_phase(device)
+    camera_phase(device)
+    trace_probe_phase(device)
     soups = _soups(device)
     kernels = kernel_phase(device, soups)
     sliced = slice_phase(device)
@@ -1626,6 +1846,7 @@ def main() -> int:
     megakernel_extras_phase(device)
     path_d = extras_path_phase(device)
     viewer_phase(device)
+    frame_profile_phase(device)
     # No single PyTorch call computes any of the seven: library_ms is null.
     # The first seven rows are the seven kernels; the last three are B2 and
     # B3 again, through their kExtras instantiations.

@@ -112,6 +112,32 @@ def test_render_progressive_on_card(cuda):
     assert pt.explain_render_path(scene) == "megakernel"
 
 
+def _kernel_vs_plain(scene, cam, res, accumulation, settings):
+    """One frame through the kernel (its own camera lanes, one launch) and
+    through the plain version (the torch lanes in raster order) → (kernel
+    image [n, 3], kernel rays [n], plain image [n, 3], plain rays [n]),
+    pixels in raster order on both sides."""
+    args = mega.megakernel_frame_inputs(scene, cam, res, res, accumulation,
+                                        settings)
+    before = mega.launch_count
+    img, rays = mega.mesh_megakernel_cuda(*args)
+    torch.cuda.synchronize()
+    assert mega.launch_count == before + 1
+    assert img.shape == (res, res, 3) and rays.shape == (res * res,)
+    r, g, b, ref_rays = mega.mesh_megakernel_reference(*mega.megakernel_inputs(
+        scene, cam, res, res, accumulation, settings))
+    return img.reshape(-1, 3), rays, torch.stack([r, g, b], dim=-1), ref_rays
+
+
+def _assert_kernel_matches_plain(scene, cam, res, settings, min_mean=0.01):
+    img, rays, ref, ref_rays = _kernel_vs_plain(scene, cam, res, 1, settings)
+    img = img.cpu().numpy()
+    assert_statistical_gate(img, ref.cpu().numpy(), KERNEL_FLIPS, KERNEL_MEAN)
+    rays, ref_rays = float(rays.sum()), float(ref_rays.sum())
+    assert abs(rays - ref_rays) <= 0.02 * ref_rays
+    assert img.mean() > min_mean
+
+
 @pytest.mark.parametrize("accumulation", [0, 1, 7])
 def test_megakernel_rng_is_bit_exact(cuda, accumulation):
     rng = np.random.default_rng(accumulation)
@@ -137,24 +163,102 @@ def test_megakernel_matches_plain_version(cuda, name):
     else:
         scene, cam = TEST_SCENES[name](device=cuda)
     settings = pt.settings_for_scene(scene, max_bounce_count=2)
-    args = mega.megakernel_inputs(scene, cam, res, res, 1, settings)
-    before = mega.launch_count
-    got = mega.mesh_megakernel_cuda(*args)
+    _assert_kernel_matches_plain(scene, cam, res, settings)
+
+
+@pytest.mark.parametrize("tile", [None, (8, 4)])
+@pytest.mark.parametrize("accumulation", [0, 1, 7])
+def test_megakernel_camera_lanes_match_torch(cuda, tile, accumulation):
+    """The kernel's own camera lanes against path_tracer._camera_lanes:
+    every pixel written once, the pcg2d hash bit for bit, origin and
+    direction within 1e-6 of their length (nvcc contracts the 4 x 4 product
+    and the rotation), the same active lanes."""
+    w, h = 64, 48
+    _, cam = create_cornell_box(aspect=w / h, device=cuda)
+    frame = mega.CameraFrame(cam, w, h, tile)
+    hashes, origin, direction, active = mega.camera_probe(frame, accumulation)
     torch.cuda.synchronize()
+    assert bool(torch.isfinite(origin).all() & torch.isfinite(direction).all())
+    flat = torch.arange(w * h, device=cuda)
+    lanes = pt._camera_lanes(cam, flat % w, flat // w, w, h, accumulation,
+                             torch.ones_like(flat, dtype=torch.bool))
+    assert torch.equal(hashes, lanes.pixel_hash)
+    for got, ref in ((origin, lanes.origin), (direction, lanes.direction)):
+        err = (got - ref).abs().amax(dim=-1)
+        assert bool((err <= 1e-6 * ref.norm(dim=-1)).all()), float(err.max())
+    assert torch.equal(active, lanes.active)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_megakernel_trace_probe_matches_dense_kernel(cuda, any_hit):
+    """The megakernel's chunk-culled dense trace against the dense trace
+    kernel on the same table: the same prim off ties, t/u/v bit for bit
+    where prim agrees; with any_hit the same occlusion."""
+    from bifrost3d_tpu_torch.apps.scenes import SCENES
+    sphere = SCENES["Sphere"](device=cuda)[0]
+    rng = np.random.default_rng(12)
+    rand = (rng.uniform(-1.0, 1.0, size=(1024, 1, 3))
+            + rng.normal(scale=0.15, size=(1024, 3, 3))).astype(np.float32)
+    for tris in (sphere.tri_verts, torch.tensor(rand, device=cuda)):
+        table = mega.dense_table(tris)
+        n = int(tris.shape[0])
+        o, d, t_max = _rays(8192, 13, -1.2, 1.2, cuda)
+        comp, _ = dense.pack_triangles(tris)
+        ref = dense.dense_intersect_cuda(comp, n, o, d, 1e-4, t_max)
+        got = mega.trace_probe(table, n, o, d, 1e-4, float("inf") if not
+                               any_hit else 2.0, any_hit)
+        if any_hit:
+            ref = dense.dense_intersect_cuda(comp, n, o, d, 1e-4, 2.0)
+            assert torch.equal(got.prim >= 0, ref.prim >= 0)
+            continue
+        ref = dense.dense_intersect_cuda(comp, n, o, d, 1e-4, float("inf"))
+        same = got.prim == ref.prim
+        tie = ~same & ((got.t - ref.t).abs() <= 1e-6 * ref.t.abs())
+        assert bool((same | tie).all())
+        for a, b in ((got.t, ref.t), (got.u, ref.u), (got.v, ref.v)):
+            assert torch.equal(a[same], b[same])
+        assert int((got.prim >= 0).sum()) > 800
+
+
+def test_megakernel_frame_makes_no_host_sync(cuda):
+    """After a scene's first frame, render_sample_fast reads nothing back
+    from the card (torch's sync debug mode raises on a synchronising op)
+    and launches the megakernel once."""
+    scene, cam = TEST_SCENES["mid_size"](device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    pt.render_sample_fast(scene, cam, 32, 32, 0, settings)
+    before = mega.launch_count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = pt.render_sample_fast(scene, cam, 32, 32, 1, settings)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     assert mega.launch_count == before + 1
-    ref = mega.mesh_megakernel_reference(*args)
-    img = torch.stack(got[:3], dim=-1).cpu().numpy()
-    assert_statistical_gate(img, torch.stack(ref[:3], dim=-1).cpu().numpy(),
-                            KERNEL_FLIPS, KERNEL_MEAN)
-    rays, ref_rays = float(got[3].sum()), float(ref[3].sum())
-    assert abs(rays - ref_rays) <= 0.02 * ref_rays
-    assert img.mean() > 0.01
+    assert float(img.mean()) > 0.0
+
+
+def test_megakernel_sees_in_place_writes(cuda):
+    """A frame after an in-place write to the scene's tensors equals a frame
+    of a freshly built scene with the same values."""
+    scene, cam = create_cornell_box(device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    pt.render_sample_fast(scene, cam, 32, 32, 1, settings)
+    fresh, _ = create_cornell_box(device=cuda)
+    with torch.no_grad():
+        scene.materials.tint.mul_(0.5)
+        scene.tri_verts.add_(0.01)
+    fresh = fresh._replace(
+        materials=fresh.materials._replace(tint=fresh.materials.tint * 0.5),
+        tri_verts=fresh.tri_verts + 0.01)
+    got = pt.render_sample_fast(scene, cam, 32, 32, 1, settings)
+    ref = pt.render_sample_fast(fresh, cam, 32, 32, 1, settings)
+    torch.testing.assert_close(got, ref, rtol=0.0, atol=0.0)
 
 
 def test_megakernel_failed_launch_raises(cuda, monkeypatch):
     scene, cam = create_cornell_box(device=cuda)
     settings = pt.settings_for_scene(scene, max_bounce_count=2)
-    args = mega.megakernel_inputs(scene, cam, 16, 16, 0, settings)
+    args = mega.megakernel_frame_inputs(scene, cam, 16, 16, 0, settings)
     before = mega.launch_count
     # 2048 threads per block is past the card's limit of 1024: a real
     # cudaErrorInvalidConfiguration from the launch.
@@ -164,6 +268,11 @@ def test_megakernel_failed_launch_raises(cuda, monkeypatch):
     assert mega.launch_count == before
     with pytest.raises(ValueError, match="n_tris"):
         mega.mesh_megakernel_cuda(*args[:-1], args[-1]._replace(n_tris=2000))
+    with pytest.raises(ValueError, match="camera rotation"):
+        bad = args[6].camera._replace(transform=args[6].camera.transform._replace(
+            rotation=args[6].camera.transform.rotation[:3]))
+        mega.mesh_megakernel_cuda(*args[:6], args[6]._replace(camera=bad),
+                                  *args[7:])
 
 
 # -- the SmallPT megakernel --------------------------------------------------------
@@ -289,6 +398,39 @@ def test_bvh_kernel_any_hit_and_sorted(cuda, packed_soup):
     assert 0 < int(occluded.sum()) < 5000
     srt = hier.hierarchical_intersect_sorted(packed, o, d, 1e-4, t_max)
     _assert_hits_agree(srt, ref)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_kernel_bound_and_live_count_forms(cuda, packed_soup, any_hit):
+    """Bounds as numbers, one-element tensors or [r] tensors, and the live
+    count as an int, an int64 or an int32 tensor, give the same hits; rays
+    past the live count miss with t = inf; the live prefix agrees with the
+    plain version."""
+    _, packed = packed_soup
+    r, live = 5000, 1777
+    o, d, t_max = _rays(r, 14, -0.9, 0.9, cuda)
+    forms = [(1e-4, t_max, live),
+             (torch.tensor(1e-4, device=cuda), t_max,
+              torch.tensor(live, device=cuda)),
+             (torch.full((r,), 1e-4, device=cuda), t_max,
+              torch.tensor([live], dtype=torch.int32, device=cuda))]
+    hits = [hier.hierarchical_intersect_cuda(packed, o, d, lo, hi, any_hit, n)
+            for lo, hi, n in forms]
+    for hit in hits[1:]:
+        assert torch.equal(hit.prim, hits[0].prim)
+        assert torch.equal(hit.t, hits[0].t)
+    assert bool((hits[0].prim[live:] == -1).all())
+    assert bool(torch.isinf(hits[0].t[live:]).all())
+    ref = hier.hierarchical_intersect_reference(packed, o, d, 1e-4, t_max,
+                                                any_hit=any_hit,
+                                                live_count=live)
+    got = type(ref)(*(f[:live] for f in hits[0]))
+    ref = type(ref)(*(f[:live] for f in ref))
+    if any_hit:
+        assert float(((got.prim >= 0) == (ref.prim >= 0)).float().mean()) \
+            >= 0.999
+    else:
+        _assert_hits_agree(got, ref)
 
 
 def test_bvh_kernel_matches_dense_kernel(cuda, packed_soup):
@@ -455,20 +597,12 @@ def test_hier_megakernel_matches_plain_version(cuda, name):
     res = 64
     scene, cam = TEST_SCENES[name](device=cuda)
     settings = pt.settings_for_scene(scene, max_bounce_count=2)
-    assert pt.explain_render_path(scene, settings) == "megakernel"
-    args = mega.megakernel_inputs(scene, cam, res, res, 1, settings)
+    assert pt.explain_render_path(scene, settings) == \
+        "megakernel (hier: cluster-BVH DMA trace)"
+    args = mega.megakernel_frame_inputs(scene, cam, res, res, 1, settings)
     assert args[-1].hier and isinstance(args[0], hier.HierTriangles)
-    before = mega.launch_count
-    got = mega.mesh_megakernel_cuda(*args)
-    torch.cuda.synchronize()
-    assert mega.launch_count == before + 1
-    ref = mega.mesh_megakernel_reference(*args)
-    img = torch.stack(got[:3], dim=-1).cpu().numpy()
-    assert_statistical_gate(img, torch.stack(ref[:3], dim=-1).cpu().numpy(),
-                            KERNEL_FLIPS, KERNEL_MEAN)
-    rays, ref_rays = float(got[3].sum()), float(ref[3].sum())
-    assert abs(rays - ref_rays) <= 0.02 * ref_rays
-    assert img.mean() > 0.01
+    assert args[6].tile == mega.HIER_PIXEL_TILE
+    _assert_kernel_matches_plain(scene, cam, res, settings)
 
 
 def test_hier_megakernel_frame_matches_wavefront(cuda, monkeypatch):
@@ -494,7 +628,7 @@ def test_hier_megakernel_frame_matches_wavefront(cuda, monkeypatch):
 def test_hier_megakernel_wrapper_validates(cuda):
     scene, cam = TEST_SCENES["mid_size"](device=cuda)
     settings = pt.settings_for_scene(scene, max_bounce_count=2)
-    args = mega.megakernel_inputs(scene, cam, 16, 16, 0, settings)
+    args = mega.megakernel_frame_inputs(scene, cam, 16, 16, 0, settings)
     with pytest.raises(TypeError, match="packed BVH"):
         mega.mesh_megakernel_cuda(*args[:-1], args[-1]._replace(hier=False))
     with pytest.raises(ValueError, match="n_tris"):
@@ -531,8 +665,8 @@ def test_extras_megakernel_matches_plain_version(cuda, name, hier_trace,
     settings = (pt.RenderSettings(max_bounce_count=2) if feature == "any_hit"
                 else pt.settings_for_scene(scene, max_bounce_count=2))
     assert mega.megakernel_ineligibility_reasons(scene, settings) == []
-    assert pt.explain_render_path(scene, settings) == "megakernel"
-    args = mega.megakernel_inputs(scene, cam, res, res, 1, settings)
+    assert pt.explain_render_path(scene, settings).startswith("megakernel")
+    args = mega.megakernel_frame_inputs(scene, cam, res, res, 1, settings)
     cfg = args[-1]
     assert cfg.extras and cfg.hier == hier_trace
     assert {"environment": cfg.env_meta is not None and cfg.n_nee_total
@@ -540,17 +674,7 @@ def test_extras_megakernel_matches_plain_version(cuda, name, hier_trace,
             "texture": any(mt[0] >= 0 for mt in cfg.mat_tex),
             "march": cfg.shadow_steps == 4 and cfg.any_coverage,
             "any_hit": cfg.shadow_steps == 0 and cfg.any_coverage}[feature]
-    before = mega.launch_count
-    got = mega.mesh_megakernel_cuda(*args)
-    torch.cuda.synchronize()
-    assert mega.launch_count == before + 1
-    ref = mega.mesh_megakernel_reference(*args)
-    img = torch.stack(got[:3], dim=-1).cpu().numpy()
-    assert_statistical_gate(img, torch.stack(ref[:3], dim=-1).cpu().numpy(),
-                            KERNEL_FLIPS, KERNEL_MEAN)
-    rays, ref_rays = float(got[3].sum()), float(ref[3].sum())
-    assert abs(rays - ref_rays) <= 0.02 * ref_rays
-    assert img.mean() > 1e-4
+    _assert_kernel_matches_plain(scene, cam, res, settings, min_mean=1e-4)
 
 
 @pytest.mark.parametrize("name", ["Sphere", "Opacity", "opacity_hier"])
@@ -590,25 +714,24 @@ def test_untouched_scene_keeps_its_instantiation(cuda):
     extras instantiation on the same inputs gives the same frame."""
     scene, cam = create_cornell_box(device=cuda)
     settings = pt.settings_for_scene(scene, max_bounce_count=2)
-    args = mega.megakernel_inputs(scene, cam, 64, 64, 1, settings)
+    args = mega.megakernel_frame_inputs(scene, cam, 64, 64, 1, settings)
     assert not args[-1].extras and args[-2] is None
     assert not args[-1].any_coverage and args[-1].shadow_steps == 0
-    plain = mega.mesh_megakernel_cuda(*args)
+    plain, _ = mega.mesh_megakernel_cuda(*args)
     # Binary shadows through the march (steps = 1: the last step occludes
     # fully) take the extras instantiation and must agree.
     forced = args[-1]._replace(shadow_steps=1)
     assert forced.extras
-    marched = mega.mesh_megakernel_cuda(*args[:-1], forced)
+    marched, _ = mega.mesh_megakernel_cuda(*args[:-1], forced)
     torch.cuda.synchronize()
-    a = torch.stack(plain[:3], dim=-1).cpu().numpy()
-    b = torch.stack(marched[:3], dim=-1).cpu().numpy()
-    assert_statistical_gate(b, a, KERNEL_FLIPS, KERNEL_MEAN)
+    assert_statistical_gate(marched.cpu().numpy(), plain.cpu().numpy(),
+                            KERNEL_FLIPS, KERNEL_MEAN)
 
 
 def test_extras_wrapper_validates(cuda):
     scene, cam = _extras_scene("Opacity", cuda)
     settings = pt.settings_for_scene(scene, max_bounce_count=2)
-    args = mega.megakernel_inputs(scene, cam, 16, 16, 0, settings)
+    args = mega.megakernel_frame_inputs(scene, cam, 16, 16, 0, settings)
     cfg, extras = args[-1], args[-2]
     with pytest.raises(ValueError, match="binds a texture"):
         mega.mesh_megakernel_cuda(*args[:-2], extras._replace(texels=None),
@@ -620,7 +743,7 @@ def test_extras_wrapper_validates(cuda):
         mega.mesh_megakernel_cuda(*args[:-1],
                                   cfg._replace(mat_tex=cfg.mat_tex[:1]))
     sphere, scam = _extras_scene("sphere_sun", cuda)
-    sargs = mega.megakernel_inputs(sphere, scam, 16, 16, 0, settings)
+    sargs = mega.megakernel_frame_inputs(sphere, scam, 16, 16, 0, settings)
     with pytest.raises(ValueError, match="env_pool"):
         mega.mesh_megakernel_cuda(
             *sargs[:-2], sargs[-2]._replace(env_pool=None), sargs[-1])

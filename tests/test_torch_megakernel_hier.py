@@ -5,8 +5,9 @@ On CPU tensors ``render_mesh_megakernel`` runs the kernel's plain PyTorch
 version, whose trace above ``MAX_TRIS`` is the lockstep walk over the
 port's packed triangle BVH with the attributes gathered by slot. It is held
 against the JAX megakernel's hier branch in Pallas interpret mode (one run
-for the whole file: it is the slow part) and against the port's own
-``render_sample`` on the very same scene arrays (the JAX
+for the whole file: it is the slow part; the port's own ``render_sample``
+as a second reference is in tests/test_torch_megakernel_hier_frames.py) on
+the very same scene arrays (the JAX
 ``tests/test_pallas_mesh.py::_mid_size_scene``, 2,494 triangles, carried
 across with ``render_scene_from_numpy``), at 32² and 2 bounces, under the
 statistical gate of tests/test_pallas_mesh.py:25-42 (at most 3% of pixels
@@ -262,21 +263,6 @@ def test_pixel_order_tiles_the_frame():
                        raster)
 
 
-def test_tiled_lanes_render_the_raster_image(mid_size, monkeypatch):
-    """A pixel's result does not depend on its lane: the frame rendered in
-    8 × 4 tiles and put back equals the frame rendered in raster order."""
-    _, _, scene, cam = mid_size
-    settings = tpt.settings_for_scene(scene, max_bounce_count=1)
-    assert tpm.HIER_PIXEL_TILE == (8, 4)
-    tiled, rays = tpm.render_mesh_megakernel(scene, cam, 16, 16, 2, settings)
-    monkeypatch.setattr(tpm, "HIER_PIXEL_TILE", None)
-    raster, raster_rays = tpm.render_mesh_megakernel(scene, cam, 16, 16, 2,
-                                                     settings)
-    torch.testing.assert_close(tiled, raster, rtol=1e-6, atol=1e-7)
-    assert float(rays) == float(raster_rays) > 0
-    assert float(tiled.mean()) > 0.01
-
-
 # -- frames ----------------------------------------------------------------------
 
 def test_plain_hier_matches_jax_interpret(plain_frame, jax_interpret):
@@ -285,13 +271,6 @@ def test_plain_hier_matches_jax_interpret(plain_frame, jax_interpret):
     assert_statistical_gate(img, ref)
     assert img.mean() > 0.01
     assert abs(rays - jrays) <= 0.02 * jrays, (rays, jrays)
-
-
-def test_plain_hier_matches_port_render_sample(mid_size, plain_frame):
-    _, _, scene, cam = mid_size
-    settings = tpt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-    ref = tpt.render_sample(scene, cam, RES, RES, 0, settings)
-    assert_statistical_gate(plain_frame[0], ref.numpy())
 
 
 def test_plain_hier_reports_its_walks(mid_size):
@@ -318,7 +297,7 @@ def test_plain_hier_reports_its_walks(mid_size):
 def test_dense_table_with_the_hier_flag_is_refused(mid_size):
     _, _, scene, cam = mid_size
     settings = tpt.settings_for_scene(scene, max_bounce_count=1)
-    args = tpm.megakernel_inputs(scene, cam, 8, 8, 0, settings)
+    args = tpm.megakernel_frame_inputs(scene, cam, 8, 8, 0, settings)
     with pytest.raises(TypeError, match="packed BVH"):
         tpm.mesh_megakernel_cuda(*args[:-1], args[-1]._replace(hier=False))
 
