@@ -12,8 +12,9 @@
 // its own registers and local memory, so here:
 //
 //   - one thread per ray walks the triangle BVH itself (leaves of at most 4
-//     triangles) with a private stack: the walk, its records and its tie
-//     rule are in csrc/bvh_walk.cuh, which the mesh megakernel's BVH branch
+//     triangles) with a private stack, one 64-byte child record (both
+//     children's boxes) per step: the walk, its records and its tie rule
+//     are in csrc/bvh_walk.cuh, which the mesh megakernel's BVH branch
 //     shares;
 //   - the kernel reads the rays as the wavefront holds them (origin and
 //     direction [r, 3]; t_min and t_max each a value, one device value, or
@@ -33,8 +34,8 @@
 // edge, coplanar faces) may answer with either id; comparisons allow that.
 //
 // What bounds it on an H100: memory latency, not bytes or flops. A ray reads
-// 24 B and writes 16 B, and visits some tens of nodes (32 B each, two
-// dependent loads per internal step) and a few leaves (48 B per triangle)
+// 24 B and writes 16 B, and enters some tens of internal nodes (one
+// dependent 64-byte record each) and a few leaves (48 B per triangle)
 // through L2/L1; incoherent rays diverge within the warp. Sorting rays
 // (hierarchical_intersect_sorted, the pool's sort) is what keeps
 // neighbouring threads in neighbouring subtrees.
@@ -62,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
 bvh_intersect_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                      int n_rays, Bound t_min, Bound t_max, int n_live,
                      const int* __restrict__ live32, const long long* __restrict__ live64,
-                     const float4* __restrict__ nodes, const float4* __restrict__ tris,
+                     const float4* __restrict__ recs, const float4* __restrict__ tris,
                      const int* __restrict__ order, float* __restrict__ out,
                      int* __restrict__ counter) {
   int live = n_live;
@@ -83,7 +84,7 @@ bvh_intersect_kernel(const float* __restrict__ origin, const float* __restrict__
         const bvh_walk::Ray r = bvh_walk::make_ray(
             origin[3 * i], origin[3 * i + 1], origin[3 * i + 2], direction[3 * i],
             direction[3 * i + 1], direction[3 * i + 2], t_min.at(i));
-        slot = bvh_walk::walk<kAnyHit>(nodes, tris, r, t_max.at(i), best_t, best_u, best_v);
+        slot = bvh_walk::walk<kAnyHit>(recs, tris, r, t_max.at(i), best_t, best_u, best_v);
       }
       const bool miss = slot < 0;
       out[i] = miss ? __int_as_float(0x7f800000) : best_t;   // +inf on a miss
@@ -105,7 +106,7 @@ int blocks_per_sm(int threads) {
 
 template <bool kAnyHit>
 int launch(const float* origin, const float* direction, int n_rays, Bound t_min, Bound t_max,
-           int n_live, const int* live32, const long long* live64, const float4* nodes,
+           int n_live, const int* live32, const long long* live64, const float4* recs,
            const float4* tris, const int* order, float* out, int threads, cudaStream_t s) {
   // __launch_bounds__ caps the block size at kThreads: a larger `threads`
   // has no occupancy and comes back as a launch error.
@@ -121,7 +122,7 @@ int launch(const float* origin, const float* direction, int n_rays, Bound t_min,
   cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   bvh_intersect_kernel<kAnyHit><<<blocks, threads, 0, s>>>(origin, direction, n_rays, t_min, t_max,
-                                                           n_live, live32, live64, nodes, tris,
+                                                           n_live, live32, live64, recs, tris,
                                                            order, out, counter);
   return static_cast<int>(cudaGetLastError());
 }
@@ -130,15 +131,15 @@ int launch(const float* origin, const float* direction, int n_rays, Bound t_min,
 
 // origin, direction: [n_rays, 3] float32. t_min / t_max: the value, or a
 // device pointer (stride 0: one value, stride 1: one per ray). The live count:
-// n_live, or one device integer of live_bits 32 or 64 (null: n_live). nodes:
-// [n_nodes, 8] float32 records; tris: [n_slots, 12] float32 records in leaf
+// n_live, or one device integer of live_bits 32 or 64 (null: n_live). recs:
+// [n_records, 16] float32 child records (pack_child_records); tris: [n_slots, 12] float32 records in leaf
 // order; order: [n_slots] int32 → original triangle ids. out: [4 * n_rays + 1]
 // float32: t, prim (int32 bits), u, v, then the work counter. Launches on
 // `stream`; returns the first CUDA error (0 = launched).
 extern "C" int bvh_intersect(const float* origin, const float* direction, int n_rays, float t_min,
                              const float* t_min_ptr, int t_min_stride, float t_max,
                              const float* t_max_ptr, int t_max_stride, int n_live,
-                             const void* live_ptr, int live_bits, const float* nodes,
+                             const void* live_ptr, int live_bits, const float* recs,
                              const float* tris, const int* order, int any_hit, float* out,
                              int threads, void* stream) {
   if (n_rays <= 0) return 0;
@@ -146,12 +147,12 @@ extern "C" int bvh_intersect(const float* origin, const float* direction, int n_
   const Bound hi = {t_max, t_max_ptr, t_max_stride};
   const int* live32 = live_bits == 32 ? static_cast<const int*>(live_ptr) : nullptr;
   const long long* live64 = live_bits == 64 ? static_cast<const long long*>(live_ptr) : nullptr;
-  const float4* n4 = reinterpret_cast<const float4*>(nodes);
+  const float4* r4 = reinterpret_cast<const float4*>(recs);
   const float4* t4 = reinterpret_cast<const float4*>(tris);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return any_hit ? launch<true>(origin, direction, n_rays, lo, hi, n_live, live32, live64, n4, t4,
+  return any_hit ? launch<true>(origin, direction, n_rays, lo, hi, n_live, live32, live64, r4, t4,
                                 order, out, threads, s)
-                 : launch<false>(origin, direction, n_rays, lo, hi, n_live, live32, live64, n4, t4,
+                 : launch<false>(origin, direction, n_rays, lo, hi, n_live, live32, live64, r4, t4,
                                  order, out, threads, s);
 }
 

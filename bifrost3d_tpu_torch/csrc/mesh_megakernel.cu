@@ -82,14 +82,18 @@
 // winner's attributes by a one-hot matrix product; dead lanes enter with
 // t_max = 0. None of that carries over. Here each thread walks the port's
 // triangle BVH (geometry/pallas_bvh.py::HierTriangles, leaves of at most 4
-// triangles) in global memory with a private stack — the walk of
-// csrc/bvh_walk.cuh, shared with csrc/bvh_intersect.cu — so the dense
+// triangles) in global memory with a private stack, so the dense
 // instantiations keep their registers and their shared-memory table, and a
-// dead lane has left its loop and traces nothing. After a closest hit the
-// attributes are read by SLOT: the wrapper packs the attribute table in the
-// tree's leaf order (as the TPU kernel's does), so the hit's slot indexes it
-// directly, neighbouring hits read neighbouring columns, and no slot → id
-// table is read. Shadow rays take the walk's any-hit mode with
+// dead lane has left its loop and traces nothing. The walk is
+// csrc/bvh_walk.cuh's, shared with csrc/bvh_intersect.cu, over the tree's
+// child records (pack_child_records: per internal node one 64-byte row with
+// both children's boxes and references, rows depth-first): a step is one
+// row, four independent float4 loads. Staging the top rows in shared memory
+// (255 or 511 of them, with cp.async) was no faster on an H100: they stay
+// in L1 (PERF.md). After a closest hit the attributes are read by SLOT:
+// the wrapper packs the attribute table in the tree's leaf order (as the
+// TPU kernel's does), so the hit's slot indexes it directly, neighbouring
+// hits read neighbouring columns, and no slot → id table is read. Shadow rays take the walk's any-hit mode with
 // t_max = dist * 0.9999. The wrapper chooses which thread renders which
 // pixel (the pixel hash comes from x and y): on this branch small 2-D tiles,
 // one per warp, so that a warp's rays stay close in the tree; the TPU
@@ -104,17 +108,26 @@
 // __uint2float_rn(x) * 2^-32 for the conversion, which the TPU kernel's
 // _u2f is defined to equal. megakernel_rng_probe exports the RNG so that a
 // test can hold it bit for bit against the port's torch path_rng_4d,
-// megakernel_camera_probe the camera lanes, and megakernel_trace_probe the
-// culled dense trace, for holding against csrc/dense_intersect.cu.
+// megakernel_camera_probe the camera lanes, megakernel_trace_probe the
+// culled dense trace, for holding against csrc/dense_intersect.cu, and
+// megakernel_hier_trace_probe the BVH walk as this file builds it, for
+// holding bit for bit against csrc/bvh_intersect.cu.
 //
 // What bounds it on an H100: per trace the dense branch tests every chunk
 // box (~24 flops each) and every triangle of the chunks it enters (~50
 // flops per test), so at hundreds of triangles it is FP32-issue-bound in
 // the trace; at Cornell's 34 triangles the shading math (transcendentals,
 // RIS) dominates.
-// The BVH branch is bound by memory latency: some tens of dependent 64-byte
-// node reads and a few 48-byte triangle reads per ray through L2/L1, rays of
-// a warp diverging after the first bounce.
+// The BVH branch is bound by memory latency: about 27 dependent 64-byte row
+// reads (one per step) and a few 48-byte triangle reads per ray, mostly L2
+// hits, rays of a warp diverging after the first bounce, at 116-127
+// registers (4 blocks of 128 per SM). On the 49,678-triangle bridge at 512²
+// the walks, at the walk probe's rates, are under half of the kernel's time
+// and shading the rest. Reading both children's boxes from the parent's row
+// did not make a step cheaper than a walk over node records, which reads
+// the node's own record before its children's boxes: that record is the
+// box the step before read, an L1 hit, so both walks wait for one L2 round
+// trip per step.
 // Divergence (paths end at different iterations; lanes pick different
 // lights and lobes) and register pressure (spills are reported by ptxas)
 // bound the achieved rate. This design does nothing about either: no path
@@ -159,7 +172,8 @@ constexpr int kSpot = 1;   // any other kind is directional
 struct MegakernelParams {
   const float* tri;          // dense: [t_pad, 16]: v0 0-2, e1 3-5, e2 6-8;
                              // hier: [t_pad, 12] records in slot order
-  const float* nodes;        // hier: [n_nodes, 8] records; dense: unused
+  const float* records;      // hier: [n_records, 16] child records
+                             // (pack_child_records); dense: unused
   const float* attr;         // [24, t_pad] (hier: columns in slot order)
   const float* mats;         // [n_mats, 16]
   const float* lights;       // [>= n_lights, 12]
@@ -1091,7 +1105,7 @@ struct TraceTables {
   const float4* s_tri4;  // dense: [n_tris, 3] records in shared memory
   const float4* s_box;   // dense: [n_chunks, 2] padded chunk boxes
   int n_tris;
-  const float4* nodes4;  // hier
+  const float4* recs4;   // hier: the child records
   const float4* tris4;   // hier
   const float* attr;     // [24, t_pad]
   int t_pad;
@@ -1114,7 +1128,7 @@ __device__ float shadow_march(const TraceTables& g, const TexTables& tex, V3 o, 
     int prim;
     if constexpr (kHier) {
       const bvh_walk::Ray ray = bvh_walk::make_ray(o.x, o.y, o.z, d.x, d.y, d.z, eps);
-      prim = bvh_walk::walk<false>(g.nodes4, g.tris4, ray, t_rem, t, hu, hv);
+      prim = bvh_walk::walk<false>(g.recs4, g.tris4, ray, t_rem, t, hu, hv);
     } else {
       prim = trace_dense<false>(g.s_tri4, g.s_box, g.n_tris, o, d, eps, t_rem, t, hu, hv);
     }
@@ -1267,11 +1281,11 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
   uint32_t bounce = 0u;
   float rays = 0.0f;
   bool active = cam.active;
-  const float4* nodes4 = reinterpret_cast<const float4*>(p.nodes);
+  const float4* recs4 = reinterpret_cast<const float4*>(p.records);
   const float4* tris4 = reinterpret_cast<const float4*>(p.tri);
   const EnvTables env = {p.env_img, p.env_pdf, p.env_w, p.env_h, p.env_pw, p.env_ph};
   const TexTables tex = {reinterpret_cast<const float4*>(p.texels), p.tex_meta, s_mat_tex};
-  const TraceTables geo = {s_tri4, s_box, p.n_tris, nodes4, tris4, p.attr, p.t_pad, s_mats};
+  const TraceTables geo = {s_tri4, s_box, p.n_tris, recs4, tris4, p.attr, p.t_pad, s_mats};
   // NEE candidates: the lights, and with kExtras the environment's pool.
   const int n_nee = kExtras ? p.n_nee_total : p.n_lights;
 
@@ -1281,7 +1295,7 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
     int prim;
     if constexpr (kHier) {
       const bvh_walk::Ray ray = bvh_walk::make_ray(o.x, o.y, o.z, d.x, d.y, d.z, eps);
-      prim = bvh_walk::walk<false>(nodes4, tris4, ray, kBig, t_hit, hu, hv);
+      prim = bvh_walk::walk<false>(recs4, tris4, ray, kBig, t_hit, hu, hv);
     } else {
       prim = trace_dense<false>(s_tri4, s_box, p.n_tris, o, d, eps, kBig, t_hit, hu, hv);
     }
@@ -1473,7 +1487,7 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
                                                          shadow_origin.z, res_dir.x, res_dir.y,
                                                          res_dir.z, eps);
             float t_any, u_any, v_any;
-            occluded = bvh_walk::walk<true>(nodes4, tris4, ray, res_dist * 0.9999f, t_any, u_any,
+            occluded = bvh_walk::walk<true>(recs4, tris4, ray, res_dist * 0.9999f, t_any, u_any,
                                             v_any) >= 0;
           } else {
             float t_any, u_any, v_any;
@@ -1566,6 +1580,34 @@ __global__ void trace_probe_kernel(const float* __restrict__ tri, int n_tris,
   out[3 * n_rays + i] = prim < 0 ? 0.0f : v;
 }
 
+// Walk probe: the BVH branch's walk over the child records for rays [n, 3]
+// from t_min to t_max[i] → out [4, n] as csrc/bvh_intersect.cu writes it:
+// t (+inf on a miss), order[slot] (int bits, -1 on a miss), u, v (0 on a
+// miss).
+template <bool kAnyHit>
+__global__ void hier_trace_probe_kernel(const float* __restrict__ records,
+                                        const float* __restrict__ tri,
+                                        const int* __restrict__ order,
+                                        const float* __restrict__ origin,
+                                        const float* __restrict__ direction, int n_rays,
+                                        float t_min, const float* __restrict__ t_max,
+                                        float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const bvh_walk::Ray r =
+      bvh_walk::make_ray(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2], direction[3 * i],
+                         direction[3 * i + 1], direction[3 * i + 2], t_min);
+  float t, u, v;
+  const int slot =
+      bvh_walk::walk<kAnyHit>(reinterpret_cast<const float4*>(records),
+                              reinterpret_cast<const float4*>(tri), r, t_max[i], t, u, v);
+  const bool miss = slot < 0;
+  out[i] = miss ? __int_as_float(0x7f800000) : t;
+  out[n_rays + i] = __int_as_float(miss ? -1 : __ldg(order + slot));
+  out[2 * n_rays + i] = miss ? 0.0f : u;
+  out[3 * n_rays + i] = miss ? 0.0f : v;
+}
+
 // Dynamic shared memory of the dense trace's tables: the records and the
 // chunk boxes.
 __host__ __device__ constexpr size_t staged_bytes(int n_tris) {
@@ -1640,6 +1682,27 @@ extern "C" int megakernel_camera_probe(const MegakernelParams* params, float* ou
   const int threads = 128;
   camera_probe_kernel<<<(p.n_pixels + threads - 1) / threads, threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The BVH branch's walk on its own (hier_trace_probe_kernel): records
+// [n_records, 16], tri [n_slots, 12], order [n_slots], rays [n_rays, 3],
+// t_max [n_rays], out [4, n_rays].
+extern "C" int megakernel_hier_trace_probe(const float* records, const float* tri,
+                                           const int* order, const float* origin,
+                                           const float* direction, int n_rays, float t_min,
+                                           const float* t_max, int any_hit, float* out,
+                                           void* stream) {
+  if (n_rays <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (n_rays + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (any_hit)
+    hier_trace_probe_kernel<true><<<blocks, threads, 0, s>>>(records, tri, order, origin,
+                                                             direction, n_rays, t_min, t_max, out);
+  else
+    hier_trace_probe_kernel<false><<<blocks, threads, 0, s>>>(records, tri, order, origin,
+                                                              direction, n_rays, t_min, t_max, out);
   return static_cast<int>(cudaGetLastError());
 }
 

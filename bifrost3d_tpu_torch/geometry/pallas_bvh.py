@@ -4,7 +4,8 @@ Port of ``bifrost3d_tpu/geometry/pallas_bvh.py`` (``HierTriangles``,
 ``pack_hierarchical``, ``hierarchical_intersect``,
 ``hierarchical_intersect_sorted``). The TPU kernel ``_make_hier_kernel``
 becomes the hand-written CUDA kernel ``csrc/bvh_intersect.cu`` (one thread
-per ray with a private stack, persistent warps taking 32-ray batches; it
+per ray with a private stack, one 64-byte child record per step
+(:func:`pack_child_records`), persistent warps taking 32-ray batches; it
 reads the rays and bounds as given and writes the final hits, so a call is
 one memset and one launch; its header says what bounds it on an H100).
 
@@ -21,6 +22,8 @@ from __future__ import annotations
 import ctypes
 import functools
 from typing import NamedTuple
+
+import numpy as np
 
 import torch
 
@@ -57,7 +60,9 @@ class HierTriangles(NamedTuple):
     (``geometry/bvh.py``: leaves of at most 4 triangles) in records sized
     for 16-byte loads. ``order`` and ``n_tris`` keep the JAX meaning: slot
     → original triangle id, and the number of slots that may hold a
-    triangle.
+    triangle. ``node_boxes`` is the plain version's table; the kernels
+    walk ``child_records``, the same tree as one 64-byte record per
+    internal node (:func:`pack_child_records`).
     """
 
     tri_components: torch.Tensor  # [T, 12] f32 leaf-ordered (v0, e1, e2, 0 0 0)
@@ -67,6 +72,7 @@ class HierTriangles(NamedTuple):
     n_tris: int
     max_depth: int                # of the tree; the kernel's stack holds
                                   #   STACK_SIZE entries
+    child_records: torch.Tensor   # [1 + internal nodes, 16] f32
 
     @property
     def node_meta(self) -> torch.Tensor:
@@ -106,10 +112,84 @@ def pack_hierarchical(tri_verts, bvh: BVH | None = None) -> HierTriangles:
     boxes = torch.cat([bvh.node_min.to(torch.float32),
                        bvh.node_max.to(torch.float32),
                        meta.contiguous().view(torch.float32)], dim=1)
-    return HierTriangles(tri_components=comp.contiguous(),
-                         node_boxes=boxes.contiguous(),
-                         order=order.contiguous(), n_tris=t,
-                         max_depth=depth)
+    packed = HierTriangles(tri_components=comp.contiguous(),
+                           node_boxes=boxes.contiguous(),
+                           order=order.contiguous(), n_tris=t,
+                           max_depth=depth, child_records=None)
+    return packed._replace(child_records=pack_child_records(packed))
+
+
+# A leaf reference of a child record: ~(first slot << 3 | count - 1).
+LEAF_COUNT_BITS = 3
+MAX_LEAF_SLOT = 2**(31 - LEAF_COUNT_BITS) - 1
+
+
+def pack_child_records(packed: HierTriangles) -> torch.Tensor:
+    """The tree of ``packed.node_boxes`` as child records → float32
+    [1 + internal nodes, 16] on the tree's device, for the kernels' walk
+    (``csrc/bvh_walk.cuh``): one step reads one 64-byte row and slab-tests
+    both children from it, where the node table needs the node's own
+    record before its children's boxes.
+
+    Row 0 holds the root: its box (lo.xyz, hi.xyz in columns 0-5) and its
+    reference (column 12). Rows 1.. are the internal nodes in the node
+    table's depth-first order, so an internal left child's row follows its
+    parent's (a descent reads neighbouring rows, two to a 128-byte line):
+    the left child's box (0-5), the right child's box (6-11), the left and
+    the right reference (12, 13, int32 bits), zeros (14, 15). A reference r > 0 is
+    internal row r; r < 0 a leaf ``~(first slot << 3 | count - 1)``; row 0
+    is never a child, so 0 means none. The leaves' triangle slots are the
+    packing's own."""
+    boxes = packed.node_boxes[:, 0:6].detach().cpu().numpy()
+    meta = packed.node_meta.cpu().numpy()
+    a, count = meta[:, 0].astype(np.int64), meta[:, 1].astype(np.int64)
+    leaf = count > 0
+    if leaf.any() and (count.max() > 1 << LEAF_COUNT_BITS
+                       or a[leaf].max() > MAX_LEAF_SLOT):
+        raise ValueError(f"a leaf holds more than {1 << LEAF_COUNT_BITS} "
+                         f"triangles or starts past slot {MAX_LEAF_SLOT}")
+    internal = np.flatnonzero(~leaf)
+    row = np.zeros(len(a), np.int64)
+    row[internal] = np.arange(1, len(internal) + 1)
+    ref = np.where(leaf, ~((a << LEAF_COUNT_BITS) | (count - 1)), row)
+    table = np.zeros((1 + len(internal), 16), np.float32)
+    bits = table.view(np.int32)
+    table[0, 0:6] = boxes[0]
+    bits[0, 12] = ref[0]
+    left, right = internal + 1, a[internal]
+    table[1:, 0:6] = boxes[left]
+    table[1:, 6:12] = boxes[right]
+    bits[1:, 12] = ref[left]
+    bits[1:, 13] = ref[right]
+    return torch.from_numpy(table).to(packed.node_boxes.device)
+
+
+def unpack_child_records(records) -> torch.Tensor:
+    """The inverse of :func:`pack_child_records` → ``node_boxes`` [n, 8]
+    in the packing's depth-first layout (left child = node + 1, right child
+    in ``node_a``), on the CPU."""
+    table = np.asarray(torch.as_tensor(records).cpu(), np.float32)
+    bits = table.view(np.int32)
+    rows, metas = [], []
+
+    def emit(box, ref) -> int:
+        node = len(rows)
+        rows.append(box)
+        metas.append(None)
+        if ref < 0:
+            leaf = ~int(ref)
+            metas[node] = (leaf >> LEAF_COUNT_BITS,
+                           (leaf & ((1 << LEAF_COUNT_BITS) - 1)) + 1)
+        else:
+            emit(table[ref, 0:6], bits[ref, 12])
+            metas[node] = (emit(table[ref, 6:12], bits[ref, 13]), 0)
+        return node
+
+    emit(table[0, 0:6], bits[0, 12])
+    out = np.zeros((len(rows), 8), np.float32)
+    out[:, 0:6] = rows
+    out[:, 6:8].view(np.int32)[:] = metas
+    return torch.from_numpy(out)
 
 
 def hierarchical_intersect_reference(packed: HierTriangles, origin, direction,
@@ -193,9 +273,9 @@ def hierarchical_intersect_cuda(packed: HierTriangles, origin, direction,
         raise ValueError("origin and direction must both be [r, 3]")
     if packed.tri_components.dim() != 2 or packed.tri_components.shape[1] != 12:
         raise ValueError("tri_components must be [T, 12]")
-    if packed.node_boxes.dim() != 2 or packed.node_boxes.shape[1] != 8 \
-            or packed.node_boxes.shape[0] < 1:
-        raise ValueError("node_boxes must be [n >= 1, 8]")
+    records = packed.child_records
+    if records.dim() != 2 or records.shape[1] != 16 or records.shape[0] < 1:
+        raise ValueError("child_records must be [n >= 1, 16]")
     if packed.order.shape != (packed.tri_components.shape[0],):
         raise ValueError("order must hold one id per triangle slot")
     if packed.max_depth + 1 > STACK_SIZE:
@@ -207,7 +287,7 @@ def hierarchical_intersect_cuda(packed: HierTriangles, origin, direction,
     _check("origin", origin, torch.float32, device)
     _check("direction", direction, torch.float32, device)
     _check("tri_components", packed.tri_components, torch.float32, device)
-    _check("node_boxes", packed.node_boxes, torch.float32, device)
+    _check("child_records", records, torch.float32, device)
     _check("order", packed.order, torch.int32, device)
     # The bound tensors stay referenced until the launch is enqueued.
     lo, lo_ptr, lo_stride, _lo = _kernel_bound(t_min, r, device, "t_min")
@@ -228,7 +308,7 @@ def hierarchical_intersect_cuda(packed: HierTriangles, origin, direction,
     err = _library().bvh_intersect(
         origin.data_ptr(), direction.data_ptr(), r, lo, lo_ptr, lo_stride,
         hi, hi_ptr, hi_stride, n_live, live_ptr, live_bits,
-        packed.node_boxes.data_ptr(), packed.tri_components.data_ptr(),
+        records.data_ptr(), packed.tri_components.data_ptr(),
         packed.order.data_ptr(), int(any_hit), out.data_ptr(), _THREADS,
         stream)
     if err != 0:

@@ -195,8 +195,10 @@ def traverse_lockstep(node_min, node_max, node_a, node_count, fetch_leaf,
     A ``stats`` dict, if given, receives this walk's work as tensors:
     ``steps``, ``box_tests`` (nodes popped), ``tri_tests`` (triangles of
     the leaves entered), and the distinct memory behind them:
-    ``unique_nodes`` (nodes popped by at least one ray) and ``unique_tris``
-    (triangles of the leaves entered by at least one ray).
+    ``unique_nodes`` (nodes popped by at least one ray),
+    ``unique_internal`` (internal nodes entered by at least one ray: the
+    child records a kernel reads) and ``unique_tris`` (triangles of the
+    leaves entered by at least one ray).
     """
     r = origin.shape[0]
     device = origin.device
@@ -223,6 +225,7 @@ def traverse_lockstep(node_min, node_max, node_a, node_count, fetch_leaf,
         node_seen = torch.zeros(node_a.shape[0], dtype=torch.bool,
                                 device=device)
         leaf_seen = torch.zeros_like(node_seen)
+        inner_seen = torch.zeros_like(node_seen)
 
     while bool((sp > 0).any().item()):
         active = sp > 0
@@ -266,6 +269,8 @@ def traverse_lockstep(node_min, node_max, node_a, node_count, fetch_leaf,
 
         # Internal: push both children (left = node + 1, right = node_a).
         push = box_hit & ~is_leaf
+        if stats is not None:
+            inner_seen[node[push]] = True
         slot0 = torch.clamp(sp, 0, STACK_SIZE - 1)[:, None]
         stack.scatter_(1, slot0, torch.where(
             push, a, torch.gather(stack, 1, slot0)[:, 0])[:, None])
@@ -278,6 +283,7 @@ def traverse_lockstep(node_min, node_max, node_a, node_count, fetch_leaf,
     if stats is not None:
         stats.update(steps=steps, box_tests=box_tests, tri_tests=tri_tests,
                      unique_nodes=node_seen.sum(),
+                     unique_internal=inner_seen.sum(),
                      unique_tris=node_count[leaf_seen].sum())
     miss = best_prim < 0
     return Hit(t=torch.where(miss, float("inf"), best_t), prim=best_prim,

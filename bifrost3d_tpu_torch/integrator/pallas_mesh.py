@@ -749,7 +749,8 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
     boxes and the triangles of the chunks it entered), and the shadow rays
     traced: ``shadow_traces`` (one any-hit
     query per shaded hit whose light sample carries radiance) or, with the
-    march, ``march_traces``.
+    march, ``march_traces``; and ``shaded``, the iterations that shaded a
+    hit.
 
     Mirrors one iteration of the JAX ``_make_kernel`` step in order:
     closest hit, analytic-light hits, miss → background or the environment
@@ -893,6 +894,8 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
                                  torch.abs(cos_theta_o))
         radiance = radiance + torch.where(shade[:, None],
                                           throughput * m[:, 7:10], 0.0)
+        if stats is not None:
+            stats["shaded"] = stats.get("shaded", 0) + int(shade.sum())
 
         nee_valid = torch.zeros(p, dtype=torch.bool, device=device)
         if cfg.n_nee_total > 0 and cfg.ris_count > 0:
@@ -984,7 +987,7 @@ class _Params(ctypes.Structure):
     """Mirror of ``MegakernelParams`` in csrc/mesh_megakernel.cu."""
 
     _fields_ = [
-        ("tri", ctypes.c_void_p), ("nodes", ctypes.c_void_p),
+        ("tri", ctypes.c_void_p), ("records", ctypes.c_void_p),
         ("attr", ctypes.c_void_p),
         ("mats", ctypes.c_void_p), ("lights", ctypes.c_void_p),
         ("rho_ggx", ctypes.c_void_p), ("rho_fres", ctypes.c_void_p),
@@ -1041,6 +1044,11 @@ def _library():
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p]
     lib.megakernel_trace_probe.restype = ctypes.c_int
+    lib.megakernel_hier_trace_probe.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.megakernel_hier_trace_probe.restype = ctypes.c_int
     return lib
 
 
@@ -1150,6 +1158,18 @@ def _camera_params(frame: CameraFrame, device) -> dict:
                 tile_w=tile_w, tile_h=tile_h, n_pixels=width * height)
 
 
+def _walk_records(tree: HierTriangles, device) -> torch.Tensor:
+    """The tree's child records, checked for the BVH branch's walk."""
+    records = tree.child_records
+    if records.dim() != 2 or records.shape[1] != 16 or records.shape[0] < 1:
+        raise ValueError("child_records must be [n >= 1, 16]")
+    if tree.max_depth + 1 > STACK_SIZE:
+        raise ValueError(f"BVH depth {tree.max_depth} exceeds the kernel "
+                         f"stack ({STACK_SIZE})")
+    _check("child_records", records, torch.float32, device)
+    return records
+
+
 def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres,
                          frame: CameraFrame, accumulation: int, scalars,
                          extras, cfg: KernelConfig):
@@ -1166,19 +1186,14 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres,
     if cfg.hier != isinstance(tri, HierTriangles):
         raise TypeError("tri must be the packed BVH with cfg.hier, the "
                         "dense [t_pad, 16] table without")
-    nodes = None
+    records = None
     if cfg.hier:
-        tree, nodes, tri = tri, tri.node_boxes, tri.tri_components
+        tree, tri = tri, tri.tri_components
         if not 0 < cfg.n_tris <= HIER_MAX_TRIS or cfg.n_tris != tree.n_tris \
                 or tri.shape != (cfg.n_tris, 12):
             raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
                              f"{HIER_MAX_TRIS}] or not the packed tree's")
-        if nodes.dim() != 2 or nodes.shape[1] != 8 or nodes.shape[0] < 1:
-            raise ValueError("node_boxes must be [n >= 1, 8]")
-        if tree.max_depth + 1 > STACK_SIZE:
-            raise ValueError(f"BVH depth {tree.max_depth} exceeds the "
-                             f"kernel stack ({STACK_SIZE})")
-        _check("node_boxes", nodes, torch.float32, device)
+        records = _walk_records(tree, device)
     else:
         if not 0 < cfg.n_tris <= min(MAX_TRIS, tri.shape[0]):
             raise ValueError(f"n_tris={cfg.n_tris} outside (0, {MAX_TRIS}] "
@@ -1220,7 +1235,7 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres,
     p = camera["n_pixels"]
     out = torch.empty(4 * p, dtype=torch.float32, device=device)
     params = _Params(
-        tri=tri.data_ptr(), nodes=ptr(nodes), attr=attr.data_ptr(),
+        tri=tri.data_ptr(), records=ptr(records), attr=attr.data_ptr(),
         mats=mats.data_ptr(), lights=lights.data_ptr(),
         rho_ggx=rho_ggx.data_ptr(), rho_fres=rho_fres.data_ptr(),
         sobol=_sobol_dirs(device).data_ptr(), scalars=scalars.data_ptr(),
@@ -1299,6 +1314,36 @@ def trace_probe(tri, n_tris: int, origin, direction, t_min: float,
         raise RuntimeError(f"megakernel_trace_probe launch failed: "
                            f"cudaError {err}")
     return _finish(out[0], out[1].view(torch.int32), out[2], out[3])
+
+
+def hier_trace_probe(tree: HierTriangles, origin, direction, t_min: float,
+                     t_max, any_hit: bool = False) -> Hit:
+    """The BVH branch's walk on its own, as csrc/mesh_megakernel.cu builds
+    it, for rays [r, 3] from ``t_min`` to ``t_max`` (a number or [r]) → Hit
+    as ``pallas_bvh.hierarchical_intersect_cuda`` returns it (prim =
+    ``tree.order[slot]``), for holding it bit for bit against that
+    kernel, which builds the same walk in its own library."""
+    device = origin.device
+    r = int(origin.shape[0])
+    if origin.shape != (r, 3) or direction.shape != (r, 3):
+        raise ValueError("origin and direction must both be [r, 3]")
+    records = _walk_records(tree, device)
+    t_max = ray_bounds(t_max, r, origin).contiguous()
+    for name, x in (("tri_components", tree.tri_components),
+                    ("origin", origin), ("direction", direction),
+                    ("t_max", t_max)):
+        _check(name, x, torch.float32, device)
+    _check("order", tree.order, torch.int32, device)
+    out = torch.empty((4, r), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _library().megakernel_hier_trace_probe(
+        records.data_ptr(), tree.tri_components.data_ptr(),
+        tree.order.data_ptr(), origin.data_ptr(), direction.data_ptr(), r,
+        float(t_min), t_max.data_ptr(), int(any_hit), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel_hier_trace_probe launch failed: "
+                           f"cudaError {err}")
+    return Hit(t=out[0], prim=out[1].view(torch.int32), u=out[2], v=out[3])
 
 
 def rng_probe(accumulation: int, pixel_hash, dimension):

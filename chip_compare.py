@@ -1,0 +1,272 @@
+"""Two trees of this repository on one CUDA card, in turns: the port's
+kernels driven through the package's public entry points, timed, and their
+outputs compared bit for bit.
+
+Usage, from the root of this tree, with another commit unpacked into a
+directory that ``.gitignore`` lists::
+
+    git archive <commit> | tar -x -C build/parent
+    python3 chip_compare.py build/parent
+
+It builds both trees' kernels in parallel, then runs four turns (other,
+this, this, other), each in a process of its own that imports its tree's
+``bifrost3d_tpu_torch`` and calls the same workloads through functions
+both trees export. For each workload one ``RESULT`` line per turn gives
+``call_ms``, the median time of the call between CUDA events, and
+``kernel_ms``, the device time per call of the kernels it launched other
+than torch's own and memsets (torch.profiler), so a wrapper's host work and
+torch ops are left out; the SmallPT app's frame is timed on the host clock;
+``nvidia-smi`` clocks, power draw and limit are printed beside each group.
+Then ``BITEQ`` says which workloads' outputs are bit-equal between the
+trees, and between the two turns of each tree, and ``SUMMARY`` gives each
+time of both turns of both trees. Timing helpers and ray sets are
+chip_smoke.py's.
+
+``python3 chip_compare.py --turn ROOT LABEL OUT.npz`` runs one turn.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SPT_W, SPT_H, SPT_FRAMES = 1024, 768, 8
+HIER_SCENES = ("hier_bridge_50k", "hier_bridge_15k_env", "torus_grid_28")
+DENSE_SCENES = ("CornellBox", "Sphere")
+
+
+def _smoke():
+    """chip_smoke.py of this tree, for its helpers (its main does not run)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_helpers", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def kernel_ms(workloads, repeats=10) -> dict:
+    """Device time per call of the kernels each workload launches, torch's
+    own kernels and memsets left out: one torch.profiler session over all
+    of them (the card's trace has been seen to go missing in a later
+    session of one process), each workload's calls in a range of their own
+    that ends in a synchronise, kernels assigned to the range they start
+    in. None where the trace holds no kernel of a workload."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in workloads:
+            with record_function(f"workload:{name}"):
+                for _ in range(repeats):
+                    fn()
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # The ranges on the host; on the card each range is also an annotation
+    # spanning its kernels, which is no kernel.
+    windows = {e.name.split(":", 1)[1]: e.time_range for e in events
+               if e.name.startswith("workload:") and e.device_type != cuda}
+    total = dict.fromkeys(windows, 0.0)
+    for e in events:
+        if e.device_type != cuda or any(
+                word in e.name
+                for word in ("workload:", "at::", "Memset", "Memcpy")):
+            continue
+        for name, window in windows.items():
+            if window.start <= e.time_range.start <= window.end:
+                total[name] += e.time_range.elapsed_us()
+    return {name: (us / repeats / 1e3 if us else None)
+            for name, us in total.items()}
+
+
+def turn(root: str, label: str, out_path: str) -> None:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import numpy as np
+    import torch
+
+    import bifrost3d_tpu_torch
+    if os.path.dirname(os.path.dirname(os.path.abspath(
+            bifrost3d_tpu_torch.__file__))) != root:
+        raise SystemExit(f"imported {bifrost3d_tpu_torch.__file__}, not {root}")
+    from bifrost3d_tpu_torch.apps import smallpt_app
+    from bifrost3d_tpu_torch.apps.scenes import (SCENES, TEST_SCENES,
+                                                 torus_grid_mesh)
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
+
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    res, arrays, workloads = {"label": label}, {}, []
+    inf = float("inf")
+
+    def run(name, fn, repeats=20):
+        """Outputs and call_ms of one workload; kernel_ms comes last, so
+        ``fn`` binds what it uses."""
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        for k, x in enumerate(out):
+            arrays[f"{name}:{k}".replace("/", ".")] = x.detach().cpu().numpy()
+        res[f"{name}/call_ms"] = smoke._median_ms(fn, repeats=repeats)
+        workloads.append((name, fn))
+
+    # -- B5: frames at accumulations 1 and 2, and the app's frame -------------
+    w, h = SPT_W, SPT_H
+    scene = smallpt_scene(device=dev)
+    for acc in (1, 2):
+        run(f"smallpt_acc{acc}",
+            lambda scene=scene, acc=acc: spt.smallpt_megakernel_cuda(
+                scene, w, h, acc))
+    image = smallpt_app.render_progressive(w, h, SPT_FRAMES, quiet=True,
+                                           device=dev)
+    arrays["smallpt_app:0"] = image.cpu().numpy()
+    frames = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smallpt_app.render_progressive(w, h, SPT_FRAMES, quiet=True,
+                                       device=dev)
+        frames.append((time.perf_counter() - t0) * 1e3 / SPT_FRAMES)
+    res["smallpt_app/frame_ms"] = statistics.median(frames)
+    res["smi/smallpt"] = smoke.smi()
+
+    # -- B3 at 512², B2 on the dense scenes -------------------------------------
+    for name in HIER_SCENES + DENSE_SCENES:
+        scene, camera = (SCENES[name] if name in SCENES
+                         else TEST_SCENES[name])(device=dev)
+        settings = pt.settings_for_scene(scene, max_bounce_count=smoke.BOUNCES)
+        args = mega.megakernel_frame_inputs(scene, camera, smoke.RES,
+                                            smoke.RES, 1, settings)
+        run(f"megakernel/{name}",
+            lambda args=args: mega.mesh_megakernel_cuda(*args), repeats=10)
+    res["smi/megakernel"] = smoke.smi()
+
+    # -- B4 on the bridge's 512² camera and incoherent rays, and on the torus
+    # grid's ray sets ------------------------------------------------------------
+    scene, camera = TEST_SCENES["hier_bridge_50k"](device=dev)
+    trees = {"bridge": (hier.pack_hierarchical(scene.tri_verts, scene.bvh),
+                        smoke._walk_rays(scene, camera, dev))}
+    mesh = torus_grid_mesh()
+    trees["torus_grid"] = (
+        hier.pack_hierarchical(torch.tensor(mesh.positions[mesh.indices],
+                                            device=dev)),
+        smoke._torus_rays(dev))
+    for tree_name, (tree, rays) in trees.items():
+        for kind, (o, d) in rays.items():
+            for any_hit in (False, True):
+                name = f"bvh/{tree_name}/{kind}{'/any' if any_hit else ''}"
+                run(name, lambda tree=tree, o=o, d=d, any_hit=any_hit: tuple(
+                    hier.hierarchical_intersect_cuda(tree, o, d, 1e-4, inf,
+                                                     any_hit=any_hit)))
+    res["smi/bvh"] = smoke.smi()
+    for name, ms in kernel_ms(workloads).items():
+        res[f"{name}/kernel_ms"] = ms
+
+    np.savez(out_path, **arrays)
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+def compare(turns) -> dict:
+    """Per workload: bit-equal between the trees (first turns), and each
+    tree's two turns bit-equal."""
+    import numpy as np
+    data = {}
+    for path, label in turns:
+        data.setdefault(label, []).append(dict(np.load(path)))
+    other, this = data["other"][0], data["this"][0]
+    out = {}
+    for key in sorted(set(other) | set(this)):
+        name = key.rsplit(":", 1)[0]
+        same = key in other and key in this and _same(other[key], this[key])
+        out[name] = out.get(name, True) and same
+    for label, runs in data.items():
+        out[f"{label}_turns_bit_equal"] = all(
+            _same(runs[0][key], runs[1][key]) for key in runs[0])
+    return out
+
+
+def build(root: str) -> subprocess.Popen:
+    """Builds ``root``'s CUDA sources in parallel; prints each build's
+    registers and spills."""
+    code = ("import os, sys; sys.path.insert(0, sys.argv[1]);"
+            "from concurrent.futures import ThreadPoolExecutor;"
+            "from bifrost3d_tpu_torch.utils import cuda_build;"
+            "csrc = os.path.join(sys.argv[1], 'bifrost3d_tpu_torch', 'csrc');"
+            "srcs = sorted(f for f in os.listdir(csrc) if f.endswith('.cu'));"
+            "paths = list(ThreadPoolExecutor(len(srcs)).map(cuda_build.build, srcs));"
+            "[print(sys.argv[1], s, ' '.join(l.strip() for l in open(p[:-3] + '.log')"
+            " if 'registers' in l or 'spill' in l or 'Compiling' in l))"
+            " for s, p in zip(srcs, paths)]")
+    return subprocess.Popen([sys.executable, "-c", code, root],
+                            stdout=subprocess.PIPE, text=True)
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--turn"]:
+        turn(*argv[1:4])
+        return 0
+    if len(argv) != 1:
+        print(__doc__)
+        return 2
+    other = os.path.abspath(argv[0])
+    if not os.path.isdir(os.path.join(other, "bifrost3d_tpu_torch")):
+        print(f"no bifrost3d_tpu_torch under {other}", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    builds = [build(other), build(REPO)]
+    for proc in builds:
+        text, _ = proc.communicate()
+        print(text.strip(), flush=True)
+        if proc.returncode != 0:
+            return 1
+    print(f"built both trees in {time.perf_counter() - t0:.1f} s", flush=True)
+    out_dir = os.path.join(REPO, "build", "compare")
+    os.makedirs(out_dir, exist_ok=True)
+    turns, results = [], []
+    for k, label in enumerate(("other", "this", "this", "other")):
+        root = other if label == "other" else REPO
+        path = os.path.join(out_dir, f"turn{k}_{label}.npz")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--turn", root, label,
+             path], capture_output=True, text=True, timeout=900)
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith("RESULT ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        print(lines[-1], flush=True)
+        results.append(json.loads(lines[-1][len("RESULT "):]))
+        turns.append((path, label))
+    print("BITEQ " + json.dumps(compare(turns)), flush=True)
+    summary = {}
+    for r in results:
+        for key, value in r.items():
+            if key.endswith("_ms"):
+                summary.setdefault(key, {}).setdefault(r["label"], []).append(
+                    value)
+    print("SUMMARY " + json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -65,7 +65,14 @@ the last line):
 8. kernel/smallpt: the SmallPT megakernel at 1024 x 768, accumulations 1
    and 2, against its plain version (the eager wavefront over all
    pixels): share of pixels off by > 1e-4 and relative gap of the means,
-   both gated; median times of both by CUDA events.
+   both gated; the app's entry smallpt_megakernel_accumulate (the running
+   mean lerped in the kernel) at accumulations 1-3, each launch given the
+   plain version's running mean so far: under the same gates against
+   smallpt_megakernel_accumulate_reference, and bit for bit the write
+   branch's frame lerped by torch; median times by CUDA events of the launch alone (its memset
+   and the kernel, the cached sphere table and camera made outside the
+   events), of the wrapper's call and of the plain version; the persistent
+   grid's blocks per SM; the card's SM clock and power draw.
 9. kernel/bvh: the BVH trace kernel on the 589,824-triangle torus grid
    with 65,536 coherent camera rays and 65,536 seeded incoherent rays:
    closest hit, any-hit, and the sorted wrapper, each against the plain
@@ -79,8 +86,12 @@ the last line):
 10. smallpt: smallpt_app.render_progressive(1024, 768, 8) on the card,
    main path A: exactly 8 SmallPT-kernel launches, frames/s and
    pixel-samples/s, the image finite and lit and written to
-   build/smallpt_1024x768.png; the pooled torch wavefront renders one
-   frame for comparison.
+   build/smallpt_1024x768.png; the app's frame time after a first render
+   (host clock, median of 3); one render of 8 frames under torch.profiler
+   with torch's sync debug mode raising: 8 SmallPT kernels, at most one
+   kernel-launch call and one memset a frame (and the buffer's fill), no
+   host-device copy, at most one host synchronise (the return's); the
+   pooled torch wavefront renders one frame for comparison.
 11. torus_grid: the 589,824-triangle scene at 512², 4 bounces through
    render_sample_fast, main path B: explain_render_path, BVH-kernel
    launches > 0 and dense-kernel launches 0 on that frame, wavefront
@@ -105,6 +116,14 @@ the last line):
    largest at 512² the median kernel time with the lanes in 8 x 4 pixel
    tiles and in raster order, in turns, and the plain version's time and
    box and triangle test counts.
+   walk: the BVH branch's walk alone as the megakernel's library builds it
+   (megakernel_hier_trace_probe) against the BVH trace kernel, which walks
+   the same child records, on the trees of the 49,678-triangle bridge,
+   hier_bridge_15k_env and torus_grid_28, with each scene's 512² camera
+   rays and 262,144 seeded incoherent rays: t, prim, u, v bit for bit,
+   closest hit and unbounded any-hit; B3's time at 512² on each; on the
+   bridge both walks' times and the walk's share of B3 (the probe's rates
+   times the frame's traces).
 14. hier_bridge: the 49,678-triangle scene at 512², 4 bounces, 8
    accumulations through render_progressive, main path C:
    explain_render_path says megakernel, exactly 8 megakernel launches and
@@ -200,6 +219,18 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 # Operation counts behind the bounds: a Möller–Trumbore test, a slab test,
 # one SmallPT sphere test, and the rest of a SmallPT bounce.
 MT_FLOPS, BOX_FLOPS, SPHERE_FLOPS, SMALLPT_SHADE_FLOPS = 50, 24, 30, 120
+# Operations of one megakernel iteration that shades a hit, outside its
+# traces, counted once from csrc/mesh_megakernel.cu (an add, a multiply, a
+# compare or an integer op is one, a fused multiply-add two): two
+# path_rng_4d draws (~450 integer operations each: pcg2d, two Owen
+# scrambles, the 32-bit Sobol loop over four dimensions), the attributes and
+# the shading frame (~125), shading_create (~100), the BSDF sample with its
+# evaluation (~330), the light hits, offsets and throughput (~95): ~1,600.
+# Per RIS candidate a light sample, shading_evaluate, MIS and the reservoir
+# (~360). The coat lobe adds ~150 at creation and ~120 per candidate, the
+# kExtras branches (a map or texture fetch, coverage) ~100.
+MEGA_SHADE_OPS, MEGA_RIS_OPS = 1600, 360
+MEGA_COAT_OPS, MEGA_COAT_RIS_OPS, MEGA_EXTRAS_OPS = 150, 120, 100
 # SmallPT kernel vs its plain version: share of pixels off by > 1e-4 and
 # relative difference of the means.
 SMALLPT_FLIPS, SMALLPT_MEAN = 0.02, 0.003
@@ -230,6 +261,23 @@ def device_phase() -> str:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
     return smi
+
+
+def shade_ops(cfg) -> int:
+    """MEGA_SHADE_OPS and the rest for one shaded iteration of the
+    megakernel instantiation that ``cfg`` launches."""
+    ops = MEGA_SHADE_OPS + MEGA_RIS_OPS * cfg.ris_count
+    if cfg.has_coat or cfg.extras:
+        ops += MEGA_COAT_OPS + MEGA_COAT_RIS_OPS * cfg.ris_count
+    return ops + (MEGA_EXTRAS_OPS if cfg.extras else 0)
+
+
+def smi() -> str:
+    """The card's SM clock, power draw and power limit now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def roofline(n_bytes: float, flops: float) -> dict:
@@ -671,15 +719,16 @@ def megakernel_phase(device) -> dict:
             # attribute tables once; a closest hit per counted iteration
             # (rays / 2) and the shadow rays that the plain version traced,
             # each testing the chunk boxes and the triangles of the chunks
-            # it entered, as the plain version counted them (shading is
-            # left out of the count, so the bound is low).
+            # it entered, as the plain version counted them; and the
+            # shading of every iteration that shaded a hit (shade_ops).
             traces = rays / 2 + stats.get("shadow_traces", 0)
             out.update(box_tests=stats["box_tests"],
-                       tri_tests=stats["tri_tests"],
+                       tri_tests=stats["tri_tests"], shaded=stats["shaded"],
                        **roofline(16 * res * res
                                   + (64 + 4 * mega.ATTR_ROWS) * out["n_tris"],
                                   BOX_FLOPS * stats["box_tests"]
-                                  + MT_FLOPS * stats["tri_tests"]))
+                                  + MT_FLOPS * stats["tri_tests"]
+                                  + shade_ops(args[-1]) * stats["shaded"]))
             line += (f" | {traces:.0f} traces, "
                      f"{stats['tri_tests'] / traces:.1f} triangle and "
                      f"{stats['box_tests'] / traces:.1f} chunk-box tests per "
@@ -761,7 +810,49 @@ def smallpt_kernel_phase(device) -> dict:
         worst_flips = max(worst_flips, flips)
         worst_mean = max(worst_mean, mean_rel)
         worst_err = max(worst_err, float(d.max()))
-    ms = _median_ms(lambda: spt.smallpt_megakernel_cuda(scene, w, h, 1))
+    # The app's entry, the running mean lerped in the kernel: each launch
+    # gets the plain version's running mean so far, so that both lerp the
+    # same buffer.
+    plain = torch.zeros((h, w, 3), dtype=torch.float32, device=device)
+    for n in (1, 2, 3):
+        buffer = plain.clone()
+        lerped = buffer + (spt.smallpt_megakernel_cuda(scene, w, h, n)
+                           - buffer) / n
+        spt.smallpt_megakernel_accumulate(scene, w, h, n, buffer)
+        spt.smallpt_megakernel_accumulate_reference(scene, w, h, n, plain)
+        torch.cuda.synchronize()
+        check(torch.equal(buffer.view(torch.int32), lerped.view(torch.int32)),
+              f"smallpt accumulate {n}: the running mean is not the frame "
+              "lerped by torch bit for bit")
+        d = (buffer - plain).abs().amax(dim=-1)
+        flips = float((d > 1e-4).float().mean())
+        mean_rel = abs(float(buffer.mean()) - float(plain.mean())) / float(
+            plain.mean())
+        check(flips < SMALLPT_FLIPS, f"smallpt accumulate {n}: {flips:.5f} "
+              "of pixels differ from the plain version by > 1e-4")
+        check(mean_rel < SMALLPT_MEAN, f"smallpt accumulate {n}: means "
+              f"{float(buffer.mean())} vs {float(plain.mean())}")
+        worst_flips = max(worst_flips, flips)
+        worst_mean = max(worst_mean, mean_rel)
+        worst_err = max(worst_err, float(d.max()))
+    # The launch alone (its memset and the kernel), inputs made outside the
+    # events, and the wrapper's call around it.
+    sph, bsdf, cam = spt.kernel_inputs(scene, w, h)
+    out = torch.empty(3 * w * h + 1, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launch():
+        err = spt._library().smallpt_megakernel(
+            sph.data_ptr(), bsdf.data_ptr(), int(sph.shape[0]),
+            cam.data_ptr(), w, h, 1, 0.0, out.data_ptr(),
+            out[-1:].data_ptr(), spt._THREADS, stream)
+        check(err == 0, f"smallpt_megakernel launch failed: cudaError {err}")
+    ms = _median_ms(launch)
+    check(torch.equal(out[:-1].view(h, w, 3),
+                      spt.smallpt_megakernel_cuda(scene, w, h, 1)),
+          "the timed launch's frame is not the wrapper's")
+    wrapper_ms = _median_ms(lambda: spt.smallpt_megakernel_cuda(scene, w, h, 1))
+    clocks = smi()
     plain_ms = _median_ms(
         lambda: spt.smallpt_megakernel_reference(scene, w, h, 1), repeats=3,
         warmup=1)
@@ -771,17 +862,23 @@ def smallpt_kernel_phase(device) -> dict:
     _, bounces = render_smallpt_pooled_counted(scene, w, h, 1)
     bounces = int(bounces)
     n = int(scene.position.shape[0])
-    out = dict(flips=worst_flips, mean_rel=worst_mean, max_abs_err=worst_err,
-               ms=ms, plain_ms=plain_ms, bounces=bounces,
-               **roofline(44 * n + 12 * w * h,
-                       bounces * (SPHERE_FLOPS * n + SMALLPT_SHADE_FLOPS)))
-    print(f"kernel/smallpt: {w}x{h}, accumulations 1 and 2 | vs plain "
+    result = dict(flips=worst_flips, mean_rel=worst_mean,
+                  max_abs_err=worst_err, ms=ms, wrapper_ms=wrapper_ms,
+                  plain_ms=plain_ms, bounces=bounces,
+                  blocks_per_sm=spt.blocks_per_sm(),
+                  **roofline(44 * n + 12 * w * h,
+                             bounces * (SPHERE_FLOPS * n + SMALLPT_SHADE_FLOPS)))
+    print(f"kernel/smallpt: {w}x{h}, accumulations 1 and 2, running mean "
+          f"1-3 (bit-equal to the frame + torch lerp) | vs plain "
           f"{worst_flips:.5f} of pixels off by > 1e-4, means {worst_mean:.2e} "
           f"apart, max |d| {worst_err:.3g} (a flipped path) | {bounces} bounces "
-          f"({bounces / (w * h):.2f} per pixel) | kernel {ms:.4f} ms (median "
+          f"({bounces / (w * h):.2f} per pixel) | persistent grid of "
+          f"{result['blocks_per_sm']} blocks of {spt._THREADS} per SM | "
+          f"launch alone {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms (medians "
           f"of 20), plain {plain_ms:.1f} ms (median of 3) | bound "
-          f"{out['bound_ms']:.5f} ms by {out['bound_by']}", flush=True)
-    return out
+          f"{result['bound_ms']:.5f} ms by {result['bound_by']} | "
+          f"clocks.sm, power.draw, power.limit: {clocks}", flush=True)
+    return result
 
 
 def _torus_rays(device):
@@ -835,7 +932,7 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     n_tris, n_nodes = packed.n_tris, int(packed.node_boxes.shape[0])
-    tree_bytes = 32 * n_nodes + 52 * n_tris
+    tree_bytes = 64 * int(packed.child_records.shape[0]) + 52 * n_tris
     print(f"kernel/bvh: packed {n_tris} triangles, {n_nodes} nodes "
           f"({tree_bytes / 2**20:.1f} MiB) in {pack_s:.2f} s with the native "
           f"builder", flush=True)
@@ -883,7 +980,7 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
                             "honoured")
         hits = float((ref.prim >= 0).float().mean())
         box_tests, tri_tests = int(stats["box_tests"]), int(stats["tri_tests"])
-        nodes_read = int(stats["unique_nodes"])
+        rows_read = 1 + int(stats["unique_internal"])
         tris_read = int(stats["unique_tris"])
         ms = _median_ms(lambda: hier.hierarchical_intersect_cuda(
             packed, o, d, 1e-4, inf))
@@ -894,10 +991,11 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
         plain_ms = _median_ms(lambda: hier.hierarchical_intersect_reference(
             packed, o, d, 1e-4, inf), repeats=2, warmup=1)
         # Rays in (24 B) and hits out (16 B); of the tree, only what this
-        # ray set's walk reads, each record once: the 32-byte nodes popped
-        # and the 48-byte triangles of the leaves entered by at least one
-        # ray, and one 4-byte `order` entry per hit. Counts are the plain
-        # walk's (left-first: no fewer than a near-first walk needs).
+        # ray set's walk reads, each record once: the root's row and the
+        # 64-byte child record of every internal node entered, the 48-byte
+        # triangles of the leaves entered by at least one ray, and one
+        # 4-byte `order` entry per hit. Counts are the plain walk's
+        # (left-first: no fewer than a near-first walk needs).
         n_hits = int((ref.prim >= 0).sum())
         results[name] = dict(
             agree=min(agree, s_agree), ties=ties + s_ties,
@@ -905,16 +1003,17 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
             box_tests=box_tests, tri_tests=tri_tests, steps=stats["steps"],
             ms=ms, any_ms=any_ms, sorted_ms=sorted_ms, plain_ms=plain_ms,
             blocks_per_sm=occupancy[0],
-            nodes_read=nodes_read, tris_read=tris_read,
-            **roofline(40 * R + 32 * nodes_read + 48 * tris_read + 4 * n_hits,
+            rows_read=rows_read, tris_read=tris_read,
+            **roofline(40 * R + 64 * rows_read + 48 * tris_read + 4 * n_hits,
                        BOX_FLOPS * box_tests + MT_FLOPS * tri_tests))
         print(f"kernel/bvh/{name}: {R} rays x {n_tris} tris | hit share "
               f"{hits:.3f} | prim agrees off ties >= {min(agree, s_agree):.5f} "
               f"({ties + s_ties} ties), max |dt| {max(err, s_err):.3g}, "
               f"occlusion agrees {occ_agree:.5f} | plain walk: "
               f"{stats['steps']} steps, {box_tests / R:.1f} box and "
-              f"{tri_tests / R:.1f} triangle tests per ray, {nodes_read} "
-              f"distinct nodes and {tris_read} distinct triangles read | "
+              f"{tri_tests / R:.1f} triangle tests per ray, {rows_read} "
+              f"distinct child records and {tris_read} distinct triangles "
+              f"read | "
               f"closest "
               f"{ms:.4f} ms, any-hit {any_ms:.4f} ms, sorted wrapper "
               f"{sorted_ms:.4f} ms (median of 20), plain {plain_ms:.1f} ms "
@@ -971,6 +1070,52 @@ def smallpt_path_phase(device) -> dict:
     save_image(png, img.flip(0))
     check(os.path.getsize(png) > 0, "PNG not written")
 
+    # The app's frame after a first render (the scene and the kernel's
+    # tables are then on the card): host clock to the app's own synchronise
+    # over n accumulations, per frame, median of 3; then one such render
+    # under torch.profiler, with torch's sync debug mode raising on a
+    # synchronising torch op.
+    from torch.profiler import ProfilerActivity, profile, record_function
+    frame_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        smallpt_app.render_progressive(w, h, n, quiet=True, device=device)
+        frame_ms.append((time.perf_counter() - t0) * 1e3 / n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with record_function("chip_smoke_smallpt"):
+                smallpt_app.render_progressive(w, h, n, quiet=True,
+                                               device=device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    events = prof.events()
+    window = next(e for e in events if e.name == "chip_smoke_smallpt")
+    inside = [e for e in events if window.time_range.start
+              <= e.time_range.start <= window.time_range.end]
+    on_card = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = dict(
+        launches=sum("LaunchKernel" in e.name for e in inside),
+        memsets=sum("Memset" in e.name and e.device_type
+                    != torch.autograd.DeviceType.CUDA for e in inside),
+        syncs=sum("Synchronize" in e.name for e in inside),
+        copies=sum("Memcpy" in e.name for e in inside),
+        smallpt=sum("smallpt_kernel" in e.name for e in on_card),
+        other=sum("smallpt_kernel" not in e.name and "Memset" not in e.name
+                  for e in on_card))
+    check(counts["smallpt"] == n, f"the profiled render ran {counts['smallpt']} "
+          f"SmallPT kernels for {n} frames")
+    check(counts["launches"] <= n + 1 and counts["memsets"] <= n,
+          f"the profiled render made {counts['launches']} launches and "
+          f"{counts['memsets']} memsets for {n} frames (one each a frame, "
+          "one fill of the buffer)")
+    check(counts["copies"] == 0, f"the profiled render copied "
+          f"{counts['copies']} times between host and card")
+    check(counts["syncs"] <= 1, f"the profiled render synchronised "
+          f"{counts['syncs']} times (once, at its return)")
+
     # One frame of the pooled torch wavefront, for comparison.
     scene = smallpt_scene(device=device)
     torch.cuda.synchronize()
@@ -980,13 +1125,24 @@ def smallpt_path_phase(device) -> dict:
     pooled_s = time.perf_counter() - t0
     out = dict(launches=launches, seconds=seconds, mean=mean,
                frames_per_s=n / seconds,
-               pixel_samples_per_s=w * h * n / seconds, pooled_s=pooled_s)
+               pixel_samples_per_s=w * h * n / seconds, pooled_s=pooled_s,
+               frame_ms=statistics.median(frame_ms), profile=counts)
     print(f"smallpt: {w}x{h} x{n} through smallpt_app.render_progressive in "
-          f"{seconds:.4f} s | {out['frames_per_s']:.1f} frames/s, "
-          f"{out['pixel_samples_per_s'] / 1e6:.1f} M pixel-samples/s | "
-          f"SmallPT-kernel launches {launches} | mean {mean:.4f} | peak "
-          f"{peak_gib:.3f} GiB | {os.path.relpath(png, REPO)} | pooled torch "
-          f"wavefront: one frame in {pooled_s:.3f} s, {rays} bounces",
+          f"{seconds:.4f} s (first render) | {out['frames_per_s']:.1f} "
+          f"frames/s, {out['pixel_samples_per_s'] / 1e6:.1f} M "
+          f"pixel-samples/s | SmallPT-kernel launches {launches} | mean "
+          f"{mean:.4f} | peak {peak_gib:.3f} GiB | {os.path.relpath(png, REPO)}"
+          f" | pooled torch wavefront: one frame in {pooled_s:.3f} s, {rays} "
+          f"bounces", flush=True)
+    print(f"smallpt/frame: the app's frame after a first render "
+          f"{out['frame_ms']:.4f} ms (render of {n} / {n}, median of 3) | "
+          f"torch.profiler over one render of {n} frames: "
+          f"{counts['smallpt']} SmallPT kernels, {counts['launches']} "
+          f"kernel-launch calls, {counts['memsets']} memsets, "
+          f"{counts['other']} other device activities (the buffer's fill), "
+          f"{counts['syncs']} host synchronise (the return's), "
+          f"{counts['copies']} host-device copies; sync debug mode raised "
+          f"nothing | clocks.sm, power.draw, power.limit: {smi()}",
           flush=True)
     return out
 
@@ -1317,21 +1473,25 @@ def megakernel_hier_phase(device) -> dict:
                               KERNEL_FLIPS, KERNEL_MEAN)
     rays = float(got_rays.sum())
     tree = tiled[0]
-    n_nodes, n_tris = int(tree.node_boxes.shape[0]), tree.n_tris
-    # Per pixel 16 B out; of the tree and the attribute
-    # table no more than each record once (a frame's walks touch most of
-    # it); the plain walks' box and triangle tests (shading is left out of
-    # the count, so the bound is low).
+    n_records, n_tris = int(tree.child_records.shape[0]), tree.n_tris
+    # Per pixel 16 B out; of the child records (64 B, two box tests each)
+    # and the attribute table no more than each record once (a frame's
+    # walks touch most of them); the plain walks' box and triangle tests and
+    # the shading of every iteration that shaded a hit (shade_ops).
     out = results[BRIDGE_SCENE]
     out.update(
         ms=statistics.median(turns["tiled"]),
         raster_ms=statistics.median(turns["raster"]), plain_ms=plain_ms,
         max_abs_err=max(max_err, out["max_abs_err"]),
         box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
-        **roofline(16 * res * res + 32 * min(n_nodes, stats["box_tests"])
+        shaded=stats["shaded"], rays_512=rays,
+        shadow_traces_512=stats.get("shadow_traces", 0),
+        **roofline(16 * res * res
+                   + 64 * min(n_records, stats["box_tests"] // 2)
                    + (48 + 4 * mega.ATTR_ROWS) * min(n_tris, stats["tri_tests"]),
                    BOX_FLOPS * stats["box_tests"]
-                   + MT_FLOPS * stats["tri_tests"]))
+                   + MT_FLOPS * stats["tri_tests"]
+                   + shade_ops(tiled[-1]) * stats["shaded"]))
     print(f"megakernel/hier/{BRIDGE_SCENE}: {res}x{res} | kernel "
           f"{out['ms']:.3f} ms with {tile[0]}x{tile[1]} pixel tiles "
           f"({turns['tiled'][0]:.3f}, {turns['tiled'][1]:.3f}), "
@@ -1344,6 +1504,106 @@ def megakernel_hier_phase(device) -> dict:
           f"walk) | bound {out['bound_ms']:.5f} ms by {out['bound_by']}",
           flush=True)
     return results
+
+
+WALK_SCENES = (BRIDGE_SCENE, "hier_bridge_15k_env", "torus_grid_28")
+
+
+def _walk_rays(scene, cam, device) -> dict:
+    """The 512² frame's camera rays (the plain version's lanes, 8 x 4
+    tiles) and as many seeded rays from inside the scene's box in uniform
+    directions."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    lanes = mega.megakernel_inputs(scene, cam, RES, RES, 1,
+                                   pt.RenderSettings(max_bounce_count=BOUNCES),
+                                   mega.HIER_PIXEL_TILE)
+    lo = scene.tri_verts.reshape(-1, 3).amin(0).cpu().numpy()
+    hi = scene.tri_verts.reshape(-1, 3).amax(0).cpu().numpy()
+    rng = np.random.default_rng(29)
+    n = RES * RES
+    o = rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return {"camera": (lanes[6], lanes[7]),
+            "incoherent": (torch.tensor(o, device=device),
+                           torch.tensor(d, device=device))}
+
+
+def hier_walk_phase(device, bridge) -> dict:
+    """The BVH branch's walk as the megakernel's library builds it
+    (megakernel_hier_trace_probe) against the BVH trace kernel, which walks
+    the same child records in its own library, on the three main-path BVH
+    scenes' trees with their 512² camera rays and seeded incoherent rays:
+    t, prim, u and v bit for bit, closest hit and unbounded any-hit (the
+    first hit in walk order). Then B3's time at 512², both walks' times on
+    the bridge's rays, and the walk's share of B3 on the bridge: the
+    probe's rate on camera rays for the primary traces, on incoherent rays
+    for the rest (bounces closest, shadow rays any-hit)."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    inf = float("inf")
+    out = {}
+    for name in WALK_SCENES:
+        scene, cam = TEST_SCENES[name](device=device)
+        tree = mega._pack_scene(scene)["tri"]
+        rays = _walk_rays(scene, cam, device)
+        times = {}
+        for kind, (o, d) in rays.items():
+            for any_hit in (False, True):
+                query = f"{kind}{'/any' if any_hit else ''}"
+                ref = hier.hierarchical_intersect_cuda(tree, o, d, 1e-4, inf,
+                                                       any_hit=any_hit)
+                check(float((ref.prim >= 0).float().mean()) > 0.05,
+                      f"walk/{name} {query}: the rays miss the tree")
+                got = mega.hier_trace_probe(tree, o, d, 1e-4, inf,
+                                            any_hit=any_hit)
+                for f in ("t", "prim", "u", "v"):
+                    check(torch.equal(getattr(got, f).view(torch.int32),
+                                      getattr(ref, f).view(torch.int32)),
+                          f"walk/{name} {query}: {f} differs from the BVH "
+                          "kernel's")
+                if name == BRIDGE_SCENE:
+                    times[f"{query} probe"] = _median_ms(
+                        lambda: mega.hier_trace_probe(tree, o, d, 1e-4, inf,
+                                                      any_hit=any_hit))
+                    times[f"{query} B4"] = _median_ms(
+                        lambda: hier.hierarchical_intersect_cuda(
+                            tree, o, d, 1e-4, inf, any_hit=any_hit))
+        settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+        args = mega.megakernel_frame_inputs(scene, cam, RES, RES, 1, settings)
+        b3 = _median_ms(lambda: mega.mesh_megakernel_cuda(*args), repeats=10,
+                        warmup=2)
+        records = int(tree.child_records.shape[0])
+        out[name] = dict(b3_ms=b3, walk_ms=times, records=records)
+        line = (f"walk/{name}: {records} child records | probe vs BVH kernel "
+                f"on {RES * RES} camera and {RES * RES} incoherent rays, "
+                f"closest and any-hit: t, prim, u, v bit-equal | B3 "
+                f"{RES}x{RES} {b3:.4f} ms (median of 10)")
+        if name == BRIDGE_SCENE:
+            line += " | walks (medians of 20): " + ", ".join(
+                f"{q} {ms:.4f} ms" for q, ms in times.items())
+            # The frame's traces: the primary closest traces (one per
+            # pixel), the other closest traces (rays / 2 in all) and the
+            # shadow rays, each at the probe's rate on like rays.
+            n = RES * RES
+            closest = bridge["rays_512"] / 2
+            walk = (times["camera probe"] * min(closest, n) / n
+                    + times["incoherent probe"] * max(closest - n, 0) / n
+                    + times["incoherent/any probe"]
+                    * bridge["shadow_traces_512"] / n)
+            out[name].update(walk_share=walk / b3, walk_est_ms=walk)
+            line += (f" | the frame's walks at the probe's rates "
+                     f"({closest:.0f} closest traces, "
+                     f"{bridge['shadow_traces_512']} shadow rays): "
+                     f"{walk:.4f} ms, {100 * walk / b3:.1f}% of B3")
+        line += f" | clocks.sm, power.draw, power.limit: {smi()}"
+        print(line, flush=True)
+    return out
 
 
 def hier_path_phase(device) -> dict:
@@ -1639,8 +1899,8 @@ def extras_path_phase(device) -> dict:
         # any-hit query per lit shaded hit, or the march's steps), each
         # with the box and triangle tests that the plain version counted
         # for it (the BVH walk's, or the dense trace's chunk boxes and the
-        # triangles of the chunks it entered). Shading is left out, so the
-        # bound is low.
+        # triangles of the chunks it entered); and the shading of every
+        # iteration that shaded a hit (shade_ops).
         march = stats.get("march_traces", 0)
         shadow = stats.get("shadow_traces", 0)
         table_bytes = sum(t.numel() * 4 for t in extras if t is not None)
@@ -1648,11 +1908,12 @@ def extras_path_phase(device) -> dict:
         traces = rays / 2 + shadow + march
         if cfg.hier:
             tree = args[0]
-            table_bytes += 32 * int(tree.node_boxes.shape[0]) + (
+            table_bytes += 64 * int(tree.child_records.shape[0]) + (
                 48 + 4 * mega.ATTR_ROWS) * n_tris
         else:
             table_bytes += (64 + 4 * mega.ATTR_ROWS) * n_tris
-        flops = BOX_FLOPS * stats["box_tests"] + MT_FLOPS * stats["tri_tests"]
+        flops = (BOX_FLOPS * stats["box_tests"] + MT_FLOPS * stats["tri_tests"]
+                 + shade_ops(cfg) * stats["shaded"])
         work = (f"{traces:.0f} traces, {stats['box_tests'] / traces:.1f} "
                 f"{'node' if cfg.hier else 'chunk'} box and "
                 f"{stats['tri_tests'] / traces:.1f} triangle tests per trace")
@@ -1840,6 +2101,7 @@ def main() -> int:
     path_b = torus_path_phase(device)
     clusters = cluster_kernel_phase(device, soups["sphere"])
     hier_scenes = megakernel_hier_phase(device)
+    hier_walk_phase(device, hier_scenes[BRIDGE_SCENE])
     path_c = hier_path_phase(device)
     packings = packing_path_phase(device,
                                   hier_scenes["hier_bridge_15k"]["pooled"])

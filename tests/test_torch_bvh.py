@@ -388,6 +388,9 @@ def test_plain_walk_reports_its_work(problem, packed):
                                                  int(stats["box_tests"]))
     assert 0 < int(stats["unique_tris"]) <= min(N_TRIS,
                                                 int(stats["tri_tests"]))
+    # The internal nodes entered: the child records a kernel's walk reads.
+    assert 0 < int(stats["unique_internal"]) <= min(
+        packed.child_records.shape[0] - 1, int(stats["unique_nodes"]))
     # One ray pops each node and enters each leaf at most once.
     one = {}
     thier.hierarchical_intersect_reference(

@@ -334,6 +334,53 @@ def test_smallpt_app_on_card(cuda):
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.1
 
 
+@pytest.mark.parametrize("accumulation", [1, 2, 3])
+def test_smallpt_regeneration_matches_plain_version_at_an_odd_size(
+        cuda, accumulation):
+    """37 x 23 pixels: the last claim round of the persistent lanes is
+    ragged. Per frame the flip share of the gate; the means over the three
+    frames (one flipped path to the light moves an 851-pixel frame's mean
+    by percents)."""
+    scene = smallpt_scene(device=cuda)
+    w, h = 37, 23
+    got = spt.smallpt_megakernel_cuda(scene, w, h, accumulation)
+    ref = spt.smallpt_megakernel_reference(scene, w, h, accumulation)
+    assert_smallpt_gate(got.cpu().numpy(), ref.cpu().numpy(), mean_budget=None)
+    means = [(float(spt.smallpt_megakernel_cuda(scene, w, h, a).mean()),
+              float(spt.smallpt_megakernel_reference(scene, w, h, a).mean()))
+             for a in (1, 2, 3)]
+    got_mean, ref_mean = np.mean(means, axis=0)
+    np.testing.assert_allclose(got_mean, ref_mean, rtol=0.02)
+
+
+def test_smallpt_consecutive_launches_are_identical(cuda):
+    """The pixel counter is zeroed before every launch: a second launch
+    renders every pixel again, the same bits."""
+    scene = smallpt_scene(device=cuda)
+    first = spt.smallpt_megakernel_cuda(scene, 128, 96, 2).clone()
+    second = spt.smallpt_megakernel_cuda(scene, 128, 96, 2)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    assert bool(torch.isfinite(first).all())
+
+
+def test_smallpt_accumulate_is_the_frame_and_the_torch_lerp(cuda):
+    """The kernel's running mean is bit for bit the frame lerped by torch on
+    the card, ``buffer + (frame - buffer) / n``."""
+    scene = smallpt_scene(device=cuda)
+    w, h = 64, 48
+    buffer = torch.zeros((h, w, 3), device=cuda)
+    ref = torch.zeros((h, w, 3), device=cuda)
+    before = spt.launch_count
+    for n in (1, 2, 3):
+        spt.smallpt_megakernel_accumulate(scene, w, h, n, buffer)
+        frame = spt.smallpt_megakernel_cuda(scene, w, h, n)
+        ref = ref + (frame - ref) / n
+        assert torch.equal(buffer.view(torch.int32), ref.view(torch.int32)), n
+    assert spt.launch_count == before + 6
+    with pytest.raises(ValueError, match="buffer must be"):
+        spt.smallpt_megakernel_accumulate(scene, w, h, 1, buffer[:, :-1])
+
+
 # -- the BVH trace kernel -----------------------------------------------------------
 
 def _soup_16k(device):
@@ -636,6 +683,57 @@ def test_hier_megakernel_wrapper_validates(cuda):
     deep = args[0]._replace(max_depth=64)
     with pytest.raises(ValueError, match="exceeds the kernel stack"):
         mega.mesh_megakernel_cuda(deep, *args[1:])
+
+
+def _walk_trees(device):
+    """Two trees the megakernel's walk takes: 4 tori of the grid (36,864
+    triangles) and the 14,606-triangle bridge, and seeded rays from inside
+    its box."""
+    from bifrost3d_tpu_torch.apps.scenes import torus_grid_mesh
+    torus = torus_grid_mesh(count=4)
+    bridge, _ = TEST_SCENES["hier_bridge_15k"](device=device)
+    for name, tris, lo, hi in (
+            ("torus", torch.tensor(torus.positions[torus.indices],
+                                   device=device),
+             (-13.0, -1.0, -13.0), (-9.0, 1.0, -3.0)),
+            ("bridge", bridge.tri_verts, (-1.5, -0.4, -1.5), (1.5, 1.0, 1.5))):
+        tree = hier.pack_hierarchical(tris)
+        o, d, _ = _rays(8192, 23, lo, hi, device)
+        yield name, tree, o, d
+
+
+def test_hier_walk_probe_is_bit_equal_to_the_bvh_kernel(cuda):
+    """The megakernel's build of the walk over child records gives the BVH
+    kernel's bits: t, prim, u, v, closest hit and any-hit."""
+    inf = float("inf")
+    for name, tree, o, d in _walk_trees(cuda):
+        got = mega.hier_trace_probe(tree, o, d, 1e-4, inf)
+        ref = hier.hierarchical_intersect_cuda(tree, o, d, 1e-4, inf)
+        assert float((ref.prim >= 0).float().mean()) > 0.1, name
+        # Any-hit within a shortened hit distance (mostly misses), and
+        # unbounded: the first valid hit in walk order, equal only when both
+        # walks visit the leaves in the same order.
+        t_max = torch.where(ref.prim >= 0, ref.t * 0.75, 5.0).contiguous()
+        pairs = [(got, ref)]
+        for bound in (t_max, inf):
+            pairs.append((
+                mega.hier_trace_probe(tree, o, d, 1e-4, bound, any_hit=True),
+                hier.hierarchical_intersect_cuda(tree, o, d, 1e-4, bound,
+                                                 any_hit=True)))
+        for field in ("t", "prim", "u", "v"):
+            for a, b in pairs:
+                assert torch.equal(getattr(a, field).view(torch.int32),
+                                   getattr(b, field).view(torch.int32)), \
+                    (name, field)
+
+
+def test_hier_walk_probe_needs_the_records(cuda):
+    tree = hier.pack_hierarchical(_sphere_soup(cuda))
+    o, d, _ = _rays(64, 1, (-1, -1, -1), (1, 1, 1), cuda)
+    for records in (tree.child_records[:, :8], tree.child_records.double()):
+        with pytest.raises((ValueError, TypeError)):
+            mega.hier_trace_probe(tree._replace(child_records=records), o, d,
+                                  1e-4, float("inf"))
 
 
 # -- the megakernel's environment, texture and cutout branches ---------------------
