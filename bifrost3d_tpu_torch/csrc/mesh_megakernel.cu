@@ -143,6 +143,7 @@
 #include <stdint.h>
 
 #include "bvh_walk.cuh"
+#include "dense_trace.cuh"
 
 namespace {
 
@@ -155,7 +156,6 @@ constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kInvPi = 0.31830988618379067154f;
 constexpr float kMinAlpha = 1e-4f;
 constexpr float kMinCos = 1e-6f;
-constexpr float kEpsDet = 1e-9f;
 constexpr float kMinSpotCone = 1e-5f;
 constexpr float kCoatIor = 1.5f;
 constexpr float kCoatSpecularity = 0.04f;
@@ -860,111 +860,18 @@ __device__ LightSample spot_light_sample(const Light& l, V3 lit, float u0, float
 
 // -- trace (dense Möller–Trumbore, culled by chunk) ----------------------------
 //
-// The staged table holds one 48-byte record per triangle (v0, e1, e2 and a
-// pad, three float4: q0 = v0.xyz e1.x, q1 = e1.yz e2.xy, q2 = e2.z), and one
-// padded box per chunk of kChunk consecutive triangles. A trace visits the
-// chunks in index order and skips one whose box the ray misses or whose
-// entry distance is not below the best hit so far (or t_max); inside a chunk
-// it tests every triangle. A skipped chunk can hold no triangle that strict
-// '<' in index order would take, so the answer is the full scan's.
+// The staged table holds one 48-byte record per triangle and one padded box
+// per chunk of dense_trace::kChunk consecutive triangles; the trace, the
+// boxes and why the cull keeps the full scan's answer are in
+// csrc/dense_trace.cuh, shared with csrc/dense_intersect.cu and
+// csrc/clustered_intersect.cu.
 
-constexpr int kChunk = 32;
-// Box padding, relative to the chunk's largest coordinate and extent: far
-// above the rounding of the slab test and of a hit's t, so the cull never
-// drops a triangle the full scan would take.
-constexpr float kChunkPad = 1e-4f;
-
-__device__ __forceinline__ float safe_inv(float x) {
-  return __fdiv_rn(x < 0.0f ? -1.0f : 1.0f, fmaxf(fabsf(x), 1e-12f));
-}
-
-// Slab test of chunk box `c` (two float4 in shared memory: lo.xyz, hi.xyz)
-// → whether the ray enters it in [t_min, t_far] before t_lim. Its own
-// function because bvh_walk::box_hit reads global memory through __ldg.
-__device__ __forceinline__ bool chunk_hit(const float4* __restrict__ s_box, int c, V3 o, V3 inv,
-                                          float t_min, float t_lim) {
-  const float4 a = s_box[2 * c], b = s_box[2 * c + 1];
-  const float x0 = (a.x - o.x) * inv.x, x1 = (b.x - o.x) * inv.x;
-  const float y0 = (a.y - o.y) * inv.y, y1 = (b.y - o.y) * inv.y;
-  const float z0 = (a.z - o.z) * inv.z, z1 = (b.z - o.z) * inv.z;
-  const float t_near = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fmaxf(fminf(z0, z1), t_min));
-  const float t_far = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
-  return t_near <= t_far && t_near < t_lim;
-}
-
-// Möller–Trumbore with the arithmetic of csrc/dense_intersect.cu → a valid
-// hit in (t_min, t_lim). The three numerators come first; a test that they
-// show to fail (with a margin far above rounding) is rejected without the
-// quotient, and a survivor takes the correctly rounded reciprocal, which
-// equals the dense kernel's __fdiv_rn(1, det): its t, u, v are that
-// kernel's bit for bit.
-__device__ __forceinline__ bool mt_hit(const float4* __restrict__ rec, V3 o, V3 d, float t_min,
-                                       float t_lim, float& t, float& u, float& v) {
-  const float4 q0 = rec[0], q1 = rec[1], q2 = rec[2];
-  const float v0x = q0.x, v0y = q0.y, v0z = q0.z;
-  const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
-  const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
-  // pvec = d x e2
-  const float px = d.y * e2z - d.z * e2y;
-  const float py = d.z * e2x - d.x * e2z;
-  const float pz = d.x * e2y - d.y * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  // tvec = o - v0
-  const float tx = o.x - v0x, ty = o.y - v0y, tz = o.z - v0z;
-  const float u_num = tx * px + ty * py + tz * pz;
-  // qvec = tvec x e1
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v_num = d.x * qx + d.y * qy + d.z * qz;
-  const float t_num = e2x * qx + e2y * qy + e2z * qz;
-  const float ad = fabsf(det);
-  const float sg = det < 0.0f ? -1.0f : 1.0f;
-  const float us = u_num * sg, vs = v_num * sg, ts = t_num * sg;
-  const float tiny = ad * 1e-30f;
-  if (!(ad > kEpsDet) || us < -tiny || vs < -tiny || us + vs > ad * 1.00001f ||
-      ts < t_min * ad * 0.99999f || ts > t_lim * ad * 1.00001f)
-    return false;
-  const float inv_det = __frcp_rn(det);
-  u = u_num * inv_det;
-  v = v_num * inv_det;
-  t = t_num * inv_det;
-  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min && t < t_lim;
-}
-
-// Closest hit in (t_min, t_max) → its triangle, or -1 (best_t = t_max); with
-// kAnyHit the first hit found.
-template <bool kAnyHit>
-__device__ int trace_dense(const float4* __restrict__ s_tri4, const float4* __restrict__ s_box,
-                           int n_tris, V3 o, V3 d, float t_min, float t_max, float& best_t,
-                           float& best_u, float& best_v) {
-  const V3 inv = mk(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-  best_t = t_max;
-  best_u = 0.0f;
-  best_v = 0.0f;
-  int best = -1;
-  const int n_chunks = (n_tris + kChunk - 1) / kChunk;
-  for (int c = 0; c < n_chunks; ++c) {
-    if (!chunk_hit(s_box, c, o, inv, t_min, best_t)) continue;
-    const int end = min(n_tris, (c + 1) * kChunk);
-    for (int k = c * kChunk; k < end; ++k) {
-      float t, u, v;
-      if (mt_hit(s_tri4 + 3 * k, o, d, t_min, best_t, t, u, v)) {
-        best_t = t;
-        best_u = u;
-        best_v = v;
-        best = k;
-        if (kAnyHit) return k;
-      }
-    }
-  }
-  return best;
-}
+using dense_trace::kChunk;
+using dense_trace::trace_dense;
 
 // Stages the first 12 floats of each [n_tris, 16] row of `tri` into s_tri4
-// with cp.async, then builds the chunk boxes, one warp per chunk (lane k of
-// the warp reads triangle k of the chunk; min/max through shuffles). Ends
-// with the block synchronised.
+// with cp.async, then builds the chunk boxes, one warp per chunk. Ends with
+// the block synchronised.
 __device__ void stage_triangles(const float* __restrict__ tri, int n_tris, float4* s_tri4,
                                 float4* s_box) {
   for (int k = threadIdx.x; k < 3 * n_tris; k += blockDim.x) {
@@ -976,38 +883,8 @@ __device__ void stage_triangles(const float* __restrict__ tri, int n_tris, float
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int n_chunks = (n_tris + kChunk - 1) / kChunk;
-  for (int c = threadIdx.x >> 5; c < n_chunks; c += blockDim.x >> 5) {
-    const int k = c * kChunk + lane;
-    float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
-    if (k < n_tris) {
-      const float4 q0 = s_tri4[3 * k], q1 = s_tri4[3 * k + 1], q2 = s_tri4[3 * k + 2];
-      const float v0[3] = {q0.x, q0.y, q0.z};
-      const float v1[3] = {q0.x + q0.w, q0.y + q1.x, q0.z + q1.y};
-      const float v2[3] = {q0.x + q1.z, q0.y + q1.w, q0.z + q2.x};
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        lo[a] = fminf(fminf(v0[a], v1[a]), v2[a]);
-        hi[a] = fmaxf(fmaxf(v0[a], v1[a]), v2[a]);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        lo[a] = fminf(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], off));
-        hi[a] = fmaxf(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], off));
-      }
-    }
-    if (lane == 0) {
-      const float ext = fmaxf(fmaxf(hi[0] - lo[0], hi[1] - lo[1]), hi[2] - lo[2]);
-      float mag = 0.0f;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) mag = fmaxf(mag, fmaxf(fabsf(lo[a]), fabsf(hi[a])));
-      const float pad = kChunkPad * (mag + ext);
-      s_box[2 * c] = make_float4(lo[0] - pad, lo[1] - pad, lo[2] - pad, 0.0f);
-      s_box[2 * c + 1] = make_float4(hi[0] + pad, hi[1] + pad, hi[2] + pad, 0.0f);
-    }
-  }
+  for (int c = threadIdx.x >> 5; c < n_chunks; c += blockDim.x >> 5)
+    dense_trace::build_chunk_box(s_tri4, n_tris, c, lane, s_box + 2 * c);
   __syncthreads();
 }
 

@@ -32,7 +32,11 @@ from bifrost3d_tpu_torch.geometry.bvh import (
     STACK_SIZE,
     build_soup_bvh,
 )
-from bifrost3d_tpu_torch.geometry.pallas_intersect import _check
+from bifrost3d_tpu_torch.geometry.pallas_intersect import (
+    _check,
+    kernel_bound,
+    kernel_live,
+)
 from bifrost3d_tpu_torch.geometry.traverse import (
     Hit,
     ray_bounds,
@@ -230,23 +234,6 @@ def _library():
     return lib
 
 
-def _kernel_bound(value, r: int, device, name: str):
-    """A t bound as the kernel takes it → (value, pointer, stride, the
-    tensor to keep alive): a number by value; a one-element tensor through
-    its pointer with stride 0 (no host sync); an [r] tensor with stride
-    1."""
-    if not isinstance(value, torch.Tensor):
-        return float(value), 0, 0, None
-    if value.numel() == 1:
-        stride = 0
-    elif value.shape == (r,):
-        stride = 1
-    else:
-        raise ValueError(f"{name} must be a number, one value or [r]")
-    value = value.to(device=device, dtype=torch.float32).contiguous()
-    return 0.0, value.data_ptr(), stride, value
-
-
 def blocks_per_sm(any_hit: bool = False) -> int:
     """Blocks of ``_THREADS`` that one SM of the card holds at once: the
     kernel's occupancy, from the CUDA runtime."""
@@ -289,19 +276,11 @@ def hierarchical_intersect_cuda(packed: HierTriangles, origin, direction,
     _check("tri_components", packed.tri_components, torch.float32, device)
     _check("child_records", records, torch.float32, device)
     _check("order", packed.order, torch.int32, device)
-    # The bound tensors stay referenced until the launch is enqueued.
-    lo, lo_ptr, lo_stride, _lo = _kernel_bound(t_min, r, device, "t_min")
-    hi, hi_ptr, hi_stride, _hi = _kernel_bound(t_max, r, device, "t_max")
-    n_live, live_ptr, live_bits = r, 0, 0
-    if isinstance(live_count, torch.Tensor):
-        if live_count.numel() != 1 or live_count.dtype not in (
-                torch.int32, torch.int64):
-            raise ValueError("a live_count tensor must be one int32 or int64")
-        live_count = live_count.to(device)
-        live_ptr = live_count.data_ptr()
-        live_bits = 32 if live_count.dtype == torch.int32 else 64
-    elif live_count is not None:
-        n_live = max(0, min(int(live_count), r))
+    # The bound and count tensors stay referenced until the launch is
+    # enqueued.
+    lo, lo_ptr, lo_stride, _lo = kernel_bound(t_min, r, device, "t_min")
+    hi, hi_ptr, hi_stride, _hi = kernel_bound(t_max, r, device, "t_max")
+    n_live, live_ptr, live_bits, _live = kernel_live(live_count, r, device)
 
     out = torch.empty(4 * r + 1, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream

@@ -4,10 +4,11 @@ culled by its bounding box per block of rays.
 Port of ``bifrost3d_tpu/geometry/pallas_clustered.py``
 (``ClusteredTriangles``, ``pack_clustered``, ``clustered_intersect``). The
 TPU kernel ``_clustered_kernel`` becomes the hand-written CUDA kernel
-``csrc/clustered_intersect.cu`` (one thread block per 256 rays, a fetched
-cluster staged in shared memory; its header says what bounds it on an
-H100). It is the linear baseline the BVH kernels are measured against and
-an accepted packing of ``RenderScene.tri_clustered``
+``csrc/clustered_intersect.cu``: one thread block per 256 rays keeps the
+TPU kernel's block rule, and inside a fetched cluster each ray takes the
+chunk-culled trace of ``csrc/dense_trace.cuh`` (its header says what
+bounds it on an H100). It is the linear baseline the BVH kernels are
+measured against and an accepted packing of ``RenderScene.tri_clustered``
 (``scene._replace(tri_clustered=pack_clustered(scene.tri_verts,
 scene.bvh))``), not the default one.
 
@@ -33,8 +34,12 @@ from bifrost3d_tpu_torch.geometry.pallas_intersect import (
     _check,
     _finish,
     _mt_block,
+    culled_dense_intersect_reference,
+    kernel_bound,
+    trace_boxes,
 )
 from bifrost3d_tpu_torch.geometry.traverse import Hit, ray_bounds
+from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
 BLOCK_R = 256      # rays per thread block: the granule of the box cull
 CLUSTER_T = 512    # triangles per cluster
@@ -189,15 +194,22 @@ def finish_slots(best, order) -> Hit:
 
 def clustered_intersect_reference(packed: ClusteredTriangles, origin,
                                   direction, t_min, t_max,
-                                  stats: Optional[dict] = None) -> Hit:
+                                  stats: Optional[dict] = None,
+                                  culled: bool = False) -> Hit:
     """Plain PyTorch version of the kernel: the scan written step by step.
     For each cluster in slot order every ray is slab-tested against the
     cluster's box with its running best t; the blocks of ``BLOCK_R`` rays
-    in which some ray passes test all their rays against the cluster's
-    triangles. Runs on any device.
+    in which some ray passes fetch the cluster, and each of their rays takes
+    its nearest hit among the cluster's triangles. Runs on any device.
 
-    A ``stats`` dict, if given, receives ``fetches`` (block × cluster pairs
-    that fetched) and ``clusters_read`` (distinct clusters fetched)."""
+    With ``culled`` a ray of a fetching block traces the cluster as the CUDA
+    kernel does (:func:`culled_dense_intersect_reference` with its groups:
+    the cluster's padded box, then its chunk boxes); the hits are the
+    same. A ``stats`` dict, if given, receives ``fetches`` (block × cluster
+    pairs that fetched) and ``clusters_read`` (distinct clusters fetched),
+    with ``culled`` also ``cluster_tests`` (rays of fetching blocks tested
+    against the padded box), ``box_tests`` (chunk boxes), ``tri_tests`` and
+    ``chunks_read``."""
     r = origin.shape[0]
     device = origin.device
     t_lo = ray_bounds(t_min, r, origin)
@@ -210,6 +222,7 @@ def clustered_intersect_reference(packed: ClusteredTriangles, origin,
     block = torch.arange(r, device=device) // BLOCK_R
     n_blocks = (r + BLOCK_R - 1) // BLOCK_R
     fetches = clusters_read = 0
+    work = {}
     for c in range(packed.cluster_boxes.shape[0]):
         box = packed.cluster_boxes[c]
         hit, _ = slab_test(box[0:3], box[3:6], origin, inv_dir, t_lo, best[0])
@@ -221,25 +234,56 @@ def clustered_intersect_reference(packed: ClusteredTriangles, origin,
         fetches += n_fetching
         clusters_read += 1
         rows = torch.nonzero(fetching[block])[:, 0]
-        cluster_test(packed.tri_components, packed.n_tris,
-                     torch.tensor([c], device=device), rows[None], origin,
-                     direction, t_lo, t_hi, best)
+        if culled:
+            _culled_cluster(packed, c, rows, origin, direction, t_lo, best,
+                            work)
+        else:
+            cluster_test(packed.tri_components, packed.n_tris,
+                         torch.tensor([c], device=device), rows[None], origin,
+                         direction, t_lo, t_hi, best)
     if stats is not None:
         stats.update(fetches=fetches, clusters_read=clusters_read)
+        if culled:
+            stats.update(cluster_tests=work.pop("group_tests", 0), **work)
     return finish_slots(best, packed.order)
+
+
+def _culled_cluster(packed, c, rows, origin, direction, t_lo, best, work):
+    """The rays ``rows`` of the fetching blocks trace cluster ``c`` by its
+    padded box and chunk boxes, merged into ``best`` (in place) with a
+    strict '<'; their work is added to ``work``."""
+    base = c * CLUSTER_T
+    n = min(CLUSTER_T, packed.n_tris - base)
+    table = packed.tri_components[:, base:base + CLUSTER_T]
+    best_t, best_slot, best_u, best_v = best
+    hit = culled_dense_intersect_reference(
+        table, n, origin[rows], direction[rows], t_lo[rows], best_t[rows],
+        stats=work, groups=True)
+    found = hit.prim >= 0
+    hit_rows = rows[found]
+    best_t[hit_rows] = hit.t[found]
+    best_slot[hit_rows] = hit.prim[found] + base
+    best_u[hit_rows] = hit.u[found]
+    best_v[hit_rows] = hit.v[found]
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     from bifrost3d_tpu_torch.utils import cuda_build
-    fn = cuda_build.load("clustered_intersect.cu").clustered_intersect
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = cuda_build.load("clustered_intersect.cu")
+    lib.clustered_intersect.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.clustered_intersect.restype = ctypes.c_int
+    lib.clustered_intersect_boxes.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.clustered_intersect_boxes.restype = ctypes.c_int
+    return lib
 
 
 def packed_rays(origin, direction, t_min, t_max):
@@ -255,15 +299,42 @@ def packed_rays(origin, direction, t_min, t_max):
     return rays, r
 
 
+_TABLES = VersionedCache()
+
+
+def cluster_tables(packed: ClusteredTriangles):
+    """The kernel's tables for a packing, cached per (identity, version) of
+    its components → (records [T_pad, 12]: an AoS copy of rows 0-11 in slot
+    order, chunk boxes, cluster boxes: the union of each cluster's 16
+    padded chunk boxes)."""
+    comp = packed.tri_components
+    key, tables = _TABLES.lookup((comp,), packed.n_tris)
+    if tables is None:
+        recs = comp[:12].T.contiguous()
+        tables = _TABLES.store(key, (comp,),
+                               (recs, *trace_boxes(
+                                   recs, packed.n_tris,
+                                   _library().clustered_intersect_boxes)))
+    return tables
+
+
 def clustered_intersect_cuda(packed: ClusteredTriangles, origin, direction,
                              t_min, t_max) -> Hit:
-    """Launch ``csrc/clustered_intersect.cu`` on the current stream."""
+    """Launch ``csrc/clustered_intersect.cu`` on the current stream. The
+    kernel reads ``origin`` and ``direction`` [r, 3] as they are, each
+    bound as a number, a one-element tensor or an [r] tensor, and writes the
+    final hits, prims through ``order``, into one allocation, whose views
+    the returned Hit holds."""
     global launch_count
     device = origin.device
-    rays, r = packed_rays(origin, direction, t_min, t_max)
+    r = int(origin.shape[0])
+    if origin.shape != (r, 3) or direction.shape != (r, 3):
+        raise ValueError("origin and direction must both be [r, 3]")
+    if 4 * r >= 2**31:
+        raise ValueError(f"{r} rays overflow the kernel's int32 indexing")
     comp, boxes = packed.tri_components, packed.cluster_boxes
-    if comp.dim() != 2 or comp.shape[0] < 9 or comp.shape[1] % CLUSTER_T:
-        raise ValueError("tri_components must be [>= 9, T_pad], T_pad a "
+    if comp.dim() != 2 or comp.shape[0] < 12 or comp.shape[1] % CLUSTER_T:
+        raise ValueError("tri_components must be [>= 12, T_pad], T_pad a "
                          f"multiple of {CLUSTER_T}")
     n_clusters = comp.shape[1] // CLUSTER_T
     if boxes.shape != (n_clusters, 8):
@@ -272,25 +343,32 @@ def clustered_intersect_cuda(packed: ClusteredTriangles, origin, direction,
         raise ValueError("order must hold one id per triangle slot")
     if not 0 <= packed.n_tris <= comp.shape[1]:
         raise ValueError(f"n_tris={packed.n_tris} exceeds the packed table")
-    _check("rays", rays, torch.float32, device)
+    if -(-packed.n_tris // CLUSTER_T) != n_clusters:
+        raise ValueError("every cluster of the packing must hold a triangle")
+    origin, direction = origin.contiguous(), direction.contiguous()
+    _check("origin", origin, torch.float32, device)
+    _check("direction", direction, torch.float32, device)
     _check("tri_components", comp, torch.float32, device)
     _check("cluster_boxes", boxes, torch.float32, device)
     _check("order", packed.order, torch.int32, device)
+    recs, chunk_boxes, padded = cluster_tables(packed)
+    # The bound tensors stay referenced until the launch is enqueued.
+    lo, lo_ptr, lo_stride, _lo = kernel_bound(t_min, r, device, "t_min")
+    hi, hi_ptr, hi_stride, _hi = kernel_bound(t_max, r, device, "t_max")
 
-    t = torch.empty(r, dtype=torch.float32, device=device)
-    prim = torch.empty(r, dtype=torch.int32, device=device)
-    u = torch.empty(r, dtype=torch.float32, device=device)
-    v = torch.empty(r, dtype=torch.float32, device=device)
+    out = torch.empty(4 * r, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library()(rays.data_ptr(), r, boxes.data_ptr(), n_clusters,
-                     comp.data_ptr(), int(comp.shape[1]), int(packed.n_tris),
-                     packed.order.data_ptr(), t.data_ptr(), prim.data_ptr(),
-                     u.data_ptr(), v.data_ptr(), _THREADS, stream)
+    err = _library().clustered_intersect(
+        origin.data_ptr(), direction.data_ptr(), r, lo, lo_ptr, lo_stride,
+        hi, hi_ptr, hi_stride, boxes.data_ptr(), n_clusters, recs.data_ptr(),
+        chunk_boxes.data_ptr(), padded.data_ptr(), int(packed.n_tris),
+        packed.order.data_ptr(), out.data_ptr(), _THREADS, stream)
     if err != 0:
         raise RuntimeError(f"clustered_intersect launch failed: cudaError "
                            f"{err}")
     launch_count += 1
-    return _finish(t, prim, u, v)
+    return Hit(t=out[:r], prim=out[r:2 * r].view(torch.int32),
+               u=out[2 * r:3 * r], v=out[3 * r:4 * r])
 
 
 def clustered_intersect(packed: ClusteredTriangles, origin, direction, t_min,

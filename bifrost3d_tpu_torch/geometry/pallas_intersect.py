@@ -1,15 +1,19 @@
-"""Dense streaming ray × triangle nearest hit: the CUDA kernel's wrapper.
+"""Dense ray × triangle nearest hit: the CUDA kernel's wrapper.
 
 Port of ``bifrost3d_tpu/geometry/pallas_intersect.py`` (``pack_triangles``,
 ``pallas_intersect``, ``_mt_block``). The TPU kernel ``_intersect_kernel``
-becomes the hand-written CUDA kernel ``csrc/dense_intersect.cu`` (one
-thread per ray, triangle tiles in shared memory; its header says what
+becomes the hand-written CUDA kernel ``csrc/dense_intersect.cu``:
+512-triangle tiles streamed through shared memory and the chunk-culled
+Möller–Trumbore trace of ``csrc/dense_trace.cuh``, which the mesh
+megakernel and the cluster scan share (the kernel's header says what
 bounds it on an H100).
 
 :func:`pallas_intersect` dispatches on the device of the tensors it is
 given: CUDA tensors launch the kernel, CPU tensors take the plain PyTorch
-version :func:`dense_intersect_reference`, anything else raises. A failed
-build or launch raises; nothing falls back.
+version :func:`dense_intersect_reference` (the full scan), anything else
+raises. A failed build or launch raises; nothing falls back.
+:func:`culled_dense_intersect_reference` is the plain version of the
+kernel's cull, with its work counts.
 
 ``launch_count`` counts kernel launches (plain-version calls do not count).
 """
@@ -22,11 +26,19 @@ import functools
 import torch
 
 from bifrost3d_tpu_torch.geometry.traverse import Hit, ray_bounds
+from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
 BLOCK_T = 512       # triangle padding granule of the packed table
 _EPS_DET = 1e-9
 _BIG = 3.0e38
 _CHUNK = 512        # triangles per step of the plain version
+# The kernels' cull (csrc/dense_trace.cuh kChunk, kChunkPad, kGroupChunks):
+# chunks of consecutive triangles, each with a box padded by CHUNK_PAD of
+# its largest coordinate and extent, and one box per GROUP_CHUNKS chunks.
+CHUNK = 32
+CHUNK_PAD = 1e-4
+GROUP_CHUNKS = 16
+_THREADS = 256      # the kernel's block size, one ray per thread
 
 launch_count = 0
 
@@ -121,17 +133,142 @@ def dense_intersect_reference(tri_components, n_tris, origin, direction,
     return _finish(best_t, best_prim, best_u, best_v)
 
 
+def triangle_rows(tri, n_tris: int):
+    """The first ``n_tris`` triangles of a table as [n_tris, 9] rows (v0,
+    e1, e2): the dense branch's [t_pad, 16] table (a triangle per row) or
+    the packing's [16, T_pad] one (a triangle per column)."""
+    if tri.shape[1] == 16:
+        return tri[:n_tris, 0:9]
+    return tri[0:9, :n_tris].T
+
+
+def chunk_boxes(tri, n_tris: int):
+    """The kernels' chunk boxes, as ``csrc/dense_trace.cuh`` builds them →
+    (lo, hi) [n_chunks, 3]: the corners v0, v0 + e1, v0 + e2 of each run of
+    ``CHUNK`` consecutive triangles of the table (either layout of
+    :func:`triangle_rows`), padded by ``CHUNK_PAD`` × (largest |coordinate|
+    + largest extent)."""
+    rows = triangle_rows(tri, n_tris)
+    v0 = rows[:, 0:3]
+    corners = torch.stack([v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]])
+    n_chunks = -(-n_tris // CHUNK)
+    fill = corners.new_full((3, n_chunks * CHUNK - n_tris, 3), _BIG)
+    lo = torch.cat([corners, fill], dim=1).amin(dim=0).reshape(
+        n_chunks, CHUNK, 3).amin(dim=1)
+    hi = torch.cat([corners, -fill], dim=1).amax(dim=0).reshape(
+        n_chunks, CHUNK, 3).amax(dim=1)
+    ext = (hi - lo).amax(dim=-1, keepdim=True)
+    mag = torch.maximum(lo.abs(), hi.abs()).amax(dim=-1, keepdim=True)
+    pad = CHUNK_PAD * (mag + ext)
+    return lo - pad, hi + pad
+
+
+def _enters(lo, hi, origin, inv, t_lo, t_lim):
+    """The chunk rule: the ray meets the box in [t_min, t_far] before
+    ``t_lim``."""
+    t0, t1 = (lo - origin) * inv, (hi - origin) * inv
+    t_near = torch.maximum(torch.minimum(t0, t1).amax(dim=-1), t_lo)
+    t_far = torch.maximum(t0, t1).amin(dim=-1)
+    return (t_near <= t_far) & (t_near < t_lim)
+
+
+def culled_dense_intersect_reference(tri, n_tris: int, origin, direction,
+                                     t_min, t_max, any_hit: bool = False,
+                                     live=None, stats=None,
+                                     live_count=None,
+                                     groups: bool = False) -> Hit:
+    """Plain version of the kernels' chunk-culled dense trace: the chunks of
+    :func:`chunk_boxes` in index order, a chunk entered when the ray meets
+    its box in [t_min, t_far] before the best hit so far (t_max with
+    ``any_hit``, which stops at the first hit in index order), every
+    triangle of an entered chunk tested. With ``groups`` a ray first tests
+    the box of each ``GROUP_CHUNKS`` chunks (their union) and tests the
+    chunk boxes of the groups it enters, as ``csrc/dense_intersect.cu``
+    does. Rays at an index >= ``live_count`` trace nothing and miss. Hits
+    equal :func:`dense_intersect_reference`'s. ``tri`` is either layout of
+    :func:`triangle_rows`.
+
+    ``stats``, if given, gains the work of the lanes in ``live`` (all lanes
+    by default): ``box_tests`` (chunk boxes), ``tri_tests``, with
+    ``groups`` ``group_tests``, and ``chunks_read`` (chunks entered by at
+    least one such lane; their records are the distinct bytes read)."""
+    r = origin.shape[0]
+    device = origin.device
+    rows = triangle_rows(tri, n_tris)
+    lo, hi = chunk_boxes(tri, n_tris)
+    n_chunks = lo.shape[0]
+    inv = torch.where(direction < 0, -1.0, 1.0) / torch.clamp_min(
+        direction.abs(), 1e-12)
+    t_lo = ray_bounds(t_min, r, origin)
+    best_t = torch.clamp_max(ray_bounds(t_max, r, origin), _BIG)
+    best_prim = torch.full((r,), -1, dtype=torch.int32, device=device)
+    best_u = torch.zeros(r, dtype=torch.float32, device=device)
+    best_v = torch.zeros(r, dtype=torch.float32, device=device)
+    counted = (torch.ones(r, dtype=torch.bool, device=device) if live is None
+               else live)
+    searching = torch.ones(r, dtype=torch.bool, device=device)
+    if live_count is not None:
+        searching = torch.arange(r, device=device) < live_count
+        counted = counted & searching
+    o = tuple(origin[:, c:c + 1] for c in range(3))
+    d = tuple(direction[:, c:c + 1] for c in range(3))
+    box_tests = tri_tests = group_tests = 0
+    read = torch.zeros(n_chunks, dtype=torch.bool, device=device)
+    in_group = searching
+    for c in range(n_chunks):
+        if groups and c % GROUP_CHUNKS == 0:
+            g = slice(c, min(c + GROUP_CHUNKS, n_chunks))
+            in_group = searching & _enters(lo[g].amin(dim=0), hi[g].amax(dim=0),
+                                           origin, inv, t_lo, best_t)
+            group_tests += int((searching & counted).sum())
+        start, stop = c * CHUNK, min(n_tris, (c + 1) * CHUNK)
+        enter = in_group & searching & _enters(lo[c], hi[c], origin, inv,
+                                               t_lo, best_t)
+        t, u, v, valid = _mt_block(o, d, rows[start:stop].T, t_lo[:, None])
+        valid = valid & (t < best_t[:, None]) & enter[:, None]
+        k = torch.argmin(torch.where(valid, t, _BIG), dim=1, keepdim=True)
+        if any_hit:
+            k = torch.argmax(valid.to(torch.int32), dim=1, keepdim=True)
+        found = torch.gather(valid, 1, k)[:, 0]
+        best_t = torch.where(found, torch.gather(t, 1, k)[:, 0], best_t)
+        best_prim = torch.where(found, (k[:, 0] + start).to(torch.int32),
+                                best_prim)
+        best_u = torch.where(found, torch.gather(u, 1, k)[:, 0], best_u)
+        best_v = torch.where(found, torch.gather(v, 1, k)[:, 0], best_v)
+        if stats is not None:
+            box_tests += int((in_group & searching & counted).sum())
+            tests = torch.where(found, k[:, 0] + 1, stop - start) \
+                if any_hit else stop - start
+            tri_tests += int(torch.where(enter & counted, tests, 0).sum())
+            read[c] = bool((enter & counted).any())
+        if any_hit:
+            searching = searching & ~found
+    if stats is not None:
+        for key, value in (("box_tests", box_tests), ("tri_tests", tri_tests),
+                           ("chunks_read", int(read.sum()))):
+            stats[key] = stats.get(key, 0) + value
+        if groups:
+            stats["group_tests"] = stats.get("group_tests", 0) + group_tests
+    return _finish(best_t, best_prim, best_u, best_v)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from bifrost3d_tpu_torch.utils import cuda_build
     lib = cuda_build.load("dense_intersect.cu")
-    fn = lib.dense_intersect
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.dense_intersect.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.dense_intersect.restype = ctypes.c_int
+    lib.dense_intersect_boxes.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.dense_intersect_boxes.restype = ctypes.c_int
+    return lib
 
 
 def _check(name, x, dtype, device):
@@ -143,44 +280,130 @@ def _check(name, x, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def kernel_bound(value, r: int, device, name: str):
+    """A t bound as the trace kernels take it → (value, pointer, stride,
+    the tensor to keep alive): a number by value; a one-element tensor
+    through its pointer with stride 0 (no host sync); an [r] tensor with
+    stride 1."""
+    if not isinstance(value, torch.Tensor):
+        return float(value), 0, 0, None
+    if value.numel() == 1:
+        stride = 0
+    elif value.shape == (r,):
+        stride = 1
+    else:
+        raise ValueError(f"{name} must be a number, one value or [r]")
+    value = value.to(device=device, dtype=torch.float32).contiguous()
+    return 0.0, value.data_ptr(), stride, value
+
+
+def kernel_live(live_count, r: int, device):
+    """The live count as the trace kernels take it → (value, pointer, bits,
+    the tensor to keep alive): a number by value, clamped to [0, r]; a
+    one-element int32 or int64 tensor through its pointer, which the kernel
+    reads on the device (no host sync)."""
+    if isinstance(live_count, torch.Tensor):
+        if live_count.numel() != 1 or live_count.dtype not in (
+                torch.int32, torch.int64):
+            raise ValueError("a live_count tensor must be one int32 or int64")
+        live_count = live_count.to(device)
+        bits = 32 if live_count.dtype == torch.int32 else 64
+        return r, live_count.data_ptr(), bits, live_count
+    if live_count is None:
+        return r, 0, 0, None
+    return max(0, min(int(live_count), r)), 0, 0, None
+
+
+def box_counts(n_tris: int):
+    """→ (chunk boxes, group boxes) of an ``n_tris`` table."""
+    n_chunks = -(-n_tris // CHUNK)
+    return n_chunks, -(-n_chunks // GROUP_CHUNKS)
+
+
+def trace_boxes(recs, n_tris: int, build):
+    """The chunk and group boxes of the records [n, 12] on the card (the
+    dense trace's and the cluster scan's), built by ``build``, a library's
+    export of csrc/dense_trace.cuh's build_boxes → (boxes [n_chunks, 8],
+    groups [n_groups, 8])."""
+    n_chunks, n_groups = box_counts(n_tris)
+    boxes = torch.empty((max(n_chunks, 1), 8), dtype=torch.float32,
+                        device=recs.device)
+    groups = torch.empty((max(n_groups, 1), 8), dtype=torch.float32,
+                         device=recs.device)
+    stream = torch.cuda.current_stream(recs.device).cuda_stream
+    err = build(recs.data_ptr(), n_tris, boxes.data_ptr(), groups.data_ptr(),
+                stream)
+    if err != 0:
+        raise RuntimeError(f"chunk box build failed: cudaError {err}")
+    return boxes, groups
+
+
+_TABLES = VersionedCache()
+
+
+def trace_tables(tri_components, n_tris: int):
+    """The kernel's tables for a packed [16, T_pad] table, cached per
+    (identity, version) → (records [n_tris, 12]: an AoS copy of rows 0-11,
+    chunk boxes, group boxes)."""
+    key, tables = _TABLES.lookup((tri_components,), n_tris)
+    if tables is None:
+        recs = tri_components[:12, :n_tris].T.contiguous()
+        tables = _TABLES.store(key, (tri_components,),
+                               (recs, *trace_boxes(
+                                   recs, n_tris,
+                                   _library().dense_intersect_boxes)))
+    return tables
+
+
 def dense_intersect_cuda(tri_components, n_tris, origin, direction, t_min,
                          t_max, live_count=None) -> Hit:
-    """Launch ``csrc/dense_intersect.cu`` on the current stream."""
+    """Launch ``csrc/dense_intersect.cu`` on the current stream. The kernel
+    reads ``origin`` and ``direction`` [r, 3] as they are, each bound as a
+    number, a one-element tensor or an [r] tensor, and a ``live_count``
+    tensor (int32 or int64, one element) on the device, so a pool's live
+    sum costs no host sync; it writes the final hits into one allocation,
+    whose views the returned Hit holds."""
     global launch_count
     device = origin.device
     r = int(origin.shape[0])
     if origin.shape != (r, 3) or direction.shape != (r, 3):
         raise ValueError("origin and direction must both be [r, 3]")
-    if tri_components.dim() != 2 or tri_components.shape[0] < 9:
-        raise ValueError("tri_components must be [>= 9, T_pad]")
+    if tri_components.dim() != 2 or tri_components.shape[0] < 12:
+        raise ValueError("tri_components must be [>= 12, T_pad]")
     if not 0 <= n_tris <= tri_components.shape[1]:
         raise ValueError(f"n_tris={n_tris} exceeds the packed table")
-    if 8 * r >= 2**31:
+    if 4 * r >= 2**31:
         raise ValueError(f"{r} rays overflow the kernel's int32 indexing")
-    rays = torch.cat([origin.T, direction.T,
-                      ray_bounds(t_min, r, origin)[None],
-                      ray_bounds(t_max, r, origin)[None]], dim=0).contiguous()
-    _check("rays", rays, torch.float32, device)
+    origin, direction = origin.contiguous(), direction.contiguous()
+    _check("origin", origin, torch.float32, device)
+    _check("direction", direction, torch.float32, device)
     _check("tri_components", tri_components, torch.float32, device)
-    n_live = r if live_count is None else min(int(live_count), r)
+    recs, boxes, groups = trace_tables(tri_components, int(n_tris))
+    # The bound and count tensors stay referenced until the launch is
+    # enqueued.
+    lo, lo_ptr, lo_stride, _lo = kernel_bound(t_min, r, device, "t_min")
+    hi, hi_ptr, hi_stride, _hi = kernel_bound(t_max, r, device, "t_max")
+    n_live, live_ptr, live_bits, _live = kernel_live(live_count, r, device)
 
-    t = torch.empty(r, dtype=torch.float32, device=device)
-    prim = torch.empty(r, dtype=torch.int32, device=device)
-    u = torch.empty(r, dtype=torch.float32, device=device)
-    v = torch.empty(r, dtype=torch.float32, device=device)
+    out = torch.empty(4 * r, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library()(rays.data_ptr(), r, n_live, tri_components.data_ptr(),
-                     int(tri_components.shape[1]), int(n_tris), t.data_ptr(),
-                     prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
+    err = _library().dense_intersect(
+        origin.data_ptr(), direction.data_ptr(), r, lo, lo_ptr, lo_stride,
+        hi, hi_ptr, hi_stride, n_live, live_ptr, live_bits, recs.data_ptr(),
+        int(n_tris), boxes.data_ptr(), groups.data_ptr(), out.data_ptr(),
+        _THREADS, stream)
     if err != 0:
         raise RuntimeError(f"dense_intersect launch failed: cudaError {err}")
     launch_count += 1
-    return _finish(t, prim, u, v)
+    return Hit(t=out[:r], prim=out[r:2 * r].view(torch.int32),
+               u=out[2 * r:3 * r], v=out[3 * r:4 * r])
 
 
 def pallas_intersect(tri_components, n_tris, origin, direction, t_min, t_max,
                      live_count=None) -> Hit:
-    """Nearest hit of rays [r, 3] against the packed triangle soup.
+    """Nearest hit of rays [r, 3] against the packed triangle soup. Rays at
+    an index >= ``live_count`` (int or int tensor) report misses
+    untraced.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     """

@@ -63,10 +63,16 @@ from bifrost3d_tpu_torch.geometry.pallas_bvh import (
     hierarchical_intersect_reference,
     pack_hierarchical,
 )
-from bifrost3d_tpu_torch.geometry.pallas_intersect import (
+# The dense trace's cull (CHUNK, CHUNK_PAD, chunk_boxes and its plain
+# version) is the trace kernels' own, in csrc/dense_trace.cuh; its names
+# stay in this namespace.
+from bifrost3d_tpu_torch.geometry.pallas_intersect import (  # noqa: F401
+    CHUNK,
+    CHUNK_PAD,
     _check,
     _finish,
-    _mt_block,
+    chunk_boxes,
+    culled_dense_intersect_reference,
     dense_intersect_reference,
 )
 from bifrost3d_tpu_torch.geometry.traverse import Hit, ray_bounds
@@ -133,11 +139,6 @@ MAX_ENV_POOL = 8192       # presampled pool entries
 # Pixels per warp on the BVH branch, (width, height) of the tile a warp's 32
 # lanes cover; None = raster order.
 HIER_PIXEL_TILE = (8, 4)
-# The dense trace's cull: chunks of consecutive triangles, each with a box
-# padded by CHUNK_PAD of its largest coordinate and extent (csrc kChunk,
-# kChunkPad).
-CHUNK = 32
-CHUNK_PAD = 1e-4
 _BIG = 3.0e38
 _THREADS = 128            # the kernel's block size, one pixel per thread
 
@@ -563,84 +564,6 @@ def _analytic_light_hits(lights, light_kinds, o, d):
         t_light = torch.where(closer, tk, t_light)
         idx = torch.where(closer, k, idx)
     return t_light, idx
-
-
-def chunk_boxes(tri, n_tris: int):
-    """The dense trace's chunk boxes, as the kernel builds them in shared
-    memory → (lo, hi) [n_chunks, 3]: the corners v0, v0 + e1, v0 + e2 of
-    each run of ``CHUNK`` consecutive triangles of the [t_pad, 16] table,
-    padded by ``CHUNK_PAD`` × (largest |coordinate| + largest extent)."""
-    v0 = tri[:n_tris, 0:3]
-    corners = torch.stack([v0, v0 + tri[:n_tris, 3:6], v0 + tri[:n_tris, 6:9]])
-    n_chunks = -(-n_tris // CHUNK)
-    fill = corners.new_full((3, n_chunks * CHUNK - n_tris, 3), _BIG)
-    lo = torch.cat([corners, fill], dim=1).amin(dim=0).reshape(
-        n_chunks, CHUNK, 3).amin(dim=1)
-    hi = torch.cat([corners, -fill], dim=1).amax(dim=0).reshape(
-        n_chunks, CHUNK, 3).amax(dim=1)
-    ext = (hi - lo).amax(dim=-1, keepdim=True)
-    mag = torch.maximum(lo.abs(), hi.abs()).amax(dim=-1, keepdim=True)
-    pad = CHUNK_PAD * (mag + ext)
-    return lo - pad, hi + pad
-
-
-def culled_dense_intersect_reference(tri, n_tris: int, origin, direction,
-                                     t_min, t_max, any_hit: bool = False,
-                                     live=None, stats=None) -> Hit:
-    """Plain version of the kernel's dense trace with its chunk cull: the
-    chunks of :func:`chunk_boxes` in index order, a chunk entered when the
-    ray meets its box in [t_min, t_far] before the best hit so far (t_max
-    with ``any_hit``, which stops at the first hit in index order), every
-    triangle of an entered chunk tested. Hits equal
-    :func:`~bifrost3d_tpu_torch.geometry.pallas_intersect.dense_intersect_reference`'s.
-    ``stats``, if given, gains the chunk box tests and triangle tests of
-    the lanes in ``live`` (all lanes by default) under ``box_tests`` and
-    ``tri_tests``."""
-    r = origin.shape[0]
-    device = origin.device
-    lo, hi = chunk_boxes(tri, n_tris)
-    inv = torch.where(direction < 0, -1.0, 1.0) / torch.clamp_min(
-        direction.abs(), 1e-12)
-    t_lo = ray_bounds(t_min, r, origin)
-    best_t = torch.clamp_max(ray_bounds(t_max, r, origin), _BIG)
-    best_prim = torch.full((r,), -1, dtype=torch.int32, device=device)
-    best_u = torch.zeros(r, dtype=torch.float32, device=device)
-    best_v = torch.zeros(r, dtype=torch.float32, device=device)
-    counted = (torch.ones(r, dtype=torch.bool, device=device) if live is None
-               else live)
-    searching = torch.ones(r, dtype=torch.bool, device=device)
-    o = tuple(origin[:, c:c + 1] for c in range(3))
-    d = tuple(direction[:, c:c + 1] for c in range(3))
-    box_tests = tri_tests = 0
-    for c in range(lo.shape[0]):
-        start, stop = c * CHUNK, min(n_tris, (c + 1) * CHUNK)
-        t0, t1 = (lo[c] - origin) * inv, (hi[c] - origin) * inv
-        t_near = torch.maximum(torch.minimum(t0, t1).amax(dim=-1), t_lo)
-        t_far = torch.maximum(t0, t1).amin(dim=-1)
-        enter = searching & (t_near <= t_far) & (t_near < best_t)
-        t, u, v, valid = _mt_block(o, d, tri[start:stop, 0:9].T,
-                                   t_lo[:, None])
-        valid = valid & (t < best_t[:, None]) & enter[:, None]
-        k = torch.argmin(torch.where(valid, t, _BIG), dim=1, keepdim=True)
-        if any_hit:
-            k = torch.argmax(valid.to(torch.int32), dim=1, keepdim=True)
-        found = torch.gather(valid, 1, k)[:, 0]
-        best_t = torch.where(found, torch.gather(t, 1, k)[:, 0], best_t)
-        best_prim = torch.where(found, (k[:, 0] + start).to(torch.int32),
-                                best_prim)
-        best_u = torch.where(found, torch.gather(u, 1, k)[:, 0], best_u)
-        best_v = torch.where(found, torch.gather(v, 1, k)[:, 0], best_v)
-        if stats is not None:
-            box_tests += int((searching & counted).sum())
-            tests = torch.where(found, k[:, 0] + 1, stop - start) \
-                if any_hit else stop - start
-            tri_tests += int(torch.where(enter & counted, tests, 0).sum())
-        if any_hit:
-            searching = searching & ~found
-    if stats is not None:
-        stats["box_tests"] = stats.get("box_tests", 0) + box_tests
-        stats["tri_tests"] = stats.get("tri_tests", 0) + tri_tests
-    return _finish(best_t, best_prim, best_u, best_v)
 
 
 def _reference_tracers(tri, cfg: KernelConfig, eps, stats):

@@ -754,11 +754,8 @@ def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
             state, pixel_idx = _sorted_pool(scene, state, pixel_idx)
         n_active = state.active.sum()
         # The live lanes are a prefix only when the pool was sorted in this
-        # very iteration. Only the BVH kernel reads the count from the
-        # device; the dense kernel would need it on the host (a sync per
-        # trace), so it traces the whole pool.
-        live = n_active if (settings.sort_rays_every == 1
-                            and scene.tri_clustered is not None) else None
+        # very iteration; the trace kernels read the count on the device.
+        live = n_active if settings.sort_rays_every == 1 else None
         rays = rays + 2 * n_active
         state = _wavefront_step(scene, settings, accumulation, state,
                                 live_count=live)

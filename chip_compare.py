@@ -11,7 +11,11 @@ directory that ``.gitignore`` lists::
 It builds both trees' kernels in parallel, then runs four turns (other,
 this, this, other), each in a process of its own that imports its tree's
 ``bifrost3d_tpu_torch`` and calls the same workloads through functions
-both trees export. For each workload one ``RESULT`` line per turn gives
+both trees export: B5, the SmallPT app, B3 and B2 frames, B4, B1 on three
+tables (closest, bounded, live prefix), B6 on two soups, and the pooled
+wavefront's 512² frame of hier_bridge_15k on B1 and on B6 (host clock,
+median of 3 after a first frame). For each
+workload one ``RESULT`` line per turn gives
 ``call_ms``, the median time of the call between CUDA events, and
 ``kernel_ms``, the device time per call of the kernels it launched other
 than torch's own and memsets (torch.profiler), so a wrapper's host work and
@@ -19,8 +23,8 @@ torch ops are left out; the SmallPT app's frame is timed on the host clock;
 ``nvidia-smi`` clocks, power draw and limit are printed beside each group.
 Then ``BITEQ`` says which workloads' outputs are bit-equal between the
 trees, and between the two turns of each tree, and ``SUMMARY`` gives each
-time of both turns of both trees. Timing helpers and ray sets are
-chip_smoke.py's.
+time of both turns of both trees. Timing helpers (``device_ms``: one
+torch.profiler session per turn) and ray sets are chip_smoke.py's.
 
 ``python3 chip_compare.py --turn ROOT LABEL OUT.npz`` runs one turn.
 """
@@ -50,42 +54,6 @@ def _smoke():
     return module
 
 
-def kernel_ms(workloads, repeats=10) -> dict:
-    """Device time per call of the kernels each workload launches, torch's
-    own kernels and memsets left out: one torch.profiler session over all
-    of them (the card's trace has been seen to go missing in a later
-    session of one process), each workload's calls in a range of their own
-    that ends in a synchronise, kernels assigned to the range they start
-    in. None where the trace holds no kernel of a workload."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for name, fn in workloads:
-            with record_function(f"workload:{name}"):
-                for _ in range(repeats):
-                    fn()
-                torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    # The ranges on the host; on the card each range is also an annotation
-    # spanning its kernels, which is no kernel.
-    windows = {e.name.split(":", 1)[1]: e.time_range for e in events
-               if e.name.startswith("workload:") and e.device_type != cuda}
-    total = dict.fromkeys(windows, 0.0)
-    for e in events:
-        if e.device_type != cuda or any(
-                word in e.name
-                for word in ("workload:", "at::", "Memset", "Memcpy")):
-            continue
-        for name, window in windows.items():
-            if window.start <= e.time_range.start <= window.end:
-                total[name] += e.time_range.elapsed_us()
-    return {name: (us / repeats / 1e3 if us else None)
-            for name, us in total.items()}
-
-
 def turn(root: str, label: str, out_path: str) -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -101,6 +69,8 @@ def turn(root: str, label: str, out_path: str) -> None:
     from bifrost3d_tpu_torch.apps.scenes import (SCENES, TEST_SCENES,
                                                  torus_grid_mesh)
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
     from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
@@ -170,7 +140,51 @@ def turn(root: str, label: str, out_path: str) -> None:
                     hier.hierarchical_intersect_cuda(tree, o, d, 1e-4, inf,
                                                      any_hit=any_hit)))
     res["smi/bvh"] = smoke.smi()
-    for name, ms in kernel_ms(workloads).items():
+
+    # -- B1 on its three tables, B6 on the bridge and the 16,130 soup ----------
+    rng = np.random.default_rng(9)
+    t_max = torch.tensor(rng.uniform(0.2, 4.0, smoke.R).astype(np.float32),
+                         device=dev)
+    soups = smoke._soups(dev)
+    for table, tris, ray_sets in smoke._dense_cases(dev, soups):
+        comp, n = dense.pack_triangles(tris)
+        for kind, (o, d) in ray_sets.items():
+            for case, bound, live in (("closest", inf, None),
+                                      ("bounded", t_max, None),
+                                      ("live", inf, smoke.R // 3)):
+                run(f"dense/{table}/{kind}/{case}",
+                    lambda comp=comp, n=n, o=o, d=d, bound=bound, live=live:
+                    tuple(dense.pallas_intersect(comp, n, o, d, 1e-4, bound,
+                                                 live_count=live)))
+    for table, tris, bvh, ray_sets in smoke._scan_cases(dev, soups):
+        scan = clustered.pack_clustered(tris, bvh)
+        for kind, (o, d) in ray_sets.items():
+            run(f"clustered/{table}/{kind}",
+                lambda scan=scan, o=o, d=d: tuple(clustered.clustered_intersect(
+                    scan, o, d, 1e-4, inf)), repeats=10)
+    res["smi/traces"] = smoke.smi()
+
+    # -- the pooled wavefront on hier_bridge_15k at 512², on B1 and on B6 ----
+    scene, camera = TEST_SCENES["hier_bridge_15k"](device=dev)
+    for packing in ("dense", "clustered"):
+        if packing == "clustered":
+            scene = scene._replace(tri_clustered=clustered.pack_clustered(
+                scene.tri_verts, scene.bvh), tri_components=None)
+        settings = pt.settings_for_scene(scene, max_bounce_count=smoke.BOUNCES)
+        image = pt.render_sample_pooled(scene, camera, smoke.RES, smoke.RES, 1,
+                                        settings)
+        arrays[f"pooled.{packing}:0"] = image.cpu().numpy()
+        frames = []
+        for acc in (2, 3, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pt.render_sample_pooled(scene, camera, smoke.RES, smoke.RES, acc,
+                                    settings)
+            torch.cuda.synchronize()
+            frames.append((time.perf_counter() - t0) * 1e3)
+        res[f"pooled/{packing}/frame_ms"] = statistics.median(frames)
+    res["smi/pooled"] = smoke.smi()
+    for name, ms in smoke.device_ms(workloads).items():
         res[f"{name}/kernel_ms"] = ms
 
     np.savez(out_path, **arrays)

@@ -14,7 +14,8 @@ the last line):
    (csrc/dense_intersect.cu, csrc/mesh_megakernel.cu with its dense and BVH
    instantiations, each with and without the environment, texture and
    cutout branches, csrc/smallpt_megakernel.cu, csrc/bvh_intersect.cu,
-   csrc/clustered_intersect.cu and csrc/vmem_intersect.cu) with nvcc into
+   csrc/clustered_intersect.cu and csrc/vmem_intersect.cu; the first three
+   include the chunk-culled trace of csrc/dense_trace.cuh) with nvcc into
    build/kernels/, one nvcc each, started together, and
    native/bvh_builder.cpp with g++ into build/native/; prints each build's
    time and ptxas report (registers, stack frame, spills of every
@@ -36,12 +37,16 @@ the last line):
    ties, t/u/v bit for bit where prim agrees, the same any-hit occlusion;
    times of both, the culled trace's test counts.
 4. kernel: the dense trace kernel against its plain PyTorch version on the
-   card, on 65,536 random rays (numpy seed 0) against the CornellBox soup
-   (rays from the room's free space) and a ~16k-triangle sphere + floor
-   soup (rays from around the sphere): closest hit with t_max = inf, with
-   a finite t_max, and with a live prefix of R/3. prim must agree on
-   >= 99.9% of rays and t be allclose (rtol 1e-5) where it does. Median
-   times by CUDA events.
+   card, on the CornellBox soup, a 16,130-triangle sphere + floor soup and
+   the 49,678-triangle bridge soup, 65,536 camera rays and 65,536 seeded
+   incoherent rays each: closest hit with t_max = inf, with a finite
+   t_max, and with a live prefix of R/3 as an int and as a device int64;
+   prim must agree off ties on >= 99.9% of rays and t be allclose (rtol
+   1e-5) where it does, and rays past the prefix miss. Median call times by CUDA events,
+   device times by torch.profiler (in a process of its own, with the
+   cluster scan's: a later profiler session of one process has lost the
+   card's trace), the plain cull's work (group-box, chunk-box and triangle
+   tests, chunks read) and two bounds: the full scan's and this work's.
 5. wavefront: CornellBox 512², 4 bounces, one accumulation through
    render_sample_pooled, the path of scenes the megakernel does not take;
    the trace kernel's launch count must rise. One accumulation with the
@@ -106,8 +111,11 @@ the last line):
    16,130-triangle soup: each against its plain version (prim equal off
    ties on >= 99.9% of rays, t within rtol 1e-5, the walk's occlusion on
    >= 99.9%) and against the dense and the BVH kernel on the same rays;
-   median times of all four traces side by side, the plain versions' work
-   counts.
+   the scan's plain model of its cull equal to the plain scan; median
+   times of all four traces side by side, the plain versions' work counts
+   (for the scan: block fetches, padded cluster boxes, chunk boxes and
+   triangles tested per ray) and the bounds (for the scan the TPU design's
+   and its own work's).
 13. megakernel/hier: the 2,494-triangle mid-size scene and the three bridge
    scenes (3,054, 14,606 and 49,678 triangles) at 256², 4 bounces through
    the megakernel's BVH branch: the kernel against its plain version on the
@@ -136,6 +144,11 @@ the last line):
    with the resident-cluster packing: launches of the right kernel > 0, of
    the other trace kernels 0, the frame under the statistical gate against
    the dense trace's.
+   pooled: the same scene at 512², 4 bounces, one pooled frame on its
+   default dense table (B1) and one on the cluster-scan packing (B6), each
+   in a process of its own after a first frame: frame time, the trace
+   kernel's launches (the other trace kernels' 0) and its share of the
+   frame's device time (torch.profiler).
 
 16. megakernel/extras: the megakernel's environment, texture and cutout
    branches (its kExtras instantiations): Sphere, sphere_sun, Opacity and
@@ -496,53 +509,234 @@ def _median_ms(fn, repeats=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(device, soups) -> dict:
-    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+def device_ms(workloads, repeats=10) -> dict:
+    """Device time per call of the kernels each workload launches, torch's
+    own kernels and memsets left out: one torch.profiler session over all
+    of them (the card's trace has been seen to go missing in a later
+    session of one process), each workload's calls in a range of their own
+    that ends in a synchronise, kernels assigned to the range they start
+    in. None where the trace holds no kernel of a workload."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in workloads:
+            with record_function(f"workload:{name}"):
+                for _ in range(repeats):
+                    fn()
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # The ranges on the host; on the card each range is also an annotation
+    # spanning its kernels, which is no kernel.
+    windows = {e.name.split(":", 1)[1]: e.time_range for e in events
+               if e.name.startswith("workload:") and e.device_type != cuda}
+    total = dict.fromkeys(windows, 0.0)
+    for e in events:
+        if e.device_type != cuda or any(
+                word in e.name
+                for word in ("workload:", "at::", "Memset", "Memcpy")):
+            continue
+        for name, window in windows.items():
+            if window.start <= e.time_range.start <= window.end:
+                total[name] += e.time_range.elapsed_us()
+    return {name: (us / repeats / 1e3 if us else None)
+            for name, us in total.items()}
+
+
+def _pinhole_rays(eye, target, fov, device, side=256):
+    """side² camera rays from ``eye`` towards ``target`` through a square
+    window of half-angle tangent ``fov``, in raster order."""
+    eye, target = np.asarray(eye, np.float32), np.asarray(target, np.float32)
+    w = target - eye
+    w /= np.linalg.norm(w)
+    u = np.cross(w, [0.0, 1.0, 0.0])
+    u /= np.linalg.norm(u)
+    v = np.cross(u, w)
+    xs, ys = np.meshgrid(np.linspace(-fov, fov, side),
+                         np.linspace(fov, -fov, side))
+    d = (xs[..., None] * u + ys[..., None] * v + w).reshape(-1, 3)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    o = np.broadcast_to(eye, d.shape).copy()
+    return torch.tensor(o, device=device), torch.tensor(d, device=device)
+
+
+def _dense_cases(device, soups):
+    """The dense kernel's tables and ray sets: CornellBox (its camera at
+    256² and rays from the room's free space), the 16,130-triangle sphere
+    and floor (a camera on the sphere and rays from around it) and the
+    49,678-triangle bridge (_bridge_rays), 65,536 rays each."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES, create_cornell_box
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
     rng = np.random.default_rng(0)
+    scene, cam = create_cornell_box(device=device)
+    lanes = mega.megakernel_inputs(scene, cam, 256, 256, 0,
+                                   pt.RenderSettings(max_bounce_count=1))
+    yield "cornell", soups["cornell"], {
+        "camera": (lanes[6].contiguous(), lanes[7].contiguous()),
+        "incoherent": tuple(_rays(rng, "cornell", device)[:2])}
+    yield "sphere", soups["sphere"], {
+        "camera": _pinhole_rays((0.4, 0.6, 1.6), (0.0, -0.1, 0.0), 0.45,
+                                device),
+        "incoherent": tuple(_rays(rng, "sphere", device)[:2])}
+    scene, cam = TEST_SCENES[BRIDGE_SCENE](device=device)
+    yield "bridge", scene.tri_verts, _bridge_rays(scene, cam, device)
+
+
+def kernel_phase(device, soups, device_times) -> dict:
+    """B1 against its plain version on three tables and two ray sets each;
+    call times, device times (``device_times``: trace_device_phase's, from
+    a process of its own), the plain cull's work and both bounds."""
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     results, failures = {}, []
-    for name, tris in soups.items():
+    inf = float("inf")
+    live = R // 3
+    for name, tris, ray_sets in _dense_cases(device, soups):
         comp, n = dense.pack_triangles(tris)
-        o, d, t_max = _rays(rng, name, device)
-        worst_err, worst_agree = 0.0, 1.0
-        for case, bound, live in (("inf", float("inf"), None),
-                                  ("t_max", t_max, None),
-                                  ("live", float("inf"), R // 3)):
-            got = dense.dense_intersect_cuda(comp, n, o, d, 1e-4, bound, live)
-            ref = dense.dense_intersect_reference(comp, n, o, d, 1e-4, bound,
-                                                  live)
-            torch.cuda.synchronize()
-            rows = slice(None) if live is None else slice(0, live)
-            agree = got.prim[rows] == ref.prim[rows]
-            frac = float(agree.float().mean())
-            if frac < 0.999:
-                failures.append(f"{name}/{case}: prim agrees on {frac:.5f}")
-            if live is not None and not bool((got.prim[live:] == -1).all()):
-                failures.append(f"{name}/{case}: rays past n_live must miss")
-            hit = agree & (ref.prim[rows] >= 0)
-            tg, tr = got.t[rows][hit], ref.t[rows][hit]
-            if not bool(torch.allclose(tg, tr, rtol=1e-5, atol=0.0)):
-                failures.append(f"{name}/{case}: t differs beyond rtol 1e-5")
-            err = float((tg - tr).abs().max()) if tg.numel() else 0.0
-            worst_err = max(worst_err, err)
-            worst_agree = min(worst_agree, frac)
-            hits = float((ref.prim[rows] >= 0).float().mean())
-        ms = _median_ms(lambda: dense.dense_intersect_cuda(
-            comp, n, o, d, 1e-4, float("inf")))
-        plain_ms = _median_ms(lambda: dense.dense_intersect_reference(
-            comp, n, o, d, 1e-4, float("inf")))
-        # Rays in (32 B), hits out (16 B) and the 9-row table once; one
-        # Möller–Trumbore test per ray and triangle.
-        results[name] = dict(n_tris=n, max_abs_err=worst_err, ms=ms,
-                             plain_ms=plain_ms, agree=worst_agree,
-                             **roofline(48 * R + 36 * n, MT_FLOPS * R * n))
-        print(f"kernel/{name}: {R} rays x {n} tris | prim agrees >= "
-              f"{worst_agree:.5f} | max |dt| {worst_err:.3g} | hit share "
-              f"(live case) {hits:.3f} | kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (median of 20) | bound "
-              f"{results[name]['bound_ms']:.5f} ms by "
-              f"{results[name]['bound_by']}", flush=True)
+        n_chunks, n_groups = dense.box_counts(n)
+        for ray_name, (o, d) in ray_sets.items():
+            what = f"{name}/{ray_name}"
+            ref = dense.dense_intersect_reference(comp, n, o, d, 1e-4, inf)
+            t_max = _bounded(ref)
+            worst_err, worst_agree, ties, got = 0.0, 1.0, 0, {}
+            for case, bound, count in (
+                    ("inf", inf, None), ("t_max", t_max, None),
+                    ("live", inf, live),
+                    ("live64", inf, torch.tensor(live, device=device))):
+                got[case] = dense.dense_intersect_cuda(comp, n, o, d, 1e-4,
+                                                       bound, count)
+                plain = ref if case == "inf" else \
+                    dense.dense_intersect_reference(comp, n, o, d, 1e-4,
+                                                    bound, count)
+                rows = slice(None) if count is None else slice(0, live)
+                a, t, err = _compare_hits(
+                    type(ref)(*(f[rows] for f in got[case])),
+                    type(ref)(*(f[rows] for f in plain)),
+                    f"dense/{what}/{case}", failures)
+                worst_agree, ties = min(worst_agree, a), ties + t
+                worst_err = max(worst_err, err)
+                if count is not None and not bool(
+                        (got[case].prim[live:] == -1).all()):
+                    failures.append(f"dense/{what}/{case}: rays past the "
+                                    "live count must miss")
+            if not all(torch.equal(x, y)
+                       for x, y in zip(got["live"], got["live64"])):
+                failures.append(f"dense/{what}: the live count as an int and "
+                                "as an int64 tensor give other hits")
+            stats = {}
+            dense.culled_dense_intersect_reference(comp, n, o, d, 1e-4, inf,
+                                                   groups=True, stats=stats)
+            ms = _median_ms(lambda: dense.dense_intersect_cuda(
+                comp, n, o, d, 1e-4, inf))
+            plain_ms = _median_ms(lambda: dense.dense_intersect_reference(
+                comp, n, o, d, 1e-4, inf), repeats=3, warmup=1)
+            read = min(n, stats["chunks_read"] * dense.CHUNK)
+            # Full scan: rays in (32 B), hits out (16 B), the 9-row table
+            # once; one test per ray and triangle. Own work: origin and
+            # direction in (24 B), hits out (16 B), the boxes and the
+            # records of the chunks entered once; a box test per group box
+            # and per chunk box of an entered group, a test per triangle of
+            # an entered chunk.
+            work = roofline(40 * R + 32 * (n_chunks + n_groups) + 48 * read,
+                            BOX_FLOPS * (stats["group_tests"]
+                                         + stats["box_tests"])
+                            + MT_FLOPS * stats["tri_tests"])
+            full = roofline(48 * R + 36 * n, MT_FLOPS * R * n)
+            k = results[what] = dict(
+                n_tris=n, max_abs_err=worst_err, agree=worst_agree, ties=ties,
+                ms=ms, device_ms=device_times[f"dense/{what}"],
+                plain_ms=plain_ms, hits=float((ref.prim >= 0).float().mean()),
+                bound_full_ms=full["bound_ms"], bound_full_by=full["bound_by"],
+                **work, **{key: stats[key] / R for key in (
+                    "group_tests", "box_tests", "tri_tests")},
+                chunks_read=stats["chunks_read"], n_chunks=n_chunks)
+            print(f"kernel/dense/{what}: {R} rays x {n} tris | prim agrees "
+                  f"off ties >= {k['agree']:.5f} with the plain version "
+                  f"({k['ties']} ties; closest, bounded, live as int and "
+                  f"int64), max |dt| "
+                  f"{k['max_abs_err']:.3g} | hit share {k['hits']:.3f} | "
+                  f"call {ms:.4f} ms (median of 20), device "
+                  f"{k['device_ms']:.4f} ms (torch.profiler, mean of 10) | "
+                  f"plain {plain_ms:.1f} ms (median of 3) | per ray "
+                  f"{k['group_tests']:.1f} group-box, {k['box_tests']:.1f} "
+                  f"chunk-box and {k['tri_tests']:.1f} triangle tests, "
+                  f"{k['chunks_read']} of {n_chunks} chunks read | bound of "
+                  f"this work {k['bound_ms']:.5f} ms by {k['bound_by']}, "
+                  f"full scan {k['bound_full_ms']:.5f} ms by "
+                  f"{k['bound_full_by']}", flush=True)
     check(not failures, "; ".join(failures))
     return results
+
+
+def _scan_cases(device, soups):
+    """The cluster kernels' soups and ray sets: the bridge with
+    _bridge_rays, and the 16,130-triangle soup with rays from around it
+    (numpy seed 5) → (name, soup, its BVH or None, {ray set: (o, d)})."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    scene, cam = TEST_SCENES[BRIDGE_SCENE](device=device)
+    yield "bridge", scene.tri_verts, scene.bvh, _bridge_rays(scene, cam,
+                                                             device)
+    o, d, _ = _rays(np.random.default_rng(5), "sphere", device)
+    yield "sphere", soups["sphere"], None, {"around": (o, d)}
+
+
+def _bounded(hit):
+    """kernel_phase's finite t_max for rays whose closest hits are ``hit``:
+    one that cuts some hits short and leaves others."""
+    t_max = torch.where(hit.prim >= 0, hit.t * 1.5, 20.0)
+    t_max[::2] *= 0.5
+    return t_max
+
+
+def trace_device_phase(device) -> dict:
+    """Device times (torch.profiler, one session) of B1's calls on
+    kernel_phase's tables and rays and of B6's on cluster_kernel_phase's →
+    {"dense/<table>/<rays>" or "clustered/<soup>/<rays>": ms}. Run in a
+    process of its own."""
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    inf, workloads = float("inf"), []
+    soups = _soups(device)
+    for name, tris, ray_sets in _dense_cases(device, soups):
+        comp, n = dense.pack_triangles(tris)
+        for ray_name, (o, d) in ray_sets.items():
+            workloads.append((f"dense/{name}/{ray_name}",
+                              lambda comp=comp, n=n, o=o, d=d:
+                              dense.dense_intersect_cuda(comp, n, o, d, 1e-4,
+                                                         inf)))
+    for name, tris, bvh, ray_sets in _scan_cases(device, soups):
+        scan = clustered.pack_clustered(tris, bvh)
+        for ray_name, (o, d) in ray_sets.items():
+            workloads.append((f"clustered/{name}/{ray_name}",
+                              lambda scan=scan, o=o, d=d:
+                              clustered.clustered_intersect_cuda(
+                                  scan, o, d, 1e-4, inf)))
+    for _, fn in workloads:     # the tables, built at a table's first call
+        fn()
+    times = device_ms(workloads)
+    check(all(ms is not None for ms in times.values()),
+          f"torch.profiler saw no kernel of {times}")
+    return times
+
+
+def fresh_process(what: str) -> dict:
+    """``chip_smoke.py --profile <what>`` in a process of its own, so that
+    its torch.profiler session is the process's first (the card's trace has
+    gone missing in a later session of one process) → the dict it prints;
+    its other lines are printed here."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile", what],
+        capture_output=True, text=True, timeout=900, cwd=REPO)
+    results = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("PROFILE "):
+            results.append(json.loads(line[len("PROFILE "):]))
+        else:
+            print(line, flush=True)
+    check(proc.returncode == 0 and bool(results),
+          f"chip_smoke.py --profile {what} failed: {proc.stderr[-3000:]}")
+    return results[-1]
 
 
 def _gate(img, ref, what, flip_budget=0.03, mean_budget=0.02):
@@ -1254,21 +1448,20 @@ def _bridge_rays(scene, cam, device):
                            torch.tensor(d2, device=device))}
 
 
-def cluster_kernel_phase(device, dense_soup) -> dict:
+def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
     """The cluster scan and the resident-cluster walk against their plain
-    versions, and all four trace kernels side by side."""
-    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    versions, and all four trace kernels side by side; the scan's device
+    times are ``device_times`` (trace_device_phase's)."""
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
     from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     from bifrost3d_tpu_torch.geometry.bvh import build_soup_bvh
 
-    scene, cam = TEST_SCENES[BRIDGE_SCENE](device=device)
-    sphere_o, sphere_d, _ = _rays(np.random.default_rng(5), "sphere", device)
-    cases = [("bridge", scene.tri_verts, scene.bvh, name, o, d)
-             for name, (o, d) in _bridge_rays(scene, cam, device).items()]
-    cases.append(("sphere", dense_soup, None, "around", sphere_o, sphere_d))
+    cases = [(soup_name, tris, bvh, name, o, d)
+             for soup_name, tris, bvh, ray_sets in _scan_cases(
+                 device, {"sphere": dense_soup})
+             for name, (o, d) in ray_sets.items()]
     results, failures, packings = {}, [], {}
     inf = float("inf")
     for soup_name, tris, bvh, ray_name, o, d in cases:
@@ -1287,7 +1480,13 @@ def cluster_kernel_phase(device, dense_soup) -> dict:
         by_tree = hier.hierarchical_intersect_cuda(tree, o, d, 1e-4, inf)
         scan_stats, walk_stats = {}, {}
         scan_ref = clustered.clustered_intersect_reference(
-            scan, o, d, 1e-4, inf, stats=scan_stats)
+            scan, o, d, 1e-4, inf)
+        # The plain model of the kernel's cull: the same hits, its work.
+        model = clustered.clustered_intersect_reference(
+            scan, o, d, 1e-4, inf, stats=scan_stats, culled=True)
+        if not all(torch.equal(x, y) for x, y in zip(model, scan_ref)):
+            failures.append(f"clustered/{what}: the cull's plain model is "
+                            "not the scan's hits")
         by_scan = clustered.clustered_intersect_cuda(scan, o, d, 1e-4, inf)
         walk_ref = vmem.vmem_intersect_reference(walk, o, d, 1e-4, inf,
                                                  stats=walk_stats)
@@ -1341,18 +1540,37 @@ def cluster_kernel_phase(device, dense_soup) -> dict:
             vmem=_median_ms(lambda: vmem.vmem_intersect_reference(
                 walk, o, d, 1e-4, inf), repeats=2, warmup=0))
         n_hits = int((scan_ref.prim >= 0).sum())
-        # The scan: rays in (32 B), hits out (16 B), every cluster's box
-        # (32 B), each fetched cluster's 512 x 9 floats once, one `order`
-        # entry per hit; a box test per ray and cluster, and per (block,
-        # cluster) fetch 256 x 512 triangle tests.
-        out["clustered"].update(
-            ms=times["clustered"], plain_ms=plain["clustered"],
-            fetches=scan_stats["fetches"],
-            clusters_read=scan_stats["clusters_read"],
-            **roofline(48 * R + 32 * n_clusters + 4 * n_hits
+        # The TPU design: rays in (32 B), hits out (16 B), every cluster's
+        # box (32 B), each fetched cluster's 512 x 9 floats once, one
+        # `order` entry per hit; a box test per ray and cluster, and per
+        # (block, cluster) fetch 256 x 512 triangle tests.
+        tpu = roofline(48 * R + 32 * n_clusters + 4 * n_hits
                        + 36 * clustered.CLUSTER_T * scan_stats["clusters_read"],
                        BOX_FLOPS * R * n_clusters + MT_FLOPS * clustered.BLOCK_R
-                       * clustered.CLUSTER_T * scan_stats["fetches"]))
+                       * clustered.CLUSTER_T * scan_stats["fetches"])
+        # This kernel's work: origin and direction in (24 B), hits out
+        # (16 B), the boxes (32 B a cluster, unpadded and padded), each
+        # fetched cluster's 512 records (48 B) and 16 chunk boxes once, one
+        # `order` entry per hit; the block rule's box test per ray and
+        # cluster, and per ray of a fetching block the padded cluster box,
+        # the chunk boxes of an entered cluster and the triangles of an
+        # entered chunk.
+        own = roofline(40 * R + 64 * n_clusters + 4 * n_hits
+                       + (48 * clustered.CLUSTER_T + 32 * 16)
+                       * scan_stats["clusters_read"],
+                       BOX_FLOPS * (R * n_clusters + scan_stats["cluster_tests"]
+                                    + scan_stats["box_tests"])
+                       + MT_FLOPS * scan_stats["tri_tests"])
+        out["clustered"].update(
+            ms=times["clustered"], plain_ms=plain["clustered"],
+            device_ms=device_times[f"clustered/{what}"],
+            fetches=scan_stats["fetches"],
+            clusters_read=scan_stats["clusters_read"],
+            cluster_tests=scan_stats["cluster_tests"] / R,
+            chunk_box_tests=scan_stats["box_tests"] / R,
+            tri_tests=scan_stats["tri_tests"] / R,
+            bound_full_ms=tpu["bound_ms"], bound_full_by=tpu["bound_by"],
+            **own)
         # The walk: rays in, hits out, each node record read (32 B box and
         # 4 B meta) and each entered cluster's 512 x 9 floats once; 32 box
         # tests per group probe, 32 x 512 triangle tests per leaf entered.
@@ -1373,7 +1591,13 @@ def cluster_kernel_phase(device, dense_soup) -> dict:
         for key in ("clustered", "vmem"):
             k = out[key]
             work = (f"{k['fetches'] / n_blocks:.1f} of {n_clusters} clusters "
-                    f"fetched per block of {clustered.BLOCK_R}"
+                    f"fetched per block of {clustered.BLOCK_R}; per ray "
+                    f"{k['cluster_tests']:.1f} padded cluster boxes, "
+                    f"{k['chunk_box_tests']:.1f} chunk boxes and "
+                    f"{k['tri_tests']:.1f} triangles tested; device "
+                    f"{k['device_ms']:.4f} ms (torch.profiler, mean of "
+                    f"10); TPU-design bound {k['bound_full_ms']:.5f} ms by "
+                    f"{k['bound_full_by']}"
                     if key == "clustered" else
                     f"{k['probes'] / n_groups:.1f} probes and "
                     f"{k['leaf_tests'] / n_groups:.2f} leaves per group of "
@@ -1764,6 +1988,74 @@ def packing_path_phase(device, dense_frame) -> dict:
     return out
 
 
+def pooled_frame_phase(device, packing) -> dict:
+    """One pooled-wavefront frame of hier_bridge_15k at 512², 4 bounces, on
+    its default dense table (``packing`` "dense": B1) or on the
+    cluster-scan packing ("clustered": B6), after a first frame and driven
+    with every count at 0: frame time (host clock to a synchronise), the
+    trace kernel's launches and its share of the frame's device time
+    (torch.profiler over one more frame). Run in a process of its own."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, cam = TEST_SCENES["hier_bridge_15k"](device=device)
+    check(scene.tri_components is not None and scene.tri_clustered is None,
+          "hier_bridge_15k no longer takes the dense table by default")
+    if packing == "dense":
+        module, kernel, what = dense, "dense_intersect_kernel", "dense table"
+    else:
+        module, kernel, what = (clustered, "clustered_intersect_kernel",
+                                "cluster-scan packing")
+        scene = scene._replace(tri_clustered=clustered.pack_clustered(
+            scene.tri_verts, scene.bvh), tri_components=None)
+    settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+    pt.render_sample_pooled(scene, cam, RES, RES, 0, settings)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = pt.render_sample_pooled(scene, cam, RES, RES, 1, settings)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    launches = module.launch_count
+    others = sum(m.launch_count for m in (dense, hier, clustered, vmem)
+                 if m is not module)
+    check(launches > 0, f"pooled/{packing}: no launch of its trace kernel")
+    check(others == 0, f"pooled/{packing}: {others} launches of other trace "
+          "kernels")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3,
+          f"pooled/{packing}: the frame is not finite and lit")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pt.render_sample_pooled(scene, cam, RES, RES, 2, settings)
+        torch.cuda.synchronize()
+    busy_us = trace_us = 0.0
+    n_device = n_trace = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_device += 1
+        busy_us += e.time_range.elapsed_us()
+        if kernel in e.name:
+            n_trace += 1
+            trace_us += e.time_range.elapsed_us()
+    check(n_trace == launches, f"pooled/{packing}: the profiled frame shows "
+          f"{n_trace} trace kernels, the counted one {launches} launches")
+    print(f"pooled/{packing}: hier_bridge_15k {RES}x{RES} {BOUNCES} bounces "
+          f"pooled on its {what} | trace launches {launches}, other trace "
+          f"kernels 0 | frame {frame_ms:.0f} ms (one run, after a first "
+          f"frame) | next frame (torch.profiler): {n_device} device "
+          f"activities, busy {busy_us / 1e3:.1f} ms, the trace kernel "
+          f"{trace_us / 1e3:.2f} ms = {trace_us / max(busy_us, 1e-9):.1%} of "
+          f"busy time and {trace_us / 1e3 / frame_ms:.1%} of the frame",
+          flush=True)
+    return dict(frame_ms=frame_ms, launches=launches, trace_ms=trace_us / 1e3,
+                busy_ms=busy_us / 1e3, device_ops=n_device)
+
+
 def _extras_scene(name, viewer, device):
     from bifrost3d_tpu_torch.apps import scenes
     builder = scenes.SCENES[name] if viewer else scenes.TEST_SCENES[name]
@@ -2075,12 +2367,18 @@ def frame_profile_phase(device) -> dict:
 
 
 def _kernel_row(name, source, replaces, launches, result) -> dict:
-    return {"name": name, "route": "cuda",
-            "source": f"bifrost3d_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": result["max_abs_err"], "ms": result["ms"],
-            "plain_ms": result["plain_ms"], "bound_ms": result["bound_ms"],
-            "bound_by": result["bound_by"], "library_ms": None}
+    """One kernel's entry of the JSON line; a culled trace (B1, B6) also
+    gives the bound of the full scan or the TPU design it replaces, beside
+    the bound of its own work."""
+    row = {"name": name, "route": "cuda",
+           "source": f"bifrost3d_tpu_torch/csrc/{source}",
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": result["max_abs_err"], "ms": result["ms"],
+           "plain_ms": result["plain_ms"], "bound_ms": result["bound_ms"],
+           "bound_by": result["bound_by"], "library_ms": None}
+    if "bound_full_ms" in result:
+        row["bound_full_ms"] = result["bound_full_ms"]
+    return row
 
 
 def main() -> int:
@@ -2091,7 +2389,8 @@ def main() -> int:
     camera_phase(device)
     trace_probe_phase(device)
     soups = _soups(device)
-    kernels = kernel_phase(device, soups)
+    device_times = fresh_process("traces")
+    kernels = kernel_phase(device, soups, device_times)
     sliced = slice_phase(device)
     scenes = megakernel_phase(device)
     main = progressive_phase(device)
@@ -2099,12 +2398,14 @@ def main() -> int:
     bvh = bvh_kernel_phase(device, soups["sphere"])
     path_a = smallpt_path_phase(device)
     path_b = torus_path_phase(device)
-    clusters = cluster_kernel_phase(device, soups["sphere"])
+    clusters = cluster_kernel_phase(device, soups["sphere"], device_times)
     hier_scenes = megakernel_hier_phase(device)
     hier_walk_phase(device, hier_scenes[BRIDGE_SCENE])
     path_c = hier_path_phase(device)
     packings = packing_path_phase(device,
                                   hier_scenes["hier_bridge_15k"]["pooled"])
+    for packing in ("dense", "clustered"):
+        fresh_process(f"pooled-{packing}")
     megakernel_extras_phase(device)
     path_d = extras_path_phase(device)
     viewer_phase(device)
@@ -2115,7 +2416,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         _kernel_row("dense_intersect", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
-                    sliced["launches"], kernels["cornell"]),
+                    sliced["launches"], kernels["cornell/incoherent"]),
         _kernel_row("mesh_megakernel", "mesh_megakernel.cu",
                     "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
                     main["launches"], scenes["CornellBox"]),
@@ -2156,5 +2457,16 @@ def main() -> int:
     return 0
 
 
+# Phases that profile, each run alone in a process (fresh_process).
+PROFILES = {"traces": trace_device_phase,
+            "pooled-dense": lambda device: pooled_frame_phase(device, "dense"),
+            "pooled-clustered": lambda device: pooled_frame_phase(
+                device, "clustered")}
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--profile"]:
+        result = PROFILES[sys.argv[2]](torch.device("cuda", 0))
+        print("PROFILE " + json.dumps(result), flush=True)
+        sys.exit(0)
     sys.exit(main())

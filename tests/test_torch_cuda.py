@@ -86,6 +86,82 @@ def test_wrapper_validates_inputs(cuda):
         dense.dense_intersect_cuda(comp, n, o[:, :2], d, 1e-4, 1.0)
 
 
+def test_dense_kernel_bound_and_live_count_forms(cuda):
+    """Bounds as numbers, one-element or [r] tensors and the live count as
+    an int, an int64 or an int32 tensor give the same hits; rays past the
+    live count miss with t = inf."""
+    comp, n = dense.pack_triangles(_sphere_soup(cuda))
+    r, live = 5000, 1777
+    o, d, t_max = _rays(r, 15, -0.9, 0.9, cuda)
+    forms = [(1e-4, t_max, live),
+             (torch.tensor(1e-4, device=cuda), t_max,
+              torch.tensor(live, device=cuda)),
+             (torch.full((r,), 1e-4, device=cuda), t_max,
+              torch.tensor([live], dtype=torch.int32, device=cuda))]
+    hits = [dense.dense_intersect_cuda(comp, n, o, d, lo, hi, k)
+            for lo, hi, k in forms]
+    for hit in hits[1:]:
+        for a, b in zip(hit, hits[0]):
+            assert torch.equal(a, b)
+    assert bool((hits[0].prim[live:] == -1).all())
+    assert bool(torch.isinf(hits[0].t[live:]).all())
+    assert 0 < int((hits[0].prim >= 0).sum()) < live
+
+
+def test_trace_kernels_are_one_launch_without_sync(cuda, cluster_packings):
+    """After a table's first call the dense trace (the live count a device
+    tensor) and the cluster scan each launch their kernel once a call and
+    read nothing back: torch.profiler's kernels per call (one session: the
+    card's trace has gone missing in a later session of one process), with
+    torch's sync debug mode raising."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    comp, n = dense.pack_triangles(_sphere_soup(cuda))
+    o, d, t_max = _rays(4096, 16, -0.9, 0.9, cuda)
+    live = torch.tensor(3000, device=cuda)
+    calls = {
+        "dense": lambda: dense.pallas_intersect(comp, n, o, d, 1e-4, t_max,
+                                                live_count=live),
+        "clustered": lambda: clustered.clustered_intersect(
+            cluster_packings[0], o, d, 1e-4, t_max)}
+    for fn in calls.values():
+        fn()
+    counts = (dense.launch_count, clustered.launch_count)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for name, fn in calls.items():
+                with record_function(f"calls:{name}"):
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert (dense.launch_count, clustered.launch_count) == (counts[0] + 3,
+                                                           counts[1] + 3)
+    cuda_type = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    for name in calls:
+        window = next(e.time_range for e in events
+                      if e.name == f"calls:{name}" and e.device_type != cuda_type)
+        kernels = [e.name for e in events if e.device_type == cuda_type
+                   and "calls:" not in e.name and "Memcpy" not in e.name
+                   and "Memset" not in e.name
+                   and window.start <= e.time_range.start <= window.end]
+        assert len(kernels) == 3, (name, kernels)
+
+
+def test_dense_kernel_failed_launch_raises(cuda, monkeypatch):
+    comp, n = dense.pack_triangles(_sphere_soup(cuda))
+    o, d, _ = _rays(64, 17, -0.9, 0.9, cuda)
+    before = dense.launch_count
+    monkeypatch.setattr(dense, "_THREADS", 2048)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dense.dense_intersect_cuda(comp, n, o, d, 1e-4, 1.0)
+    assert dense.launch_count == before
+
+
 def test_pooled_render_on_card_matches_cpu(cuda):
     """The pooled wavefront on the card (kernel trace) against the same
     frame on the CPU (plain trace), under the statistical gate."""
@@ -609,6 +685,25 @@ def test_cluster_kernels_failed_launch_raises(cuda, cluster_packings,
                             for f in packed))
     with pytest.raises(ValueError, match="is on cpu"):
         launch(on_cpu, o, d, 1e-4, 1.0)
+
+
+def test_cluster_scan_cull_model_and_forms(cuda, cluster_packings):
+    """The cluster scan takes rays as they are and its bounds as numbers or
+    tensors; its hits are within the gate of the plain version and of the
+    plain model of its cull, which agree bit for bit."""
+    packed = cluster_packings[0]
+    o, d, t_max = _rays(5000, 18, -0.9, 0.9, cuda)
+    got = clustered.clustered_intersect(packed, o, d, 1e-4, t_max)
+    again = clustered.clustered_intersect(
+        packed, o, d, torch.full((5000,), 1e-4, device=cuda), t_max)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    ref = clustered.clustered_intersect_reference(packed, o, d, 1e-4, t_max)
+    model = clustered.clustered_intersect_reference(packed, o, d, 1e-4, t_max,
+                                                    culled=True)
+    for a, b in zip(model, ref):
+        assert torch.equal(a, b)
+    _assert_hits_agree(got, ref)
 
 
 @pytest.mark.parametrize("packing", ["clustered", "vmem"])
