@@ -1,8 +1,9 @@
 // The chunk-culled dense Möller–Trumbore trace, shared by
 // csrc/mesh_megakernel.cu (the dense branch of the megakernel, B2),
-// csrc/dense_intersect.cu (the wavefront's dense trace, B1) and
-// csrc/clustered_intersect.cu (the cluster scan, B6). The library cache
-// hashes this header with each source that includes it.
+// csrc/dense_intersect.cu (the wavefront's dense trace, B1),
+// csrc/clustered_intersect.cu (the cluster scan, B6) and
+// csrc/vmem_intersect.cu (the resident-cluster walk's leaves, B7). The
+// library cache hashes this header with each source that includes it.
 //
 // Layout. One 48-byte record per triangle, three float4: q0 = v0.xyz e1.x,
 // q1 = e1.yz e2.xy, q2 = e2.z and padding. One padded box per chunk of
@@ -15,10 +16,10 @@
 // triangle of a chunk it enters with a strict '<' against that best; one
 // thread runs it for its ray (trace_span, the megakernel's), or, where a
 // warp's rays enter different chunks, the warp for each of its rays in
-// turn, a lane per triangle (trace_span_warp, the dense kernel's and the
-// cluster scan's). For t_min >= 0, as every caller's, its answer is the full
-// scan's (every triangle tested, inv_det = __fdiv_rn(1, det)) bit for bit,
-// for these reasons:
+// turn, a lane per triangle (trace_span_warp, the dense kernel's, the
+// cluster scan's and the walk's). For t_min >= 0, as every caller's, its
+// answer is the full scan's (every triangle tested, inv_det =
+// __fdiv_rn(1, det)) bit for bit, for these reasons:
 //
 //   - A skipped chunk holds no triangle the full scan would take. A hit at t
 //     in (t_min, best) lies on the triangle, up to the rounding of t, u and
@@ -160,7 +161,8 @@ __device__ __forceinline__ void trace_span(const float4* __restrict__ tri4,
 // with the warp on one ray a test, the argmin and the broadcasts for each
 // entry. 8 is a measured trade-off, not the best everywhere:
 // chip_warp_share.py times 0, 4, 8, 16, 32 and a warp per ray always on the
-// dense trace's and the cluster scan's workloads (PERF.md §6).
+// dense trace's, the cluster scan's and the resident-cluster walk's
+// workloads (PERF.md §6; the walk's camera rays run fastest at 16).
 constexpr int kWarpShare = 8;
 
 // trace_span (closest hit) for the rays of a warp's lanes with `active` set,

@@ -5,14 +5,17 @@ place.
 Port of ``bifrost3d_tpu/geometry/pallas_bvh_vmem.py`` (``VmemTriangles``,
 ``fits_vmem``, ``pack_vmem``, ``vmem_intersect``). The TPU kernel
 ``_make_vmem_kernel`` becomes the hand-written CUDA kernel
-``csrc/vmem_intersect.cu`` (one warp per 32-ray group, the group's stack in
-shared memory; its header says what bounds it on an H100). On the TPU the
-whole table sits in VMEM, and ``fits_vmem`` caps it at 12 MiB. An H100 has
-no fast memory of that size under program control: a block has 227 KB of
-shared memory. The cap is kept as the packing's contract, and on the card
-it bounds the table to what the 50 MB L2 holds beside the rays. The kernel
-does not pin the table there (no access-policy window): whether that helps
-is not measured.
+``csrc/vmem_intersect.cu``: the TPU's group walk kept (one warp per 32-ray
+group, the group's stack in shared memory), and at an entered leaf each
+ray culls by the cluster's padded box and its 16 chunk boxes through
+``csrc/dense_trace.cuh``, the trace the dense kernel, the cluster scan and
+the mesh megakernel share (its header says what bounds it on an H100). On
+the TPU the whole table sits in VMEM, and ``fits_vmem`` caps it at 12 MiB.
+An H100 has no fast memory of that size under program control: a block has
+227 KB of shared memory. The cap is kept as the packing's contract, and on
+the card it bounds the table to what the 50 MB L2 holds beside the rays.
+The kernel does not pin the table there (no access-policy window): whether
+that helps is not measured.
 
 The packing is an accepted one of ``RenderScene.tri_clustered``
 (``scene._replace(tri_clustered=pack_vmem(scene.tri_verts, scene.bvh))``),
@@ -20,8 +23,9 @@ not the default.
 
 :func:`vmem_intersect` dispatches on the device of the rays: CUDA tensors
 launch the kernel, CPU tensors take the plain PyTorch version
-:func:`vmem_intersect_reference`, anything else raises. A failed build or
-launch raises; nothing falls back. ``launch_count`` counts kernel launches
+:func:`vmem_intersect_reference` (its ``culled`` form is the plain model of
+the kernel's leaf test), anything else raises. A failed build or launch
+raises; nothing falls back. ``launch_count`` counts kernel launches
 (plain-version calls do not count).
 """
 
@@ -40,11 +44,21 @@ from bifrost3d_tpu_torch.geometry.pallas_clustered import (
     cluster_test,
     finish_slots,
     leaf_ordered_components,
-    packed_rays,
     safe_inverse,
     slab_test,
 )
-from bifrost3d_tpu_torch.geometry.pallas_intersect import _check, _finish
+from bifrost3d_tpu_torch.geometry.pallas_intersect import (
+    CHUNK,
+    GROUP_CHUNKS,
+    _check,
+    _enters,
+    _mt_block,
+    chunk_boxes,
+    kernel_bound,
+    kernel_live,
+    record_tables,
+    triangle_rows,
+)
 from bifrost3d_tpu_torch.geometry.traverse import Hit, ray_bounds
 
 BLOCK_R = 128      # rays per thread block
@@ -153,7 +167,8 @@ def pack_vmem(tri_verts, bvh: Optional[BVH] = None) -> VmemTriangles:
 
 def vmem_intersect_reference(packed: VmemTriangles, origin, direction, t_min,
                              t_max, any_hit: bool = False, live_count=None,
-                             stats: Optional[dict] = None) -> Hit:
+                             stats: Optional[dict] = None,
+                             culled: bool = False) -> Hit:
     """Plain PyTorch version of the kernel: the group walk written out, all
     groups advancing one node per step of a Python loop. Each group of
     ``GROUP_R`` consecutive rays has one stack; a step pops one node per
@@ -165,9 +180,17 @@ def vmem_intersect_reference(packed: VmemTriangles, origin, direction, t_min,
     rays are done. Groups starting at an index >= ``live_count`` report
     misses. Runs on any device.
 
+    With ``culled`` the rays of a group that enters a leaf trace it as the
+    CUDA kernel does (:func:`_culled_leaves`: the cluster's padded box, its
+    chunk boxes, the triangles of the chunks entered); the hits are the
+    same bit for bit.
+
     A ``stats`` dict, if given, receives ``steps``, ``probes`` (group ×
     node box tests), ``leaf_tests`` (group × cluster tests),
-    ``nodes_read`` and ``clusters_read`` (distinct ones)."""
+    ``nodes_read`` and ``clusters_read`` (distinct ones); with ``culled``
+    also ``cluster_tests`` (rays of entering groups tested against the
+    padded cluster box), ``box_tests`` (chunk boxes), ``tri_tests`` and
+    ``chunks_read`` (distinct chunks entered)."""
     r = origin.shape[0]
     device = origin.device
     n_groups = (r + GROUP_R - 1) // GROUP_R
@@ -193,6 +216,12 @@ def vmem_intersect_reference(packed: VmemTriangles, origin, direction, t_min,
     lo, hi = packed.node_boxes[:, 0:3], packed.node_boxes[:, 3:6]
     meta = packed.node_meta.to(torch.int64)
     lanes = torch.arange(GROUP_R, device=device)
+    rays = (origin, direction, inv_dir, t_lo, in_range)
+    if culled:
+        tables = _cull_tables(comp, packed.n_tris)
+        work = dict(cluster_tests=0, box_tests=0, tri_tests=0,
+                    chunks=torch.zeros(-(-packed.n_tris // CHUNK),
+                                       dtype=torch.bool, device=device))
 
     def probe(groups, nodes):
         """→ (some ray of the group passes [n], nearest entry [n])."""
@@ -235,10 +264,15 @@ def vmem_intersect_reference(packed: VmemTriangles, origin, direction, t_min,
             leaf_tests += leaf_groups.numel()
             cluster_seen[clusters] = True
             for s in range(0, leaf_groups.numel(), _LEAF_CHUNK):
-                part = leaf_groups[s:s + _LEAF_CHUNK]
-                cluster_test(comp, packed.n_tris, clusters[s:s + _LEAF_CHUNK],
-                             part[:, None] * GROUP_R + lanes, origin,
-                             direction, t_lo, t_hi, best, freeze=any_hit)
+                part = slice(s, s + _LEAF_CHUNK)
+                rows = leaf_groups[part, None] * GROUP_R + lanes
+                if culled:
+                    _culled_leaves(tables, clusters[part], rows, rays, best,
+                                   work, any_hit)
+                else:
+                    cluster_test(comp, packed.n_tris, clusters[part], rows,
+                                 origin, direction, t_lo, t_hi, best,
+                                 freeze=any_hit)
 
         inner_groups, inner_nodes = groups[~is_leaf], node[~is_leaf]
         if inner_groups.numel():
@@ -268,35 +302,127 @@ def vmem_intersect_reference(packed: VmemTriangles, origin, direction, t_min,
         stats.update(steps=steps, probes=probes, leaf_tests=leaf_tests,
                      nodes_read=int(node_seen.sum()),
                      clusters_read=int(cluster_seen.sum()))
+        if culled:
+            chunks = work.pop("chunks")
+            stats.update(chunks_read=int(chunks.sum()), **work)
     return finish_slots(tuple(x[:r] for x in best), packed.order)
+
+
+def _cull_tables(comp, n_tris: int):
+    """The kernel's cull tables of a packing's [16, T_pad] table →
+    (triangle rows [n_tris, 9], chunk boxes (lo, hi) [n_chunks, 3], padded
+    cluster boxes (lo, hi) [n_clusters, 3]: the union of each cluster's
+    ``GROUP_CHUNKS`` chunk boxes, as csrc/dense_trace.cuh builds them)."""
+    lo, hi = chunk_boxes(comp, n_tris)
+    n_clusters = -(-n_tris // CLUSTER_T)
+    fill = lo.new_full((n_clusters * GROUP_CHUNKS - lo.shape[0], 3), _BIG)
+    cluster_lo = torch.cat([lo, fill]).reshape(n_clusters, GROUP_CHUNKS,
+                                               3).amin(dim=1)
+    cluster_hi = torch.cat([hi, -fill]).reshape(n_clusters, GROUP_CHUNKS,
+                                                3).amax(dim=1)
+    return triangle_rows(comp, n_tris), (lo, hi), (cluster_lo, cluster_hi)
+
+
+def _culled_leaves(tables, clusters, rows, rays, best, work, any_hit: bool):
+    """The plain model of the kernel's leaf test: the rays ``rows`` [n, g]
+    of groups that entered the leaves ``clusters`` [n] (no ray twice), each
+    ray past the last one skipped, trace them one chunk position at a time,
+    merged into ``best`` = [t, slot, u, v] (in place): a ray skips the leaf
+    when it misses the cluster's padded box or enters it no nearer than its
+    best hit, then tests the chunks whose boxes it enters before its best
+    hit so far, in slot order, every triangle of an entered chunk with a
+    strict '<' (:func:`culled_dense_intersect_reference`'s rule, ray by ray
+    on its own cluster). With ``any_hit`` a ray that hit the leaf is then
+    frozen (best t = t_min), as :func:`cluster_test` freezes it. The work
+    is added to ``work``."""
+    tri, (lo, hi), (cluster_lo, cluster_hi) = tables
+    origin, direction, inv_dir, t_lo, in_range = rays
+    best_t, best_slot, best_u, best_v = best
+    n_tris, n_chunks = tri.shape[0], lo.shape[0]
+    cluster = clusters.repeat_interleave(rows.shape[1])
+    rows = rows.reshape(-1)
+    live = in_range[rows]
+    rows, cluster = rows[live], cluster[live]
+    work["cluster_tests"] += rows.numel()
+    enters = _enters(cluster_lo[cluster], cluster_hi[cluster], origin[rows],
+                     inv_dir[rows], t_lo[rows], best_t[rows])
+    rows, cluster = rows[enters], cluster[enters]
+    o, inv, t_min = origin[rows], inv_dir[rows], t_lo[rows]
+    o_cols = tuple(o[:, c:c + 1] for c in range(3))
+    d_cols = tuple(direction[rows, c:c + 1] for c in range(3))
+    t, slot = best_t[rows], best_slot[rows]
+    u, v = best_u[rows], best_v[rows]
+    lane = torch.arange(CHUNK, device=rows.device)
+    for j in range(GROUP_CHUNKS):
+        chunk = cluster * GROUP_CHUNKS + j
+        tested = chunk < n_chunks
+        chunk = torch.clamp_max(chunk, n_chunks - 1)
+        work["box_tests"] += int(tested.sum())
+        enter = tested & _enters(lo[chunk], hi[chunk], o, inv, t_min, t)
+        slots = chunk[:, None] * CHUNK + lane                      # [m, 32]
+        tris = tri[torch.clamp_max(slots, n_tris - 1)].permute(2, 0, 1)
+        # _mt_block puts one leading axis before the triangles' [m, 32].
+        tt, tu, tv, valid = (x[0] for x in _mt_block(o_cols, d_cols, tris,
+                                                     t_min[:, None]))
+        valid = valid & (slots < n_tris) & enter[:, None] & (tt < t[:, None])
+        k = torch.argmin(torch.where(valid, tt, _BIG), dim=1, keepdim=True)
+        found = torch.gather(valid, 1, k)[:, 0]
+        t = torch.where(found, torch.gather(tt, 1, k)[:, 0], t)
+        slot = torch.where(found, torch.gather(slots, 1, k)[:, 0].to(
+            torch.int32), slot)
+        u = torch.where(found, torch.gather(tu, 1, k)[:, 0], u)
+        v = torch.where(found, torch.gather(tv, 1, k)[:, 0], v)
+        in_chunk = torch.clamp(n_tris - chunk * CHUNK, max=CHUNK)
+        work["tri_tests"] += int(torch.where(enter, in_chunk, 0).sum())
+        work["chunks"][chunk[enter]] = True
+    best_t[rows] = torch.where(slot >= 0, t_min, t) if any_hit else t
+    best_slot[rows] = slot
+    best_u[rows] = u
+    best_v[rows] = v
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     from bifrost3d_tpu_torch.utils import cuda_build
-    fn = cuda_build.load("vmem_intersect.cu").vmem_intersect
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = cuda_build.load("vmem_intersect.cu")
+    lib.vmem_intersect.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.vmem_intersect.restype = ctypes.c_int
+    lib.vmem_intersect_boxes.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.vmem_intersect_boxes.restype = ctypes.c_int
+    return lib
 
 
 def vmem_intersect_cuda(packed: VmemTriangles, origin, direction, t_min,
                         t_max, any_hit: bool = False, live_count=None) -> Hit:
-    """Launch ``csrc/vmem_intersect.cu`` on the current stream. A
-    ``live_count`` tensor stays on the device: the kernel reads it through
-    a pointer, so a pool's live sum costs no host sync."""
+    """Launch ``csrc/vmem_intersect.cu`` on the current stream. The kernel
+    reads ``origin`` and ``direction`` [r, 3] as they are, each bound as a
+    number, a one-element tensor or an [r] tensor, and a ``live_count``
+    tensor (int32 or int64, one element) on the device, so a pool's live
+    sum costs no host sync; it writes the final hits, prims through
+    ``order``, into one allocation, whose views the returned Hit holds.
+    The records and boxes are built at a packing's first call and cached
+    per (identity, version) of its ``tri_planes``."""
     global launch_count
     device = origin.device
-    rays, r = packed_rays(origin, direction, t_min, t_max)
+    r = int(origin.shape[0])
+    if origin.shape != (r, 3) or direction.shape != (r, 3):
+        raise ValueError("origin and direction must both be [r, 3]")
+    if 4 * r >= 2**31:
+        raise ValueError(f"{r} rays overflow the kernel's int32 indexing")
     planes, boxes, meta = packed.tri_planes, packed.node_boxes, packed.node_meta
-    if planes.dim() != 3 or planes.shape[0] < 9 or planes.shape[2] != 128 \
+    if planes.dim() != 3 or planes.shape[0] < 12 or planes.shape[2] != 128 \
             or (planes.shape[1] * 128) % CLUSTER_T:
-        raise ValueError("tri_planes must be [>= 9, T_pad/128, 128], T_pad a "
-                         f"multiple of {CLUSTER_T}")
+        raise ValueError("tri_planes must be [>= 12, T_pad/128, 128], T_pad "
+                         f"a multiple of {CLUSTER_T}")
     t_pad = int(planes.shape[1]) * 128
     if boxes.dim() != 2 or boxes.shape[1] != 8 or boxes.shape[0] < 1 \
             or meta.shape != (boxes.shape[0],):
@@ -305,37 +431,42 @@ def vmem_intersect_cuda(packed: VmemTriangles, origin, direction, t_min,
         raise ValueError("order must hold one id per triangle slot")
     if not 0 <= packed.n_tris <= t_pad:
         raise ValueError(f"n_tris={packed.n_tris} exceeds the packed table")
+    if -(-packed.n_tris // CLUSTER_T) != t_pad // CLUSTER_T:
+        raise ValueError("every cluster of the packing must hold a triangle")
     if not fits_vmem(packed.n_tris):
         raise ValueError(f"{packed.n_tris} triangles exceed the resident "
                          f"table's {VMEM_TRI_BYTES} bytes")
     if packed.max_depth + 1 > STACK_SIZE:
         raise ValueError(f"cluster BVH depth {packed.max_depth} exceeds the "
                          f"kernel stack ({STACK_SIZE})")
-    if isinstance(live_count, torch.Tensor):
-        live = live_count.to(device=device, dtype=torch.int32).reshape(1)
-    else:
-        live = torch.tensor([r if live_count is None else int(live_count)],
-                            dtype=torch.int32, device=device)
-    _check("rays", rays, torch.float32, device)
+    origin, direction = origin.contiguous(), direction.contiguous()
+    _check("origin", origin, torch.float32, device)
+    _check("direction", direction, torch.float32, device)
     _check("tri_planes", planes, torch.float32, device)
     _check("node_boxes", boxes, torch.float32, device)
     _check("node_meta", meta, torch.int32, device)
     _check("order", packed.order, torch.int32, device)
+    recs, chunk_boxes, cluster_boxes = record_tables(
+        planes, packed.n_tris, _library().vmem_intersect_boxes)
+    # The bound and count tensors stay referenced until the launch is
+    # enqueued.
+    lo, lo_ptr, lo_stride, _lo = kernel_bound(t_min, r, device, "t_min")
+    hi, hi_ptr, hi_stride, _hi = kernel_bound(t_max, r, device, "t_max")
+    n_live, live_ptr, live_bits, _live = kernel_live(live_count, r, device)
 
-    t = torch.empty(r, dtype=torch.float32, device=device)
-    prim = torch.empty(r, dtype=torch.int32, device=device)
-    u = torch.empty(r, dtype=torch.float32, device=device)
-    v = torch.empty(r, dtype=torch.float32, device=device)
+    out = torch.empty(4 * r, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library()(rays.data_ptr(), r, live.data_ptr(), boxes.data_ptr(),
-                     meta.data_ptr(), planes.data_ptr(), t_pad,
-                     int(packed.n_tris), packed.order.data_ptr(), int(any_hit),
-                     t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-                     _THREADS, stream)
+    err = _library().vmem_intersect(
+        origin.data_ptr(), direction.data_ptr(), r, lo, lo_ptr, lo_stride,
+        hi, hi_ptr, hi_stride, n_live, live_ptr, live_bits, boxes.data_ptr(),
+        meta.data_ptr(), recs.data_ptr(), chunk_boxes.data_ptr(),
+        cluster_boxes.data_ptr(), int(packed.n_tris), packed.order.data_ptr(),
+        int(any_hit), out.data_ptr(), _THREADS, stream)
     if err != 0:
         raise RuntimeError(f"vmem_intersect launch failed: cudaError {err}")
     launch_count += 1
-    return _finish(t, prim, u, v)
+    return Hit(t=out[:r], prim=out[r:2 * r].view(torch.int32),
+               u=out[2 * r:3 * r], v=out[3 * r:4 * r])
 
 
 def vmem_intersect(packed: VmemTriangles, origin, direction, t_min, t_max,

@@ -36,10 +36,9 @@ from bifrost3d_tpu_torch.geometry.pallas_intersect import (
     _mt_block,
     culled_dense_intersect_reference,
     kernel_bound,
-    trace_boxes,
+    record_tables,
 )
 from bifrost3d_tpu_torch.geometry.traverse import Hit, ray_bounds
-from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
 BLOCK_R = 256      # rays per thread block: the granule of the box cull
 CLUSTER_T = 512    # triangles per cluster
@@ -286,38 +285,6 @@ def _library():
     return lib
 
 
-def packed_rays(origin, direction, t_min, t_max):
-    """→ ([8, r] float32 component-major rays, r); checks the shapes."""
-    r = int(origin.shape[0])
-    if origin.shape != (r, 3) or direction.shape != (r, 3):
-        raise ValueError("origin and direction must both be [r, 3]")
-    if 8 * r >= 2**31:
-        raise ValueError(f"{r} rays overflow the kernel's int32 indexing")
-    rays = torch.cat([origin.T, direction.T,
-                      ray_bounds(t_min, r, origin)[None],
-                      ray_bounds(t_max, r, origin)[None]], dim=0).contiguous()
-    return rays, r
-
-
-_TABLES = VersionedCache()
-
-
-def cluster_tables(packed: ClusteredTriangles):
-    """The kernel's tables for a packing, cached per (identity, version) of
-    its components → (records [T_pad, 12]: an AoS copy of rows 0-11 in slot
-    order, chunk boxes, cluster boxes: the union of each cluster's 16
-    padded chunk boxes)."""
-    comp = packed.tri_components
-    key, tables = _TABLES.lookup((comp,), packed.n_tris)
-    if tables is None:
-        recs = comp[:12].T.contiguous()
-        tables = _TABLES.store(key, (comp,),
-                               (recs, *trace_boxes(
-                                   recs, packed.n_tris,
-                                   _library().clustered_intersect_boxes)))
-    return tables
-
-
 def clustered_intersect_cuda(packed: ClusteredTriangles, origin, direction,
                              t_min, t_max) -> Hit:
     """Launch ``csrc/clustered_intersect.cu`` on the current stream. The
@@ -351,7 +318,8 @@ def clustered_intersect_cuda(packed: ClusteredTriangles, origin, direction,
     _check("tri_components", comp, torch.float32, device)
     _check("cluster_boxes", boxes, torch.float32, device)
     _check("order", packed.order, torch.int32, device)
-    recs, chunk_boxes, padded = cluster_tables(packed)
+    recs, chunk_boxes, padded = record_tables(
+        comp, packed.n_tris, _library().clustered_intersect_boxes)
     # The bound tensors stay referenced until the launch is enqueued.
     lo, lo_ptr, lo_stride, _lo = kernel_bound(t_min, r, device, "t_min")
     hi, hi_ptr, hi_stride, _hi = kernel_bound(t_max, r, device, "t_max")

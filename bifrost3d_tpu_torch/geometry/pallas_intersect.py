@@ -320,11 +320,22 @@ def box_counts(n_tris: int):
     return n_chunks, -(-n_chunks // GROUP_CHUNKS)
 
 
-def trace_boxes(recs, n_tris: int, build):
-    """The chunk and group boxes of the records [n, 12] on the card (the
-    dense trace's and the cluster scan's), built by ``build``, a library's
-    export of csrc/dense_trace.cuh's build_boxes → (boxes [n_chunks, 8],
-    groups [n_groups, 8])."""
+_TABLES = VersionedCache()
+
+
+def record_tables(table, n_tris: int, build):
+    """The trace kernels' tables for a packed table of triangles in slot
+    order (the dense trace's and the cluster scan's [16, T_pad], the
+    resident packing's [16, T_pad/128, 128]) → (records [n_tris, 12]: an
+    AoS copy of rows 0-11, chunk boxes [n_chunks, 8], group boxes
+    [n_groups, 8]: the union of each ``GROUP_CHUNKS`` padded chunk boxes),
+    the boxes built on the card by ``build``, a library's export of
+    csrc/dense_trace.cuh's build_boxes. Cached per (identity, version) of
+    ``table`` itself: a view of it is a new object at every call."""
+    key, tables = _TABLES.lookup((table,), n_tris)
+    if tables is not None:
+        return tables
+    recs = table.reshape(table.shape[0], -1)[:12, :n_tris].T.contiguous()
     n_chunks, n_groups = box_counts(n_tris)
     boxes = torch.empty((max(n_chunks, 1), 8), dtype=torch.float32,
                         device=recs.device)
@@ -335,24 +346,7 @@ def trace_boxes(recs, n_tris: int, build):
                 stream)
     if err != 0:
         raise RuntimeError(f"chunk box build failed: cudaError {err}")
-    return boxes, groups
-
-
-_TABLES = VersionedCache()
-
-
-def trace_tables(tri_components, n_tris: int):
-    """The kernel's tables for a packed [16, T_pad] table, cached per
-    (identity, version) → (records [n_tris, 12]: an AoS copy of rows 0-11,
-    chunk boxes, group boxes)."""
-    key, tables = _TABLES.lookup((tri_components,), n_tris)
-    if tables is None:
-        recs = tri_components[:12, :n_tris].T.contiguous()
-        tables = _TABLES.store(key, (tri_components,),
-                               (recs, *trace_boxes(
-                                   recs, n_tris,
-                                   _library().dense_intersect_boxes)))
-    return tables
+    return _TABLES.store(key, (table,), (recs, boxes, groups))
 
 
 def dense_intersect_cuda(tri_components, n_tris, origin, direction, t_min,
@@ -378,7 +372,8 @@ def dense_intersect_cuda(tri_components, n_tris, origin, direction, t_min,
     _check("origin", origin, torch.float32, device)
     _check("direction", direction, torch.float32, device)
     _check("tri_components", tri_components, torch.float32, device)
-    recs, boxes, groups = trace_tables(tri_components, int(n_tris))
+    recs, boxes, groups = record_tables(
+        tri_components, int(n_tris), _library().dense_intersect_boxes)
     # The bound and count tensors stay referenced until the launch is
     # enqueued.
     lo, lo_ptr, lo_stride, _lo = kernel_bound(t_min, r, device, "t_min")

@@ -12,9 +12,12 @@ It builds both trees' kernels in parallel, then runs four turns (other,
 this, this, other), each in a process of its own that imports its tree's
 ``bifrost3d_tpu_torch`` and calls the same workloads through functions
 both trees export: B5, the SmallPT app, B3 and B2 frames, B4, B1 on three
-tables (closest, bounded, live prefix), B6 on two soups, and the pooled
-wavefront's 512² frame of hier_bridge_15k on B1 and on B6 (host clock,
-median of 3 after a first frame). For each
+tables (closest, bounded, live prefix), B6 on two soups, B7 on the bridge's
+camera and incoherent rays and on the 16,130-triangle soup's camera,
+incoherent and surrounding rays (closest, bounded any-hit: its occlusion
+and t, live prefix),
+and the pooled wavefront's 512² frame of hier_bridge_15k on B1 and on B6
+(host clock, median of 3 after a first frame). For each
 workload one ``RESULT`` line per turn gives
 ``call_ms``, the median time of the call between CUDA events, and
 ``kernel_ms``, the device time per call of the kernels it launched other
@@ -69,6 +72,7 @@ def turn(root: str, label: str, out_path: str) -> None:
     from bifrost3d_tpu_torch.apps.scenes import (SCENES, TEST_SCENES,
                                                  torus_grid_mesh)
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
     from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
@@ -141,12 +145,14 @@ def turn(root: str, label: str, out_path: str) -> None:
                                                      any_hit=any_hit)))
     res["smi/bvh"] = smoke.smi()
 
-    # -- B1 on its three tables, B6 on the bridge and the 16,130 soup ----------
+    # -- B1 on its three tables, B6 and B7 on the bridge and the 16,130 soup --
     rng = np.random.default_rng(9)
     t_max = torch.tensor(rng.uniform(0.2, 4.0, smoke.R).astype(np.float32),
                          device=dev)
     soups = smoke._soups(dev)
+    dense_rays = {}
     for table, tris, ray_sets in smoke._dense_cases(dev, soups):
+        dense_rays[table] = ray_sets
         comp, n = dense.pack_triangles(tris)
         for kind, (o, d) in ray_sets.items():
             for case, bound, live in (("closest", inf, None),
@@ -156,12 +162,31 @@ def turn(root: str, label: str, out_path: str) -> None:
                     lambda comp=comp, n=n, o=o, d=d, bound=bound, live=live:
                     tuple(dense.pallas_intersect(comp, n, o, d, 1e-4, bound,
                                                  live_count=live)))
+    walks = {}
     for table, tris, bvh, ray_sets in smoke._scan_cases(dev, soups):
         scan = clustered.pack_clustered(tris, bvh)
         for kind, (o, d) in ray_sets.items():
             run(f"clustered/{table}/{kind}",
                 lambda scan=scan, o=o, d=d: tuple(clustered.clustered_intersect(
                     scan, o, d, 1e-4, inf)), repeats=10)
+        walks[table] = (vmem.pack_vmem(tris, bvh), dict(ray_sets))
+    walks["sphere"][1].update(dense_rays["sphere"])
+
+    def walk_outputs(hit, any_hit):
+        """B7's defined outputs: with any-hit the occlusion and t (t_min on
+        a hit), whichever hit of a leaf the kernel keeps."""
+        return (hit.prim >= 0, hit.t) if any_hit else tuple(hit)
+
+    for table, (walk, ray_sets) in walks.items():
+        for kind, (o, d) in ray_sets.items():
+            for case, bound, any_hit, live in (
+                    ("closest", inf, False, None), ("any", t_max, True, None),
+                    ("live", inf, False, smoke.R // 3)):
+                run(f"vmem/{table}/{kind}/{case}",
+                    lambda walk=walk, o=o, d=d, bound=bound, any_hit=any_hit,
+                    live=live: walk_outputs(vmem.vmem_intersect(
+                        walk, o, d, 1e-4, bound, any_hit=any_hit,
+                        live_count=live), any_hit), repeats=10)
     res["smi/traces"] = smoke.smi()
 
     # -- the pooled wavefront on hier_bridge_15k at 512², on B1 and on B6 ----

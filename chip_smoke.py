@@ -14,8 +14,8 @@ the last line):
    (csrc/dense_intersect.cu, csrc/mesh_megakernel.cu with its dense and BVH
    instantiations, each with and without the environment, texture and
    cutout branches, csrc/smallpt_megakernel.cu, csrc/bvh_intersect.cu,
-   csrc/clustered_intersect.cu and csrc/vmem_intersect.cu; the first three
-   include the chunk-culled trace of csrc/dense_trace.cuh) with nvcc into
+   csrc/clustered_intersect.cu and csrc/vmem_intersect.cu; all but B4's and
+   B5's include the chunk-culled trace of csrc/dense_trace.cuh) with nvcc into
    build/kernels/, one nvcc each, started together, and
    native/bvh_builder.cpp with g++ into build/native/; prints each build's
    time and ptxas report (registers, stack frame, spills of every
@@ -44,8 +44,9 @@ the last line):
    prim must agree off ties on >= 99.9% of rays and t be allclose (rtol
    1e-5) where it does, and rays past the prefix miss. Median call times by CUDA events,
    device times by torch.profiler (in a process of its own, with the
-   cluster scan's: a later profiler session of one process has lost the
-   card's trace), the plain cull's work (group-box, chunk-box and triangle
+   cluster scan's and the resident-cluster walk's: a later profiler session
+   of one process has lost the card's trace), the plain cull's work
+   (group-box, chunk-box and triangle
    tests, chunks read) and two bounds: the full scan's and this work's.
 5. wavefront: CornellBox 512², 4 bounces, one accumulation through
    render_sample_pooled, the path of scenes the megakernel does not take;
@@ -109,13 +110,15 @@ the last line):
    resident-cluster walk on the 49,678-triangle bridge scene's soup with
    its 65,536 camera rays and 65,536 seeded incoherent rays, and on the
    16,130-triangle soup: each against its plain version (prim equal off
-   ties on >= 99.9% of rays, t within rtol 1e-5, the walk's occlusion on
-   >= 99.9%) and against the dense and the BVH kernel on the same rays;
-   the scan's plain model of its cull equal to the plain scan; median
-   times of all four traces side by side, the plain versions' work counts
-   (for the scan: block fetches, padded cluster boxes, chunk boxes and
-   triangles tested per ray) and the bounds (for the scan the TPU design's
-   and its own work's).
+   ties on >= 99.9% of rays, t within rtol 1e-5; the walk also with a
+   finite t_max, its occlusion on >= 99.9%, its live prefix as an int, an
+   int32 and an int64 tensor) and against the dense and the BVH kernel on
+   the same rays; each one's plain model of its cull equal to its plain
+   version bit for bit; median call times of all four traces side by side
+   and both kernels' device times (torch.profiler, in the process of phase
+   4), the plain versions' work counts (block fetches or probes and leaves,
+   padded cluster boxes, chunk boxes and triangles tested per ray) and two
+   bounds each: the TPU design's and the kernel's own work's.
 13. megakernel/hier: the 2,494-triangle mid-size scene and the three bridge
    scenes (3,054, 14,606 and 49,678 triangles) at 256², 4 bounces through
    the megakernel's BVH branch: the kernel against its plain version on the
@@ -145,10 +148,13 @@ the last line):
    the other trace kernels 0, the frame under the statistical gate against
    the dense trace's.
    pooled: the same scene at 512², 4 bounces, one pooled frame on its
-   default dense table (B1) and one on the cluster-scan packing (B6), each
-   in a process of its own after a first frame: frame time, the trace
-   kernel's launches (the other trace kernels' 0) and its share of the
-   frame's device time (torch.profiler).
+   default dense table (B1), one on the cluster-scan packing (B6) and one
+   on the resident-cluster packing (B7), each in a process of its own
+   after a first frame: frame time, the trace kernel's launches (the other
+   trace kernels' 0) and its share of the frame's device time
+   (torch.profiler); a packing's frame finite, lit and under the
+   statistical gate against the dense table's frame of the same
+   accumulation.
 
 16. megakernel/extras: the megakernel's environment, texture and cutout
    branches (its kExtras instantiations): Sphere, sphere_sun, Opacity and
@@ -179,7 +185,9 @@ the last line):
    CornellBox, Sphere, Opacity and the bridge: CUDA launches (at most 10)
    and host syncs (none) per frame from torch.profiler over three frames,
    with torch's sync debug mode raising on a synchronising op; frame time
-   beside the kernel's.
+   beside the kernel's. Then warm calls of the resident-cluster walk
+   (closest and any-hit, bounds and the live count on the device) under
+   the same mode: one kernel launch and no host sync a call.
 
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
@@ -691,11 +699,15 @@ def _bounded(hit):
 
 def trace_device_phase(device) -> dict:
     """Device times (torch.profiler, one session) of B1's calls on
-    kernel_phase's tables and rays and of B6's on cluster_kernel_phase's →
-    {"dense/<table>/<rays>" or "clustered/<soup>/<rays>": ms}. Run in a
-    process of its own."""
+    kernel_phase's tables and rays and of B6's and B7's on
+    cluster_kernel_phase's (B7 also any-hit on the rays bounded by
+    _bounded of its closest hits) → {"dense/<table>/<rays>",
+    "clustered/<soup>/<rays>", "vmem/<soup>/<rays>" or
+    "vmem_any/<soup>/<rays>": ms}. Run in a process of its own."""
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
     from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.geometry.bvh import build_soup_bvh
     inf, workloads = float("inf"), []
     soups = _soups(device)
     for name, tris, ray_sets in _dense_cases(device, soups):
@@ -706,12 +718,22 @@ def trace_device_phase(device) -> dict:
                               dense.dense_intersect_cuda(comp, n, o, d, 1e-4,
                                                          inf)))
     for name, tris, bvh, ray_sets in _scan_cases(device, soups):
+        bvh = bvh if bvh is not None else build_soup_bvh(tris)
         scan = clustered.pack_clustered(tris, bvh)
+        walk = vmem.pack_vmem(tris, bvh)
         for ray_name, (o, d) in ray_sets.items():
-            workloads.append((f"clustered/{name}/{ray_name}",
-                              lambda scan=scan, o=o, d=d:
-                              clustered.clustered_intersect_cuda(
-                                  scan, o, d, 1e-4, inf)))
+            t_max = _bounded(vmem.vmem_intersect_cuda(walk, o, d, 1e-4, inf))
+            workloads += [
+                (f"clustered/{name}/{ray_name}",
+                 lambda scan=scan, o=o, d=d:
+                 clustered.clustered_intersect_cuda(scan, o, d, 1e-4, inf)),
+                (f"vmem/{name}/{ray_name}",
+                 lambda walk=walk, o=o, d=d:
+                 vmem.vmem_intersect_cuda(walk, o, d, 1e-4, inf)),
+                (f"vmem_any/{name}/{ray_name}",
+                 lambda walk=walk, o=o, d=d, t_max=t_max:
+                 vmem.vmem_intersect_cuda(walk, o, d, 1e-4, t_max,
+                                          any_hit=True))]
     for _, fn in workloads:     # the tables, built at a table's first call
         fn()
     times = device_ms(workloads)
@@ -1114,6 +1136,39 @@ def _compare_hits(got, ref, what, failures):
     return agree, int(tie.sum()), err
 
 
+def _compare_uv(got, ref, what, failures):
+    """u and v where prim agrees on a hit: both within 1e-3 (of their
+    [0, 1] range) on >= 99.9% of those rays. A barycentric is a difference
+    of products, contracted differently by the kernel and by PyTorch, and a
+    near-degenerate triangle magnifies that: on the bridge's camera rays
+    0.3% of B7's closest hits differ by more than rtol 1e-4, atol 1e-5, up
+    to 1.1e-3 → (the share within 1e-3, max |du|, |dv|)."""
+    hit = (got.prim == ref.prim) & (ref.prim >= 0)
+    if not bool(hit.any()):
+        return 1.0, 0.0
+    du = (got.u[hit] - ref.u[hit]).abs()
+    dv = (got.v[hit] - ref.v[hit]).abs()
+    share = float(((du <= 1e-3) & (dv <= 1e-3)).float().mean())
+    if share < 0.999:
+        failures.append(f"{what}: u, v within 1e-3 on {share:.5f} of the "
+                        "hits")
+    return share, float(torch.maximum(du, dv).max())
+
+
+def _compare_any_hits(got, ref, what, failures):
+    """Any-hit hits, whose t is t_min: occlusion and prim equal on >=
+    99.9% of rays (no tie is told apart by t), u and v as _compare_uv →
+    (share with equal occlusion, share with equal prim, u/v share, max
+    |du|, |dv|)."""
+    occluded = float(((got.prim >= 0) == (ref.prim >= 0)).float().mean())
+    agree = float((got.prim == ref.prim).float().mean())
+    if occluded < 0.999:
+        failures.append(f"{what}: occlusion agrees on {occluded:.5f}")
+    if agree < 0.999:
+        failures.append(f"{what}: prim agrees on {agree:.5f}")
+    return (occluded, agree, *_compare_uv(got, ref, what, failures))
+
+
 def bvh_kernel_phase(device, dense_soup) -> dict:
     from bifrost3d_tpu_torch.apps.scenes import torus_grid_mesh
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
@@ -1490,6 +1545,15 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
         by_scan = clustered.clustered_intersect_cuda(scan, o, d, 1e-4, inf)
         walk_ref = vmem.vmem_intersect_reference(walk, o, d, 1e-4, inf,
                                                  stats=walk_stats)
+        # The plain model of the walk's leaf cull: the same hits, its work.
+        cull_stats = {}
+        t0 = time.perf_counter()
+        walk_model = vmem.vmem_intersect_reference(
+            walk, o, d, 1e-4, inf, stats=cull_stats, culled=True)
+        model_s = time.perf_counter() - t0
+        if not all(torch.equal(x, y) for x, y in zip(walk_model, walk_ref)):
+            failures.append(f"vmem/{what}: the cull's plain model is not the "
+                            "plain walk's hits")
         by_walk = vmem.vmem_intersect_cuda(walk, o, d, 1e-4, inf)
         torch.cuda.synchronize()
         out = {}
@@ -1502,25 +1566,40 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
                                           f"{key} vs {name}/{what}", failures)
                 agree, ties = min(agree, a2), ties + t2
             out[key] = dict(agree=agree, ties=ties, max_abs_err=err)
+        uv_agree, uv_err = _compare_uv(by_walk, walk_ref, f"vmem/{what}",
+                                       failures)
 
-        # The walk's occlusion within a finite segment, and its live prefix.
-        t_max = torch.where(walk_ref.prim >= 0, walk_ref.t * 1.5, 20.0)
-        t_max[::2] *= 0.5
-        occ_ref = vmem.vmem_intersect_reference(walk, o, d, 1e-4, t_max,
-                                                any_hit=True).prim >= 0
-        occ = vmem.vmem_intersect_cuda(walk, o, d, 1e-4, t_max,
-                                       any_hit=True).prim >= 0
-        occ_agree = float((occ == occ_ref).float().mean())
-        if occ_agree < 0.999:
-            failures.append(f"vmem/{what}: occlusion agrees on {occ_agree:.5f}")
-        live = R // 3 // vmem.GROUP_R * vmem.GROUP_R
-        part = vmem.vmem_intersect_cuda(
-            walk, o, d, 1e-4, inf,
-            live_count=torch.tensor(live, device=device))
+        # The walk within a finite segment (closest hit and occlusion), and
+        # its live prefix as an int, an int32 and an int64 tensor.
+        t_max = _bounded(walk_ref)
+        bounded_ref = vmem.vmem_intersect_reference(walk, o, d, 1e-4, t_max)
+        bounded = vmem.vmem_intersect_cuda(walk, o, d, 1e-4, t_max)
+        a2, t2, e2 = _compare_hits(bounded, bounded_ref,
+                                   f"vmem/{what}/bounded", failures)
+        out["vmem"].update(agree=min(out["vmem"]["agree"], a2),
+                           ties=out["vmem"]["ties"] + t2,
+                           max_abs_err=max(out["vmem"]["max_abs_err"], e2))
+        # Any-hit: the leaf's nearest hit, then the ray frozen, as the
+        # plain version.
+        occ_agree, any_agree, any_uv, any_err = _compare_any_hits(
+            vmem.vmem_intersect_cuda(walk, o, d, 1e-4, t_max, any_hit=True),
+            vmem.vmem_intersect_reference(walk, o, d, 1e-4, t_max,
+                                          any_hit=True),
+            f"vmem/{what}/any-hit", failures)
+        live = R // 3 + 5       # inside a group, which is traced whole
+        covered = -(-live // vmem.GROUP_R) * vmem.GROUP_R
+        parts = [vmem.vmem_intersect_cuda(walk, o, d, 1e-4, inf,
+                                          live_count=count)
+                 for count in (live, torch.tensor(live, device=device),
+                               torch.tensor([live], dtype=torch.int32,
+                                            device=device))]
         torch.cuda.synchronize()
-        if not bool((part.prim[live:] == -1).all()) or not bool(
-                torch.equal(part.prim[:live], by_walk.prim[:live])):
-            failures.append(f"vmem/{what}: the live prefix is not honoured")
+        for part in parts:
+            if not bool((part.prim[covered:] == -1).all()) or not all(
+                    torch.equal(x[:covered], y[:covered])
+                    for x, y in zip(part, by_walk)):
+                failures.append(f"vmem/{what}: the live prefix is not "
+                                "honoured")
 
         times = dict(
             dense=_median_ms(lambda: dense.dense_intersect_cuda(
@@ -1571,19 +1650,43 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
             tri_tests=scan_stats["tri_tests"] / R,
             bound_full_ms=tpu["bound_ms"], bound_full_by=tpu["bound_by"],
             **own)
-        # The walk: rays in, hits out, each node record read (32 B box and
-        # 4 B meta) and each entered cluster's 512 x 9 floats once; 32 box
-        # tests per group probe, 32 x 512 triangle tests per leaf entered.
-        out["vmem"].update(
-            ms=times["vmem"], any_ms=times["vmem_any"],
-            plain_ms=plain["vmem"], occlusion_agree=occ_agree,
-            probes=walk_stats["probes"], leaf_tests=walk_stats["leaf_tests"],
-            clusters_read=walk_stats["clusters_read"],
-            **roofline(48 * R + 36 * walk_stats["nodes_read"] + 4 * n_hits
+        # The walk's TPU design: rays in, hits out, each node record read
+        # (32 B box and 4 B meta) and each entered cluster's 512 x 9 floats
+        # once; 32 box tests per group probe, 32 x 512 triangle tests per
+        # leaf entered.
+        tpu = roofline(48 * R + 36 * walk_stats["nodes_read"] + 4 * n_hits
                        + 36 * vmem.CLUSTER_T * walk_stats["clusters_read"],
                        BOX_FLOPS * vmem.GROUP_R * walk_stats["probes"]
                        + MT_FLOPS * vmem.GROUP_R * vmem.CLUSTER_T
-                       * walk_stats["leaf_tests"]))
+                       * walk_stats["leaf_tests"])
+        # This kernel's work: origin and direction in (24 B), hits out
+        # (16 B), each node record read once, each entered cluster's padded
+        # box and 16 chunk boxes (32 B each) and the records of the chunks
+        # entered (48 B each) once, one `order` entry per hit; 32 box tests
+        # per group probe, then per ray the padded cluster boxes, the chunk
+        # boxes and the triangles the cull tests.
+        own = roofline(40 * R + 36 * walk_stats["nodes_read"] + 4 * n_hits
+                       + 32 * 17 * walk_stats["clusters_read"]
+                       + 48 * dense.CHUNK * cull_stats["chunks_read"],
+                       BOX_FLOPS * (vmem.GROUP_R * walk_stats["probes"]
+                                    + cull_stats["cluster_tests"]
+                                    + cull_stats["box_tests"])
+                       + MT_FLOPS * cull_stats["tri_tests"])
+        out["vmem"].update(
+            ms=times["vmem"], any_ms=times["vmem_any"],
+            plain_ms=plain["vmem"], occlusion_agree=occ_agree,
+            any_prim_agree=any_agree, any_uv_agree=any_uv, any_uv_err=any_err,
+            uv_agree=uv_agree, uv_err=uv_err,
+            device_ms=device_times[f"vmem/{what}"],
+            any_device_ms=device_times[f"vmem_any/{what}"],
+            probes=walk_stats["probes"], leaf_tests=walk_stats["leaf_tests"],
+            clusters_read=walk_stats["clusters_read"],
+            cluster_tests=cull_stats["cluster_tests"] / R,
+            chunk_box_tests=cull_stats["box_tests"] / R,
+            tri_tests=cull_stats["tri_tests"] / R,
+            chunks_read=cull_stats["chunks_read"], model_s=model_s,
+            bound_full_ms=tpu["bound_ms"], bound_full_by=tpu["bound_by"],
+            **own)
         out["dense_ms"], out["bvh_ms"] = times["dense"], times["bvh"]
         results[what] = out
         n_blocks = -(-R // clustered.BLOCK_R)
@@ -1591,26 +1694,34 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
         for key in ("clustered", "vmem"):
             k = out[key]
             work = (f"{k['fetches'] / n_blocks:.1f} of {n_clusters} clusters "
-                    f"fetched per block of {clustered.BLOCK_R}; per ray "
-                    f"{k['cluster_tests']:.1f} padded cluster boxes, "
-                    f"{k['chunk_box_tests']:.1f} chunk boxes and "
-                    f"{k['tri_tests']:.1f} triangles tested; device "
-                    f"{k['device_ms']:.4f} ms (torch.profiler, mean of "
-                    f"10); TPU-design bound {k['bound_full_ms']:.5f} ms by "
-                    f"{k['bound_full_by']}"
+                    f"fetched per block of {clustered.BLOCK_R}"
                     if key == "clustered" else
                     f"{k['probes'] / n_groups:.1f} probes and "
                     f"{k['leaf_tests'] / n_groups:.2f} leaves per group of "
-                    f"{vmem.GROUP_R}, occlusion agrees {occ_agree:.5f}, "
-                    f"any-hit {k['any_ms']:.4f} ms")
+                    f"{vmem.GROUP_R}, {k['chunks_read']} chunks read "
+                    f"(culled plain model {k['model_s']:.1f} s), "
+                    f"u, v agree on {k['uv_agree']:.5f} of hits (max "
+                    f"|du|, |dv| {k['uv_err']:.3g}), any-hit occlusion "
+                    f"agrees {occ_agree:.5f}, prim {k['any_prim_agree']:.5f}"
+                    f", u, v {k['any_uv_agree']:.5f} (max "
+                    f"{k['any_uv_err']:.3g}), any-hit call "
+                    f"{k['any_ms']:.4f} ms, device "
+                    f"{k['any_device_ms']:.4f} ms")
+            work += (f"; per ray {k['cluster_tests']:.1f} padded cluster "
+                     f"boxes, {k['chunk_box_tests']:.1f} chunk boxes and "
+                     f"{k['tri_tests']:.1f} triangles tested; device "
+                     f"{k['device_ms']:.4f} ms (torch.profiler, mean of "
+                     f"10); TPU-design bound {k['bound_full_ms']:.5f} ms by "
+                     f"{k['bound_full_by']}")
             print(f"kernel/{key}/{what}: {R} rays x {n} tris | prim agrees off "
                   f"ties >= {k['agree']:.5f} with the plain version, the "
                   f"dense and the BVH kernel ({k['ties']} ties), max |dt| "
                   f"{k['max_abs_err']:.3g} | {work} | kernel {k['ms']:.4f} ms "
                   f"(median of 10), plain {k['plain_ms']:.1f} ms (median of "
                   f"2) | dense kernel {out['dense_ms']:.4f} ms, BVH kernel "
-                  f"{out['bvh_ms']:.4f} ms on the same rays | bound "
-                  f"{k['bound_ms']:.5f} ms by {k['bound_by']}", flush=True)
+                  f"{out['bvh_ms']:.4f} ms on the same rays | bound of its "
+                  f"own work {k['bound_ms']:.5f} ms by {k['bound_by']}",
+                  flush=True)
     check(not failures, "; ".join(failures))
     return results
 
@@ -1990,11 +2101,13 @@ def packing_path_phase(device, dense_frame) -> dict:
 
 def pooled_frame_phase(device, packing) -> dict:
     """One pooled-wavefront frame of hier_bridge_15k at 512², 4 bounces, on
-    its default dense table (``packing`` "dense": B1) or on the
-    cluster-scan packing ("clustered": B6), after a first frame and driven
-    with every count at 0: frame time (host clock to a synchronise), the
-    trace kernel's launches and its share of the frame's device time
-    (torch.profiler over one more frame). Run in a process of its own."""
+    its default dense table (``packing`` "dense": B1), on the cluster-scan
+    packing ("clustered": B6) or on the resident-cluster packing ("vmem":
+    B7), after a first frame and driven with every count at 0: frame time
+    (host clock to a synchronise), the trace kernel's launches and its
+    share of the frame's device time (torch.profiler over one more frame);
+    a packing's frame against the dense table's of the same accumulation
+    (the statistical gate). Run in a process of its own."""
     from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
@@ -2006,13 +2119,17 @@ def pooled_frame_phase(device, packing) -> dict:
     scene, cam = TEST_SCENES["hier_bridge_15k"](device=device)
     check(scene.tri_components is not None and scene.tri_clustered is None,
           "hier_bridge_15k no longer takes the dense table by default")
+    dense_scene, gate = scene, ""
     if packing == "dense":
         module, kernel, what = dense, "dense_intersect_kernel", "dense table"
     else:
-        module, kernel, what = (clustered, "clustered_intersect_kernel",
-                                "cluster-scan packing")
-        scene = scene._replace(tri_clustered=clustered.pack_clustered(
-            scene.tri_verts, scene.bvh), tri_components=None)
+        module, kernel, what, pack = {
+            "clustered": (clustered, "clustered_intersect_kernel",
+                          "cluster-scan packing", clustered.pack_clustered),
+            "vmem": (vmem, "vmem_intersect_kernel", "resident-cluster packing",
+                     vmem.pack_vmem)}[packing]
+        scene = scene._replace(tri_clustered=pack(scene.tri_verts, scene.bvh),
+                               tri_components=None)
     settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
     pt.render_sample_pooled(scene, cam, RES, RES, 0, settings)
     _reset_counts()
@@ -2029,6 +2146,12 @@ def pooled_frame_phase(device, packing) -> dict:
           "kernels")
     check(bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3,
           f"pooled/{packing}: the frame is not finite and lit")
+    if packing != "dense":
+        ref = pt.render_sample_pooled(
+            dense_scene, cam, RES, RES, 1,
+            pt.settings_for_scene(dense_scene, max_bounce_count=BOUNCES))
+        flips, _, _ = _gate(img, ref, f"pooled/{packing} vs the dense table")
+        gate = f" | gate vs the dense table's frame: {flips:.4f} flips"
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         pt.render_sample_pooled(scene, cam, RES, RES, 2, settings)
         torch.cuda.synchronize()
@@ -2050,8 +2173,8 @@ def pooled_frame_phase(device, packing) -> dict:
           f"frame) | next frame (torch.profiler): {n_device} device "
           f"activities, busy {busy_us / 1e3:.1f} ms, the trace kernel "
           f"{trace_us / 1e3:.2f} ms = {trace_us / max(busy_us, 1e-9):.1%} of "
-          f"busy time and {trace_us / 1e3 / frame_ms:.1%} of the frame",
-          flush=True)
+          f"busy time and {trace_us / 1e3 / frame_ms:.1%} of the frame"
+          f"{gate}", flush=True)
     return dict(frame_ms=frame_ms, launches=launches, trace_ms=trace_us / 1e3,
                 busy_ms=busy_us / 1e3, device_ops=n_device)
 
@@ -2304,7 +2427,8 @@ def frame_profile_phase(device) -> dict:
     and host syncs per frame over three frames from torch.profiler (at most
     MAX_FRAME_LAUNCHES launches, no sync), with torch's sync debug mode set
     to raise, so a synchronising torch op fails the phase; frame time
-    (host clock to a synchronise, median of 5) beside the kernel's."""
+    (host clock to a synchronise, median of 5) beside the kernel's. Then
+    _walk_call_profile."""
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2363,6 +2487,72 @@ def frame_profile_phase(device) -> dict:
               f"frames; sync debug mode raised nothing) | frame "
               f"{out[name]['frame_ms']:.3f} ms (median of 5), kernel "
               f"{kernel_ms:.3f} ms (median of 10)", flush=True)
+    out["vmem_calls"] = _walk_call_profile(device)
+    return out
+
+
+def _walk_call_profile(device, calls=3) -> dict:
+    """Warm calls of the resident-cluster walk (B7) on the 16,130-triangle
+    soup, closest hit and any-hit, with t_min, t_max and the live count as
+    device tensors, under torch.profiler with torch's sync debug mode set
+    to raise: exactly one kernel-launch call, no memset and no host sync
+    per call, and where the card's trace is there one kernel per call."""
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from torch.profiler import ProfilerActivity, profile, record_function
+    walk = vmem.pack_vmem(_soups(device)["sphere"])
+    o, d, t_max = _rays(np.random.default_rng(5), "sphere", device)
+    t_min = torch.tensor(1e-4, device=device)
+    live = torch.tensor(R // 3, device=device)
+    queries = {"closest": False, "any_hit": True}
+    for any_hit in queries.values():
+        vmem.vmem_intersect(walk, o, d, t_min, t_max, any_hit, live)
+    torch.cuda.synchronize()
+    before = vmem.launch_count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for name, any_hit in queries.items():
+                with record_function(f"walk_calls:{name}"):
+                    for _ in range(calls):
+                        vmem.vmem_intersect(walk, o, d, t_min, t_max,
+                                            any_hit, live)
+                    torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    check(vmem.launch_count - before == calls * len(queries),
+          f"profile/vmem: {vmem.launch_count - before} B7 launches counted")
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    out = {}
+    for name in queries:
+        window = next(e.time_range for e in events
+                      if e.name == f"walk_calls:{name}" and e.device_type != cuda)
+        inside = [e for e in events
+                  if window.start <= e.time_range.start <= window.end]
+        host = [e.name for e in inside if e.device_type != cuda]
+        launches = sum("LaunchKernel" in n for n in host) / calls
+        memsets = sum("Memset" in n for n in host) / calls
+        # The range's own synchronise ends it: it is no call's.
+        syncs = (sum("Synchronize" in n or n == "cudaMemcpy"
+                     for n in host) - 1) / calls
+        kernels = sum("vmem_intersect_kernel" in e.name for e in inside
+                      if e.device_type == cuda) / calls
+        check(launches == 1 and memsets == 0 and syncs <= 0,
+              f"profile/vmem/{name}: per call {launches} launches, {memsets} "
+              f"memsets, {syncs} host syncs")
+        check(kernels in (0, 1), f"profile/vmem/{name}: {kernels} B7 kernels "
+              "per call")
+        out[name] = dict(launches=launches, memsets=memsets, syncs=syncs,
+                         kernels=kernels)
+        print(f"profile/vmem/{name}: warm B7 call, 65,536 rays x 16,130 "
+              f"tris, bounds and live count on the device | per call "
+              f"{launches:.0f} kernel-launch call, {memsets:.0f} memsets, "
+              f"{max(syncs, 0):.0f} host syncs and "
+              + ("the card's trace lost" if kernels == 0 else
+                 f"{kernels:.0f} B7 kernel")
+              + f" (torch.profiler over {calls} calls; sync debug mode raised"
+              " nothing)", flush=True)
     return out
 
 
@@ -2404,7 +2594,7 @@ def main() -> int:
     path_c = hier_path_phase(device)
     packings = packing_path_phase(device,
                                   hier_scenes["hier_bridge_15k"]["pooled"])
-    for packing in ("dense", "clustered"):
+    for packing in ("dense", "clustered", "vmem"):
         fresh_process(f"pooled-{packing}")
     megakernel_extras_phase(device)
     path_d = extras_path_phase(device)
@@ -2461,7 +2651,8 @@ def main() -> int:
 PROFILES = {"traces": trace_device_phase,
             "pooled-dense": lambda device: pooled_frame_phase(device, "dense"),
             "pooled-clustered": lambda device: pooled_frame_phase(
-                device, "clustered")}
+                device, "clustered"),
+            "pooled-vmem": lambda device: pooled_frame_phase(device, "vmem")}
 
 
 if __name__ == "__main__":

@@ -1,20 +1,24 @@
 """The warp-share threshold of ``csrc/dense_trace.cuh`` (``kWarpShare``)
-swept on the dense trace (B1) and the cluster scan (B6) on one CUDA card.
+swept on the dense trace (B1), the cluster scan (B6) and the
+resident-cluster walk (B7) on one CUDA card.
 
 Usage, from the root of this tree::
 
     python3 chip_warp_share.py
 
 For each threshold in ``THRESHOLDS`` (0: a thread per ray always; 1 << 20:
-the warp on one ray at a time always) it builds ``csrc/dense_intersect.cu``
-and ``csrc/clustered_intersect.cu`` with that ``kWarpShare`` into
-``build/warp_share/<threshold>/``, all builds at once, then times every
-build in one torch.profiler session (``chip_smoke.device_ms``: device time
-per call, mean of 10 calls) on chip_smoke.py's workloads: B1 on three
-tables and two ray sets, with t_max = inf and on the bounded rays; B6 on
-the bridge's two ray sets and the 16,130-triangle soup. The hits (t, prim,
-u, v) of every build are checked equal to the committed build's. It prints the card, one line
-per workload and, last, one JSON object ``{workload: {threshold: ms}}``.
+the warp on one ray at a time always) it builds ``csrc/dense_intersect.cu``,
+``csrc/clustered_intersect.cu`` and ``csrc/vmem_intersect.cu`` with that
+``kWarpShare`` into ``build/warp_share/<threshold>/``, all builds at once,
+then times every build in one torch.profiler session
+(``chip_smoke.device_ms``: device time per call, mean of 10 calls) on
+chip_smoke.py's workloads: B1 on three tables and two ray sets, with
+t_max = inf and on the bounded rays; B6 on the bridge's two ray sets and the
+16,130-triangle soup; B7 on the same three, closest hit with t_max = inf and
+on the bounded rays, and any-hit on the bounded rays. The hits (t, prim, u,
+v) of every build are checked equal to the committed build's. It prints the
+card, one line per workload and, last, one JSON object
+``{workload: {threshold: ms}}``.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 THRESHOLDS = (0, 4, 8, 16, 32, 1 << 20)
 SOURCES = {"dense_intersect": ("dense_intersect", "dense_intersect_boxes"),
            "clustered_intersect": ("clustered_intersect",
-                                   "clustered_intersect_boxes")}
+                                   "clustered_intersect_boxes"),
+           "vmem_intersect": ("vmem_intersect", "vmem_intersect_boxes")}
 
 
 def _smoke():
@@ -46,7 +51,7 @@ def _smoke():
 
 
 def build(threshold: int) -> dict:
-    """Both sources with kWarpShare = ``threshold`` → {source: .so path}."""
+    """The sources with kWarpShare = ``threshold`` → {source: .so path}."""
     from bifrost3d_tpu_torch.utils import cuda_build
     out_dir = os.path.join(REPO, "build", "warp_share", str(threshold))
     os.makedirs(out_dir, exist_ok=True)
@@ -75,14 +80,17 @@ def build(threshold: int) -> dict:
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
     from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.geometry.bvh import build_soup_bvh
 
     smoke = _smoke()
     smoke.device_phase()    # prints the card's name and power limit
     with ThreadPoolExecutor(len(THRESHOLDS)) as pool:
         built = dict(zip(THRESHOLDS, pool.map(build, THRESHOLDS)))
-    modules = {"dense_intersect": dense, "clustered_intersect": clustered}
+    modules = {"dense_intersect": dense, "clustered_intersect": clustered,
+               "vmem_intersect": vmem}
     committed = {stem: mod._library() for stem, mod in modules.items()}
     libraries = {}
     for threshold, paths in built.items():
@@ -95,7 +103,7 @@ def main() -> int:
             libraries[threshold, stem] = lib
 
     def use(threshold):
-        """Route both modules to ``threshold``'s build (None: committed)."""
+        """Route the modules to ``threshold``'s build (None: committed)."""
         for stem, mod in modules.items():
             lib = (committed[stem] if threshold is None
                    else libraries[threshold, stem])
@@ -116,12 +124,24 @@ def main() -> int:
                               dense.dense_intersect_cuda(comp, n, o, d, 1e-4,
                                                          b)))
     for name, tris, bvh, ray_sets in smoke._scan_cases(dev, soups):
+        bvh = bvh if bvh is not None else build_soup_bvh(tris)
         scan = clustered.pack_clustered(tris, bvh)
+        walk = vmem.pack_vmem(tris, bvh)
         for ray_name, (o, d) in ray_sets.items():
             cases.append((f"B6 {name}/{ray_name}",
                           lambda scan=scan, o=o, d=d:
                           clustered.clustered_intersect_cuda(
                               scan, o, d, 1e-4, inf)))
+            t_max = smoke._bounded(vmem.vmem_intersect_cuda(walk, o, d, 1e-4,
+                                                            inf))
+            for case, bound in (("", inf), ("/bounded", t_max)):
+                cases.append((f"B7 {name}/{ray_name}{case}",
+                              lambda walk=walk, o=o, d=d, b=bound:
+                              vmem.vmem_intersect_cuda(walk, o, d, 1e-4, b)))
+            cases.append((f"B7 {name}/{ray_name}/any-hit",
+                          lambda walk=walk, o=o, d=d, b=t_max:
+                          vmem.vmem_intersect_cuda(walk, o, d, 1e-4, b,
+                                                   any_hit=True)))
 
     failures, workloads = [], []
     for name, fn in cases:

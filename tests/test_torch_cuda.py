@@ -110,22 +110,29 @@ def test_dense_kernel_bound_and_live_count_forms(cuda):
 
 def test_trace_kernels_are_one_launch_without_sync(cuda, cluster_packings):
     """After a table's first call the dense trace (the live count a device
-    tensor) and the cluster scan each launch their kernel once a call and
-    read nothing back: torch.profiler's kernels per call (one session: the
-    card's trace has gone missing in a later session of one process), with
-    torch's sync debug mode raising."""
+    tensor), the cluster scan and the resident-cluster walk (closest and
+    any-hit, bounds and live count on the device) each launch their kernel
+    once a call and read nothing back: torch.profiler's kernels per call
+    (one session: the card's trace has gone missing in a later session of
+    one process), with torch's sync debug mode raising."""
     from torch.profiler import ProfilerActivity, profile, record_function
     comp, n = dense.pack_triangles(_sphere_soup(cuda))
     o, d, t_max = _rays(4096, 16, -0.9, 0.9, cuda)
     live = torch.tensor(3000, device=cuda)
+    live32, t_min = live.to(torch.int32), torch.tensor(1e-4, device=cuda)
     calls = {
         "dense": lambda: dense.pallas_intersect(comp, n, o, d, 1e-4, t_max,
                                                 live_count=live),
         "clustered": lambda: clustered.clustered_intersect(
-            cluster_packings[0], o, d, 1e-4, t_max)}
+            cluster_packings[0], o, d, 1e-4, t_max),
+        "vmem": lambda: vmem.vmem_intersect(
+            cluster_packings[1], o, d, t_min, t_max, live_count=live32),
+        "vmem_any": lambda: vmem.vmem_intersect(
+            cluster_packings[1], o, d, 1e-4, t_max, any_hit=True,
+            live_count=live)}
     for fn in calls.values():
         fn()
-    counts = (dense.launch_count, clustered.launch_count)
+    counts = (dense.launch_count, clustered.launch_count, vmem.launch_count)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -138,8 +145,9 @@ def test_trace_kernels_are_one_launch_without_sync(cuda, cluster_packings):
                     torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    assert (dense.launch_count, clustered.launch_count) == (counts[0] + 3,
-                                                           counts[1] + 3)
+    assert (dense.launch_count, clustered.launch_count,
+            vmem.launch_count) == (counts[0] + 3, counts[1] + 3,
+                                   counts[2] + 6)
     cuda_type = torch.autograd.DeviceType.CUDA
     events = prof.events()
     for name in calls:
@@ -663,6 +671,69 @@ def test_vmem_kernel_any_hit_and_bvh_kernel(cuda, packed_soup,
                                    any_hit=True).prim >= 0
     assert float((occluded == (ref.prim >= 0)).float().mean()) >= 0.999
     assert 0 < int(occluded.sum()) < 5000
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_vmem_kernel_bound_and_live_count_forms(cuda, cluster_packings,
+                                                any_hit):
+    """Bounds as numbers, one device value or [r] tensors, and the live
+    count as an int, an int32 or an int64 tensor, give the same hits, and
+    the plain version's: closest hits under the gate; any-hit's occlusion
+    and prim (the leaf's nearest hit, then the ray frozen) on >= 99.9% of
+    rays, u and v within rtol 1e-4, atol 1e-5 where prim agrees (and the
+    plain model of the kernel's cull bit for bit equal to the plain walk);
+    whole groups past the live count miss with t = inf."""
+    packed = cluster_packings[1]
+    r, live = 5000, 1777
+    covered = -(-live // vmem.GROUP_R) * vmem.GROUP_R
+    o, d, t_max = _rays(r, 19, -0.9, 0.9, cuda)
+    forms = [(1e-4, t_max, live),
+             (torch.tensor(1e-4, device=cuda), t_max,
+              torch.tensor([live], dtype=torch.int32, device=cuda)),
+             (torch.full((r,), 1e-4, device=cuda), t_max,
+              torch.tensor(live, device=cuda))]
+    hits = [vmem.vmem_intersect_cuda(packed, o, d, lo, hi, any_hit, n)
+            for lo, hi, n in forms]
+    for hit in hits[1:]:
+        for a, b in zip(hit, hits[0]):
+            assert torch.equal(a, b)
+    assert bool((hits[0].prim[covered:] == -1).all())
+    assert bool(torch.isinf(hits[0].t[covered:]).all())
+    ref = vmem.vmem_intersect_reference(packed, o, d, 1e-4, t_max,
+                                        any_hit=any_hit, live_count=live)
+    model = vmem.vmem_intersect_reference(packed, o, d, 1e-4, t_max,
+                                          any_hit=any_hit, live_count=live,
+                                          culled=True)
+    got = type(ref)(*(f[:covered] for f in hits[0]))
+    for a, b in zip(model, ref):
+        assert torch.equal(a, b)
+    ref = type(ref)(*(f[:covered] for f in ref))
+    if any_hit:
+        assert float(((got.prim >= 0) == (ref.prim >= 0))
+                     .float().mean()) >= 0.999
+        assert 0 < int((got.prim >= 0).sum()) < covered
+        same = got.prim == ref.prim
+        assert float(same.float().mean()) >= 0.999
+        hit = same & (ref.prim >= 0)
+        for a, b in ((got.u, ref.u), (got.v, ref.v)):
+            torch.testing.assert_close(a[hit], b[hit], rtol=1e-4, atol=1e-5)
+    else:
+        _assert_hits_agree(got, ref)
+
+
+def test_vmem_kernel_hit_is_one_allocation(cuda, cluster_packings):
+    """The Hit's four fields are views of one [4, r] allocation, misses t =
+    inf, prim = -1, u = v = 0."""
+    o, d, t_max = _rays(3000, 20, -0.9, 0.9, cuda)
+    hit = vmem.vmem_intersect_cuda(cluster_packings[1], o, d, 1e-4, t_max)
+    base = hit.t.untyped_storage().data_ptr()
+    assert all(f.untyped_storage().data_ptr() == base for f in hit)
+    assert [f.data_ptr() - base for f in hit] == [0, 12000, 24000, 36000]
+    assert hit.prim.dtype == torch.int32
+    miss = hit.prim < 0
+    assert 0 < int(miss.sum()) < 3000
+    assert bool(torch.isinf(hit.t[miss]).all())
+    assert not bool(hit.u[miss].any()) and not bool(hit.v[miss].any())
 
 
 @pytest.mark.parametrize("module, name", [(clustered, "clustered_intersect"),
