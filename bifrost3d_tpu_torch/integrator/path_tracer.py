@@ -1,11 +1,13 @@
-"""Wavefront mesh path tracer with NEE (RIS) + MIS, forward only.
+"""Wavefront mesh path tracer with NEE (RIS) + MIS, and its gradients.
 
 Port of ``bifrost3d_tpu/integrator/path_tracer.py``: ``RenderSettings``,
 ``settings_for_scene``, ``mis_weight``, ``_sample_single_light``,
 ``_reestimated_light_samples``, ``_intersect_analytic_lights``,
 ``_fetch_tri_attributes``, ``_surface_material_params``,
 ``_fetch_tri_uv_mat``, ``_coverage_at_hit``, ``_shadow_transmittance``,
-``_wavefront_step``, ``render_sample``,
+``_HitRecords``, ``_wavefront_step`` (with ``record`` and ``replay``),
+``_pixel_lane_state``, ``render_sample_pixels``,
+``render_sample_pixels_detached``, ``render_sample``, ``render_rays``,
 ``_make_camera_lanes``, ``render_pixels_pooled`` (the pool sort of its
 loop body is ``pool_sort_order``), ``render_sample_pooled``,
 ``render_sample_pooled_counted``, ``explain_render_path``,
@@ -23,6 +25,18 @@ direction octant, dead lanes last), so neighbouring threads walk
 neighbouring subtrees and the kernel skips the dead suffix. RNG is the
 Owen-scrambled Sobol chain keyed by (accumulation, pcg2d pixel hash,
 8·bounce + dim), exactly as in JAX.
+
+Gradients: the scene queries are detached, as JAX's ``stop_gradient``
+sites are (:func:`_scene_query`): rays and scene tables go in without
+autograd history, hits, occlusion and shadow transmittance come out
+without it, so autograd differentiates the estimator (attributes,
+shading, light sampling, throughput) with the hit query treated as a
+sampler, and no trace kernel has a backward. The analytic light hits stay
+differentiable: that is how a light's position gets its gradient.
+``render_sample`` goes through :func:`render_sample_pixels`, where
+``remat_bounces`` recomputes each iteration in the backward
+(``torch.utils.checkpoint``) and ``detached_replay_vjp`` differentiates a
+replay of the recorded hits that traces no ray.
 
 JAX's ``fori_loop``/``while_loop`` become Python loops. The pooled loop's
 ``any(active)`` condition costs one ``.item()`` (a host sync) per
@@ -48,8 +62,10 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from bifrost3d_tpu_torch.geometry.traverse import (
+    Hit,
     intersect_scene,
     intersect_scene_any,
 )
@@ -95,6 +111,8 @@ from bifrost3d_tpu_torch.scene.materials import (
 from bifrost3d_tpu_torch.scene.render_scene import RenderScene
 from bifrost3d_tpu_torch.shading.default_shading import DefaultShading
 from bifrost3d_tpu_torch.shading.diffuse_shading import DiffuseShading
+from bifrost3d_tpu_torch.utils.tree import tree_flatten
+from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
 logger = logging.getLogger(__name__)
 
@@ -117,12 +135,17 @@ class RenderSettings(NamedTuple):
     from the scene's presampled pool when it carries one, else from a search
     of its CDFs. ``sort_rays_every`` sorts the pool for the BVH trace kernel
     every that many steps (0 = never; ``settings_for_scene`` sets 1 for a
-    scene that carries the BVH packing). ``path_regularization_decay``,
-    ``shading_models_present``, ``remat_bounces`` and
-    ``detached_replay_vjp`` are accepted and change no forward frame: the
-    port reads the models present from the material table
-    (``RenderScene.shading_models``), and the other three belong to
-    features that are not ported (path regularization, gradients).
+    scene that carries the BVH packing).
+    ``remat_bounces`` recomputes each wavefront iteration of
+    :func:`render_sample_pixels` in the backward instead of keeping its
+    intermediates (``torch.utils.checkpoint``); ``detached_replay_vjp``
+    takes the backward from a replay of the forward's recorded hits, which
+    traces no ray (:func:`render_sample_pixels_detached`). Neither changes
+    a forward frame. ``path_regularization_decay`` and
+    ``shading_models_present`` are accepted and change no frame: the port
+    reads the models present from the material table
+    (``RenderScene.shading_models``), and path regularization is not
+    ported.
     """
 
     max_bounce_count: int = 4
@@ -144,7 +167,8 @@ class RenderSettings(NamedTuple):
 
 def settings_for_scene(scene: RenderScene, **overrides) -> RenderSettings:
     """RenderSettings with the static scene hints filled from the material
-    table (semi-transparency) and the texture bank (trilinear samplers)."""
+    table (semi-transparency) and the texture bank (trilinear samplers),
+    and ``remat_bounces`` on, as in JAX (it changes only the backward)."""
     mats = scene.materials
     semi_transparent = bool(
         torch.any(mats.coverage < 1.0)
@@ -158,6 +182,7 @@ def settings_for_scene(scene: RenderScene, **overrides) -> RenderSettings:
     overrides.setdefault("trilinear_textures",
                          scene.textures is not None
                          and scene.textures.has_trilinear())
+    overrides.setdefault("remat_bounces", True)
     return RenderSettings(**overrides)
 
 
@@ -450,6 +475,46 @@ def _coverage_at_hit(scene: RenderScene, hit):
     return coverage
 
 
+_DETACHED = VersionedCache(16)
+
+
+def _no_graph(x):
+    """A scene table (a tensor, a NamedTuple of them, or anything else)
+    without autograd history. A tensor that requires grad becomes its
+    detached alias, the same object for as long as the tensor is unchanged
+    (cached per identity and version), so the trace kernels' table caches,
+    keyed the same way, keep hitting across the steps of a frame."""
+    if isinstance(x, torch.Tensor):
+        if not x.requires_grad:
+            return x
+        key, alias = _DETACHED.lookup((x,))
+        return alias if alias is not None else _DETACHED.store(
+            key, (x,), x.detach())
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        fields = [_no_graph(f) for f in x]
+        return x if all(a is b for a, b in zip(fields, x)) else \
+            type(x)._make(fields)
+    return x
+
+
+def _scene_query(query, scene: RenderScene, origin, direction, t_min,
+                 t_max=float("inf"), live_count=None):
+    """``query`` (``intersect_scene`` or ``intersect_scene_any``) detached,
+    as JAX's ``stop_gradient`` around the query and its rays: the rays,
+    bounds and scene tables go in without autograd history and the result
+    comes out without it, so no trace kernel or table cache ever sees a
+    graph."""
+    def bare(x):
+        return x.detach() if isinstance(x, torch.Tensor) else x
+    with torch.no_grad():
+        return query(_no_graph(scene.bvh), _no_graph(scene.tri_verts),
+                     bare(origin), bare(direction), t_min=_no_graph(t_min),
+                     t_max=bare(t_max),
+                     tri_components=_no_graph(scene.tri_components),
+                     tri_clustered=_no_graph(scene.tri_clustered),
+                     live_count=live_count)
+
+
 def _shadow_transmittance(scene: RenderScene, origin, direction, t_max, eps,
                           steps: int):
     """Shadow-ray transmittance through semi-transparent surfaces.
@@ -458,16 +523,15 @@ def _shadow_transmittance(scene: RenderScene, origin, direction, t_max, eps,
     1 - coverage at every surface along the segment and ends when black
     (MonteCarlo.cu:278-285). A wavefront has no any-hit enumeration, so
     this marches the closest hit up to ``steps`` times, moving the origin
-    past each intersection. Surfaces beyond ``steps`` occlude fully.
+    past each intersection. Surfaces beyond ``steps`` occlude fully. A
+    query like the others: the caller runs it under ``torch.no_grad``.
     """
     trans = torch.ones(origin.shape[0], dtype=torch.float32,
                        device=origin.device)
     t_remaining = t_max
     for step in range(steps):
-        hit = intersect_scene(scene.bvh, scene.tri_verts, origin, direction,
-                              t_min=eps, t_max=t_remaining,
-                              tri_components=scene.tri_components,
-                              tri_clustered=scene.tri_clustered)
+        hit = _scene_query(intersect_scene, scene, origin, direction, eps,
+                           t_remaining)
         blocked = hit.mask & (trans > 0.0)
         if step == steps - 1:
             # Budget exhausted: any remaining surface fully occludes.
@@ -491,20 +555,39 @@ class _PathState(NamedTuple):
     active: torch.Tensor
 
 
+class _HitRecords(NamedTuple):
+    """One wavefront iteration's scene-query results: the only values the
+    estimator takes from the geometry, all without autograd history.
+    Recording them makes the bounce loop replayable without a trace; the
+    replay recomputes every differentiable quantity (attributes, shading,
+    RIS NEE, sampling transforms) from these and the RNG chain."""
+
+    t: torch.Tensor             # [r] hit distance (inf on miss)
+    prim: torch.Tensor          # [r] int32
+    u: torch.Tensor             # [r]
+    v: torch.Tensor             # [r]
+    shadow_trans: torch.Tensor  # [r] NEE shadow transmittance
+
+
 def _wavefront_step(scene: RenderScene, settings: RenderSettings,
                     accumulation: int, state: _PathState,
-                    live_count=None) -> _PathState:
+                    live_count=None, replay: Optional[_HitRecords] = None,
+                    record: bool = False):
     """One iteration for every lane: trace, environment or light hits,
-    shade, NEE with a shadow trace or march, BSDF sample. ``live_count`` (int tensor, optional): the
-    pool's sorted live prefix, which the trace kernels stop at."""
+    shade, NEE with a shadow trace or march, BSDF sample → the next
+    _PathState (and with ``record`` this iteration's _HitRecords).
+    ``live_count`` (int tensor, optional): the pool's sorted live prefix,
+    which the trace kernels stop at. ``replay``: a previous run's records
+    instead of the scene queries, so the step traces nothing."""
     (origin, direction, throughput, radiance, bsdf_pdf, pixel_hash, bounce,
      active) = state
     eps = scene.scene_epsilon
 
-    hit = intersect_scene(scene.bvh, scene.tri_verts, origin, direction,
-                          t_min=eps, tri_components=scene.tri_components,
-                          tri_clustered=scene.tri_clustered,
-                          live_count=live_count)
+    if replay is not None:
+        hit = Hit(t=replay.t, prim=replay.prim, u=replay.u, v=replay.v)
+    else:
+        hit = _scene_query(intersect_scene, scene, origin, direction, eps,
+                           live_count=live_count)
     t_light, light_idx = _intersect_analytic_lights(scene, origin, direction)
 
     light_first = t_light < hit.t
@@ -589,15 +672,18 @@ def _wavefront_step(scene: RenderScene, settings: RenderSettings,
     shadow_side = torch.where(dot(l_dir, geo_normal) >= 0, 1.0, -1.0)
     shadow_origin = offset_ray_origin(position, geo_normal * shadow_side[..., None])
     has_light = shade & (torch.amax(l_radiance, dim=-1) > 0.0)
-    if settings.coverage_aware_shadows:
-        shadow_trans = _shadow_transmittance(
-            scene, shadow_origin, l_dir, l_dist * (1.0 - 1e-4), eps,
-            settings.shadow_coverage_steps)
+    if replay is not None:
+        shadow_trans = replay.shadow_trans
+    elif settings.coverage_aware_shadows:
+        with torch.no_grad():
+            shadow_trans = _shadow_transmittance(
+                scene, shadow_origin.detach(), l_dir.detach(),
+                l_dist.detach() * (1.0 - 1e-4), eps,
+                settings.shadow_coverage_steps)
     else:
-        occluded = intersect_scene_any(
-            scene.bvh, scene.tri_verts, shadow_origin, l_dir, t_min=eps,
-            t_max=l_dist * (1.0 - 1e-4), tri_components=scene.tri_components,
-            tri_clustered=scene.tri_clustered, live_count=live_count)
+        occluded = _scene_query(intersect_scene_any, scene, shadow_origin,
+                                l_dir, eps, l_dist * (1.0 - 1e-4),
+                                live_count=live_count)
         shadow_trans = torch.where(occluded, 0.0, 1.0)
     radiance = radiance + torch.where(
         has_light[..., None], l_radiance * shadow_trans[..., None], 0.0)
@@ -632,8 +718,12 @@ def _wavefront_step(scene: RenderScene, settings: RenderSettings,
     active = (active & ~miss & ~light_hit
               & (~shade | (torch.amax(throughput, dim=-1) > 0.0))
               & (bounce <= settings.max_bounce_count))
-    return _PathState(origin, direction, throughput, radiance, bsdf_pdf,
-                      pixel_hash, bounce, active)
+    new_state = _PathState(origin, direction, throughput, radiance, bsdf_pdf,
+                           pixel_hash, bounce, active)
+    if record:
+        return new_state, _HitRecords(hit.t, hit.prim, hit.u, hit.v,
+                                      shadow_trans)
+    return new_state
 
 
 # -- entry points ---------------------------------------------------------------
@@ -666,23 +756,156 @@ def _camera_lanes(camera: PinholeCamera, x, y, width: int, height: int,
         active=valid & torch.isfinite(origin[..., 0]))
 
 
+def _iterations(settings: RenderSettings) -> int:
+    """Iterations of the fixed-iteration wavefront: bounces + slack for
+    passthrough lanes (each iteration is one shade or one passthrough)."""
+    return settings.max_bounce_count + 1 + settings.passthrough_slack
+
+
+def _pixel_lane_state(camera: PinholeCamera, x, y, width: int,
+                      accumulation: int, height: int):
+    """Camera-ray lanes for integer pixel coords x/y [...] → (_PathState
+    over the flattened pixels, the pixels' shape)."""
+    shape = tuple(x.shape)
+    x = x.reshape(-1).to(torch.int64)
+    y = y.reshape(-1).to(torch.int64)
+    return _camera_lanes(camera, x, y, width, height, accumulation,
+                         torch.ones_like(x, dtype=torch.bool)), shape
+
+
+def _step(step, state: _PathState, remat: bool) -> _PathState:
+    """``step(state)``; with ``remat`` and autograd recording, under
+    ``torch.utils.checkpoint``: the backward recomputes the iteration (its
+    traces included) instead of keeping its intermediates."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            step, state, use_reentrant=False, preserve_rng_state=False)
+    return step(state)
+
+
+def render_sample_pixels(scene: RenderScene, camera: PinholeCamera, x, y,
+                         width: int, height: int, accumulation: int,
+                         settings: RenderSettings = RenderSettings()):
+    """One progressive sample for integer pixel coords x/y [...] →
+    radiance [..., 3]: pixel indices are data, as in the SmallPT
+    integrator. ``settings.remat_bounces`` recomputes each iteration in the
+    backward; ``settings.detached_replay_vjp`` takes the backward from
+    :func:`render_sample_pixels_detached`."""
+    _check_supported(scene, settings)
+    accumulation = int(accumulation)
+    if settings.detached_replay_vjp and torch.is_grad_enabled():
+        return render_sample_pixels_detached(scene, camera, x, y, width,
+                                             height, accumulation, settings)
+    state, shape = _pixel_lane_state(camera, x, y, width, accumulation,
+                                     height)
+    step = functools.partial(_wavefront_step, scene, settings, accumulation)
+    for _ in range(_iterations(settings)):
+        state = _step(step, state, settings.remat_bounces)
+    return state.radiance.reshape(shape + (3,))
+
+
+class _DetachedReplay(torch.autograd.Function):
+    """The detached-replay VJP of :func:`render_sample_pixels_detached`.
+    ``run`` holds everything but the tensors: the (scene, camera) rebuild,
+    pixels, sizes, accumulation and settings; ``leaves`` are the tensors of
+    (scene, camera)."""
+
+    @staticmethod
+    def forward(ctx, run, *leaves):
+        scene, camera = run["unflatten"](leaves)
+        settings, accumulation = run["settings"], run["accumulation"]
+        state, shape = _pixel_lane_state(camera, run["x"], run["y"],
+                                         run["width"], accumulation,
+                                         run["height"])
+        records = []
+        for _ in range(_iterations(settings)):
+            state, rec = _wavefront_step(scene, settings, accumulation, state,
+                                         record=True)
+            records.append(rec)
+        ctx.run, ctx.records = run, records
+        ctx.save_for_backward(*leaves)
+        return state.radiance.reshape(shape + (3,))
+
+    @staticmethod
+    def backward(ctx, grad):
+        run, wants = ctx.run, ctx.needs_input_grad[1:]
+        settings, accumulation = run["settings"], run["accumulation"]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(want)
+                      for t, want in zip(ctx.saved_tensors, wants)]
+            scene, camera = run["unflatten"](leaves)
+            state, shape = _pixel_lane_state(camera, run["x"], run["y"],
+                                             run["width"], accumulation,
+                                             run["height"])
+            for rec in ctx.records:
+                step = functools.partial(_wavefront_step, scene, settings,
+                                         accumulation, replay=rec)
+                state = _step(step, state, settings.remat_bounces)
+            wanted = [t for t, want in zip(leaves, wants) if want]
+            grads = iter(torch.autograd.grad(
+                state.radiance.reshape(shape + (3,)), wanted, grad,
+                allow_unused=True))
+        return (None, *(next(grads) if want else None for want in wants))
+
+
+def render_sample_pixels_detached(scene: RenderScene, camera: PinholeCamera,
+                                  x, y, width: int, height: int,
+                                  accumulation: int,
+                                  settings: RenderSettings = RenderSettings()):
+    """:func:`render_sample_pixels` under the detached-replay VJP.
+
+    Forward: the wavefront as usual, under ``no_grad``, keeping each
+    iteration's _HitRecords (five numbers a lane an iteration: the only
+    scene-query results, detached in plain reverse mode too). Backward:
+    autograd through a replay of the estimator driven by those records —
+    attribute fetch, shading, RIS NEE and the reparameterized sampling
+    transforms are recomputed, no ray is traced — with ``remat_bounces``
+    checkpointing each replayed iteration. The gradients are plain reverse
+    mode's; the camera and the pixels get none (zero cotangents)."""
+    leaves, unflatten = tree_flatten((scene, camera))
+    run = dict(unflatten=unflatten, x=x, y=y, width=width, height=height,
+               accumulation=int(accumulation), settings=settings)
+    return _DetachedReplay.apply(run, *leaves)
+
+
 def render_sample(scene: RenderScene, camera: PinholeCamera, width: int,
                   height: int, accumulation: int,
                   settings: RenderSettings = RenderSettings()):
     """One progressive frame through the fixed-iteration wavefront →
     radiance [height, width, 3] (row 0 = top)."""
-    _check_supported(scene, settings)
     device = scene.tri_verts.device
     y, x = torch.meshgrid(torch.arange(height, device=device),
                           torch.arange(width, device=device), indexing="ij")
-    x = x.reshape(-1)
-    y = y.reshape(-1)
-    state = _camera_lanes(camera, x, y, width, height, int(accumulation),
-                          torch.ones_like(x, dtype=torch.bool))
-    # Iterations = bounces + slack for passthrough lanes.
-    for _ in range(settings.max_bounce_count + 1 + settings.passthrough_slack):
-        state = _wavefront_step(scene, settings, int(accumulation), state)
-    return state.radiance.reshape(height, width, 3)
+    return render_sample_pixels(scene, camera, x, y, width, height,
+                                accumulation, settings)
+
+
+def render_rays(scene: RenderScene, origin, direction, pixel_hash,
+                accumulation: int,
+                settings: RenderSettings = RenderSettings()):
+    """Trace explicit rays [r, 3] through the full estimator → radiance
+    [r, 3]: the ray-level entry the edge-sampled geometry gradients probe
+    with (their probes need exact sub-pixel viewport positions).
+    ``pixel_hash`` (an int or an integer tensor [r]) keys the Sobol chains,
+    so probe pairs passing the same hash share their noise."""
+    _check_supported(scene, settings)
+    accumulation = int(accumulation)
+    r = origin.shape[0]
+    device = origin.device
+    state = _PathState(
+        origin=origin,
+        direction=direction,
+        throughput=torch.ones((r, 3), device=device),
+        radiance=torch.zeros((r, 3), device=device),
+        bsdf_pdf=torch.zeros(r, device=device),
+        pixel_hash=torch.broadcast_to(
+            torch.as_tensor(pixel_hash, dtype=torch.int64, device=device),
+            (r,)),
+        bounce=torch.zeros(r, dtype=torch.int64, device=device),
+        active=torch.isfinite(origin[..., 0]))
+    for _ in range(_iterations(settings)):
+        state = _wavefront_step(scene, settings, accumulation, state)
+    return state.radiance
 
 
 def _make_camera_lanes(camera: PinholeCamera, pixel_idx, width: int,
@@ -743,8 +966,7 @@ def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
     rays = torch.zeros((), dtype=torch.int64, device=device)
 
     # Safety bound against pathological passthrough chains.
-    bounce_iters = settings.max_bounce_count + 1 + settings.passthrough_slack
-    max_iters = (n_pixels // r + 1) * bounce_iters * 4 + 64
+    max_iters = (n_pixels // r + 1) * _iterations(settings) * 4 + 64
     it = 0
     while it < max_iters:
         # The loop condition: one host sync per iteration.

@@ -1,8 +1,9 @@
 """Quaternion rotations, laid out ``(x, y, z, w)``.
 
 Port of the slice's part of ``bifrost3d_tpu/math/quaternion.py``
-(``quat_normalize``, ``quat_from_axis_angle``, ``quat_rotate``,
-``quat_look_in``, ``quat_from_matrix``, ``quat_to_matrix``).
+(``quat_normalize``, ``quat_from_axis_angle``, ``quat_conjugate``,
+``quat_rotate``, ``quat_look_in``, ``quat_from_matrix``,
+``quat_to_matrix``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ def quat_from_axis_angle(axis, angle):
     half = 0.5 * angle
     s = torch.sin(half)[..., None]
     return torch.cat([axis * s, torch.cos(half)[..., None]], dim=-1)
+
+
+def quat_conjugate(q):
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
 
 
 def quat_rotate(q, v):

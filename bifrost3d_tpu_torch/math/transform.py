@@ -1,7 +1,8 @@
 """TRS transforms: (translation, rotation quaternion, uniform scale).
 
 Port of the slice's part of ``bifrost3d_tpu/math/transform.py``
-(``Transform``, ``transform_look_at``).
+(``Transform``, ``transform_point``, ``transform_vector``,
+``transform_inverse``, ``transform_look_at``).
 """
 
 from __future__ import annotations
@@ -10,7 +11,11 @@ from typing import NamedTuple
 
 import torch
 
-from bifrost3d_tpu_torch.math.quaternion import quat_look_in
+from bifrost3d_tpu_torch.math.quaternion import (
+    quat_conjugate,
+    quat_look_in,
+    quat_rotate,
+)
 
 
 class Transform(NamedTuple):
@@ -19,6 +24,22 @@ class Transform(NamedTuple):
     translation: torch.Tensor
     rotation: torch.Tensor
     scale: torch.Tensor
+
+
+def transform_point(t: Transform, p):
+    return t.translation + quat_rotate(t.rotation, p * t.scale[..., None])
+
+
+def transform_vector(t: Transform, v):
+    """Rotate and scale a direction (no translation)."""
+    return quat_rotate(t.rotation, v * t.scale[..., None])
+
+
+def transform_inverse(t: Transform) -> Transform:
+    inv_scale = 1.0 / t.scale
+    inv_rot = quat_conjugate(t.rotation)
+    inv_trans = quat_rotate(inv_rot, -t.translation) * inv_scale[..., None]
+    return Transform(inv_trans, inv_rot, inv_scale)
 
 
 def transform_look_at(eye, target, up=None) -> Transform:

@@ -2,8 +2,9 @@
 
 Port of ``bifrost3d_tpu/scene/camera.py`` (``PinholeCamera``,
 ``perspective_projection``, ``perspective_camera``,
-``camera_ray_directions``): near- and far-plane NDC points are
-unprojected through the inverse projection and rotated into world space.
+``camera_ray_directions``, ``project_to_screen``): near- and far-plane NDC
+points are unprojected through the inverse projection and rotated into
+world space, and world points projected back.
 """
 
 from __future__ import annotations
@@ -15,7 +16,12 @@ import numpy as np
 import torch
 
 from bifrost3d_tpu_torch.math.quaternion import quat_rotate
-from bifrost3d_tpu_torch.math.transform import Transform, transform_look_at
+from bifrost3d_tpu_torch.math.transform import (
+    Transform,
+    transform_inverse,
+    transform_look_at,
+    transform_point,
+)
 from bifrost3d_tpu_torch.math.vec import normalize
 
 
@@ -86,3 +92,21 @@ def camera_ray_directions(camera: PinholeCamera, viewport_points):
     origin = t.translation + quat_rotate(t.rotation, ray_near * t.scale)
     direction = quat_rotate(t.rotation, dir_view)
     return origin, direction
+
+
+def project_to_screen(camera: PinholeCamera, point):
+    """World point [..., 3] → (uv [..., 2] in [0,1]², w [...]).
+
+    The inverse of :func:`camera_ray_directions` (``w`` > 0 means in front
+    of the camera: the clip-space w, positive along the +Z view axis).
+    Differentiable in ``point``: the edge-sampled geometry gradients
+    (``diff/mesh_edge_grad.py``) take their screen-space edge velocities
+    through it.
+    """
+    view = transform_point(transform_inverse(camera.transform), point)
+    v4 = torch.cat([view, torch.ones_like(view[..., :1])], dim=-1)
+    clip = v4 @ camera.projection.T
+    w = clip[..., 3]
+    safe_w = torch.where(torch.abs(w) < 1e-9, 1e-9, w)
+    ndc = clip[..., :2] / safe_w[..., None]
+    return (ndc + 1.0) * 0.5, w

@@ -111,8 +111,9 @@ the last line):
    its 65,536 camera rays and 65,536 seeded incoherent rays, and on the
    16,130-triangle soup: each against its plain version (prim equal off
    ties on >= 99.9% of rays, t within rtol 1e-5; the walk also with a
-   finite t_max, its occlusion on >= 99.9%, its live prefix as an int, an
-   int32 and an int64 tensor) and against the dense and the BVH kernel on
+   finite t_max, its occlusion on >= 99.9%, its any-hit prim also under
+   the closest-hit gate, each hit at the distance of the triangle it
+   names, its live prefix as an int, an int32 and an int64 tensor) and against the dense and the BVH kernel on
    the same rays; each one's plain model of its cull equal to its plain
    version bit for bit; median call times of all four traces side by side
    and both kernels' device times (torch.profiler, in the process of phase
@@ -188,6 +189,24 @@ the last line):
    beside the kernel's. Then warm calls of the resident-cluster walk
    (closest and any-hit, bounds and the live count on the device) under
    the same mode: one kernel launch and no host sync a call.
+20. train, main path E (gradients): bench.py's bench_backward step in
+   the port, the loss mean((render_sample - target)²) and its gradient
+   over materials.tint, on CornellBox at 256², 2 bounces, five steps each
+   plain, under the detached-replay VJP and under remat: finite gradients,
+   exactly 10 B1 launches in each forward and none in a plain or replay
+   backward (10 again in remat's), replay's and remat's losses bit for bit
+   plain's and their gradients within rtol 1e-5, atol 1e-8; the median
+   step time and the peak memory of each. The plain step with the trace on
+   its plain version: the gradient within 1e-3 of the largest component.
+   The 589,824-triangle torus grid at 256², one plain step: B4 launches,
+   no B1, a finite non-zero gradient. optimize_materials on
+   tests/test_diff.py's scene, 16 Adam steps: test_recover_tint's gate at
+   its 16 x 12; at 64 x 48 the losses against the same run on the plain
+   trace. The edge gradients of a single sphere and of a floating box
+   against central differences of their forwards, with JAX's tolerances.
+   One step each of plain, replay and remat at 512², 4 bounces: step time
+   and peak memory. Then the B1 kernels torch.profiler sees in each
+   forward and backward (in a process of its own), equal to the counts.
 
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
@@ -199,6 +218,7 @@ The script imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1169,6 +1189,18 @@ def _compare_any_hits(got, ref, what, failures):
     return (occluded, agree, *_compare_uv(got, ref, what, failures))
 
 
+def _prim_distances(hit, tris, origin, direction):
+    """An any-hit Hit, whose t is t_min on a hit, with t replaced by the
+    distance along each ray to the plane of the triangle it reports (inf on
+    a miss): _compare_hits then holds its prim off ties, a tie being two
+    triangles the ray meets at one distance."""
+    from bifrost3d_tpu_torch.geometry.traverse import Hit, moller_trumbore
+    v = tris[hit.prim.clamp_min(0).long()]
+    t, _, _, _ = moller_trumbore(origin, direction, v[:, 0], v[:, 1], v[:, 2])
+    return Hit(t=torch.where(hit.prim >= 0, t, float("inf")), prim=hit.prim,
+               u=hit.u, v=hit.v)
+
+
 def bvh_kernel_phase(device, dense_soup) -> dict:
     from bifrost3d_tpu_torch.apps.scenes import torus_grid_mesh
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
@@ -1580,12 +1612,18 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
                            ties=out["vmem"]["ties"] + t2,
                            max_abs_err=max(out["vmem"]["max_abs_err"], e2))
         # Any-hit: the leaf's nearest hit, then the ray frozen, as the
-        # plain version.
+        # plain version; its prim also under the closest-hit gate, each hit
+        # at the distance of the triangle it names.
+        any_got = vmem.vmem_intersect_cuda(walk, o, d, 1e-4, t_max,
+                                           any_hit=True)
+        any_ref = vmem.vmem_intersect_reference(walk, o, d, 1e-4, t_max,
+                                                any_hit=True)
         occ_agree, any_agree, any_uv, any_err = _compare_any_hits(
-            vmem.vmem_intersect_cuda(walk, o, d, 1e-4, t_max, any_hit=True),
-            vmem.vmem_intersect_reference(walk, o, d, 1e-4, t_max,
-                                          any_hit=True),
-            f"vmem/{what}/any-hit", failures)
+            any_got, any_ref, f"vmem/{what}/any-hit", failures)
+        any_gate, any_ties, _ = _compare_hits(
+            _prim_distances(any_got, tris, o, d),
+            _prim_distances(any_ref, tris, o, d),
+            f"vmem/{what}/any-hit (closest-hit gate)", failures)
         live = R // 3 + 5       # inside a group, which is traced whole
         covered = -(-live // vmem.GROUP_R) * vmem.GROUP_R
         parts = [vmem.vmem_intersect_cuda(walk, o, d, 1e-4, inf,
@@ -1676,7 +1714,8 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
             ms=times["vmem"], any_ms=times["vmem_any"],
             plain_ms=plain["vmem"], occlusion_agree=occ_agree,
             any_prim_agree=any_agree, any_uv_agree=any_uv, any_uv_err=any_err,
-            uv_agree=uv_agree, uv_err=uv_err,
+            any_gate_agree=any_gate, any_ties=any_ties, uv_agree=uv_agree,
+            uv_err=uv_err,
             device_ms=device_times[f"vmem/{what}"],
             any_device_ms=device_times[f"vmem_any/{what}"],
             probes=walk_stats["probes"], leaf_tests=walk_stats["leaf_tests"],
@@ -1703,6 +1742,8 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
                     f"u, v agree on {k['uv_agree']:.5f} of hits (max "
                     f"|du|, |dv| {k['uv_err']:.3g}), any-hit occlusion "
                     f"agrees {occ_agree:.5f}, prim {k['any_prim_agree']:.5f}"
+                    f" (off ties {k['any_gate_agree']:.5f}, "
+                    f"{k['any_ties']} ties)"
                     f", u, v {k['any_uv_agree']:.5f} (max "
                     f"{k['any_uv_err']:.3g}), any-hit call "
                     f"{k['any_ms']:.4f} ms, device "
@@ -2556,6 +2597,452 @@ def _walk_call_profile(device, calls=3) -> dict:
     return out
 
 
+# -- train: gradients through the wavefront (main path E) -------------------------
+
+TRAIN_RES, TRAIN_BOUNCES, TRAIN_STEPS = 256, 2, 5
+LARGE_TRAIN_RES, LARGE_TRAIN_BOUNCES = 512, 4
+# The gradient with the trace on its plain version against the kernel's:
+# hits differ only at ties (nvcc's FMA contraction), a handful of pixels'
+# paths in 65,536.
+PLAIN_TRACE_RTOL = 1e-3
+
+
+def _tint_step(scene, cam, target, res, accumulation, settings):
+    """bench.py's bench_backward step, in the port: loss = mean((render_sample
+    - target)²) and its gradient over materials.tint, with every launch
+    count at 0 before it → dict(loss, grad, ms: host clock to a synchronise,
+    peak: torch.cuda.max_memory_allocated over the step, extra: that peak
+    above the memory held before it, launches of B1 and B4 in the forward
+    and in the backward)."""
+    from bifrost3d_tpu_torch.diff import image_l2_loss
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tint = scene.materials.tint.detach().clone().requires_grad_()
+    img = pt.render_sample(
+        scene._replace(materials=scene.materials._replace(tint=tint)), cam,
+        res, res, accumulation, settings)
+    loss = image_l2_loss(img, target)
+    forward = (dense.launch_count, hier.launch_count)
+    (grad,) = torch.autograd.grad(loss, tint)
+    value = float(loss.detach())          # synchronises
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return dict(loss=value, grad=grad, ms=ms, peak=peak, extra=peak - held,
+                fwd=forward, bwd=(dense.launch_count - forward[0],
+                                  hier.launch_count - forward[1]))
+
+
+def _train_variants(settings):
+    """Plain reverse mode, the detached-replay VJP and remat."""
+    plain = settings._replace(remat_bounces=False, detached_replay_vjp=False)
+    return {"plain": plain,
+            "replay": plain._replace(detached_replay_vjp=True),
+            "remat": plain._replace(remat_bounces=True)}
+
+
+def _gib(n_bytes) -> str:
+    return f"{n_bytes / 2**30:.3f} GiB"
+
+
+def train_phase(device, card) -> dict:
+    """Main path E, the gradient path: bench_backward's step on CornellBox
+    at 256², 2 bounces, plain, under the detached-replay VJP and under
+    remat; the same plain step with the trace on its plain version; one
+    plain step on the torus grid (B4 only); optimize_materials on
+    tests/test_diff.py's scene; the edge gradients against central
+    differences; the three variants at 512², 4 bounces."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES, create_cornell_box
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    out = {}
+    scene, cam = create_cornell_box(device=device)
+    base = pt.settings_for_scene(scene, max_bounce_count=TRAIN_BOUNCES)
+    iters = TRAIN_BOUNCES + 1 + base.passthrough_slack
+    with torch.no_grad():
+        target = pt.render_sample(scene, cam, TRAIN_RES, TRAIN_RES, 0, base)
+    _tint_step(scene, cam, target, TRAIN_RES, 1, base)     # warm caches
+    runs = {}
+    for name, settings in _train_variants(base).items():
+        steps = [_tint_step(scene, cam, target, TRAIN_RES, n, settings)
+                 for n in range(1, TRAIN_STEPS + 1)]
+        runs[name] = steps
+        for step in steps:
+            check(bool(torch.isfinite(step["grad"]).all()),
+                  f"train/{name}: gradient is not finite")
+            check(step["fwd"] == (2 * iters, 0),
+                  f"train/{name}: forward launches (B1, B4) {step['fwd']}, "
+                  f"expected ({2 * iters}, 0)")
+        bwd = {step["bwd"] for step in steps}
+        want = (2 * iters, 0) if name == "remat" else (0, 0)
+        check(bwd == {want}, f"train/{name}: backward launches (B1, B4) "
+              f"{sorted(bwd)}, expected {want}")
+        out[name] = dict(
+            ms=statistics.median(s["ms"] for s in steps),
+            peak=max(s["peak"] for s in steps),
+            extra=max(s["extra"] for s in steps),
+            fwd_launches=steps[0]["fwd"][0], bwd_launches=steps[0]["bwd"][0],
+            launches=sum(s["fwd"][0] + s["bwd"][0] for s in steps))
+    plain = runs["plain"]
+    check(float(plain[0]["grad"].abs().max()) > 0.0,
+          "train/plain: the tint gradient is zero")
+    for name in ("replay", "remat"):
+        worst = 0.0
+        for a, b in zip(plain, runs[name]):
+            check(a["loss"] == b["loss"], f"train/{name}: loss {b['loss']} "
+                  f"vs plain {a['loss']}")
+            check(bool(torch.allclose(b["grad"], a["grad"], rtol=1e-5,
+                                      atol=1e-8)),
+                  f"train/{name}: gradient differs from plain beyond rtol "
+                  "1e-5, atol 1e-8")
+            worst = max(worst, float(((b["grad"] - a["grad"]).abs()
+                                      / a["grad"].abs().clamp_min(1e-30))
+                                     .max()))
+        out[name]["max_rel"] = worst
+    for name, r in out.items():
+        extra = (f" | max rel. gradient difference vs plain {r['max_rel']:.3e}"
+                 if "max_rel" in r else "")
+        print(f"train/{name}: CornellBox {TRAIN_RES}x{TRAIN_RES} "
+              f"{TRAIN_BOUNCES} bounces, value_and_grad over materials.tint "
+              f"| step {r['ms']:.2f} ms (median of {TRAIN_STEPS}) | peak "
+              f"{_gib(r['peak'])} ({_gib(r['extra'])} above the scene) | B1 "
+              f"launches a step: {r['fwd_launches']} forward, "
+              f"{r['bwd_launches']} backward; B4 0{extra} | {card}",
+              flush=True)
+
+    # The plain step with the trace on its plain version, same card.
+    with mock.patch.object(dense, "pallas_intersect",
+                           dense.dense_intersect_reference):
+        ref = _tint_step(scene, cam, target, TRAIN_RES, 1,
+                         _train_variants(base)["plain"])
+    check(ref["fwd"] == (0, 0), "the plain trace launched a kernel")
+    g, r = plain[0]["grad"], ref["grad"]
+    scale = float(g.abs().max())
+    diff = (g - r).abs()
+    rel = float(diff.max()) / scale
+    check(rel <= PLAIN_TRACE_RTOL, f"train: gradient with the plain trace "
+          f"differs by {rel:.3e} of its largest component")
+    out["plain_trace"] = dict(max_rel=rel, loss_rel=abs(
+        ref["loss"] - plain[0]["loss"]) / plain[0]["loss"], ms=ref["ms"])
+    print(f"train/plain-trace: the plain step with the trace on its plain "
+          f"version | gradient within {rel:.3e} of the kernel's largest "
+          f"component (gate {PLAIN_TRACE_RTOL}) | loss rel. difference "
+          f"{out['plain_trace']['loss_rel']:.3e} | step {ref['ms']:.1f} ms | "
+          f"{card}", flush=True)
+
+    # The torus grid: B4 only.
+    t_scene, t_cam = TEST_SCENES["torus_grid"](device=device)
+    t_settings = _train_variants(pt.settings_for_scene(
+        t_scene, max_bounce_count=TRAIN_BOUNCES))["plain"]
+    with torch.no_grad():
+        t_target = torch.zeros((TRAIN_RES, TRAIN_RES, 3), device=device)
+    _tint_step(t_scene, t_cam, t_target, TRAIN_RES, 1, t_settings)
+    torus = _tint_step(t_scene, t_cam, t_target, TRAIN_RES, 1, t_settings)
+    check(torus["fwd"][0] == 0 and torus["fwd"][1] > 0 and
+          torus["bwd"] == (0, 0), f"train/torus_grid: launches (B1, B4) "
+          f"forward {torus['fwd']}, backward {torus['bwd']}")
+    check(bool(torch.isfinite(torus["grad"]).all())
+          and float(torus["grad"].abs().max()) > 0.0,
+          "train/torus_grid: gradient not finite or zero")
+    out["torus"] = dict(ms=torus["ms"], peak=torus["peak"],
+                        extra=torus["extra"], launches=torus["fwd"][1])
+    print(f"train/torus_grid: {int(t_scene.tri_verts.shape[0])} triangles "
+          f"{TRAIN_RES}x{TRAIN_RES} {TRAIN_BOUNCES} bounces, one plain step "
+          f"| B4 launches {torus['fwd'][1]} forward, 0 backward; B1 0 | step "
+          f"{torus['ms']:.1f} ms | peak {_gib(torus['peak'])} "
+          f"({_gib(torus['extra'])} above the scene) | {card}", flush=True)
+    del t_scene, t_cam
+
+    out["optimize"] = _optimize_phase(device, card)
+    out["edges"] = _edge_phase(device, card)
+
+    # 512², 4 bounces: one step of each variant.
+    settings = pt.settings_for_scene(scene, max_bounce_count=LARGE_TRAIN_BOUNCES)
+    with torch.no_grad():
+        target = pt.render_sample(scene, cam, LARGE_TRAIN_RES,
+                                  LARGE_TRAIN_RES, 0, settings)
+    large = {}
+    # A first step grows the caching allocator to the plain step's peak,
+    # so that no variant's time includes that growth.
+    _tint_step(scene, cam, target, LARGE_TRAIN_RES, 1,
+               _train_variants(settings)["plain"])
+    for name, variant in _train_variants(settings).items():
+        step = _tint_step(scene, cam, target, LARGE_TRAIN_RES, 1, variant)
+        check(bool(torch.isfinite(step["grad"]).all()),
+              f"train/{name} {LARGE_TRAIN_RES}²: gradient is not finite")
+        large[name] = step
+        print(f"train/{name}: CornellBox {LARGE_TRAIN_RES}x{LARGE_TRAIN_RES} "
+              f"{LARGE_TRAIN_BOUNCES} bounces, one step | {step['ms']:.1f} ms "
+              f"| peak {_gib(step['peak'])} ({_gib(step['extra'])} above the "
+              f"scene) | B1 launches {step['fwd'][0]} forward, "
+              f"{step['bwd'][0]} backward | {card}", flush=True)
+    for name in ("replay", "remat"):
+        check(large[name]["loss"] == large["plain"]["loss"] and bool(
+            torch.allclose(large[name]["grad"], large["plain"]["grad"],
+                           rtol=1e-5, atol=1e-8)),
+              f"train/{name} {LARGE_TRAIN_RES}²: differs from plain")
+    out["large"] = {name: dict(ms=s["ms"], peak=s["peak"], extra=s["extra"])
+                    for name, s in large.items()}
+    return out
+
+
+def _optimize_phase(device, card) -> dict:
+    """optimize_materials on tests/test_diff.py:27-35's scene, 1 bounce, 16
+    Adam steps, lr 0.1, fixed samples: at test_recover_tint's 16 x 12 under
+    its gate (the loss below a quarter of its start, the tint within 0.15
+    of the target); at 64 x 48 against the same run with the trace on its
+    plain version (every loss within rtol 1e-3). At 64 x 48 the gate does
+    not hold for this estimator, in JAX as in the port: the losses are
+    printed and the gate's verdict with them."""
+    from bifrost3d_tpu_torch.diff import optimize_materials
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.geometry.creation import make_sphere
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.lights.types import LIGHT_SPHERE, LightArray
+    from bifrost3d_tpu_torch.scene.camera import perspective_camera
+    from bifrost3d_tpu_torch.scene.materials import MaterialArray, dielectric
+    from bifrost3d_tpu_torch.scene.render_scene import build_render_scene
+
+    def make_scene(tint):
+        return build_render_scene(
+            [(make_sphere(radius=0.5, slices=24, stacks=12), 0, None)],
+            MaterialArray.build([dielectric(tint, 0.6)], device=device),
+            LightArray.build([{"kind": LIGHT_SPHERE, "position": (0, 2.0, 1.0),
+                               "radius": 0.2, "power": (30, 30, 30)}],
+                             device=device),
+            environment_map=np.full((16, 32, 3), 0.2, np.float32),
+            device=device)
+
+    steps = 16
+    cam = perspective_camera(eye=(0, 0.5, 2.2), target=(0, 0, 0),
+                             device=device)
+    settings = pt.RenderSettings(max_bounce_count=1, next_event_sample_count=1)
+    start = make_scene((0.4, 0.6, 0.3))
+
+    def run(w, h):
+        with torch.no_grad():
+            target = pt.render_sample(make_scene((0.8, 0.2, 0.5)), cam, w, h,
+                                      0, settings)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        result = optimize_materials(start, cam, target, w, h, steps=steps,
+                                    learning_rate=0.1, vary_samples=False,
+                                    settings=settings)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        tint = result.scene.materials.tint[0].tolist()
+        gate = (result.losses[-1] < 0.25 * result.losses[0] and all(
+            abs(a - b) <= 0.15 for a, b in zip(tint, (0.8, 0.2, 0.5))))
+        return dict(losses=result.losses, tint=tint, step_ms=step_ms,
+                    gate=gate, launches=dense.launch_count)
+
+    out = {}
+    for w, h in ((16, 12), (64, 48)):
+        r = run(w, h)
+        want = 2 * (settings.max_bounce_count + 1
+                    + settings.passthrough_slack) * steps
+        check(r["launches"] == want, f"optimize {w}x{h}: {r['launches']} B1 "
+              f"launches in {steps} steps, expected {want}")
+        check(all(math.isfinite(x) for x in r["losses"] + r["tint"]),
+              f"optimize {w}x{h}: not finite")
+        line = (f"train/optimize_materials: {w}x{h} 1 bounce, {steps} Adam "
+                f"steps, lr 0.1 | tint {[round(x, 4) for x in r['tint']]} "
+                f"(target 0.8, 0.2, 0.5) | losses "
+                f"{' '.join(f'{x:.4e}' for x in r['losses'])} | "
+                f"test_recover_tint's gate: "
+                f"{'met' if r['gate'] else 'not met'} | "
+                f"{r['step_ms']:.1f} ms a step | {card}")
+        if (w, h) == (16, 12):
+            check(r["gate"], f"optimize {w}x{h}: gate not met: {r}")
+        else:
+            with mock.patch.object(dense, "pallas_intersect",
+                                   dense.dense_intersect_reference):
+                ref = run(w, h)
+            worst = max(abs(a - b) / b for a, b in zip(r["losses"],
+                                                       ref["losses"]))
+            check(worst <= 1e-3, f"optimize {w}x{h}: losses differ from the "
+                  f"plain trace's by {worst:.3e}")
+            r["plain_trace_max_rel"] = worst
+            line += f" | losses within {worst:.3e} of the plain trace's"
+        out[f"{w}x{h}"] = r
+        print(line, flush=True)
+    return out
+
+
+def _edge_phase(device, card) -> dict:
+    """edge_position_gradient on tests/test_edge_grad.py's single sphere and
+    edge_translation_gradient on tests/test_diff.py:129-190's floating box,
+    each against central differences of its forward, with JAX's
+    tolerances."""
+    from bifrost3d_tpu_torch.diff import edge_grad, mesh_edge_grad
+    from bifrost3d_tpu_torch.geometry.creation import make_box, make_plane
+    from bifrost3d_tpu_torch.geometry.traverse import intersect_triangles_brute
+    from bifrost3d_tpu_torch.scene.camera import (
+        camera_ray_directions, perspective_camera)
+    from bifrost3d_tpu_torch.scene.spheres import sphere_scene_from_numpy
+
+    w, h = 64, 48
+    base = np.asarray([27.0, 16.5, 47.0], np.float32)
+
+    def sphere(center):
+        z = np.zeros
+        return sphere_scene_from_numpy(dict(
+            position=[center], radius=[16.5], emission=[[1.0, 1.0, 1.0]],
+            color=z((1, 3)), bsdf=z(1, np.int32), medium_sigma_t=z(1),
+            medium_albedo=z(1), medium_g=z(1)), device=device)
+
+    def fwd(c):
+        return float(edge_grad.direct_emission_image(sphere(c), w, h,
+                                                     samples_per_pixel=16))
+
+    g = edge_grad.edge_position_gradient(sphere(base), 0, w, h,
+                                         n_samples=2048).cpu().numpy()
+    sphere_fd = []
+    for axis, rtol, atol in ((0, 0.2, 3e-6), (2, 0.05, 0.0)):
+        e = np.zeros(3, np.float32)
+        e[axis] = 1.0
+        fd = (fwd(base + e) - fwd(base - e)) / 2.0
+        sphere_fd.append(fd)
+        check(abs(g[axis] - fd) <= atol + rtol * abs(fd),
+              f"edge/sphere axis {axis}: {g[axis]} vs FD {fd}")
+    check(g[2] > 1e-4, f"edge/sphere: {g}")
+
+    box, floor = make_box(size=0.8), make_plane(size=6.0)
+
+    def tris(mesh):
+        return torch.tensor(np.asarray(mesh.positions)[
+            np.asarray(mesh.indices)], dtype=torch.float32, device=device)
+
+    floor_t, box_t = tris(floor), tris(box)
+
+    def first_hit_tint(t):
+        soup = torch.cat([floor_t, box_t + t], 0)
+
+        def fn(origin, direction):
+            hit = intersect_triangles_brute(soup, origin, direction, 1e-4)
+            return torch.where(hit.prim >= 0, torch.where(
+                hit.prim >= floor_t.shape[0], 0.55, 0.2), 0.0)
+        return fn
+
+    cam = perspective_camera(eye=(1.3, 1.5, 2.4), target=(0, 0.3, 0),
+                             device=device)
+    m = 384
+    u = (torch.arange(m, dtype=torch.float32, device=device) + 0.5) / m
+    vv, uu = torch.meshgrid(u, u, indexing="ij")
+    o, d = camera_ray_directions(
+        cam, torch.stack([uu.reshape(-1), vv.reshape(-1)], dim=-1))
+    box_base = torch.tensor([0.05, 0.62, 0.0], device=device)
+    edges = mesh_edge_grad.MeshEdges.build(box.positions, box.indices,
+                                           device=device)
+    gb = mesh_edge_grad.edge_translation_gradient(
+        cam, edges, box_base, first_hit_tint(box_base), samples_per_edge=64,
+        edge_eps=1e-3).cpu().numpy()
+    check(bool(np.all(np.isfinite(gb))) and np.max(np.abs(gb)) > 1e-3,
+          f"edge/box: {gb}")
+    box_fd, step = [], 0.06
+    for axis in (0, 1):
+        e = torch.zeros(3, device=device)
+        e[axis] = step
+        fd = float(torch.mean(first_hit_tint(box_base + e)(o, d))
+                   - torch.mean(first_hit_tint(box_base - e)(o, d))) / (2 * step)
+        box_fd.append(fd)
+        check(abs(gb[axis] - fd) <= 2e-4 + 0.12 * abs(fd),
+              f"edge/box axis {axis}: {gb[axis]} vs FD {fd}")
+    print(f"train/edges: single sphere boundary term {g.tolist()} vs central "
+          f"differences (axes 0, 2) {sphere_fd}; floating box {gb.tolist()} "
+          f"vs (axes 0, 1) {box_fd} | JAX's tolerances | {card}", flush=True)
+    return dict(sphere=g.tolist(), sphere_fd=sphere_fd, box=gb.tolist(),
+                box_fd=box_fd)
+
+
+def train_profile_phase(device) -> dict:
+    """One plain, one replay and one remat step of the Cornell train step
+    under torch.profiler, each forward and backward in a range of its own
+    that ends in a synchronise: the B1 kernels the card ran in each (by
+    the kernel's name), beside the wrapper's counts."""
+    from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
+    from bifrost3d_tpu_torch.diff import image_l2_loss
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scene, cam = create_cornell_box(device=device)
+    base = pt.settings_for_scene(scene, max_bounce_count=TRAIN_BOUNCES)
+    with torch.no_grad():
+        target = pt.render_sample(scene, cam, TRAIN_RES, TRAIN_RES, 0, base)
+    variants = _train_variants(base)
+    _tint_step(scene, cam, target, TRAIN_RES, 1, variants["plain"])
+    counts = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, settings in variants.items():
+            tint = scene.materials.tint.detach().clone().requires_grad_()
+            diff = scene._replace(materials=scene.materials._replace(
+                tint=tint))
+            _reset_counts()
+            with record_function(f"train:{name}:forward"):
+                loss = image_l2_loss(pt.render_sample(
+                    diff, cam, TRAIN_RES, TRAIN_RES, 1, settings), target)
+                torch.cuda.synchronize()
+            fwd = dense.launch_count
+            with record_function(f"train:{name}:backward"):
+                torch.autograd.grad(loss, tint)
+                torch.cuda.synchronize()
+            counts[name] = (fwd, dense.launch_count - fwd)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    windows = {e.name.split(":", 1)[1]: e.time_range for e in events
+               if e.name.startswith("train:") and e.device_type != cuda}
+    kernels = dict.fromkeys(windows, 0)
+    activities = dict.fromkeys(windows, 0)
+    busy_us = dict.fromkeys(windows, 0.0)
+    for e in events:
+        if e.device_type != cuda or e.name.startswith("train:"):
+            continue
+        for name, window in windows.items():
+            if window.start <= e.time_range.start <= window.end:
+                activities[name] += 1
+                busy_us[name] += e.time_range.elapsed_us()
+                kernels[name] += "dense_intersect_kernel" in e.name
+    return {"kernels": kernels, "counts": counts,
+            "activities": activities, "busy_ms": {
+                k: v / 1e3 for k, v in busy_us.items()},
+            "wall_ms": {k: w.elapsed_us() / 1e3 for k, w in windows.items()},
+            "iters": TRAIN_BOUNCES + 1 + base.passthrough_slack}
+
+
+def train_profile(result, card) -> None:
+    """Check and print train_profile_phase's counts: B1 kernels on the card
+    per forward and backward of each variant, equal to the wrapper's
+    counts, none in a plain or replay backward."""
+    iters = result["iters"]
+    for name in ("plain", "replay", "remat"):
+        fwd, bwd = (result["kernels"][f"{name}:{part}"]
+                    for part in ("forward", "backward"))
+        counted = tuple(result["counts"][name])
+        want = (2 * iters, 2 * iters if name == "remat" else 0)
+        check((fwd, bwd) == want == counted,
+              f"train profile/{name}: B1 kernels on the card (forward, "
+              f"backward) {(fwd, bwd)}, counted {counted}, expected {want}")
+        parts = " | ".join(
+            f"{part}: {result['activities'][f'{name}:{part}']} device "
+            f"activities, busy {result['busy_ms'][f'{name}:{part}']:.1f} of "
+            f"{result['wall_ms'][f'{name}:{part}']:.1f} ms"
+            for part in ("forward", "backward"))
+        print(f"train profile/{name}: torch.profiler saw {fwd} B1 kernels in "
+              f"the forward and {bwd} in the backward of one step (the "
+              f"wrapper counted {counted}) | {parts} | {card}", flush=True)
+
+
 def _kernel_row(name, source, replaces, launches, result) -> dict:
     """One kernel's entry of the JSON line; a culled trace (B1, B6) also
     gives the bound of the full scan or the TPU design it replaces, beside
@@ -2572,7 +3059,7 @@ def _kernel_row(name, source, replaces, launches, result) -> dict:
 
 
 def main() -> int:
-    device_phase()
+    card = device_phase()
     device = torch.device("cuda", 0)
     build_phase()
     rng_phase(device)
@@ -2600,6 +3087,8 @@ def main() -> int:
     path_d = extras_path_phase(device)
     viewer_phase(device)
     frame_profile_phase(device)
+    train = train_phase(device, card)
+    train_profile(fresh_process("train"), card)
     # No single PyTorch call computes any of the seven: library_ms is null.
     # The first seven rows are the seven kernels; the last three are B2 and
     # B3 again, through their kExtras instantiations.
@@ -2640,6 +3129,15 @@ def main() -> int:
                     "bifrost3d_tpu/integrator/pallas_mesh.py:898",
                     path_d["hier_bridge_15k_env"]["launches"],
                     path_d["hier_bridge_15k_env"]),
+        # The two traces again on main path E, the gradient path: the five
+        # plain Cornell train steps (B1) and the torus grid's step (B4),
+        # each timed at the same ray count in its kernel phase.
+        _kernel_row("dense_intersect/train", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    train["plain"]["launches"], kernels["cornell/incoherent"]),
+        _kernel_row("bvh_intersect/train", "bvh_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_bvh.py:240",
+                    train["torus"]["launches"], bvh["incoherent"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2652,7 +3150,8 @@ PROFILES = {"traces": trace_device_phase,
             "pooled-dense": lambda device: pooled_frame_phase(device, "dense"),
             "pooled-clustered": lambda device: pooled_frame_phase(
                 device, "clustered"),
-            "pooled-vmem": lambda device: pooled_frame_phase(device, "vmem")}
+            "pooled-vmem": lambda device: pooled_frame_phase(device, "vmem"),
+            "train": train_profile_phase}
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ from torch_parity import (
     assert_kernel_matches_plain,
     assert_smallpt_gate,
     assert_statistical_gate,
+    prim_distances,
 )
 
 pytestmark = pytest.mark.cuda
@@ -477,15 +478,16 @@ def _soup_16k(device):
     return torch.tensor(soup, dtype=torch.float32, device=device)
 
 
-def _assert_hits_agree(got, ref):
+def _assert_hits_agree(got, ref, min_hits=0.1):
     """prim equal except between candidates whose t agree to 1e-6
-    relative (ties), on >= 99.9% of rays; t within rtol 1e-5 where equal."""
+    relative (ties), on >= 99.9% of rays; t within rtol 1e-5 where equal;
+    more than ``min_hits`` of the rays hit."""
     same = got.prim == ref.prim
     both = (got.prim >= 0) & (ref.prim >= 0)
     tie = ~same & both & ((got.t - ref.t).abs() <= 1e-6 * ref.t.abs())
     assert float((same | tie).float().mean()) >= 0.999
     hit = same & both
-    assert int(hit.sum()) > hit.numel() // 10
+    assert int(hit.sum()) > hit.numel() * min_hits
     torch.testing.assert_close(got.t[hit], ref.t[hit], rtol=1e-5, atol=0.0)
 
 
@@ -660,29 +662,42 @@ def test_vmem_kernel_matches_plain_version(cuda, cluster_packings, bounded,
         assert bool(torch.isinf(got.t[covered:]).all())
 
 
+def _assert_any_hits_agree(got, ref, tris, o, d):
+    """Any-hit hits under the closest-hit gate, each at the distance of the
+    triangle it names (prim_distances)."""
+    _assert_hits_agree(prim_distances(got, tris, o, d),
+                       prim_distances(ref, tris, o, d), min_hits=0.0)
+
+
 def test_vmem_kernel_any_hit_and_bvh_kernel(cuda, packed_soup,
                                             cluster_packings):
-    _, tree = packed_soup
+    """Closest hits against the BVH kernel's; any-hit occlusion against the
+    BVH kernel's closest hits, and its prim against the plain walk's any-hit
+    under the closest-hit gate."""
+    soup, tree = packed_soup
     _, packed = cluster_packings
     o, d, t_max = _rays(5000, 10, -0.9, 0.9, cuda)
     ref = hier.hierarchical_intersect(tree, o, d, 1e-4, t_max)
     _assert_hits_agree(vmem.vmem_intersect(packed, o, d, 1e-4, t_max), ref)
-    occluded = vmem.vmem_intersect(packed, o, d, 1e-4, t_max,
-                                   any_hit=True).prim >= 0
+    any_hit = vmem.vmem_intersect(packed, o, d, 1e-4, t_max, any_hit=True)
+    occluded = any_hit.prim >= 0
     assert float((occluded == (ref.prim >= 0)).float().mean()) >= 0.999
     assert 0 < int(occluded.sum()) < 5000
+    _assert_any_hits_agree(any_hit, vmem.vmem_intersect_reference(
+        packed, o, d, 1e-4, t_max, any_hit=True), soup, o, d)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_vmem_kernel_bound_and_live_count_forms(cuda, cluster_packings,
-                                                any_hit):
+def test_vmem_kernel_bound_and_live_count_forms(cuda, packed_soup,
+                                                cluster_packings, any_hit):
     """Bounds as numbers, one device value or [r] tensors, and the live
     count as an int, an int32 or an int64 tensor, give the same hits, and
     the plain version's: closest hits under the gate; any-hit's occlusion
     and prim (the leaf's nearest hit, then the ray frozen) on >= 99.9% of
-    rays, u and v within rtol 1e-4, atol 1e-5 where prim agrees (and the
-    plain model of the kernel's cull bit for bit equal to the plain walk);
-    whole groups past the live count miss with t = inf."""
+    rays, u and v within rtol 1e-4, atol 1e-5 where prim agrees, and its
+    prim under the closest-hit gate (and the plain model of the kernel's
+    cull bit for bit equal to the plain walk); whole groups past the live
+    count miss with t = inf."""
     packed = cluster_packings[1]
     r, live = 5000, 1777
     covered = -(-live // vmem.GROUP_R) * vmem.GROUP_R
@@ -717,6 +732,8 @@ def test_vmem_kernel_bound_and_live_count_forms(cuda, cluster_packings,
         hit = same & (ref.prim >= 0)
         for a, b in ((got.u, ref.u), (got.v, ref.v)):
             torch.testing.assert_close(a[hit], b[hit], rtol=1e-4, atol=1e-5)
+        _assert_any_hits_agree(got, ref, packed_soup[0], o[:covered],
+                               d[:covered])
     else:
         _assert_hits_agree(got, ref)
 
@@ -1015,3 +1032,90 @@ def test_extras_wrapper_validates(cuda):
         mega.mesh_megakernel_cuda(
             *sargs[:-2], sargs[-2]._replace(env_img=sargs[-2].env_img[:5]),
             sargs[-1])
+
+
+# -- gradients: the train step on the card -----------------------------------------
+
+def _cornell_train_step(scene, cam, target, res, settings):
+    """mean((render_sample - target)²) and its gradient over materials.tint,
+    every launch count at 0 before it → (loss, gradient, B1 launches in the
+    forward, in the backward)."""
+    from bifrost3d_tpu_torch.diff import image_l2_loss
+    dense.reset_launch_count()
+    tint = scene.materials.tint.detach().clone().requires_grad_()
+    img = pt.render_sample(
+        scene._replace(materials=scene.materials._replace(tint=tint)), cam,
+        res, res, 1, settings)
+    loss = image_l2_loss(img, target)
+    forward = dense.launch_count
+    (grad,) = torch.autograd.grad(loss, tint)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grad, forward, dense.launch_count - forward
+
+
+@pytest.fixture(scope="module")
+def cornell_train():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    scene, cam = create_cornell_box(device=torch.device("cuda"))
+    settings = pt.settings_for_scene(scene, max_bounce_count=2,
+                                     remat_bounces=False)
+    with torch.no_grad():
+        target = pt.render_sample(scene, cam, 64, 64, 0, settings)
+    return scene, cam, target, settings
+
+
+def test_train_step_on_card_replay_and_remat_match_plain(cuda, cornell_train):
+    """The Cornell train step at 64², 2 bounces on the card: plain, replay
+    and remat give the same loss bit for bit and gradients within rtol
+    1e-5, atol 1e-8; two B1 launches an iteration in each forward, none in
+    a plain or replay backward, the forward's again in remat's."""
+    scene, cam, target, plain = cornell_train
+    iters = 2 + 1 + plain.passthrough_slack
+    v1, g1, f1, b1 = _cornell_train_step(scene, cam, target, 64, plain)
+    assert (f1, b1) == (2 * iters, 0)
+    assert float(g1.abs().max()) > 0.0 and bool(torch.isfinite(g1).all())
+    for settings, backward in ((plain._replace(detached_replay_vjp=True), 0),
+                               (plain._replace(remat_bounces=True),
+                                2 * iters)):
+        v2, g2, f2, b2 = _cornell_train_step(scene, cam, target, 64, settings)
+        assert (f2, b2) == (2 * iters, backward)
+        assert v2 == v1
+        torch.testing.assert_close(g2, g1, rtol=1e-5, atol=1e-8)
+
+
+def test_kernel_trace_gradient_matches_plain_trace(cuda, cornell_train,
+                                                   monkeypatch):
+    """The same plain step with the trace on its plain version: hits differ
+    only at ties, so the gradient is within 1e-3 of its largest component
+    and the loss within rtol 1e-4."""
+    scene, cam, target, plain = cornell_train
+    v1, g1, launches, _ = _cornell_train_step(scene, cam, target, 64, plain)
+    assert launches > 0
+    monkeypatch.setattr(dense, "pallas_intersect",
+                        dense.dense_intersect_reference)
+    v2, g2, launches, _ = _cornell_train_step(scene, cam, target, 64, plain)
+    assert launches == 0
+    assert abs(v2 - v1) <= 1e-4 * v1
+    assert float((g2 - g1).abs().max()) <= 1e-3 * float(g1.abs().max())
+
+
+def test_offset_ray_origin_gradient_on_card(cuda):
+    """On CUDA tensors: the forward bit for bit the CPU's, the position's
+    gradient passed through on both branches, the normal's zero."""
+    from bifrost3d_tpu_torch.math.ray_offset import offset_ray_origin
+    rng = np.random.default_rng(11)
+    p = np.concatenate([rng.uniform(-3, 3, (500, 3)),
+                        rng.uniform(-0.03, 0.03, (500, 3))]).astype(np.float32)
+    n = rng.normal(size=(1000, 3)).astype(np.float32)
+    cot = rng.normal(size=(1000, 3)).astype(np.float32)
+    position = torch.tensor(p, device=cuda, requires_grad=True)
+    normal = torch.tensor(n, device=cuda, requires_grad=True)
+    out = offset_ray_origin(position, normal)
+    assert torch.equal(out.detach().cpu(),
+                       offset_ray_origin(torch.tensor(p), torch.tensor(n)))
+    gp, gn = torch.autograd.grad(out, (position, normal),
+                                 torch.tensor(cot, device=cuda),
+                                 allow_unused=True, materialize_grads=True)
+    assert torch.equal(gp.cpu(), torch.tensor(cot))
+    assert not bool(gn.any())

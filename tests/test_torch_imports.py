@@ -26,14 +26,15 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bifrost3d_tpu", "triton"))
 print(len(names), bad)
-assert len(names) >= 55, names
+assert len(names) >= 60, names
 for new in ("apps.smallpt_app", "integrator.smallpt", "integrator.smallvpt",
             "integrator.pallas_smallpt", "scene.spheres", "scene.media",
             "math.morton", "geometry.bvh", "geometry.native",
             "geometry.pallas_bvh", "geometry.pallas_bvh_vmem",
             "geometry.pallas_clustered", "sampling.pmj",
             "math.distribution1d", "math.distribution2d",
-            "lights.environment", "io.texture"):
+            "lights.environment", "io.texture", "diff", "diff.render_grad",
+            "diff.edge_grad", "diff.mesh_edge_grad", "utils.tree"):
     assert pkg.__name__ + "." + new in names, new
 assert not bad, bad
 """

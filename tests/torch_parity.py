@@ -128,3 +128,16 @@ def assert_statistical_gate(img, ref, flip_budget=0.03, mean_budget=0.02):
     bound = mean_budget * max(ref.mean(), 1e-3)
     assert abs(img.mean() - ref.mean()) < bound, (img.mean(), ref.mean())
     return flips
+
+
+def prim_distances(hit, tris, origin, direction):
+    """An any-hit Hit, whose t is t_min on a hit, with t replaced by the
+    distance along each ray to the plane of the triangle it reports (inf on
+    a miss), so the closest-hit gate can hold its prim off ties: a tie is
+    two triangles the ray meets at one distance."""
+    import torch
+    from bifrost3d_tpu_torch.geometry.traverse import Hit, moller_trumbore
+    v = tris[hit.prim.clamp_min(0).long()]
+    t, _, _, _ = moller_trumbore(origin, direction, v[:, 0], v[:, 1], v[:, 2])
+    return Hit(t=torch.where(hit.prim >= 0, t, float("inf")), prim=hit.prim,
+               u=hit.u, v=hit.v)
