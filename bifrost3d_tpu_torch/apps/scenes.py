@@ -1,10 +1,16 @@
 """Built-in test scenes.
 
 Port of ``bifrost3d_tpu/apps/scenes.py`` (``_trs``,
-``create_cornell_box``, ``create_veach_scene``, ``create_sphere_scene``,
-``create_sphere_light_scene``, ``_checkered_floor_parts``,
-``create_opacity_scene``, ``SCENES``). Each builder returns (RenderScene,
-PinholeCamera) on the given device.
+``create_cornell_box``, ``create_material_scene``,
+``create_legacy_material_scene``, ``create_veach_scene``,
+``create_sphere_scene``, ``create_sphere_light_scene``,
+``create_glass_scene``, ``_checkered_floor_parts``,
+``create_opacity_scene``, ``create_test_scene``, ``SCENES``). Each builder
+takes JAX's parameters in JAX's order, then the port's own keyword-only
+(``device`` among them), and returns (RenderScene, PinholeCamera) on that
+device. ``create_material_scene`` builds its spheres: the shader-ball
+asset it would load is not in the repo, and JAX falls back to the same
+spheres without it.
 
 ``TEST_SCENES`` holds the small scenes that the JAX package's megakernel
 tests build inline (``tests/test_pallas_mesh.py``: coated materials, a
@@ -59,10 +65,12 @@ from bifrost3d_tpu_torch.scene.materials import (
     COPPER_TINT,
     FLAG_CUTOUT,
     FLAG_THIN_WALLED,
+    GOLD_TINT,
     IRON_TINT,
     MaterialArray,
     dielectric,
     metal,
+    transmissive,
 )
 from bifrost3d_tpu_torch.scene.render_scene import build_render_scene
 
@@ -85,10 +93,10 @@ def _trs(translation=(0, 0, 0), axis=None, angle=0.0, scale=1.0):
     return m
 
 
-def create_cornell_box(aspect=1.0, *, device):
+def create_cornell_box(environment_map=None, aspect=1.0, *, device):
     """CornellBox.h:23-120: red/green/white thin-walled 1-unit room, iron
     small box, copper tall box, sphere light (power 2, r 0.05) at the
-    ceiling."""
+    ceiling; ``environment_map`` [h, w, 3] lights it from outside."""
     mats = MaterialArray.build([
         dielectric((0.98, 0.98, 0.98), 1.0, 0.02, flags=FLAG_THIN_WALLED),
         dielectric((0.98, 0.02, 0.02), 1.0, 0.02, flags=FLAG_THIN_WALLED),
@@ -116,10 +124,112 @@ def create_cornell_box(aspect=1.0, *, device):
     lights = LightArray.build([
         {"kind": LIGHT_SPHERE, "position": (0.0, 0.45, 0.0), "radius": 0.05,
          "power": (2.0, 2.0, 2.0)}], device=device)
-    scene = build_render_scene(instances, mats, lights, device=device)
+    scene = build_render_scene(instances, mats, lights,
+                               environment_map=environment_map, device=device)
     camera = perspective_camera(eye=(0, 0, -1.5), target=(0, 0, 0),
                                 fov_radians=PI / 4, aspect=aspect,
                                 device=device)
+    return scene, camera
+
+
+MATERIAL_SCENE_COUNT = 7  # MaterialGUI::material_count (Material.cpp:20)
+# The teal dielectric and the gold metal that both material scenes sweep
+# between.
+_MATERIAL_SWEEP = (
+    dict(tint=(0.02, 0.27, 0.33), roughness=1.0, specularity=0.04,
+         metallic=0.0),
+    dict(tint=GOLD_TINT, roughness=0.02, specularity=0.04, metallic=1.0))
+
+
+def _material_sweep(n):
+    """``n`` materials lerping the teal dielectric to gold metal."""
+    mat0, mat1 = _MATERIAL_SWEEP
+    out = []
+    for m in range(n):
+        t = m / (n - 1.0)
+        out.append(dict(
+            tint=tuple(np.asarray(mat0["tint"]) * (1 - t)
+                       + np.asarray(mat1["tint"]) * t),
+            roughness=mat0["roughness"] * (1 - t) + mat1["roughness"] * t,
+            specularity=0.04, metallic=t))
+    return out
+
+
+def _material_scene_light(device):
+    """Directional light from (20, 20, -20) toward the origin
+    (Material.cpp:141-146), radiance (3, 2.9, 2.5)."""
+    ldir = -np.asarray([20.0, 20.0, -20.0], F32)
+    ldir /= np.linalg.norm(ldir)
+    return LightArray.build([
+        {"kind": LIGHT_DIRECTIONAL, "direction": tuple(ldir),
+         "radiance": (3.0, 2.9, 2.5)}], device=device)
+
+
+def create_material_scene(environment_map=None, aspect=1.0, *, device):
+    """Material.cpp create_material_scene: seven materials sweeping from a
+    teal dielectric (roughness 1) to gold metal (roughness 0.02) on the
+    checkered floor, lit by one directional light. Spheres (32 × 16) stand
+    where the shader balls would: JAX's fallback when the asset is not
+    mounted."""
+    floor_mesh, floor_mat, floor_tex = _checkered_floor_parts()
+    textures = TextureBank.build([floor_tex], device=device)
+    floor_mat["tint_roughness_texture"] = 0
+    n = MATERIAL_SCENE_COUNT
+    mats = MaterialArray.build(
+        [floor_mat, dielectric((0.05, 0.05, 0.05), 1.0)]
+        + _material_sweep(n), device=device)
+
+    instances = [(floor_mesh, 0, _trs((0, -1.0, 0)))]
+    spacing = 1.2
+    x0 = -spacing * 0.5 * (n - 1)
+    for m in range(n):
+        instances.append((make_sphere(radius=0.5, slices=32, stacks=16),
+                          2 + m, _trs((x0 + m * spacing, 0.0, 0))))
+    scene = build_render_scene(instances, mats, _material_scene_light(device),
+                               environment_map=environment_map,
+                               textures=textures, device=device)
+    camera = perspective_camera(eye=(0, 5.5, -18.5), target=(0, 0.5, 0),
+                                fov_radians=PI / 4, aspect=aspect,
+                                device=device)
+    return scene, camera
+
+
+def create_legacy_material_scene(aspect=1.0, box_size=1.0,
+                                 sphere_radius=0.5, spacing=1.2,
+                                 floor_tint=(0.72, 0.72, 0.72),
+                                 floor_roughness=0.08,
+                                 checker_size=0.60,
+                                 floor_shift=(0.0, 0.10),
+                                 eye=(0.0, 1.2, -10.8),
+                                 target=(0.0, 0.35, 0.0), *, device):
+    """The earlier MaterialScene: nine spheres on boxes sweeping the teal
+    dielectric to gold metal over the checkered floor, one directional
+    light (the revision the reference's MaterialScene_2048.png shows)."""
+    n = 9
+    floor_mesh, floor_mat, floor_tex = _checkered_floor_parts(
+        checker_size=checker_size, tint=floor_tint,
+        roughness=floor_roughness)
+    textures = TextureBank.build([floor_tex], device=device)
+    floor_mat["tint_roughness_texture"] = 0
+    mats = MaterialArray.build([floor_mat] + _material_sweep(n),
+                               device=device)
+
+    instances = [(floor_mesh, 0,
+                  _trs((floor_shift[0], -1.0, floor_shift[1])))]
+    x0 = -spacing * 0.5 * (n - 1)
+    box_y = -1.0 + box_size * 0.5
+    sphere_y = -1.0 + box_size + sphere_radius
+    for m in range(n):
+        x = x0 + m * spacing
+        instances.append((make_box(size=box_size), 1 + m,
+                          _trs((x, box_y, 0))))
+        instances.append((make_sphere(radius=sphere_radius, slices=32,
+                                      stacks=16), 1 + m,
+                          _trs((x, sphere_y, 0))))
+    scene = build_render_scene(instances, mats, _material_scene_light(device),
+                               textures=textures, device=device)
+    camera = perspective_camera(eye=eye, target=target, fov_radians=PI / 4,
+                                aspect=aspect, device=device)
     return scene, camera
 
 
@@ -158,7 +268,7 @@ def create_veach_scene(with_mesh_light: bool = False, aspect=1.0, *, device):
     return scene, camera
 
 
-def create_sphere_scene(aspect=1.0, environment_map=None, *, device):
+def create_sphere_scene(aspect=1.0, *, environment_map=None, device):
     """Sphere.h: a single sphere on a plane under an environment, by default
     a constant 0.8 map of 16 x 32 texels; the pool holds 8,192 samples."""
     mats = MaterialArray.build([
@@ -194,6 +304,30 @@ def create_sphere_light_scene(aspect=1.0, *, device):
     return scene, camera
 
 
+def create_glass_scene(aspect=1.0, *, device):
+    """GlassScene.h analogue: a smooth and a rough transmissive sphere over
+    a floor, a sphere light and a constant 0.3 environment."""
+    mats = MaterialArray.build([
+        dielectric((0.6, 0.6, 0.6), 0.9),
+        transmissive((0.95, 0.95, 0.95), 0.0),
+        transmissive((0.9, 0.5, 0.4), 0.15)], device=device)
+    instances = [
+        (make_plane(size=20.0), 0, _trs((0, -0.5, 0))),
+        (make_sphere(radius=0.5), 1, _trs((-0.7, 0.0, 0))),
+        (make_sphere(radius=0.5), 2, _trs((0.7, 0.0, 0)))]
+    lights = LightArray.build([
+        {"kind": LIGHT_SPHERE, "position": (0, 4.0, -2.0), "radius": 0.5,
+         "power": (150.0, 150.0, 150.0)}], device=device)
+    scene = build_render_scene(
+        instances, mats, lights,
+        environment_map=np.full((16, 32, 3), 0.3, F32),
+        presample_environment=8192, device=device)
+    camera = perspective_camera(eye=(0, 0.6, -3.0), target=(0, 0, 0),
+                                fov_radians=PI / 4, aspect=aspect,
+                                device=device)
+    return scene, camera
+
+
 def _checkered_floor_parts(floor_size=400.0, checker_size=1.0,
                            tint=(0.02, 0.27, 0.33), roughness=0.3):
     """Scenes/Utils.cpp create_checkered_floor: a thin-walled plane with a
@@ -218,7 +352,7 @@ def _checkered_floor_parts(floor_size=400.0, checker_size=1.0,
     return mesh, material, texture
 
 
-def create_opacity_scene(aspect=1.0, extra_instances=(), *, device):
+def create_opacity_scene(aspect=1.0, *, extra_instances=(), device):
     """Opacity.h: checkered floor, a 0.1-radius sphere light inside a
     17x17-grid cutout box ("Swizz box"), and two thin-walled coverage-0.75
     planes in front (Opacity.h:27-107). ``extra_instances`` are appended;
@@ -256,6 +390,32 @@ def create_opacity_scene(aspect=1.0, extra_instances=(), *, device):
     scene = build_render_scene(instances, mats, lights, textures=textures,
                                device=device)
     camera = perspective_camera(eye=(0, 1.0, -6.0), target=(0, 1.0, 0),
+                                fov_radians=PI / 4, aspect=aspect,
+                                device=device)
+    return scene, camera
+
+
+def create_test_scene(aspect=1.0, *, device):
+    """TestScene.h analogue: a mixed-material still life (a diffuse floor,
+    a gold sphere, a coated box and a glass sphere)."""
+    mats = MaterialArray.build([
+        dielectric((0.6, 0.6, 0.6), 0.9),
+        metal(GOLD_TINT, 0.3),
+        dielectric((0.2, 0.4, 0.8), 0.1, coat=1.0, coat_roughness=0.0),
+        transmissive((0.95, 0.95, 0.95), 0.05)], device=device)
+    instances = [
+        (make_plane(size=20.0), 0, _trs((0, -0.5, 0))),
+        (make_sphere(radius=0.4), 1, _trs((-1.0, -0.1, 0.3))),
+        (make_box(size=0.7), 2, _trs((0.1, -0.15, 0.5), (0, 1, 0), 0.5)),
+        (make_sphere(radius=0.4), 3, _trs((1.1, -0.1, -0.2)))]
+    lights = LightArray.build([
+        {"kind": LIGHT_SPHERE, "position": (2, 4.0, -3.0), "radius": 0.4,
+         "power": (200.0, 200.0, 200.0)}], device=device)
+    scene = build_render_scene(
+        instances, mats, lights,
+        environment_map=np.full((16, 32, 3), 0.25, F32),
+        presample_environment=8192, device=device)
+    camera = perspective_camera(eye=(0, 0.8, -3.0), target=(0, -0.1, 0),
                                 fov_radians=PI / 4, aspect=aspect,
                                 device=device)
     return scene, camera
@@ -535,7 +695,11 @@ TEST_SCENES = {"coated": create_coated_scene,
                "opacity_hier": create_opacity_hier_scene}
 
 SCENES = {"CornellBox": create_cornell_box,
+          "MaterialScene": create_material_scene,
+          "MaterialSceneLegacy": create_legacy_material_scene,
           "Veach": create_veach_scene,
           "Sphere": create_sphere_scene,
           "SphereLight": create_sphere_light_scene,
-          "Opacity": create_opacity_scene}
+          "Glass": create_glass_scene,
+          "Opacity": create_opacity_scene,
+          "Test": create_test_scene}

@@ -1,7 +1,8 @@
 """SimpleViewer: the offline CLI renderer, path-tracer branch.
 
-Port of ``bifrost3d_tpu/apps/simple_viewer.py::main`` for the built-in
-scenes (CornellBox, Veach, Sphere, SphereLight, Opacity): render
+Port of ``bifrost3d_tpu/apps/simple_viewer.py::main`` for the nine
+built-in scenes (CornellBox, MaterialScene, MaterialSceneLegacy, Veach,
+Sphere, SphereLight, Glass, Opacity, Test): render
 progressively through ``render_sample_fast`` (on a card the mesh megakernel,
 one launch per frame), apply the camera-effects chain and write a PNG.
 ``--camera-position`` / ``--camera-target`` replace the scene's camera as
@@ -81,7 +82,8 @@ def main(argv=None):
             "hdr, exr); the Sphere scene carries its own map")
     if args.scene not in SCENES:
         raise NotImplementedError(
-            f"scene {args.scene!r}: only {sorted(SCENES)} are ported yet")
+            f"scene {args.scene!r}: the port has no .obj / .gltf loader "
+            f"yet; built-in scenes: {sorted(SCENES)}")
     device = torch.device(args.device)
     width, height = (int(v) for v in args.window_size.split("x"))
     tint = tuple(float(v) for v in args.environment_tint.split(","))

@@ -13,6 +13,7 @@ import math
 import torch
 
 from bifrost3d_tpu_torch.bsdf.types import BSDFResponse, BSDFSample
+from bifrost3d_tpu_torch.math.clip import clip, maximum
 from bifrost3d_tpu_torch.sampling.distributions import (
     INV_PI,
     oren_nayar_cltc_pdf,
@@ -38,7 +39,7 @@ def evaluate_scalar(roughness, wo, wi):
     cos_i, cos_o = wi[..., 2], wo[..., 2]
     s = torch.sum(wi * wo, dim=-1) - cos_i * cos_o
     s_over_t = torch.where(
-        s > 0.0, s / torch.clamp_min(torch.maximum(cos_i, cos_o), 1e-7), s)
+        s > 0.0, s / maximum(torch.maximum(cos_i, cos_o), 1e-7), s)
     a = 1.0 / (1.0 + _C1_FON * roughness)
     b = roughness * a
     f_single = INV_PI * a * (1.0 + roughness * s_over_t)
@@ -46,7 +47,7 @@ def evaluate_scalar(roughness, wo, wi):
     ef_i = _e_fon_approx(cos_i, roughness, a, b)
     avg_ef = a * (1.0 + _C2_FON * roughness)
     f_multi = (INV_PI * torch.abs(1.0 - ef_o) * torch.abs(1.0 - ef_i)
-               / torch.clamp_min(1.0 - avg_ef, 1e-7))
+               / maximum(1.0 - avg_ef, 1e-7))
     return f_single + f_multi
 
 
@@ -56,7 +57,7 @@ def evaluate(albedo, roughness, wo, wi):
 
 def _uniform_probability(roughness, cos_theta):
     """Fitted mixture weight between the uniform and CLTC lobes."""
-    return torch.pow(torch.clamp_min(roughness, 1e-7), 0.1) * (
+    return torch.pow(maximum(roughness, 1e-7), 0.1) * (
         0.162925 + cos_theta * (-0.372058 + (0.538233 - 0.290822 * cos_theta)
                                 * cos_theta))
 
@@ -76,10 +77,10 @@ def sample(albedo, roughness, wo, u2) -> BSDFSample:
     """Mixture-sample wi: both lobes evaluated, masked select."""
     u_prob = _uniform_probability(roughness, wo[..., 2])
     pick_uniform = u2[..., 0] <= u_prob
-    ux_uniform = u2[..., 0] / torch.clamp_min(u_prob, 1e-7)
-    ux_cltc = (u2[..., 0] - u_prob) / torch.clamp_min(1.0 - u_prob, 1e-7)
+    ux_uniform = u2[..., 0] / maximum(u_prob, 1e-7)
+    ux_cltc = (u2[..., 0] - u_prob) / maximum(1.0 - u_prob, 1e-7)
     ux = torch.where(pick_uniform, ux_uniform, ux_cltc)
-    u2r = torch.stack([torch.clamp(ux, 0.0, 1.0 - 1e-7), u2[..., 1]], dim=-1)
+    u2r = torch.stack([clip(ux, 0.0, 1.0 - 1e-7), u2[..., 1]], dim=-1)
 
     wi_uni, _ = uniform_hemisphere_sample(u2r)
     wi_cltc, _ = oren_nayar_cltc_sample(roughness, wo, u2r)

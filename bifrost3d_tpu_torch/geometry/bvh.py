@@ -41,7 +41,7 @@ class BVH(NamedTuple):
         return BVH(*(f.to(device) for f in self))
 
     @staticmethod
-    def from_numpy(arrays: dict, *, device="cpu") -> "BVH":
+    def from_numpy(arrays: dict, *, device) -> "BVH":
         """A BVH from its fields held as numpy arrays."""
         return BVH(*(torch.tensor(np.asarray(
             arrays[name], np.float32 if name in ("node_min", "node_max")

@@ -95,7 +95,7 @@ class VmemTriangles(NamedTuple):
                                #   STACK_SIZE entries
 
     @staticmethod
-    def from_numpy(arrays: dict, *, device="cpu") -> "VmemTriangles":
+    def from_numpy(arrays: dict, *, device) -> "VmemTriangles":
         """The packing from the JAX package's ``VmemTriangles`` fields held
         as numpy arrays: its 128-lane, row-padded node table is cut to one
         record per node of the cluster tree, so both packages walk the same

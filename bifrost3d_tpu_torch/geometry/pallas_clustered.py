@@ -66,7 +66,7 @@ class ClusteredTriangles(NamedTuple):
     n_tris: int
 
     @staticmethod
-    def from_numpy(arrays: dict, *, device="cpu") -> "ClusteredTriangles":
+    def from_numpy(arrays: dict, *, device) -> "ClusteredTriangles":
         """The packing from the JAX package's ``ClusteredTriangles`` fields
         held as numpy arrays: its 128-lane box rows are cut to one record
         per cluster, so both packages scan the same clusters."""

@@ -813,8 +813,7 @@ def mesh_megakernel_reference(tri, attr, mats, lights, rho_ggx, rho_fres,
         cos_theta_o = torch.where(hit_from_front | thin_walled, wo[:, 2],
                                   -wo[:, 2])
         bundle = _create_shading(present, model, m_tint, m_rough, m[:, 4],
-                                 m[:, 5], coat, coat_r,
-                                 torch.abs(cos_theta_o))
+                                 m[:, 5], coat, coat_r, cos_theta_o)
         radiance = radiance + torch.where(shade[:, None],
                                           throughput * m[:, 7:10], 0.0)
         if stats is not None:

@@ -17,6 +17,7 @@ from bifrost3d_tpu_torch.lights.types import (
     LightArray,
     LightSample,
 )
+from bifrost3d_tpu_torch.math.clip import maximum
 from bifrost3d_tpu_torch.math.vec import cross, dot, gsafe, length, normalize, to_world
 from bifrost3d_tpu_torch.sampling.distributions import (
     PI,
@@ -49,7 +50,7 @@ def sphere_light_sample(position, radius, power, lit_position, u2) -> LightSampl
     radius = torch.broadcast_to(radius, batch)
     to_center = torch.broadcast_to(position - lit_position, batch + (3,))
     dist2 = dot(to_center, to_center)
-    sin2 = radius * radius / torch.clamp_min(dist2, 1e-10)
+    sin2 = radius * radius / maximum(dist2, 1e-10)
     is_point = sin2 <= _SMALL_SIN2
 
     cos_theta_max = torch.sqrt(gsafe(1.0 - sin2))
@@ -58,11 +59,11 @@ def sphere_light_sample(position, radius, power, lit_position, u2) -> LightSampl
     t = _ray_sphere_t(lit_position, direction, position, radius)
     t = torch.where(t <= 0.0, dot(to_center, direction), t)
     area = 4.0 * PI * radius * radius
-    radiance_cone = power / torch.clamp_min(PI * area, 1e-10)[..., None]
+    radiance_cone = power / maximum(PI * area, 1e-10)[..., None]
 
     dist = torch.sqrt(gsafe(dist2))
     radiance_point = power / (4.0 * PI * dist2)[..., None]
-    dir_point = to_center / torch.clamp_min(dist, 1e-10)[..., None]
+    dir_point = to_center / maximum(dist, 1e-10)[..., None]
     t_point = dist - radius
 
     pick = is_point[..., None]
@@ -76,7 +77,7 @@ def sphere_light_sample(position, radius, power, lit_position, u2) -> LightSampl
 
 def sphere_light_pdf(position, radius, lit_position, direction):
     to_center = position - lit_position
-    sin2 = radius * radius / torch.clamp_min(dot(to_center, to_center), 1e-10)
+    sin2 = radius * radius / maximum(dot(to_center, to_center), 1e-10)
     cos_theta_max = torch.sqrt(gsafe(1.0 - sin2))
     cos_theta = dot(direction, normalize(to_center))
     valid = (cos_theta >= cos_theta_max) & (sin2 > _SMALL_SIN2)
@@ -86,7 +87,7 @@ def sphere_light_pdf(position, radius, lit_position, direction):
 def sphere_light_evaluate(position, radius, power, lit_position):
     """Radiance along any direction that hits the sphere."""
     area = 4.0 * PI * radius * radius
-    return power / torch.clamp_min(PI * area, 1e-10)[..., None]
+    return power / maximum(PI * area, 1e-10)[..., None]
 
 
 # -- spot (disk) ----------------------------------------------------------------
@@ -106,7 +107,7 @@ def spot_light_evaluate(position, radius, light_dir, cos_angle, power,
     d2 = torch.sum(diff * diff, dim=-1)
     area = PI * radius * radius
     norm = norm * torch.where(is_delta, d2, area * cos_theta)
-    radiance = power / torch.clamp_min(norm, 1e-10)[..., None]
+    radiance = power / maximum(norm, 1e-10)[..., None]
     return torch.where((cos_theta > cos_angle)[..., None], radiance, 0.0)
 
 
@@ -117,11 +118,11 @@ def spot_light_sample(position, radius, light_dir, cos_angle, power,
 
     to_light = position - lit_position
     dist = length(to_light)
-    dir_delta = to_light / torch.clamp_min(dist, 1e-10)[..., None]
+    dir_delta = to_light / maximum(dist, 1e-10)[..., None]
 
     t_plane = _ray_plane_t(lit_position, -light_dir, position, light_dir)
     cone_radius_at = t_plane * torch.sqrt(
-        gsafe(1.0 - cos_angle * cos_angle)) / torch.clamp_min(cos_angle, 1e-9)
+        gsafe(1.0 - cos_angle * cos_angle)) / maximum(cos_angle, 1e-9)
     use_cone = (radius > cone_radius_at) & (cos_angle > _MIN_SPOT_CONE)
 
     cone_dir, cone_p = cone_sample(cos_angle, u2)
@@ -133,7 +134,7 @@ def spot_light_sample(position, radius, light_dir, cos_angle, power,
         position, radius, light_dir, cos_angle, power, lit_position,
         dir_cone), 0.0)
 
-    xy, disk_p = concentric_disk_sample(u2, torch.clamp_min(radius, 1e-9))
+    xy, disk_p = concentric_disk_sample(u2, maximum(radius, 1e-9))
     x_major = torch.abs(light_dir[..., 0]) > 0.9
     helper = torch.stack([torch.where(x_major, 0.0, 1.0),
                           torch.where(x_major, 1.0, 0.0),
@@ -143,10 +144,10 @@ def spot_light_sample(position, radius, light_dir, cos_angle, power,
     sampled = position + xy[..., 0:1] * tangent + xy[..., 1:2] * bitangent
     to_s = sampled - lit_position
     dist_disk = length(to_s)
-    dir_disk = to_s / torch.clamp_min(dist_disk, 1e-10)[..., None]
+    dir_disk = to_s / maximum(dist_disk, 1e-10)[..., None]
     cos_theta_disk = -dot(light_dir, dir_disk)
     pdf_disk = (disk_p * dist_disk * dist_disk
-                / torch.clamp_min(cos_theta_disk, 1e-9))
+                / maximum(cos_theta_disk, 1e-9))
     rad_disk = spot_light_evaluate(position, radius, light_dir, cos_angle,
                                    power, lit_position, dir_disk)
 
@@ -170,7 +171,7 @@ def spot_light_pdf(position, radius, light_dir, cos_angle, lit_position,
     cos_theta = -dot(light_dir, direction)
     t_plane = _ray_plane_t(lit_position, -light_dir, position, light_dir)
     cone_radius_at = t_plane * torch.sqrt(
-        gsafe(1.0 - cos_angle * cos_angle)) / torch.clamp_min(cos_angle, 1e-9)
+        gsafe(1.0 - cos_angle * cos_angle)) / maximum(cos_angle, 1e-9)
     use_cone = (radius > cone_radius_at) & (cos_angle > _MIN_SPOT_CONE)
     pdf_cone = cone_pdf(cos_angle)
     t = _ray_plane_t(lit_position, direction, position, light_dir)
@@ -178,8 +179,8 @@ def spot_light_pdf(position, radius, light_dir, cos_angle, lit_position,
     on_disk = (t >= 0.0) & (torch.sum(off * off, dim=-1) < radius * radius)
     pdf_disk = torch.where(
         on_disk,
-        (1.0 / (PI * torch.clamp_min(radius * radius, 1e-18)))
-        * t * t / torch.clamp_min(cos_theta, 1e-9), 0.0)
+        (1.0 / (PI * maximum(radius * radius, 1e-18)))
+        * t * t / maximum(cos_theta, 1e-9), 0.0)
     valid = (cos_theta > 0.0) & (radius > 0.0)
     return torch.where(valid, torch.where(use_cone, pdf_cone, pdf_disk), 0.0)
 
@@ -188,13 +189,13 @@ def spot_light_pdf(position, radius, light_dir, cos_angle, lit_position,
 
 def directional_light_sample(light_dir, radiance, shape) -> LightSample:
     direction = torch.broadcast_to(-light_dir, shape + (3,))
-    device = light_dir.device
+    like = dict(dtype=light_dir.dtype, device=light_dir.device)
     return LightSample(
         direction=direction,
-        distance=torch.full(shape, 1e30, dtype=torch.float32, device=device),
+        distance=torch.full(shape, 1e30, **like),
         radiance=torch.broadcast_to(radiance, shape + (3,)),
-        pdf=torch.ones(shape, dtype=torch.float32, device=device),
-        is_delta=torch.ones(shape, dtype=torch.bool, device=device))
+        pdf=torch.ones(shape, **like),
+        is_delta=torch.ones(shape, dtype=torch.bool, device=light_dir.device))
 
 
 # -- tagged dispatch over a LightArray ----------------------------------------

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from bifrost3d_tpu_torch.lights.types import LightSample
+from bifrost3d_tpu_torch.math.clip import clip, maximum
 from bifrost3d_tpu_torch.math.distribution2d import Distribution2D
 from bifrost3d_tpu_torch.sampling.hashes import reverse_bits
 from bifrost3d_tpu_torch.sampling.pmj import pmj02_bn_samples
@@ -46,7 +47,7 @@ _TWO_PI = float(np.float32(2.0) * np.float32(np.pi))
 
 def direction_to_latlong_uv(direction):
     u = (torch.atan2(direction[..., 2], direction[..., 0]) + PI) * _HALF_OVER_PI
-    v = (torch.asin(torch.clamp(direction[..., 1], -1.0, 1.0)) + _HALF_PI) / PI
+    v = (torch.asin(clip(direction[..., 1], -1.0, 1.0)) + _HALF_PI) / PI
     return torch.stack([u, v], dim=-1)
 
 
@@ -168,11 +169,11 @@ def build_environment_light(image, tint=(1.0, 1.0, 1.0),
 
 def _pdf_at(light: EnvironmentLight, uv, direction):
     """Per-pixel pdf of the cell holding ``uv``, over sinθ."""
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - direction[..., 1] ** 2, 0.0))
+    sin_theta = torch.sqrt(maximum(1.0 - direction[..., 1] ** 2, 0.0))
     ph, pw = light.pdf_size
     xi = torch.clamp((uv[..., 0] * pw).to(torch.int64), 0, pw - 1)
     yi = torch.clamp((uv[..., 1] * ph).to(torch.int64), 0, ph - 1)
-    pdf = light.per_pixel_pdf[yi, xi] / torch.clamp_min(sin_theta, 1e-10)
+    pdf = light.per_pixel_pdf[yi, xi] / maximum(sin_theta, 1e-10)
     return torch.where(sin_theta == 0.0, 0.0, pdf)
 
 

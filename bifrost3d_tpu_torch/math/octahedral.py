@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from bifrost3d_tpu_torch.math.clip import clip
+
 _RANGE = 32767.0
 
 
@@ -22,7 +24,7 @@ def octahedral_encode(n):
     p = n[..., :2] / l1
     folded = (1.0 - torch.abs(p.flip(-1))) * _sign_not_zero(p)
     enc = torch.where(n[..., 2:3] <= 0.0, folded, p)
-    return torch.round(torch.clamp(enc, -1.0, 1.0) * _RANGE).to(torch.int16)
+    return torch.round(clip(enc, -1.0, 1.0) * _RANGE).to(torch.int16)
 
 
 def octahedral_decode(e):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from bifrost3d_tpu_torch.math.clip import maximum
 from bifrost3d_tpu_torch.math.vec import cross, normalize
 
 
@@ -59,7 +60,7 @@ def quat_from_matrix(m):
     t_z = 1.0 - m00 - m11 + m22
 
     def cand(t, a, b, c, order):
-        s = torch.sqrt(torch.clamp_min(t, 1e-12))
+        s = torch.sqrt(maximum(t, 1e-12))
         inv = 0.5 / s
         comps = {order[0]: 0.5 * s, order[1]: a * inv, order[2]: b * inv,
                  order[3]: c * inv}

@@ -1,7 +1,7 @@
 """Vector math over broadcastable tensors.
 
 Port of ``bifrost3d_tpu/math/vec.py`` (``dot``, ``cross``, ``length``,
-``normalize``, ``safe_rsqrt``, ``lerp``, ``reflect``,
+``normalize``, ``safe_rsqrt``, ``lerp``, ``reflect``, ``refract``,
 ``orthonormal_basis``, ``to_local``, ``to_world``): a "Vector3" is any
 tensor whose last axis has size 3, and every helper broadcasts over leading
 axes.
@@ -11,11 +11,13 @@ from __future__ import annotations
 
 import torch
 
+from bifrost3d_tpu_torch.math.clip import maximum
+
 
 def gsafe(x, floor=0.0):
     """``max(x, max(floor, 1e-12))``: keeps sqrt operands off exactly 0,
     as the JAX package's ``_gsafe`` does for its gradients."""
-    return torch.clamp_min(x, max(floor, 1e-12))
+    return maximum(x, max(floor, 1e-12))
 
 
 def dot(a, b, keepdims: bool = False):
@@ -53,6 +55,19 @@ def lerp(a, b, t):
 def reflect(direction, normal):
     """Mirror ``direction`` (pointing toward the surface) about ``normal``."""
     return direction - 2.0 * dot(direction, normal, keepdims=True) * normal
+
+
+def refract(direction, normal, eta):
+    """Refract ``direction`` (toward the surface, unit) through ``normal``,
+    ``eta = n_incident / n_transmitted`` → (direction, tir mask). On total
+    internal reflection the direction is the reflection, so callers can
+    select without NaNs."""
+    cos_i = -dot(direction, normal, keepdims=True)
+    sin2_t = eta * eta * maximum(1.0 - cos_i * cos_i, 0.0)
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(gsafe(1.0 - sin2_t))
+    refracted = eta * direction + (eta * cos_i - cos_t) * normal
+    return torch.where(tir, reflect(direction, normal), refracted), tir[..., 0]
 
 
 def orthonormal_basis(normal):

@@ -3,8 +3,9 @@
 Port of the slice's part of ``bifrost3d_tpu/sampling/distributions.py``:
 ``concentric_disk_sample``, ``cone_pdf``/``cone_sample``,
 ``uniform_hemisphere_sample``, ``cosine_hemisphere_pdf``/``_sample``,
-``ggx_ndf``, ``_ggx_lambda``, ``ggx_bounded_vndf_sample``/``_pdf`` (Eto
-2023), ``oren_nayar_cltc_sample``/``_pdf`` (EON CLTC) and
+``ggx_ndf``, ``_ggx_lambda``, ``ggx_vndf_sample_halfway``,
+``ggx_vndf_pdf``, ``ggx_vndf_sample`` (Dupuy & Benyoub 2023),
+``ggx_bounded_vndf_sample``/``_pdf`` (Eto 2023), ``oren_nayar_cltc_sample``/``_pdf`` (EON CLTC) and
 ``henyey_greenstein_phase``/``_sample``. Directions are in
 tangent space (+z = shading normal); samplers take ``u2 [..., 2]`` in
 [0, 1)² and return ``(direction [..., 3], pdf [...])``.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bifrost3d_tpu_torch.math.clip import clip, maximum
 from bifrost3d_tpu_torch.math.vec import gsafe, lerp, normalize, reflect
 
 PI = float(np.float32(np.pi))
@@ -40,7 +42,7 @@ def concentric_disk_sample(u2, radius=1.0):
 
 
 def cone_pdf(cos_theta_max):
-    return 1.0 / (TWO_PI * torch.clamp_min(1.0 - cos_theta_max, 1e-10))
+    return 1.0 / (TWO_PI * maximum(1.0 - cos_theta_max, 1e-10))
 
 
 def cone_sample(cos_theta_max, u2):
@@ -80,17 +82,48 @@ def ggx_ndf(alpha, abs_cos_theta):
     """Isotropic GGX D in the division-free form a²/(π·(c²a² + s²)²)."""
     a2 = alpha * alpha
     c2 = abs_cos_theta * abs_cos_theta
-    s2 = torch.clamp_min(1.0 - c2, 0.0)
-    q = torch.clamp_min(c2 * a2 + s2, 1e-9)
+    s2 = maximum(1.0 - c2, 0.0)
+    q = maximum(c2 * a2 + s2, 1e-9)
     return a2 / (PI * q * q)
 
 
 def ggx_lambda(alpha, w):
     """Smith lambda for isotropic GGX."""
-    z2 = torch.clamp_min(w[..., 2] * w[..., 2], 1e-12)
+    z2 = maximum(w[..., 2] * w[..., 2], 1e-12)
     ax = alpha * w[..., 0]
     ay = alpha * w[..., 1]
     return 0.5 * (-1.0 + torch.sqrt(1.0 + (ax * ax + ay * ay) / z2))
+
+
+_ggx_lambda = ggx_lambda
+
+
+def ggx_vndf_sample_halfway(alpha, wo, u2):
+    """Spherical-caps VNDF halfway sample (Dupuy & Benyoub 2023, listing 1)."""
+    alpha = torch.as_tensor(alpha, dtype=wo.dtype, device=wo.device)[..., None]
+    wo_std = normalize(torch.cat([wo[..., :2] * alpha, wo[..., 2:3]], dim=-1))
+    phi = TWO_PI * u2[..., 1]
+    z = (1.0 - u2[..., 0]) * (1.0 + wo_std[..., 2]) - wo_std[..., 2]
+    sin_theta = torch.sqrt(clip(1.0 - z * z, 1e-12, 1.0))
+    c = torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), z],
+                    dim=-1)
+    wi_std = c + wo_std
+    h = torch.cat([wi_std[..., :2] * alpha, maximum(wi_std[..., 2:3], 0.0)],
+                  dim=-1)
+    return normalize(h)
+
+
+def ggx_vndf_pdf(alpha, wo, halfway):
+    """PDF of the VNDF halfway sample (Heitz 2018, eq. 3)."""
+    recip_g1 = 1.0 + ggx_lambda(alpha, wo)
+    d = ggx_ndf(alpha, torch.abs(halfway[..., 2]))
+    cos_oh = maximum(torch.sum(wo * halfway, dim=-1), 0.0)
+    return cos_oh * d / (recip_g1 * maximum(torch.abs(wo[..., 2]), 1e-10))
+
+
+def ggx_vndf_sample(alpha, wo, u2):
+    h = ggx_vndf_sample_halfway(alpha, wo, u2)
+    return h, ggx_vndf_pdf(alpha, wo, h)
 
 
 def _bounded_k(alpha, wo):
@@ -109,7 +142,7 @@ def ggx_bounded_vndf_sample(alpha, wo, u2):
     k = _bounded_k(alpha, wo)
     b = torch.where(wo[..., 2] >= 0.0, k * wo_std[..., 2], wo_std[..., 2])
     z = (1.0 - u2[..., 0]) * (1.0 + b) - b
-    sin_theta = torch.sqrt(torch.clamp(1.0 - z * z, 1e-12, 1.0))
+    sin_theta = torch.sqrt(clip(1.0 - z * z, 1e-12, 1.0))
     o_std = torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
                          z], dim=-1)
     h_std = wo_std + o_std
@@ -129,7 +162,7 @@ def ggx_bounded_vndf_pdf(alpha, wo, wi):
     k = _bounded_k(alpha, wo)
     upper = ndf / (2.0 * (k * wo[..., 2] + t))
     neg = wo[..., 2] < 0.0
-    safe_ao2 = torch.where(neg, torch.clamp_min(2.0 * ao2, 1e-10), 1.0)
+    safe_ao2 = torch.where(neg, maximum(2.0 * ao2, 1e-10), 1.0)
     lower = ndf * (t - wo[..., 2]) / safe_ao2
     return torch.where(neg, lower, upper)
 
@@ -171,7 +204,7 @@ def oren_nayar_cltc_sample(roughness, wo, u2):
     wi = torch.stack([a * x + b * whz, c * y, d * x + whz], dim=-1)
     wi_mag2 = torch.sum(wi * wi, dim=-1)
     det_m = c * (a - b * d)
-    pdf_wi = pdf_wh * wi_mag2 * torch.sqrt(wi_mag2) / torch.clamp_min(det_m, 1e-10)
+    pdf_wi = pdf_wh * wi_mag2 * torch.sqrt(wi_mag2) / maximum(det_m, 1e-10)
     xaxis = _ltc_x_axis(wo)
     cx, sx = xaxis[..., 0], xaxis[..., 1]
     wx = cx * wi[..., 0] - sx * wi[..., 1]
@@ -195,8 +228,8 @@ def oren_nayar_cltc_pdf(roughness, wo, wi):
     wh_mag2 = whx * whx + why * why + whz * whz
     vz = 1.0 / torch.sqrt(d * d + 1.0)
     s = 0.5 * (1.0 + vz)
-    return (det_m * det_m / torch.clamp_min(wh_mag2 * wh_mag2, 1e-10)
-            * torch.clamp_min(whz, 0.0) / (PI * s))
+    return (det_m * det_m / maximum(wh_mag2 * wh_mag2, 1e-10)
+            * maximum(whz, 0.0) / (PI * s))
 
 
 def henyey_greenstein_phase(g, cos_theta):

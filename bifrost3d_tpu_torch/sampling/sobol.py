@@ -107,12 +107,13 @@ def sobol_sample_4d(index, seed):
     return uint_to_unit_float(sobol_sample_4d_uint(index, seed))
 
 
-def path_rng_4d(accumulation, pixel_hash, dimension):
+def path_rng_4d(accumulation_count, pixel_hash, dimension):
     """seed = pcg2d(pixel_hash, dimension).x; → float32 [..., 4].
 
-    ``pixel_hash`` is an int64 tensor of uint32 values; ``accumulation``
-    and ``dimension`` are ints or int64 tensors that broadcast with it.
+    ``pixel_hash`` is an int64 tensor of uint32 values;
+    ``accumulation_count`` and ``dimension`` are ints or int64 tensors that
+    broadcast with it.
     """
     device = pixel_hash.device
     seed, _ = pcg2d(pixel_hash, u32(dimension, device))
-    return sobol_sample_4d(u32(accumulation, device), seed)
+    return sobol_sample_4d(u32(accumulation_count, device), seed)

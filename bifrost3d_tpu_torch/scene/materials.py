@@ -2,9 +2,10 @@
 
 Port of the slice's part of ``bifrost3d_tpu/scene/materials.py``
 (``MaterialArray`` with ``build`` and ``gather``, ``dielectric``,
-``metal``, the CornellBox metal tints, the ``SHADING_*`` and ``FLAG_*``
-constants). Texture slots are kept (``-1`` = untextured); textures
-themselves are not on the slice.
+``metal``, ``transmissive``, the indices of refraction and their
+specularities, the metal tints the scenes use, the ``SHADING_*`` and
+``FLAG_*`` constants). Texture slots index the scene's ``TextureBank``
+(``-1`` = untextured).
 """
 
 from __future__ import annotations
@@ -21,10 +22,22 @@ SHADING_TRANSMISSIVE = 2
 FLAG_THIN_WALLED = 1
 FLAG_CUTOUT = 2
 
+# Indices of refraction (Material.h:44-49).
+AIR_IOR = 1.0003
+GLASS_IOR = 1.52
+
+
+def _specularity(ior_o, ior_i):
+    """Plain-float ``bsdf.fresnel.dielectric_specularity``."""
+    return ((ior_o - ior_i) / (ior_o + ior_i)) ** 2
+
+
 DEFAULT_SPECULARITY = 0.04
+GLASS_SPECULARITY = _specularity(AIR_IOR, GLASS_IOR)
 
 # Metal tints (Material.h:62-72).
 IRON_TINT = (0.560, 0.570, 0.580)
+GOLD_TINT = (1.000, 0.766, 0.336)
 COPPER_TINT = (0.955, 0.637, 0.538)
 
 _INT_FIELDS = ("shading_model", "flags", "tint_roughness_texture",
@@ -142,6 +155,11 @@ class MaterialArray(NamedTuple):
 
 def dielectric(tint, roughness, specularity=DEFAULT_SPECULARITY, **kw):
     return dict(tint=tint, roughness=roughness, specularity=specularity, **kw)
+
+
+def transmissive(tint, roughness, specularity=GLASS_SPECULARITY, **kw):
+    return dict(shading_model=SHADING_TRANSMISSIVE, tint=tint,
+                roughness=roughness, specularity=specularity, **kw)
 
 
 def metal(tint, roughness, **kw):

@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bifrost3d_tpu_torch.math.clip import maximum
+
 BSDF_DIFFUSE = 0
 BSDF_SPECULAR = 1
 BSDF_GLASS = 2
@@ -106,7 +108,7 @@ def intersect_spheres(scene: SphereScene, origin, direction, eps=1e-2):
     perp2 = torch.sum(perp * perp, dim=-1)
     d_perp = torch.where(perp2 > 1e-12, torch.sqrt(perp2), 0.0)
     det = (scene.radius - d_perp) * (scene.radius + d_perp)
-    sqrt_det = torch.sqrt(torch.clamp_min(det, 0.0))
+    sqrt_det = torch.sqrt(maximum(det, 0.0))
     t_near = b - sqrt_det
     t_far = b + sqrt_det
     inf = float("inf")

@@ -24,6 +24,7 @@ from bifrost3d_tpu_torch.bsdf.fresnel import (
     adjust_dielectric_specularity_to_exterior_medium,
 )
 from bifrost3d_tpu_torch.bsdf.types import BSDFResponse, BSDFSample
+from bifrost3d_tpu_torch.math.clip import clip, maximum, minimum
 from bifrost3d_tpu_torch.math.vec import lerp
 from bifrost3d_tpu_torch.shading.fittings import (
     sample_ggx_rho,
@@ -36,7 +37,7 @@ _MIN_COS = 1e-6
 def modulate_roughness_under_coat(base_roughness, coat_roughness):
     """OpenPBR 2025 eq. 86 (Utils.h:363-367)."""
     x_coat = 1.0 - 1.0 / COAT_IOR
-    r4 = torch.clamp_max(
+    r4 = minimum(
         base_roughness ** 4 + 2.0 * x_coat * coat_roughness ** 4, 1.0)
     return r4 ** 0.25
 
@@ -48,7 +49,7 @@ def _specular_properties(roughness, specularity, scale, abs_cos_theta_o):
     alpha = ggx.alpha_from_roughness(roughness)
     base = sample_ggx_with_fresnel_rho(abs_cos_theta_o, roughness)
     full = sample_ggx_rho(abs_cos_theta_o, roughness)
-    reflection_scale = scale / torch.clamp_min(full, 1e-5)
+    reflection_scale = scale / maximum(full, 1e-5)
     rho = lerp(base, full, specularity) * reflection_scale
     return alpha, reflection_scale, 1.0 - rho, base, full
 
@@ -76,12 +77,12 @@ class DefaultShading(NamedTuple):
         m_roughness = torch.where(has_coat, lerp(roughness, coat_mod, coat),
                                   roughness)
         coated_diel = adjust_dielectric_specularity_to_exterior_medium(
-            COAT_IOR, torch.clamp_max(specularity, 0.9999))
+            COAT_IOR, minimum(specularity, 0.9999))
         dielectric_specularity = torch.where(
             has_coat & (specularity < 1.0),
             lerp(specularity, coated_diel, coat), specularity)
         coated_cond = adjust_conductor_specularity_to_exterior_medium(
-            COAT_IOR, torch.clamp(conductor_specularity, 0.0, 0.9999),
+            COAT_IOR, clip(conductor_specularity, 0.0, 0.9999),
             torch.zeros_like(conductor_specularity))
         coated_cond = torch.where(torch.isnan(coated_cond), 1.0, coated_cond)
         conductor_specularity = torch.where(
@@ -120,7 +121,7 @@ class DefaultShading(NamedTuple):
                     * specular_scale[..., None])
         specular_rho_sum = torch.sum(spec_rho, dim=-1)
         coat_rho_sum = 3.0 * coat_rho
-        recip = 1.0 / torch.clamp_min(
+        recip = 1.0 / maximum(
             diffuse_rho_sum + specular_rho_sum + coat_rho_sum, 1e-9)
         return DefaultShading(
             diffuse_tint=m_diffuse_tint,

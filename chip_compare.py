@@ -16,8 +16,11 @@ tables (closest, bounded, live prefix), B6 on two soups, B7 on the bridge's
 camera and incoherent rays and on the 16,130-triangle soup's camera,
 incoherent and surrounding rays (closest, bounded any-hit: its occlusion
 and t, live prefix),
-and the pooled wavefront's 512² frame of hier_bridge_15k on B1 and on B6
-(host clock, median of 3 after a first frame). For each
+the gradient path's plain step (bench_backward's, CornellBox 256², 2
+bounces; median of 5 after a first step, its tint gradient compared bit for
+bit), the pooled wavefront's 512² CornellBox frame and its 512² frame of
+hier_bridge_15k on B1 and on B6 (host clock, median of 3 after a first
+frame). For each
 workload one ``RESULT`` line per turn gives
 ``call_ms``, the median time of the call between CUDA events, and
 ``kernel_ms``, the device time per call of the kernels it launched other
@@ -29,7 +32,21 @@ trees, and between the two turns of each tree, and ``SUMMARY`` gives each
 time of both turns of both trees. Timing helpers (``device_ms``: one
 torch.profiler session per turn) and ray sets are chip_smoke.py's.
 
-``python3 chip_compare.py --turn ROOT LABEL OUT.npz`` runs one turn.
+Last, ``LAUNCHES`` gives, for each tree in a process of its own, the CUDA
+kernel launches of one pooled 512² CornellBox frame and of one plain train
+step, counted by torch.profiler after a first of each: the launch calls on
+the host, the kernels on the card, and both per wavefront iteration. The
+counts do not depend on the host's load, so one run of each tree settles
+them.
+
+``python3 chip_compare.py --turn ROOT LABEL OUT.npz`` runs one turn;
+``python3 chip_compare.py --launches ROOT`` counts one tree's launches.
+
+``python3 chip_compare.py --pairs N OTHER`` times only the two host-bound
+workloads, the pooled 512² Cornell frame and the plain train step, in 2N
+processes a tree, in N rounds of other, this, this, other: each process
+gives the median of 5 frames and of 5 steps after a first of each, and
+``PAIRS`` gives every process's numbers and the medians of both trees.
 """
 
 from __future__ import annotations
@@ -189,6 +206,34 @@ def turn(root: str, label: str, out_path: str) -> None:
                         live_count=live), any_hit), repeats=10)
     res["smi/traces"] = smoke.smi()
 
+    # -- the gradient path: bench_backward's plain step on CornellBox at
+    # 256², 2 bounces (chip_smoke's _tint_step), and the pooled wavefront's
+    # 512² Cornell frame ----
+    scene, camera = SCENES["CornellBox"](device=dev)
+    base = pt.settings_for_scene(scene, max_bounce_count=smoke.TRAIN_BOUNCES)
+    plain = base._replace(remat_bounces=False, detached_replay_vjp=False)
+    with torch.no_grad():
+        target = pt.render_sample(scene, camera, smoke.TRAIN_RES,
+                                  smoke.TRAIN_RES, 0, base)
+    smoke._tint_step(scene, camera, target, smoke.TRAIN_RES, 1, plain)
+    steps = [smoke._tint_step(scene, camera, target, smoke.TRAIN_RES, n,
+                              plain) for n in range(1, smoke.TRAIN_STEPS + 1)]
+    res["train/plain/step_ms"] = statistics.median(s["ms"] for s in steps)
+    arrays["train.plain.grad:0"] = steps[0]["grad"].cpu().numpy()
+    settings = pt.settings_for_scene(scene, max_bounce_count=smoke.BOUNCES)
+    arrays["pooled.cornell:0"] = pt.render_sample_pooled(
+        scene, camera, smoke.RES, smoke.RES, 1, settings).cpu().numpy()
+    frames = []
+    for acc in (2, 3, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.render_sample_pooled(scene, camera, smoke.RES, smoke.RES, acc,
+                                settings)
+        torch.cuda.synchronize()
+        frames.append((time.perf_counter() - t0) * 1e3)
+    res["pooled/cornell/frame_ms"] = statistics.median(frames)
+    res["smi/train"] = smoke.smi()
+
     # -- the pooled wavefront on hier_bridge_15k at 512², on B1 and on B6 ----
     scene, camera = TEST_SCENES["hier_bridge_15k"](device=dev)
     for packing in ("dense", "clustered"):
@@ -214,6 +259,129 @@ def turn(root: str, label: str, out_path: str) -> None:
 
     np.savez(out_path, **arrays)
     print("RESULT " + json.dumps(res), flush=True)
+
+
+def launches(root: str) -> None:
+    """The launch counts of ``root``'s package (see the module's doc)."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from bifrost3d_tpu_torch.apps.scenes import SCENES
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    scene, camera = SCENES["CornellBox"](device=dev)
+    frame = pt.settings_for_scene(scene, max_bounce_count=smoke.BOUNCES)
+    base = pt.settings_for_scene(scene, max_bounce_count=smoke.TRAIN_BOUNCES)
+    plain = base._replace(remat_bounces=False, detached_replay_vjp=False)
+    with torch.no_grad():
+        target = pt.render_sample(scene, camera, smoke.TRAIN_RES,
+                                  smoke.TRAIN_RES, 0, base)
+    # The pooled frame's iterations are its loop's; the train step's
+    # render_sample runs a fixed number.
+    _, _, pooled_iterations = pt.render_pixels_pooled(
+        scene, camera, smoke.RES, smoke.RES, 1, frame, with_iters=True)
+    work = {
+        "pooled/cornell": (lambda: pt.render_sample_pooled(
+            scene, camera, smoke.RES, smoke.RES, 1, frame),
+            pooled_iterations),
+        "train/plain": (lambda: smoke._tint_step(
+            scene, camera, target, smoke.TRAIN_RES, 1, plain),
+            pt._iterations(plain))}
+    for fn, _ in work.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, (fn, _) in work.items():
+            with record_function(f"launches:{name}"):
+                fn()
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    out = {}
+    for name, (_, iterations) in work.items():
+        window = next(e.time_range for e in events
+                      if e.name == f"launches:{name}" and e.device_type != cuda)
+        inside = [e for e in events
+                  if window.start <= e.time_range.start <= window.end]
+        host = sum("LaunchKernel" in e.name for e in inside
+                   if e.device_type != cuda)
+        card = sum(e.device_type == cuda and not any(
+            word in e.name for word in ("launches:", "Memset", "Memcpy"))
+            for e in inside)
+        out[name] = dict(host_launches=host, card_kernels=card,
+                         iterations=iterations,
+                         host_per_iteration=host / iterations,
+                         card_per_iteration=card / iterations)
+    print("LAUNCHES " + json.dumps(dict(root=root, **out)), flush=True)
+
+
+def paired_turn(root: str) -> None:
+    """One process of ``--pairs``: ``root``'s pooled Cornell frame and
+    plain train step."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    from bifrost3d_tpu_torch.apps.scenes import SCENES
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    scene, camera = SCENES["CornellBox"](device=dev)
+    frame = pt.settings_for_scene(scene, max_bounce_count=smoke.BOUNCES)
+    base = pt.settings_for_scene(scene, max_bounce_count=smoke.TRAIN_BOUNCES)
+    plain = base._replace(remat_bounces=False, detached_replay_vjp=False)
+    with torch.no_grad():
+        target = pt.render_sample(scene, camera, smoke.TRAIN_RES,
+                                  smoke.TRAIN_RES, 0, base)
+    frames = []
+    for acc in range(1, 7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.render_sample_pooled(scene, camera, smoke.RES, smoke.RES, acc,
+                                frame)
+        torch.cuda.synchronize()
+        frames.append((time.perf_counter() - t0) * 1e3)
+    steps = [smoke._tint_step(scene, camera, target, smoke.TRAIN_RES, n,
+                              plain)["ms"] for n in range(1, 7)]
+    print("PAIRED " + json.dumps(dict(
+        frame_ms=statistics.median(frames[1:]),
+        step_ms=statistics.median(steps[1:]))), flush=True)
+
+
+def pairs(rounds: int, other: str) -> int:
+    """``--pairs``: see the module's doc."""
+    out = {"other": [], "this": []}
+    for _ in range(rounds):
+        for label in ("other", "this", "this", "other"):
+            root = other if label == "other" else REPO
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--paired-turn",
+                 root], capture_output=True, text=True, timeout=600)
+            lines = [line for line in proc.stdout.splitlines()
+                     if line.startswith("PAIRED ")]
+            if proc.returncode != 0 or not lines:
+                print(proc.stdout[-4000:], proc.stderr[-4000:],
+                      file=sys.stderr)
+                return 1
+            out[label].append(json.loads(lines[-1][len("PAIRED "):]))
+    medians = {label: {key: statistics.median(r[key] for r in runs)
+                       for key in ("frame_ms", "step_ms")}
+               for label, runs in out.items()}
+    print("PAIRS " + json.dumps(dict(runs=out, medians=medians, smi=smi())),
+          flush=True)
+    return 0
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def _same(a, b) -> bool:
@@ -261,6 +429,14 @@ def main(argv) -> int:
     if argv[:1] == ["--turn"]:
         turn(*argv[1:4])
         return 0
+    if argv[:1] == ["--launches"]:
+        launches(argv[1])
+        return 0
+    if argv[:1] == ["--paired-turn"]:
+        paired_turn(argv[1])
+        return 0
+    if argv[:1] == ["--pairs"]:
+        return pairs(int(argv[1]), os.path.abspath(argv[2]))
     if len(argv) != 1:
         print(__doc__)
         return 2
@@ -268,9 +444,7 @@ def main(argv) -> int:
     if not os.path.isdir(os.path.join(other, "bifrost3d_tpu_torch")):
         print(f"no bifrost3d_tpu_torch under {other}", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
+    print(smi(), flush=True)
     t0 = time.perf_counter()
     builds = [build(other), build(REPO)]
     for proc in builds:
@@ -304,6 +478,16 @@ def main(argv) -> int:
                 summary.setdefault(key, {}).setdefault(r["label"], []).append(
                     value)
     print("SUMMARY " + json.dumps(summary), flush=True)
+    for root in (other, REPO):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--launches", root],
+            capture_output=True, text=True, timeout=600)
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith("LAUNCHES ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        print(lines[-1], flush=True)
     return 0
 
 

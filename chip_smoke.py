@@ -159,8 +159,9 @@ the last line):
 
 16. megakernel/extras: the megakernel's environment, texture and cutout
    branches (its kExtras instantiations): Sphere, sphere_sun, Opacity and
-   textured_cornell at 256² on the dense trace, hier_bridge_15k_env and
-   opacity_hier on the BVH trace, 4 bounces, settings_for_scene's settings
+   textured_cornell at 256² on the dense trace, hier_bridge_15k_env,
+   opacity_hier, MaterialScene and MaterialSceneLegacy (a NEAREST checker
+   floor) on the BVH trace, 4 bounces, settings_for_scene's settings
    (coverage-aware shadows where the scene is semi-transparent): for each,
    explain_render_path (megakernel), the kernel against its plain version
    on the same lanes (at most 0.2% of pixels off by > 1e-3, means within
@@ -168,9 +169,12 @@ the last line):
    Opacity's mean above 1e-4; the checker must show on textured_cornell's
    floor (a row's maximum over twice its minimum).
 17. extras paths, main path D: Sphere and Opacity, then
-   hier_bridge_15k_env, each 512², 4 bounces, 8 accumulations through
-   render_progressive, tonemapped and written as a PNG: exactly 8
-   megakernel launches and no launch of a trace kernel; frame time and
+   hier_bridge_15k_env, MaterialScene and MaterialSceneLegacy, each 512²,
+   4 bounces, 8 accumulations through render_progressive, tonemapped and
+   written as a PNG: exactly 8 launches of the megakernel's kExtras
+   instantiation and no launch of a trace kernel; the kernel at the path's
+   shape against its plain version (at most 0.2% of pixels off by > 1e-3,
+   means within 0.5%); frame time and
    rays/s of render_sample_fast (median of 5), the kernel's median time
    (CUDA events) beside its plain version's (one run) and its bound, which
    counts the shadow traces that the plain version made (one any-hit query
@@ -207,6 +211,22 @@ the last line):
    One step each of plain, replay and remat at 512², 4 bounces: step time
    and peak memory. Then the B1 kernels torch.profiler sees in each
    forward and backward (in a process of its own), equal to the counts.
+21. viewer_scenes: the four scenes that load since the Transmissive model
+   and the material scenes. Glass and Test each through render_progressive
+   at the viewer's defaults (512², 4 bounces, a plain RenderSettings) × 4
+   accumulations, every count at 0 before: explain_render_path, the pooled
+   wavefront ("wavefront: Transmissive shading model", B1 launched, no
+   megakernel), each frame finite and lit, render_sample_fast's frame
+   time. MaterialScene and MaterialSceneLegacy ran on main path D (phase
+   17: the megakernel's BVH branch in its kExtras instantiation, one B3
+   launch a frame, held against its plain version at 512²); their lines
+   here repeat that phase's path, launches and frame time. Then a 64²
+   Glass frame on the card against the same frame on the CPU,
+   where the plain B1 runs, under the statistical gate (≤ 3% of pixels off
+   by > 1e-3, means within 2%). Then the JAX-rule clip helpers
+   (math/clip.py) on card tensors, in a process of their own: no
+   host-to-device copy (torch.profiler) and no host sync (sync debug mode
+   raising) a call.
 
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
@@ -250,10 +270,14 @@ BRIDGE_SCENE, BRIDGE_TRIS = "hier_bridge_50k", 49678
 LARGE_SCENES = ("torus_grid", "torus_grid_28") + HIER_SCENES
 # The scenes of the environment, texture and cutout branches (main path D
 # and its gates): name, whether a viewer scene (SCENES) or a TEST_SCENES one.
+# The two material scenes (a NEAREST checker floor, BVH trace) are viewer
+# scenes of main path D since the Transmissive slice; phase 21 reports them.
+MATERIAL_SCENES = ("MaterialScene", "MaterialSceneLegacy")
 EXTRAS_SCENES = (("Sphere", True), ("sphere_sun", False), ("Opacity", True),
                  ("textured_cornell", False), ("hier_bridge_15k_env", False),
-                 ("opacity_hier", False))
-EXTRAS_PATHS = ("Sphere", "Opacity", "hier_bridge_15k_env")
+                 ("opacity_hier", False)) + tuple(
+                     (name, True) for name in MATERIAL_SCENES)
+EXTRAS_PATHS = ("Sphere", "Opacity", "hier_bridge_15k_env") + MATERIAL_SCENES
 # Published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -2275,8 +2299,8 @@ def megakernel_extras_phase(device) -> dict:
 
 
 def extras_path_phase(device) -> dict:
-    """Main path D: Sphere and Opacity (dense trace) and
-    hier_bridge_15k_env (BVH trace) through render_progressive."""
+    """Main path D: Sphere and Opacity (dense trace), hier_bridge_15k_env
+    and the two material scenes (BVH trace) through render_progressive."""
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
     from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
@@ -2335,6 +2359,7 @@ def extras_path_phase(device) -> dict:
         args = mega.megakernel_frame_inputs(scene, cam, res, res, 1,
                                             settings)
         cfg, extras = args[-1], args[-2]
+        check(cfg.extras, f"{name}: not the kExtras instantiation")
         ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args), repeats=10,
                         warmup=2)
         stats = {}
@@ -2374,7 +2399,8 @@ def extras_path_phase(device) -> dict:
                 f"{'node' if cfg.hier else 'chunk'} box and "
                 f"{stats['tri_tests'] / traces:.1f} triangle tests per trace")
         out[name] = dict(
-            launches=launches, seconds=seconds, mean=mean, ms=ms,
+            path=path, tris=n_tris, launches=launches, seconds=seconds,
+            mean=mean, ms=ms,
             plain_ms=plain_ms, max_abs_err=max_err, flips=flips, rays=rays,
             march_traces=march, shadow_traces=shadow,
             box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
@@ -2460,6 +2486,129 @@ def viewer_phase(device) -> dict:
 PROFILED_SCENES = (("CornellBox", True), ("Sphere", True), ("Opacity", True),
                    (BRIDGE_SCENE, False))
 MAX_FRAME_LAUNCHES = 10
+
+
+TRANSMISSIVE_SCENES = ("Glass", "Test")
+VIEWER_ACCUMULATIONS = 4
+GLASS_GATE_RES = 64
+
+
+def viewer_scenes_phase(device, card, path_d) -> dict:
+    """Phase 21: Glass and Test through render_progressive at the viewer's
+    defaults; the material scenes' results from main path D (``path_d``);
+    a 64² Glass frame on the card against the CPU's."""
+    from bifrost3d_tpu_torch.apps.scenes import SCENES
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+
+    res, n, out = RES, VIEWER_ACCUMULATIONS, {}
+    settings = pt.RenderSettings(max_bounce_count=BOUNCES)
+    for name in TRANSMISSIVE_SCENES:
+        scene, cam = SCENES[name](aspect=1.0, device=device)
+        path = pt.explain_render_path(scene, settings)
+        check(path == "wavefront: Transmissive shading model",
+              f"{name}: {path}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        hdr = pt.render_progressive(scene, cam, res, res, n, settings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(B1=dense.launch_count, B3=mega.launch_count,
+                      B4=hier.launch_count, B6=clustered.launch_count,
+                      B7=vmem.launch_count)
+        check(counts["B1"] > 0 and counts["B3"] == 0
+              and counts["B4"] + counts["B6"] + counts["B7"] == 0,
+              f"{name}: launches {counts}, expected B1 only")
+        check(hdr.shape == (res, res, 3), f"image shape {tuple(hdr.shape)}")
+        check(bool(torch.isfinite(hdr).all()), f"{name}: image is not finite")
+        mean = float(hdr.mean())
+        check(mean > 1e-3, f"{name}: image mean {mean} is not lit")
+        frames = []
+        for acc in (n, n + 1, n + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pt.render_sample_fast(scene, cam, res, res, acc, settings)
+            torch.cuda.synchronize()
+            frames.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(path=path, launches=counts, seconds=seconds,
+                         mean=mean, frame_ms=statistics.median(frames),
+                         tris=int(scene.tri_verts.shape[0]))
+        print(f"viewer_scenes/{name}: {path} | {out[name]['tris']} triangles "
+              f"| {res}x{res} {BOUNCES} bounces x{n} through "
+              f"render_progressive in {seconds:.3f} s | launches {counts} | "
+              f"mean {mean:.4f} | render_sample_fast frame "
+              f"{out[name]['frame_ms']:.2f} ms (median of 3) | {card}",
+              flush=True)
+    for name in MATERIAL_SCENES:
+        d = path_d[name]
+        out[name] = d
+        print(f"viewer_scenes/{name}: {d['path']} | {d['tris']} triangles | "
+              f"{res}x{res} {BOUNCES} bounces x{ACCUMULATIONS} through "
+              f"render_progressive on main path D | launches B3 "
+              f"{d['launches']}, no trace kernel | mean {d['mean']:.4f} | "
+              f"kernel vs plain {d['flips']:.5f} flips | render_sample_fast "
+              f"frame {d['frame_ms']:.2f} ms (median of 5) | {card}",
+              flush=True)
+
+    # Glass at 64² on the card (B1) against the CPU (its plain version).
+    gres = GLASS_GATE_RES
+    scene, cam = SCENES["Glass"](aspect=1.0, device=device)
+    cpu_scene, cpu_cam = SCENES["Glass"](aspect=1.0,
+                                         device=torch.device("cpu"))
+    _reset_counts()
+    img = pt.render_sample(scene, cam, gres, gres, 1, settings)
+    torch.cuda.synchronize()
+    check(dense.launch_count > 0, "glass gate: no B1 launch on the card")
+    ref = pt.render_sample(cpu_scene, cpu_cam, gres, gres, 1, settings)
+    flips, max_err, rel = _gate(img.reshape(-1, 3).cpu(), ref.reshape(-1, 3),
+                                f"Glass {gres}: card vs cpu")
+    out["glass_gate"] = dict(flips=flips, max_abs_err=max_err, mean_rel=rel)
+    print(f"viewer_scenes/glass_gate: {gres}x{gres} {BOUNCES} bounces, card "
+          f"(B1) vs cpu (plain) | {flips:.5f} of pixels off by > 1e-3 "
+          f"(budget 0.03), means {rel:.2e} apart (budget 0.02), max "
+          f"|difference| {max_err:.3e}", flush=True)
+    out["clip"] = fresh_process("clip")
+    return out
+
+
+def clip_profile_phase(device) -> dict:
+    """The JAX-rule helpers on card tensors: torch.profiler's host-to-device
+    copies over 100 calls of each (none) and a call each under sync debug
+    mode raising."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bifrost3d_tpu_torch.math.clip import absolute, clip, maximum, minimum
+    x = torch.rand(65536, device=device, requires_grad=True)
+
+    def calls():
+        y = clip(x, 0.25, 0.75) + maximum(x, 0.5) + minimum(x, 0.5)
+        return (y + absolute(x - 0.5)).sum()
+    calls().backward()                     # the bounds' first use
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            calls().backward()
+        torch.cuda.synchronize()
+    copies = sum(e.count for e in prof.key_averages()
+                 if "HtoD" in e.key or "cudaMemcpy" in e.key)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(copies == 0, f"clip helpers: {copies} host-to-device copies in "
+          "100 calls")
+    print(f"clip: clip / maximum / minimum / absolute on card tensors, 100 "
+          f"calls with their backward: {copies} host-to-device copies, no "
+          f"host sync under sync debug mode", flush=True)
+    return dict(copies=copies)
 
 
 def frame_profile_phase(device) -> dict:
@@ -3087,11 +3236,12 @@ def main() -> int:
     path_d = extras_path_phase(device)
     viewer_phase(device)
     frame_profile_phase(device)
+    viewer_scenes_phase(device, card, path_d)
     train = train_phase(device, card)
     train_profile(fresh_process("train"), card)
     # No single PyTorch call computes any of the seven: library_ms is null.
-    # The first seven rows are the seven kernels; the last three are B2 and
-    # B3 again, through their kExtras instantiations.
+    # The first seven rows are the seven kernels; then B2 and B3 again,
+    # through their kExtras instantiations.
     print(json.dumps({"kernels": [
         _kernel_row("dense_intersect", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
@@ -3124,11 +3274,10 @@ def main() -> int:
         _kernel_row("mesh_megakernel/Opacity", "mesh_megakernel.cu",
                     "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
                     path_d["Opacity"]["launches"], path_d["Opacity"]),
-        _kernel_row("mesh_megakernel_hier/hier_bridge_15k_env",
-                    "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:898",
-                    path_d["hier_bridge_15k_env"]["launches"],
-                    path_d["hier_bridge_15k_env"]),
+        *(_kernel_row(f"mesh_megakernel_hier/{name}", "mesh_megakernel.cu",
+                      "bifrost3d_tpu/integrator/pallas_mesh.py:898",
+                      path_d[name]["launches"], path_d[name])
+          for name in ("hier_bridge_15k_env",) + MATERIAL_SCENES),
         # The two traces again on main path E, the gradient path: the five
         # plain Cornell train steps (B1) and the torus grid's step (B4),
         # each timed at the same ray count in its kernel phase.
@@ -3151,7 +3300,8 @@ PROFILES = {"traces": trace_device_phase,
             "pooled-clustered": lambda device: pooled_frame_phase(
                 device, "clustered"),
             "pooled-vmem": lambda device: pooled_frame_phase(device, "vmem"),
-            "train": train_profile_phase}
+            "train": train_profile_phase,
+            "clip": clip_profile_phase}
 
 
 if __name__ == "__main__":

@@ -21,7 +21,7 @@ from bifrost3d_tpu_torch.bsdf import ggx as tg
 from bifrost3d_tpu_torch.bsdf import oren_nayar as ton
 from bifrost3d_tpu_torch.shading import fittings as tfit
 from bifrost3d_tpu_torch.shading.default_shading import DefaultShading as TDefault
-from torch_parity import assert_close_f32
+from torch_parity import assert_close_f32, assert_f64_anchored
 
 N = 4096
 
@@ -75,35 +75,49 @@ def _close(got, ref):
 
 
 def test_fresnel(inputs):
-    (spec, cos, tint), (jspec, jcos, jtint) = _pair(
-        inputs, "specularity", "cos", "tint")
-    _close(tf.schlick_fresnel(spec, cos), jf.schlick_fresnel(jspec, jcos))
-    _close(tf.dielectric_specularity(1.5, 1.0 + spec),
-           jf.dielectric_specularity(1.5, 1.0 + jspec))
-    s = torch.clamp(spec, 0.0, 0.9999)
-    js = jnp.clip(jspec, 0.0, 0.9999)
-    _close(tf.adjust_dielectric_specularity_to_exterior_medium(1.5, s),
-           jf.adjust_dielectric_specularity_to_exterior_medium(1.5, js))
-    t = torch.clamp(tint, 0.0, 0.9999)
-    jt = jnp.clip(jtint, 0.0, 0.9999)
-    _close(tf.adjust_conductor_specularity_to_exterior_medium(
-               1.5, t, torch.zeros_like(t)),
-           jf.adjust_conductor_specularity_to_exterior_medium(
-               1.5, jt, jnp.zeros_like(jt)))
+    """Gate (torch_parity.assert_f64_anchored): the float64 formulas agree
+    with JAX's on every lane, and the port's float32 error stays within
+    2 × JAX's + 4 ulps. ``adjust_conductor_…`` cancels (``-b + sqrt(d)``):
+    both packages' float32 values sit up to 1.9e-4 relative off float64."""
+    spec, cos, tint = inputs["specularity"], inputs["cos"], inputs["tint"]
+    assert_f64_anchored(tf.schlick_fresnel, jf.schlick_fresnel, spec, cos)
+    assert_f64_anchored(lambda s: tf.dielectric_specularity(1.5, 1.0 + s),
+                        lambda s: jf.dielectric_specularity(1.5, 1.0 + s),
+                        spec)
+    s = np.clip(spec, 0.0, 0.9999)
+    assert_f64_anchored(
+        lambda s: tf.adjust_dielectric_specularity_to_exterior_medium(1.5, s),
+        lambda s: jf.adjust_dielectric_specularity_to_exterior_medium(1.5, s),
+        s)
+    t = np.clip(tint, 0.0, 0.9999)
+    assert_f64_anchored(
+        lambda t, z: tf.adjust_conductor_specularity_to_exterior_medium(
+            1.5, t, z),
+        lambda t, z: jf.adjust_conductor_specularity_to_exterior_medium(
+            1.5, t, z),
+        t, np.zeros_like(t))
 
 
 def test_ggx_reflection(inputs):
-    (r, tint, wo, wi, u3), (jr, jtint, jwo, jwi, ju3) = _pair(
-        inputs, "roughness", "tint", "wo", "wi", "u3")
-    alpha = tg.alpha_from_roughness(r)
-    jalpha = jg.alpha_from_roughness(jr)
-    _close(alpha, jalpha)
-    _close(tuple(tg.r_evaluate_with_pdf(alpha, tint, wo, wi)),
-           tuple(jg.r_evaluate_with_pdf(jalpha, jtint, jwo, jwi)))
-    _close(tuple(tg.r_evaluate_with_pdf(alpha, 0.04, wo, wi)),
-           tuple(jg.r_evaluate_with_pdf(jalpha, 0.04, jwo, jwi)))
-    _close(tuple(tg.r_sample(alpha, tint, wo, u3[:, :2])),
-           tuple(jg.r_sample(jalpha, jtint, jwo, ju3[:, :2])))
+    """Gate ``assert_f64_anchored``. alpha is computed once in float32 and
+    handed to both sides as an input: JAX's ``r_sample`` casts it to
+    float32, so float64 runs must start from the same float32 alpha."""
+    r = inputs["roughness"]
+    assert_f64_anchored(tg.alpha_from_roughness, jg.alpha_from_roughness, r)
+    alpha = tg.alpha_from_roughness(torch.tensor(r)).numpy()
+    lanes = (inputs["wo"], inputs["wi"])
+    assert_f64_anchored(
+        lambda a, s, wo, wi: tuple(tg.r_evaluate_with_pdf(a, s, wo, wi)),
+        lambda a, s, wo, wi: tuple(jg.r_evaluate_with_pdf(a, s, wo, wi)),
+        alpha, inputs["tint"], *lanes)
+    assert_f64_anchored(
+        lambda a, s, wo, wi: tuple(tg.r_evaluate_with_pdf(a, s, wo, wi)),
+        lambda a, s, wo, wi: tuple(jg.r_evaluate_with_pdf(a, s, wo, wi)),
+        alpha, np.asarray([0.04], np.float32), *lanes)
+    assert_f64_anchored(
+        lambda a, s, wo, u: tuple(tg.r_sample(a, s, wo, u)),
+        lambda a, s, wo, u: tuple(jg.r_sample(a, s, wo, u)),
+        alpha, inputs["tint"], inputs["wo"], inputs["u3"][:, :2])
 
 
 def test_oren_nayar(inputs):
@@ -151,10 +165,17 @@ def test_default_shading_evaluate_with_pdf(shading, inputs):
            tuple(ref.evaluate_with_pdf(jwo, jwi)))
 
 
+_SHADING_INPUTS = ("tint", "roughness", "specularity", "metallic", "coat",
+                   "coat_roughness", "cos")
+
+
 def test_default_shading_sample(shading, inputs):
-    port, ref = shading
-    (wo, u3), (jwo, ju3) = _pair(inputs, "wo", "u3")
-    got = port.sample(wo, u3)
-    exp = ref.sample(jwo, ju3)
-    _close(tuple(got), tuple(exp))
+    """Gate ``assert_f64_anchored`` from the material inputs to the
+    sample (the rho tables are float32 data, read in float64 by both)."""
+    port, _ = shading
+    args = [inputs[n] for n in _SHADING_INPUTS] + [inputs["wo"], inputs["u3"]]
+    assert_f64_anchored(
+        lambda *a: tuple(TDefault.create(*a[:7]).sample(a[7], a[8])),
+        lambda *a: tuple(JDefault.create(*a[:7]).sample(a[7], a[8])), *args)
+    got = port.sample(torch.tensor(inputs["wo"]), torch.tensor(inputs["u3"]))
     assert 0 < int(got.is_delta.sum()) < N   # both lobe kinds were drawn

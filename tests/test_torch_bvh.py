@@ -250,7 +250,7 @@ def test_tree_deeper_than_the_stack_is_refused(problem, monkeypatch):
 
 
 def test_bvh_carried_from_jax(problem):
-    got = tbvh.BVH.from_numpy(bvh_arrays(problem["jbvh"]))
+    got = tbvh.BVH.from_numpy(bvh_arrays(problem["jbvh"]), device="cpu")
     for a, b in zip(got, problem["bvh"]):
         assert torch.equal(a, b) and a.dtype == b.dtype
 
@@ -288,7 +288,7 @@ def packed(problem):
     the same BVH."""
     return thier.pack_hierarchical(
         torch.tensor(problem["tris"]),
-        tbvh.BVH.from_numpy(bvh_arrays(problem["jbvh"])))
+        tbvh.BVH.from_numpy(bvh_arrays(problem["jbvh"]), device="cpu"))
 
 
 def test_packing_layout(problem, packed):

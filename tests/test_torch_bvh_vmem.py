@@ -57,8 +57,8 @@ def problem():
     jb = jbvh.build_bvh(*_flat(tris))
     return dict(tris=tris, o=o, d=d, t_max=t_max,
                 jpacked=jvm.pack_vmem(tris, jb),
-                packed=tvm.pack_vmem(torch.tensor(tris),
-                                     tbvh.BVH.from_numpy(bvh_arrays(jb))))
+                packed=tvm.pack_vmem(torch.tensor(tris), tbvh.BVH.from_numpy(
+                    bvh_arrays(jb), device="cpu")))
 
 
 def _torch_rays(p):
@@ -103,7 +103,8 @@ def test_packing_matches_jax(problem):
 
 def test_packing_builds_its_own_tree_and_carries_jax_packing(problem):
     own = tvm.pack_vmem(problem["tris"])               # numpy in, tree built
-    carried = tvm.VmemTriangles.from_numpy(packing_arrays(problem["jpacked"]))
+    carried = tvm.VmemTriangles.from_numpy(packing_arrays(problem["jpacked"]),
+                                        device="cpu")
     for other in (own, carried):
         for a, b in zip(other[:4], problem["packed"][:4]):
             assert torch.equal(a, b) and a.dtype == b.dtype

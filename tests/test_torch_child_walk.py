@@ -17,6 +17,7 @@ import torch
 from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES, torus_grid_mesh
 from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
 from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+import torch_parity  # noqa: F401  (one torch thread per worker)
 
 F = np.float32
 BIG = F(3.0e38)

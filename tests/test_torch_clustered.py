@@ -76,7 +76,7 @@ def problem():
     return dict(tris=tris, jpacked=jpacked,
                 packed=tcl.pack_clustered(
                     torch.tensor(tris),
-                    tbvh.BVH.from_numpy(bvh_arrays(jb))))
+                    tbvh.BVH.from_numpy(bvh_arrays(jb), device="cpu")))
 
 
 def _assert_same_hits(got, ref):
@@ -113,7 +113,7 @@ def test_packing_matches_jax(problem):
 def test_packing_builds_its_own_tree_and_carries_jax_packing(problem):
     own = tcl.pack_clustered(problem["tris"])          # numpy in, tree built
     carried = tcl.ClusteredTriangles.from_numpy(
-        packing_arrays(problem["jpacked"]))
+        packing_arrays(problem["jpacked"]), device="cpu")
     for other in (own, carried):
         for a, b in zip(other[:3], problem["packed"][:3]):
             assert torch.equal(a, b) and a.dtype == b.dtype

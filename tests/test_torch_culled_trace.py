@@ -227,8 +227,8 @@ def clusters():
     flat = tris.reshape(-1, 3)
     jb = jbvh.build_bvh(flat, np.arange(flat.shape[0], dtype=np.int32)
                         .reshape(-1, 3))
-    packed = tcl.pack_clustered(torch.tensor(tris),
-                                tbvh.BVH.from_numpy(bvh_arrays(jb)))
+    packed = tcl.pack_clustered(
+        torch.tensor(tris), tbvh.BVH.from_numpy(bvh_arrays(jb), device="cpu"))
     return jcl.pack_clustered(tris, jb), packed
 
 

@@ -9,7 +9,13 @@ package and carried across with ``render_scene_from_numpy``. Both sides
 run the same estimator on the same hits, so the gradients agree to
 float32 reassociation: each leaf within rtol 1e-4, atol 1e-8 (measured:
 at most 4e-5 relative on entries above a thousandth of the leaf's largest,
-at most 3e-9 absolute elsewhere).
+at most 3e-9 absolute elsewhere), with the port's elementary functions
+rounded once from float64 (``torch_parity.elementary_rounded_once``).
+With the host's own (torch's float32 ``sqrt`` on an AVX-512 CPU is
+faithful, not correctly rounded) the light radius's cotangent moves by
+3.35e-4 relative: it comes through the sphere light's cancelling
+``1 - sqrt(1 - r²/d²)``. That leaf is held at rtol 1e-3 in the host run,
+every other at rtol 1e-4.
 """
 
 import jax
@@ -36,7 +42,7 @@ from bifrost3d_tpu_torch.math.ray_offset import offset_ray_origin
 from bifrost3d_tpu_torch.scene.camera import camera_from_numpy
 from bifrost3d_tpu_torch.scene.render_scene import render_scene_from_numpy
 from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
-from torch_parity import camera_arrays, scene_arrays
+from torch_parity import camera_arrays, elementary_rounded_once, scene_arrays
 
 W, H = 16, 12
 SETTINGS = jpt.RenderSettings(max_bounce_count=2, shading_models_present=(0,),
@@ -103,14 +109,24 @@ def jax_loss_grad():
     return scene, cam, float(loss), grads
 
 
-@pytest.fixture(scope="module")
-def port_loss_grad(jax_loss_grad):
+def _port_loss_grad(jax_loss_grad):
     scene, cam, _, _ = jax_loss_grad
     port_scene = render_scene_from_numpy(scene_arrays(scene), device="cpu")
     port_cam = camera_from_numpy(camera_arrays(cam), device="cpu")
     loss, grads = render_loss_grad(port_scene, port_cam, torch.zeros(H, W, 3),
                                    W, H, 0, tpt.RenderSettings(*SETTINGS))
     return port_scene, float(loss), grads
+
+
+@pytest.fixture(scope="module")
+def port_loss_grad(jax_loss_grad):
+    return _port_loss_grad(jax_loss_grad)
+
+
+@pytest.fixture(scope="module")
+def port_loss_grad_rounded_once(jax_loss_grad):
+    with elementary_rounded_once():
+        return _port_loss_grad(jax_loss_grad)
 
 
 def _leaves(tree, path=""):
@@ -132,15 +148,12 @@ def test_render_loss_grad_loss_matches_jax(jax_loss_grad, port_loss_grad):
     np.testing.assert_allclose(loss, jax_loss, rtol=1e-5)
 
 
-def test_render_loss_grad_cotangents_match_jax(jax_loss_grad, port_loss_grad):
-    """Every float leaf of JAX's cotangent, matched by field path to the
-    port's: within rtol 1e-4, atol 1e-8. The trace tables (the dense
-    table, the BVH boxes) and the query epsilon are zero on both sides:
-    the queries are detached. The vertex buffer's and the light position's
-    gradients need the detached queries and the offset's rule."""
-    _, _, _, jax_grads = jax_loss_grad
-    port_scene, _, grads = port_loss_grad
-    ref, got = _leaves(jax_grads), _leaves(grads)
+# The host run's tolerance per leaf where it is not 1e-4: measured
+# host-vs-rounded-once spread 3.35e-4 relative (module docstring).
+HOST_RTOL = {".lights.radius": 1e-3}
+
+
+def _compare(ref, got, rtol):
     compared = []
     for path, want in ref.items():
         want = np.asarray(want)
@@ -148,9 +161,26 @@ def test_render_loss_grad_cotangents_match_jax(jax_loss_grad, port_loss_grad):
             continue
         have = got[path].numpy()
         assert have.shape == want.shape, path
-        np.testing.assert_allclose(have, want, rtol=1e-4, atol=1e-8,
-                                   err_msg=path)
+        np.testing.assert_allclose(have, want, rtol=rtol.get(path, 1e-4),
+                                   atol=1e-8, err_msg=path)
         compared.append(path)
+    return compared
+
+
+def test_render_loss_grad_cotangents_match_jax(jax_loss_grad, port_loss_grad,
+                                               port_loss_grad_rounded_once):
+    """Every float leaf of JAX's cotangent, matched by field path to the
+    port's: within rtol 1e-4, atol 1e-8 with the elementary functions
+    rounded once, and the host run within ``HOST_RTOL``. The trace tables
+    (the dense table, the BVH boxes) and the query epsilon are zero on
+    both sides: the queries are detached. The vertex buffer's and the
+    light position's gradients need the detached queries and the offset's
+    rule."""
+    _, _, _, jax_grads = jax_loss_grad
+    port_scene, _, grads = port_loss_grad
+    ref, got = _leaves(jax_grads), _leaves(grads)
+    _compare(ref, _leaves(port_loss_grad_rounded_once[2]), {})
+    compared = _compare(ref, got, HOST_RTOL)
     for path in (".tri_verts", ".lights.position", ".lights.power",
                  ".materials.tint", ".materials.roughness",
                  ".environment.image", ".environment.tint"):

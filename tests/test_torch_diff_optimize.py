@@ -27,7 +27,7 @@ from test_torch_diff_grad import (
     make_jax_camera,
     make_jax_scene,
 )
-from torch_parity import camera_arrays, scene_arrays
+from torch_parity import camera_arrays, elementary_rounded_once, scene_arrays
 
 
 @pytest.fixture(scope="module")
@@ -48,10 +48,14 @@ def recovery():
         vary_samples=False, settings=settings) for steps in (3, 1)}
     port_start = render_scene_from_numpy(scene_arrays(start), device="cpu")
     port_cam = camera_from_numpy(camera_arrays(cam), device="cpu")
-    port_runs = {steps: optimize_materials(
-        port_start, port_cam, torch.tensor(np.asarray(target)), W, H,
-        steps=steps, learning_rate=0.1, vary_samples=False,
-        settings=tpt.RenderSettings(*settings)) for steps in (3, 16)}
+    def port_run(steps):
+        return optimize_materials(
+            port_start, port_cam, torch.tensor(np.asarray(target)), W, H,
+            steps=steps, learning_rate=0.1, vary_samples=False,
+            settings=tpt.RenderSettings(*settings))
+    port_runs = {steps: port_run(steps) for steps in (3, 16)}
+    with elementary_rounded_once():
+        port_runs["3, rounded once"] = port_run(3)
     return start, jax_runs, port_runs
 
 
@@ -65,6 +69,14 @@ def test_optimize_materials_recovers_tint(recovery):
     assert not result.scene.materials.tint.requires_grad
 
 
+# The host run's atol per field where it is not 1e-5: the roughness after
+# three steps moves by 1.68e-5 between the host's float32 elementary
+# functions and the same run with them rounded once from float64 (torch's
+# float32 sqrt on an AVX-512 CPU is faithful, not correctly rounded), where
+# the rounded-once run is 1.4e-6 from JAX's.
+HOST_ATOL = {"roughness": 5e-5}
+
+
 def test_optimize_materials_first_steps_match_jax(recovery):
     """Three steps on both sides: the losses within rtol 1e-4 of JAX's.
     Adam's update divides by √v, so a step is ±lr wherever |g| is far above
@@ -73,7 +85,8 @@ def test_optimize_materials_first_steps_match_jax(recovery):
     starting |g| exceeds 1e-6, read from JAX's own first step: it moves a
     parameter by lr·|g|/(|g| + 1e-8), at least 0.99·lr exactly when
     |g| >= 9.9e-7 (here all four: tint's three channels and the
-    roughness)."""
+    roughness). The run with elementary functions rounded once is held at
+    atol 1e-5, the host run at ``HOST_ATOL``."""
     start, jax_runs, port_runs = recovery
     result = port_runs[3]
     np.testing.assert_allclose(result.losses, jax_runs[3].losses, rtol=1e-4)
@@ -84,9 +97,10 @@ def test_optimize_materials_first_steps_match_jax(recovery):
         first = np.abs(np.asarray(getattr(jax_runs[1].scene.materials, field))
                        - np.asarray(getattr(start.materials, field)))
         strong = first >= 0.99 * 0.1
-        want = np.asarray(getattr(jax_runs[3].scene.materials, field))
-        got = getattr(result.scene.materials, field).numpy()
+        want = np.asarray(getattr(jax_runs[3].scene.materials, field))[strong]
         checked += int(strong.sum())
-        np.testing.assert_allclose(got[strong], want[strong], atol=1e-5,
-                                   err_msg=field)
+        for run, atol in ((port_runs["3, rounded once"], 1e-5),
+                          (result, HOST_ATOL.get(field, 1e-5))):
+            got = getattr(run.scene.materials, field).numpy()[strong]
+            np.testing.assert_allclose(got, want, atol=atol, err_msg=field)
     assert checked >= 3

@@ -78,7 +78,11 @@ def test_replaced_diffuse_materials_match_jax(diffuse_cornell, path):
 
 
 def test_replaced_transmissive_material_raises(cornell):
-    jscene, _, arrays, cam = cornell
+    """A material turned Transmissive by a _replace: the megakernel refuses
+    the scene for the same reasons as JAX's, and the wavefront renders it
+    (the model is ported; it raised before) as JAX renders it, under the
+    statistical gate."""
+    jscene, jcam, arrays, cam = cornell
     scene = render_scene_from_numpy(arrays, device="cpu")
     models = scene.materials.shading_model.clone()
     models[0] = 2
@@ -90,8 +94,10 @@ def test_replaced_transmissive_material_raises(cornell):
     assert reasons == jpm.megakernel_ineligibility_reasons(
         jscene, jpt.RenderSettings())
     assert "Transmissive shading model" in reasons
-    with pytest.raises(NotImplementedError, match="Transmissive"):
-        tpt.render_sample(scene, cam, 8, 8, 0, tpt.RenderSettings())
+    assert scene.shading_models == (0, 2)
+    img = tpt.render_sample(scene, cam, RES, RES, 0,
+                            tpt.RenderSettings(max_bounce_count=BOUNCES))
+    assert_statistical_gate(img.numpy(), _jax_frame(jscene, jcam))
 
 
 # -- in-place writes ----------------------------------------------------------------

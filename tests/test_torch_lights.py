@@ -27,7 +27,7 @@ from bifrost3d_tpu_torch.math import quaternion as tq
 from bifrost3d_tpu_torch.math import ray_offset as tro
 from bifrost3d_tpu_torch.math import vec as tvec
 from bifrost3d_tpu_torch.scene import camera as tcam
-from torch_parity import assert_close_f32, camera_arrays
+from torch_parity import assert_close_f32, assert_f64_anchored, camera_arrays
 
 N = 2048
 LIGHTS = [
@@ -65,16 +65,27 @@ def lanes():
 
 
 def test_light_sample_pdf_evaluate(lanes):
+    """Gate ``torch_parity.assert_f64_anchored`` over the four lights'
+    arrays (built once in float32 by JAX, carried to both sides): the
+    sphere light's pdf cancels in ``1 - sqrt(1 - r²/d²)`` in both
+    packages."""
     pos, d, u2, index = lanes
-    tl, jl = TLights.build(LIGHTS, device="cpu"), JLights.build(LIGHTS)
-    ti, ji = torch.tensor(index), jnp.asarray(index)
-    tpos, jpos = torch.tensor(pos), jnp.asarray(pos)
-    td, jd = torch.tensor(d), jnp.asarray(d)
-    _close(tuple(tla.sample_light(tl, ti, tpos, torch.tensor(u2))),
-           tuple(jla.sample_light(jl, ji, jpos, jnp.asarray(u2))))
-    _close(tla.light_pdf(tl, ti, tpos, td), jla.light_pdf(jl, ji, jpos, jd))
-    _close(tla.evaluate_light(tl, ti, tpos, td),
-           jla.evaluate_light(jl, ji, jpos, jd))
+    fields = {k: np.asarray(v) for k, v in JLights.build(LIGHTS)._asdict().items()}
+    for k, v in TLights.build(LIGHTS, device="cpu")._asdict().items():
+        np.testing.assert_array_equal(v.numpy(), fields[k], err_msg=k)
+
+    def port(fn):
+        return lambda f, *a: fn(TLights(**f), *a)
+
+    def ref(fn):
+        return lambda f, *a: fn(JLights(**f), *a)
+    assert_f64_anchored(port(lambda l, i, p, u: tuple(tla.sample_light(l, i, p, u))),
+                        ref(lambda l, i, p, u: tuple(jla.sample_light(l, i, p, u))),
+                        fields, index, pos, u2)
+    assert_f64_anchored(port(tla.light_pdf), ref(jla.light_pdf),
+                        fields, index, pos, d)
+    assert_f64_anchored(port(tla.evaluate_light), ref(jla.evaluate_light),
+                        fields, index, pos, d)
 
 
 def test_analytic_light_hits(lanes):

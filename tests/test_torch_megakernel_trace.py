@@ -16,6 +16,7 @@ from bifrost3d_tpu_torch.geometry.creation import make_plane, make_sphere
 from bifrost3d_tpu_torch.geometry import pallas_intersect as tpi
 from bifrost3d_tpu_torch.integrator import pallas_mesh as tpm
 from bifrost3d_tpu_torch.integrator import path_tracer as tpt
+import torch_parity  # noqa: F401  (one torch thread per worker)
 
 R = 2 * jpi.BLOCK_R     # two 256-ray blocks
 

@@ -22,6 +22,7 @@ from bifrost3d_tpu_torch.post import bloom as tbloom
 from bifrost3d_tpu_torch.post import exposure as texp
 from bifrost3d_tpu_torch.post import pipeline as tpipe
 from bifrost3d_tpu_torch.post import tonemap as ttm
+import torch_parity  # noqa: F401  (one torch thread per worker)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import torch
 from bifrost3d_tpu_torch.apps import smallpt_app
 from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
 from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
+import torch_parity  # noqa: F401  (one torch thread per worker)
 
 W, H = 24, 16
 

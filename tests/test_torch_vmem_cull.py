@@ -75,8 +75,8 @@ def problem():
     jb = jbvh.build_bvh(flat, np.arange(flat.shape[0], dtype=np.int32)
                         .reshape(-1, 3))
     return dict(tris=tris, jpacked=jvm.pack_vmem(tris, jb),
-                packed=tvm.pack_vmem(torch.tensor(tris),
-                                     tbvh.BVH.from_numpy(bvh_arrays(jb))),
+                packed=tvm.pack_vmem(torch.tensor(tris), tbvh.BVH.from_numpy(
+                    bvh_arrays(jb), device="cpu")),
                 rays={name: _ray_set(name) for name in RAYS})
 
 

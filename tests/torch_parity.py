@@ -5,7 +5,16 @@ Data crosses between the JAX package and the port as numpy arrays only.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import torch
+
+# pytest-xdist runs several workers on the host's cores, and torch's OpenMP
+# pool of one thread per core in each worker oversubscribes them: a small
+# frame's many short parallel ops then wait on each other, and a test of a
+# few seconds alone took minutes in the full run. One thread per worker.
+torch.set_num_threads(1)
 
 
 def _to_numpy(value):
@@ -141,3 +150,372 @@ def prim_distances(hit, tris, origin, direction):
     t, _, _, _ = moller_trumbore(origin, direction, v[:, 0], v[:, 1], v[:, 2])
     return Hit(t=torch.where(hit.prim >= 0, t, float("inf")), prim=hit.prim,
                u=hit.u, v=hit.v)
+
+
+# -- float64-anchored float32 parity ----------------------------------------
+
+def _tree_map(fn, value):
+    """``fn`` on every numpy leaf of nested dicts, lists, tuples and
+    NamedTuples; other leaves (Python numbers, None) pass through."""
+    if isinstance(value, np.ndarray):
+        return fn(value)
+    if isinstance(value, dict):
+        return {k: _tree_map(fn, v) for k, v in value.items()}
+    if hasattr(value, "_fields"):
+        return type(value)(*(_tree_map(fn, v) for v in value))
+    if isinstance(value, (list, tuple)):
+        return type(value)(_tree_map(fn, v) for v in value)
+    return value
+
+
+def _leaves_numpy(value):
+    """The array leaves of an output tree, in order, as numpy arrays."""
+    if value is None:
+        return []
+    if hasattr(value, "_fields") or isinstance(value, (list, tuple)):
+        return [leaf for v in value for leaf in _leaves_numpy(v)]
+    if hasattr(value, "detach"):
+        value = value.detach().cpu()
+    return [np.asarray(value)]
+
+
+def _run_port(port_fn, args, dtype):
+    import torch
+
+    def lift(a):
+        if np.issubdtype(a.dtype, np.floating):
+            return torch.tensor(a.astype(dtype))
+        return torch.tensor(a)
+    return _leaves_numpy(port_fn(*_tree_map(lift, args)))
+
+
+def _run_jax(jax_fn, args, dtype, jit=False):
+    import jax
+    import jax.numpy as jnp
+
+    def lift(a):
+        if np.issubdtype(a.dtype, np.floating):
+            return jnp.asarray(a.astype(dtype))
+        return jnp.asarray(a)
+    if dtype == np.float64:
+        # JAX's own ``jnp.asarray(x, jnp.float32)`` casts would round
+        # intermediates to float32 in its float64 run: map the name to
+        # float64 for the call, so both sides run the formula in float64.
+        f32 = jnp.float32
+        try:
+            jnp.float32 = jnp.float64
+            with jax.enable_x64(True):
+                return _leaves_numpy(jax_fn(*_tree_map(lift, args)))
+        finally:
+            jnp.float32 = f32
+    if jit:
+        return _leaves_numpy(jax.jit(jax_fn)(*_tree_map(lift, args)))
+    return _leaves_numpy(jax_fn(*_tree_map(lift, args)))
+
+
+# torch's float32 elementary functions on the CPU are faithful, not
+# correctly rounded: on an AVX-512 host ``sqrt`` is off the IEEE root by one
+# ulp on 20% of inputs (0.75 ulp at most), and sin, cos, exp and log are
+# SLEEF's 1-ulp versions. Through a cancellation (``-b + sqrt(d)``,
+# ``1 - sqrt(1 - x)``) that ulp grows to tens.
+_ELEMENTARY = ("sqrt", "rsqrt", "sin", "cos", "exp", "log", "acos", "asin",
+               "atan", "atan2", "tan")
+
+
+def _rounded_once(fn):
+    """``fn`` for float32 tensors as its float64 value rounded once."""
+    import torch
+
+    def wrapped(*args, **kwargs):
+        if any(isinstance(a, torch.Tensor) and a.dtype == torch.float32
+               for a in args):
+            args = [a.double() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            return fn(*args, **kwargs).float()
+        return fn(*args, **kwargs)
+    return wrapped
+
+
+@contextlib.contextmanager
+def elementary_rounded_once():
+    """Within the block, every torch function of ``_ELEMENTARY`` on float32
+    tensors is its float64 value rounded once: the port's own arithmetic,
+    with the host library's elementary functions taken out."""
+    import torch
+    saved = {name: getattr(torch, name) for name in _ELEMENTARY}
+    try:
+        for name, fn in saved.items():
+            setattr(torch, name, _rounded_once(fn))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch, name, fn)
+
+
+def _nudged(args, rng):
+    """``args`` with every float input moved toward zero by 0, 1 or 2
+    float32 ulps, drawn per element (zero stays zero, so no input leaves
+    its domain)."""
+    def nudge(a):
+        if not np.issubdtype(a.dtype, np.floating):
+            return a
+        out = a.astype(np.float32)
+        steps = rng.integers(0, 3, size=a.shape)
+        for k in (1, 2):
+            out = np.where(steps >= k, np.nextafter(out, np.float32(0)), out)
+        return out
+    return _tree_map(nudge, args)
+
+
+def assert_f64_anchored(port_fn, jax_fn, *args, rtol64=1e-9, atol64=1e-15,
+                        factor=2.0, ulps=4, nudges=4):
+    """float32 parity of one function in two frameworks, anchored on
+    float64, so that it holds on any host.
+
+    ``args`` are numpy arrays (or trees of them, or Python numbers); float
+    arrays are handed to both sides once as float32 and once as float64
+    (JAX's under ``jax.enable_x64(True)``), integer and bool arrays as
+    they are. For every float leaf of the output, on every lane:
+
+    1. formula identity: the port's float64 value is within ``rtol64``
+       (plus ``atol64``) of JAX's float64 value;
+    2. the port's float32 error against JAX's float64 value is at most
+       ``factor`` × JAX's float32 error (the largest of its eager and
+       jitted runs, and of ``nudges`` eager runs at inputs 0–2 ulps away,
+       each against float64 at its own inputs: XLA:CPU contracts a jitted
+       formula to FMA, and one run's error is a single draw of the lane's
+       range, which on an ill-conditioned lane is wide: without the nudged
+       runs 8 of the 38 gated tests fail, each on 1–4 of its 2,048–12,288
+       lanes, at 1.01–2.12 × the bound) plus ``ulps`` float32 ulps of the
+       value. The port's float32 run takes
+       its elementary functions rounded once from float64
+       (``elementary_rounded_once``), so the bound holds the port's own
+       arithmetic, not the host's libm.
+
+    Bool and integer leaves are equal, in float32 and in float64. The
+    float32 error of a formula depends on the host, so this gate bounds
+    the port by JAX's own float32 error on the same host rather than by a
+    tolerance tuned on one. A non-finite float64 value must come out the
+    same in both float32 runs.
+    """
+    with elementary_rounded_once():
+        p32 = _run_port(port_fn, args, np.float32)
+    p64 = _run_port(port_fn, args, np.float64)
+    j32 = _run_jax(jax_fn, args, np.float32)
+    jit32 = _run_jax(jax_fn, args, np.float32, jit=True)
+    rng = np.random.default_rng(0)
+    nearby = []
+    for _ in range(nudges):
+        near = _nudged(args, rng)
+        nearby.append((_run_jax(jax_fn, near, np.float32),
+                       _run_jax(jax_fn, near, np.float64)))
+    j64 = _run_jax(jax_fn, args, np.float64)
+    assert len(p32) == len(j32) == len(p64) == len(j64), (len(p32), len(j32))
+    for i, (a32, a64, b32, b64) in enumerate(zip(p32, p64, j32, j64)):
+        assert a32.shape == b32.shape == a64.shape == b64.shape, (
+            i, a32.shape, b32.shape)
+        if not np.issubdtype(b64.dtype, np.floating):
+            np.testing.assert_array_equal(a32, b32, err_msg=f"leaf {i}")
+            np.testing.assert_array_equal(a64, b64, err_msg=f"leaf {i}")
+            continue
+        assert a64.dtype == b64.dtype == np.float64, (i, a64.dtype, b64.dtype)
+        finite = np.isfinite(b64)
+        np.testing.assert_array_equal(a64[~finite], b64[~finite],
+                                      err_msg=f"leaf {i}: float64 non-finite")
+        np.testing.assert_array_equal(a32[~finite], b32[~finite],
+                                      err_msg=f"leaf {i}: float32 non-finite")
+        ref = b64[finite]
+        gap = np.abs(a64[finite] - ref)
+        off = gap > rtol64 * np.abs(ref) + atol64
+        assert not off.any(), (
+            f"leaf {i}: float64 formulas differ on {int(off.sum())} lanes, "
+            f"worst relative {float((gap / np.abs(ref).clip(1e-300)).max())}")
+        err_p = np.abs(a32[finite].astype(np.float64) - ref)
+        err_j = np.abs(b32[finite].astype(np.float64) - ref)
+        err_j = np.fmax(err_j, np.abs(jit32[i][finite].astype(np.float64)
+                                      - ref))
+        for near32, near64 in nearby:
+            err_j = np.fmax(err_j, np.abs(near32[i][finite].astype(np.float64)
+                                          - near64[i][finite]))
+        ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+        bound = factor * err_j + ulps * ulp
+        bad = ~(err_p <= bound)
+        assert not bad.any(), (
+            f"leaf {i}: float32 error above {factor} x JAX's + {ulps} ulps on "
+            f"{int(bad.sum())} of {bad.size} lanes; (port error, JAX error, "
+            f"value): {list(zip(err_p[bad][:4], err_j[bad][:4], ref[bad][:4]))}")
+
+
+# -- the host's spread ------------------------------------------------------
+#
+# ``JAX_PLATFORMS=cpu python3 tests/torch_parity.py``, from the repository
+# root, prints how far float32 results of the port and of the JAX package
+# move on the host's CPU: the numbers behind ``assert_f64_anchored`` and the
+# measured tolerances of the gradient and Transmissive-frame tests.
+#
+# 1. sqrt: the share of float32 inputs whose ``torch.sqrt`` differs from
+#    the IEEE root (numpy's), and torch's largest error in ulps;
+# 2. conductor: ``adjust_conductor_specularity_to_exterior_medium``'s
+#    largest float32 error against float64, in ulps of the value, for the
+#    port, the port with its elementary functions rounded once from
+#    float64, and JAX;
+# 3. render_loss_grad: the light radius's cotangent on
+#    test_torch_diff_grad.py's scene, the port's host run and its
+#    rounded-once run against JAX's (relative);
+# 4. optimize_materials: the roughness after three Adam steps of
+#    test_torch_diff_optimize.py, the same two runs against JAX's;
+# 5. Test frames: JAX's jitted frames against its eager ones, and the
+#    port's against each, at 16 × 16: pixels off by more than 1e-3 in each
+#    of 8 frames, and over the average of the 8 frames the pixels off by
+#    more than 2% of their value, the glass sphere's mean and the frame's.
+
+
+def _ulps(err, ref):
+    return err / np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+
+
+def _spread_sqrt():
+    x = np.random.default_rng(0).uniform(0, 4, 1 << 20).astype(np.float32)
+    got = torch.sqrt(torch.tensor(x)).numpy()
+    ieee = np.sqrt(x)
+    exact = np.sqrt(x.astype(np.float64))
+    print(f"sqrt: torch float32 differs from the IEEE root on "
+          f"{float((got != ieee).mean()):.4f} of {x.size} inputs; largest "
+          f"error {float(_ulps(np.abs(got - exact), exact).max()):.3f} ulp "
+          f"(IEEE {float(_ulps(np.abs(ieee - exact), exact).max()):.3f})")
+
+
+def _spread_conductor():
+    import jax.numpy as jnp
+    from bifrost3d_tpu.bsdf import fresnel as jf
+    from bifrost3d_tpu_torch.bsdf import fresnel as tf
+    
+    t = np.random.default_rng(5).uniform(0, 0.9999, 12288).astype(np.float32)
+
+    def port(dtype):
+        x = torch.tensor(t, dtype=dtype)
+        return tf.adjust_conductor_specularity_to_exterior_medium(
+            1.5, x, torch.zeros_like(x)).numpy().astype(np.float64)
+    ref = port(torch.float64)
+    host = port(torch.float32)
+    with elementary_rounded_once():
+        once = port(torch.float32)
+    jax = np.asarray(jf.adjust_conductor_specularity_to_exterior_medium(
+        1.5, jnp.asarray(t), jnp.zeros(t.shape))).astype(np.float64)
+    worst = {name: float(_ulps(np.abs(v - ref), ref).max())
+             for name, v in (("port", host), ("port rounded once", once),
+                             ("JAX", jax))}
+    print("conductor: largest float32 error against float64, ulps: "
+          + ", ".join(f"{k} {v:.0f}" for k, v in worst.items()))
+
+
+def _spread_gradients():
+    import jax.numpy as jnp
+    from bifrost3d_tpu.diff import optimize_materials as jax_optimize
+    from bifrost3d_tpu.diff import render_loss_grad as jax_loss_grad
+    from bifrost3d_tpu.integrator import path_tracer as jpt
+    from bifrost3d_tpu_torch.diff import optimize_materials, render_loss_grad
+    from bifrost3d_tpu_torch.integrator import path_tracer as tpt
+    from bifrost3d_tpu_torch.scene.camera import camera_from_numpy
+    from bifrost3d_tpu_torch.scene.render_scene import render_scene_from_numpy
+    from test_torch_diff_grad import (SETTINGS, H, W, make_jax_camera,
+                                      make_jax_scene)
+
+    scene, cam = make_jax_scene(), make_jax_camera()
+    _, jgrads = jax_loss_grad(scene, cam, jnp.zeros((H, W, 3)), W, H,
+                              jnp.uint32(0), SETTINGS)
+    want = float(np.asarray(jgrads.lights.radius)[0])
+    port_scene = render_scene_from_numpy(scene_arrays(scene), device="cpu")
+    port_cam = camera_from_numpy(camera_arrays(cam), device="cpu")
+
+    def radius():
+        _, g = render_loss_grad(port_scene, port_cam, torch.zeros(H, W, 3),
+                                W, H, 0, tpt.RenderSettings(*SETTINGS))
+        return float(g.lights.radius[0])
+    host = radius()
+    with elementary_rounded_once():
+        once = radius()
+    print(f"render_loss_grad: light radius cotangent, JAX {want:.7e}; port "
+          f"{abs(host - want) / abs(want):.3e} off (relative), rounded once "
+          f"{abs(once - want) / abs(want):.3e}")
+
+    settings = SETTINGS._replace(max_bounce_count=1)
+    target = jpt.render_sample(make_jax_scene(tint=(0.8, 0.2, 0.5)), cam, W,
+                               H, 0, settings)
+    start = make_jax_scene(tint=(0.4, 0.6, 0.3))
+    jrun = jax_optimize(start, cam, target, W, H, steps=3, learning_rate=0.1,
+                        vary_samples=False, settings=settings)
+    want = float(np.asarray(jrun.scene.materials.roughness)[0])
+    port_start = render_scene_from_numpy(scene_arrays(start), device="cpu")
+
+    def roughness():
+        run = optimize_materials(
+            port_start, port_cam, torch.tensor(np.asarray(target)), W, H,
+            steps=3, learning_rate=0.1, vary_samples=False,
+            settings=tpt.RenderSettings(*settings))
+        return float(run.scene.materials.roughness[0])
+    host = roughness()
+    with elementary_rounded_once():
+        once = roughness()
+    print(f"optimize_materials: roughness after 3 Adam steps, JAX {want:.7f};"
+          f" port {abs(host - want):.3e} off, rounded once "
+          f"{abs(once - want):.3e}")
+
+
+def _spread_frames(accumulations=8):
+    import jax
+    import jax.numpy as jnp
+    from bifrost3d_tpu.apps import scenes as jscenes
+    from bifrost3d_tpu.integrator import path_tracer as jpt
+    from bifrost3d_tpu_torch.integrator import path_tracer as tpt
+    from bifrost3d_tpu_torch.scene.camera import camera_from_numpy
+    from bifrost3d_tpu_torch.scene.render_scene import render_scene_from_numpy
+    from test_torch_transmissive_frames import _glass_pixels
+
+    jscene, jcam = jscenes.SCENES["Test"]()
+    scene = render_scene_from_numpy(scene_arrays(jscene), device="cpu")
+    cam = camera_from_numpy(camera_arrays(jcam), device="cpu")
+    jset = jpt.settings_for_scene(jscene, max_bounce_count=4)
+    tset = tpt.settings_for_scene(scene, max_bounce_count=4)
+    accs = range(accumulations)
+    frames = {"jit": [], "eager": [], "port": []}
+    for acc in accs:
+        frames["jit"].append(np.asarray(jpt.render_sample(
+            jscene, jcam, 16, 16, jnp.uint32(acc), jset)))
+        with jax.disable_jit():
+            frames["eager"].append(np.asarray(jpt.render_sample(
+                jscene, jcam, 16, 16, jnp.uint32(acc), jset)))
+        frames["port"].append(tpt.render_sample(scene, cam, 16, 16, acc,
+                                                tset).numpy())
+    glass = _glass_pixels(scene, cam, accs)
+    print(f"Test frames, 16x16, 4 bounces, accumulations 0-{accs[-1]}; the "
+          f"glass sphere covers {int(glass.sum())} pixels")
+    for a, b in (("jit", "eager"), ("port", "jit"), ("port", "eager")):
+        one = [float((np.abs(x - y).max(axis=-1) > 1e-3).mean())
+               for x, y in zip(frames[a], frames[b])]
+        mean_a, mean_b = np.mean(frames[a], axis=0), np.mean(frames[b],
+                                                             axis=0)
+        off = (np.abs(mean_a - mean_b).max(axis=-1)
+               / np.maximum(mean_b.max(axis=-1), 1e-3))
+        print(f"  {a} vs {b}: pixels off by > 1e-3 a frame "
+              + " ".join(f"{x:.4f}" for x in one)
+              + f"; the average of the frames: pixels off by > 2% "
+              f"{float((off > 0.02).mean()):.4f}, largest {float(off.max()):.4f}"
+              f", the sphere's mean {float(mean_a[glass].mean() / mean_b[glass].mean() - 1):+.5f}"
+              f", the frame's mean {float(mean_a.mean() / mean_b.mean() - 1):+.5f}")
+
+
+def spread_report() -> int:
+    _spread_sqrt()
+    _spread_conductor()
+    _spread_gradients()
+    _spread_frames()
+    return 0
+
+
+if __name__ == "__main__":
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sys.exit(spread_report())
