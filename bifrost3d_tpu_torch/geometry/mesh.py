@@ -1,8 +1,8 @@
 """Triangle meshes (host side).
 
 Port of the slice's part of ``bifrost3d_tpu/geometry/mesh.py``
-(``TriangleMesh``, ``compute_smooth_normals``, ``transform_mesh``,
-``combine_meshes``). Meshes
+(``TriangleMesh``, ``mesh_aabb``, ``compute_smooth_normals``,
+``transform_mesh``, ``combine_meshes``). Meshes
 are assets built once on the host, so their buffers are numpy arrays;
 ``scene.render_scene.build_render_scene`` flattens them into device
 tensors.
@@ -21,6 +21,12 @@ class TriangleMesh(NamedTuple):
     normals: Optional[np.ndarray] = None         # [v, 3] float32 (unit)
     texcoords: Optional[np.ndarray] = None       # [v, 2] float32
     tint_roughness: Optional[np.ndarray] = None  # [v, 4] float32
+
+
+def mesh_aabb(mesh: TriangleMesh):
+    """(min, max) corner arrays — Mesh::compute_bounds."""
+    pos = np.asarray(mesh.positions)
+    return pos.min(axis=0), pos.max(axis=0)
 
 
 def compute_smooth_normals(mesh: TriangleMesh) -> TriangleMesh:

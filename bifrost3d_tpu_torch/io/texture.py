@@ -1,6 +1,7 @@
 """Textures: mipmaps, samplers and the TextureBank.
 
-Port of ``bifrost3d_tpu/io/texture.py`` (``fill_mipmaps``, ``TextureBank``
+Port of ``bifrost3d_tpu/io/texture.py`` (``fill_mipmaps``,
+``summed_area_table``, ``sat_region_average``, ``TextureBank``
 with ``build``, ``count`` and ``has_trilinear``, ``_wrap_coord``,
 ``_sample_level``, ``sample_texture``, the ``FILTER_*`` / ``WRAP_*``
 constants, the unorm helpers), the counterpart of the reference's
@@ -46,6 +47,23 @@ def fill_mipmaps(image: np.ndarray) -> List[np.ndarray]:
         mips.append(0.25 * (p[0::2, 0::2] + p[1::2, 0::2]
                             + p[0::2, 1::2] + p[1::2, 1::2]))
     return mips
+
+
+def summed_area_table(image: np.ndarray) -> np.ndarray:
+    """Inclusive 2D prefix sum (Image summed-area table), in float64."""
+    return np.cumsum(np.cumsum(np.asarray(image, np.float64), axis=0), axis=1)
+
+
+def sat_region_average(sat: np.ndarray, x0: int, y0: int, x1: int, y1: int):
+    """Mean over the inclusive pixel region [x0, x1] × [y0, y1]."""
+    total = sat[y1, x1].copy()
+    if x0 > 0:
+        total -= sat[y1, x0 - 1]
+    if y0 > 0:
+        total -= sat[y0 - 1, x1]
+    if x0 > 0 and y0 > 0:
+        total += sat[y0 - 1, x0 - 1]
+    return total / ((x1 - x0 + 1) * (y1 - y0 + 1))
 
 
 _INT_FIELDS = ("sizes", "filters", "wraps", "mip_offsets", "mip_sizes",

@@ -2,7 +2,8 @@
 
 Port of ``bifrost3d_tpu/scene/camera.py`` (``PinholeCamera``,
 ``perspective_projection``, ``perspective_camera``,
-``camera_ray_directions``, ``project_to_screen``): near- and far-plane NDC
+``camera_ray_directions``, ``camera_rays``, ``project_to_screen``): near-
+and far-plane NDC
 points are unprojected through the inverse projection and rotated into
 world space, and world points projected back.
 """
@@ -92,6 +93,21 @@ def camera_ray_directions(camera: PinholeCamera, viewport_points):
     origin = t.translation + quat_rotate(t.rotation, ray_near * t.scale)
     direction = quat_rotate(t.rotation, dir_view)
     return origin, direction
+
+
+def camera_rays(camera: PinholeCamera, width: int, height: int, jitter=None):
+    """One ray per pixel → (origins, directions) [h, w, 3]. ``jitter``
+    [h, w, 2] in [0, 1)² (default: pixel centres). Row 0 is the top of the
+    image (viewport v = 1), the reference's image convention."""
+    device = camera.projection.device
+    x = torch.arange(width, dtype=torch.float32, device=device)[None, :, None]
+    y = torch.arange(height, dtype=torch.float32, device=device)[:, None, None]
+    if jitter is None:
+        jitter = torch.full((height, width, 2), 0.5, dtype=torch.float32,
+                            device=device)
+    u = (x + jitter[..., 0:1]) / width
+    v = 1.0 - (y + jitter[..., 1:2]) / height
+    return camera_ray_directions(camera, torch.cat([u, v], dim=-1))
 
 
 def project_to_screen(camera: PinholeCamera, point):

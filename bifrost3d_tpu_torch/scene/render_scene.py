@@ -2,7 +2,8 @@
 
 Port of ``bifrost3d_tpu/scene/render_scene.py`` (``RenderScene``,
 ``_assemble_soup``, ``build_render_scene``, ``refit_render_scene``,
-``_safe_unit``, ``_packed_components``, ``_packed_clusters``): the host
+``corner_normals``, ``_safe_unit``, ``_packed_components``,
+``_packed_clusters``): the host
 flattens (mesh, material, matrix) instances into one world-space triangle
 soup, builds the BVH over it, and packs material and light tables, all on
 one device.
@@ -52,7 +53,10 @@ from bifrost3d_tpu_torch.lights.environment import (
     presample_environment as _presample,
 )
 from bifrost3d_tpu_torch.lights.types import LightArray
-from bifrost3d_tpu_torch.math.octahedral import octahedral_encode
+from bifrost3d_tpu_torch.math.octahedral import (
+    octahedral_decode,
+    octahedral_encode,
+)
 from bifrost3d_tpu_torch.scene.materials import MaterialArray
 from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
@@ -111,6 +115,12 @@ def shading_models_present(materials: MaterialArray) -> tuple:
         present = _MODELS_CACHE.store(key, (models,), tuple(sorted(set(
             int(m) for m in models.tolist()))))
     return present
+
+
+def corner_normals(scene: RenderScene, prim):
+    """Decoded per-corner shading normals [..., 3, 3] of triangles ``prim``
+    (the attribute-interpolation decode, Types.h:58-70)."""
+    return octahedral_decode(scene.tri_normals_oct[prim.long()])
 
 
 def _assemble_soup(instances):

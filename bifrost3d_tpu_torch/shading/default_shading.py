@@ -2,7 +2,7 @@
 
 Port of ``bifrost3d_tpu/shading/default_shading.py``
 (``modulate_roughness_under_coat``, ``_specular_properties``,
-``DefaultShading.create``, ``evaluate_with_pdf``, ``sample``). Per shading
+``DefaultShading.create``, ``evaluate_with_pdf``, ``sample``, ``rho``). Per shading
 point, construction bakes the coat-modulated roughness, the specularities
 re-based under the coat medium, the metallic blend, the rho-table energy
 compensation and the per-lobe sampling probabilities.
@@ -199,3 +199,26 @@ class DefaultShading(NamedTuple):
         return BSDFSample(direction=direction, pdf=pdf,
                           is_delta=is_delta & frontside,
                           reflectance=reflectance)
+
+    # -- rho ------------------------------------------------------------------
+
+    def rho(self, abs_cos_theta):
+        """Directional-hemispherical reflectance (the albedo AOV)."""
+        return (self.diffuse_rho(abs_cos_theta)
+                + self.specular_rho(abs_cos_theta)
+                + self.coat_rho(abs_cos_theta)[..., None])
+
+    def diffuse_rho(self, abs_cos_theta):
+        return self.diffuse_tint
+
+    def specular_rho(self, abs_cos_theta):
+        base = sample_ggx_with_fresnel_rho(abs_cos_theta, self.roughness)
+        full = sample_ggx_rho(abs_cos_theta, self.roughness)
+        return (lerp(base[..., None], full[..., None], self.specularity)
+                * self.specular_scale[..., None])
+
+    def coat_rho(self, abs_cos_theta):
+        coat_roughness = ggx.roughness_from_alpha(maximum(self.coat_alpha, 0.0))
+        base = sample_ggx_with_fresnel_rho(abs_cos_theta, coat_roughness)
+        full = sample_ggx_rho(abs_cos_theta, coat_roughness)
+        return lerp(base, full, COAT_SPECULARITY) * self.coat_scale

@@ -1,7 +1,7 @@
 """Diffuse shading model: tint + roughness → EON Oren-Nayar only.
 
 Port of ``bifrost3d_tpu/shading/diffuse_shading.py`` (``DiffuseShading``
-with ``create``, ``evaluate_with_pdf``, ``sample``), the counterpart of
+with ``create``, ``evaluate_with_pdf``, ``sample``, ``rho``), the counterpart of
 ``Shading/ShadingModels/DiffuseShading.h:21-50``.
 """
 
@@ -40,3 +40,6 @@ class DiffuseShading(NamedTuple):
             pdf=torch.where(frontside, s.pdf, 0.0),
             is_delta=s.is_delta,
             reflectance=torch.where(frontside[..., None], s.reflectance, 0.0))
+
+    def rho(self, abs_cos_theta):
+        return self.tint

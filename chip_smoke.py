@@ -42,7 +42,8 @@ the last line):
    incoherent rays each: closest hit with t_max = inf, with a finite
    t_max, and with a live prefix of R/3 as an int and as a device int64;
    prim must agree off ties on >= 99.9% of rays and t be allclose (rtol
-   1e-5) where it does, and rays past the prefix miss. Median call times by CUDA events,
+   1e-5) where it does, u and v within 1e-3 on >= 99.9% of the hits where
+   it does (_compare_uv), and rays past the prefix miss. Median call times by CUDA events,
    device times by torch.profiler (in a process of its own, with the
    cluster scan's and the resident-cluster walk's: a later profiler session
    of one process has lost the card's trace), the plain cull's work
@@ -84,8 +85,8 @@ the last line):
    closest hit, any-hit, and the sorted wrapper, each against the plain
    version (the lockstep traversal over the same packed tree): prim must
    agree off ties (two candidates whose t agree to 1e-6 relative) on
-   >= 99.9% of rays and t within rtol 1e-5 where it does; occlusion must
-   agree on >= 99.9%; the live prefix (a device int64 and an int) honoured
+   >= 99.9% of rays and t within rtol 1e-5 where it does, u and v as in
+   phase 4; occlusion must agree on >= 99.9%; the live prefix (a device int64 and an int) honoured
    by closest and any-hit queries; and against the dense kernel on the
    16,130-triangle soup. The persistent grid's blocks per SM, median
    times, the plain walk's box and triangle test counts.
@@ -110,7 +111,8 @@ the last line):
    resident-cluster walk on the 49,678-triangle bridge scene's soup with
    its 65,536 camera rays and 65,536 seeded incoherent rays, and on the
    16,130-triangle soup: each against its plain version (prim equal off
-   ties on >= 99.9% of rays, t within rtol 1e-5; the walk also with a
+   ties on >= 99.9% of rays, t within rtol 1e-5, u and v as in phase 4;
+   the walk also with a
    finite t_max, its occlusion on >= 99.9%, its any-hit prim also under
    the closest-hit gate, each hit at the distance of the triangle it
    names, its live prefix as an int, an int32 and an int64 tensor) and against the dense and the BVH kernel on
@@ -227,6 +229,33 @@ the last line):
    (math/clip.py) on card tensors, in a process of their own: no
    host-to-device copy (torch.profiler) and no host sync (sync debug mode
    raising) a call.
+22. files: the viewer on files written under build/files/ from seeded
+   numpy (the repository holds no model files), at its defaults (512², 4
+   bounces), each run with every count at 0 before. F1: the bridge scene's
+   49,678 triangles as bridge.obj (v / vt / vn, one usemtl group per
+   material, an MTL with Kd, Ns, illum and d), loaded through the native
+   tokenizer and the Python one (equal arrays, the triangles those
+   written), then simple_viewer --scene bridge.obj -n 8: exactly 8
+   megakernel launches (its BVH branch, B3), no trace launch; a 512² frame
+   against its plain version. F2: the 589,824-triangle torus grid as
+   torus.glb (POSITION, NORMAL, TEXCOORD_0 interleaved in one view of
+   stride 32; 1024² RGBA base-colour and metallic-roughness PNGs,
+   Paeth-filtered, in the binary chunk; alphaMode MASK), no glTF warning,
+   3 textures in the bank, the viewer -n 2 on the pooled wavefront (B4
+   launched, no other kernel), a 128² frame against the plain trace. F3: a
+   1024 x 512 sky with a sun written by save_exr and read back bit for
+   bit, as --environment-map on CornellBox and on bridge.obj -n 4: the
+   pooled wavefront, B1 launched, no other kernel; a 128² frame of each
+   against the plain trace. F4: render_aovs at 512² on bridge.obj (one B1
+   launch) and torus.glb (one B4 launch) against the plain trace: prim off
+   ties and u, v as in phase 4; tint, roughness and primitive id equal and
+   depth within the t gate where prim agrees; shading normal and albedo
+   within 1e-3 on >= 99.9% of those pixels; the viewer's --aov for each of
+   the six on bridge.obj and primitive_id on torus.glb, written as EXR and
+   read back equal. Each case prints its load seconds (native and Python
+   tokenizer, glTF accessors, PNG decode, EXR read), render_sample_fast's
+   frame ms (median of 3, with the range) and each kernel's launches a
+   frame, beside the card's name and power limit.
 
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
@@ -652,6 +681,7 @@ def kernel_phase(device, soups, device_times) -> dict:
             ref = dense.dense_intersect_reference(comp, n, o, d, 1e-4, inf)
             t_max = _bounded(ref)
             worst_err, worst_agree, ties, got = 0.0, 1.0, 0, {}
+            uv_agree, uv_err = 1.0, 0.0
             for case, bound, count in (
                     ("inf", inf, None), ("t_max", t_max, None),
                     ("live", inf, live),
@@ -662,12 +692,15 @@ def kernel_phase(device, soups, device_times) -> dict:
                     dense.dense_intersect_reference(comp, n, o, d, 1e-4,
                                                     bound, count)
                 rows = slice(None) if count is None else slice(0, live)
-                a, t, err = _compare_hits(
-                    type(ref)(*(f[rows] for f in got[case])),
-                    type(ref)(*(f[rows] for f in plain)),
-                    f"dense/{what}/{case}", failures)
+                got_rows = type(ref)(*(f[rows] for f in got[case]))
+                plain_rows = type(ref)(*(f[rows] for f in plain))
+                a, t, err = _compare_hits(got_rows, plain_rows,
+                                          f"dense/{what}/{case}", failures)
+                uv_a, uv_e = _compare_uv(got_rows, plain_rows,
+                                         f"dense/{what}/{case}", failures)
                 worst_agree, ties = min(worst_agree, a), ties + t
                 worst_err = max(worst_err, err)
+                uv_agree, uv_err = min(uv_agree, uv_a), max(uv_err, uv_e)
                 if count is not None and not bool(
                         (got[case].prim[live:] == -1).all()):
                     failures.append(f"dense/{what}/{case}: rays past the "
@@ -697,6 +730,7 @@ def kernel_phase(device, soups, device_times) -> dict:
             full = roofline(48 * R + 36 * n, MT_FLOPS * R * n)
             k = results[what] = dict(
                 n_tris=n, max_abs_err=worst_err, agree=worst_agree, ties=ties,
+                uv_agree=uv_agree, uv_err=uv_err,
                 ms=ms, device_ms=device_times[f"dense/{what}"],
                 plain_ms=plain_ms, hits=float((ref.prim >= 0).float().mean()),
                 bound_full_ms=full["bound_ms"], bound_full_by=full["bound_by"],
@@ -707,7 +741,9 @@ def kernel_phase(device, soups, device_times) -> dict:
                   f"off ties >= {k['agree']:.5f} with the plain version "
                   f"({k['ties']} ties; closest, bounded, live as int and "
                   f"int64), max |dt| "
-                  f"{k['max_abs_err']:.3g} | hit share {k['hits']:.3f} | "
+                  f"{k['max_abs_err']:.3g}, u, v within 1e-3 on "
+                  f"{uv_agree:.5f} of hits (max |du|, |dv| {uv_err:.3g}) | "
+                  f"hit share {k['hits']:.3f} | "
                   f"call {ms:.4f} ms (median of 20), device "
                   f"{k['device_ms']:.4f} ms (torch.profiler, mean of 10) | "
                   f"plain {plain_ms:.1f} ms (median of 3) | per ray "
@@ -1181,8 +1217,9 @@ def _compare_hits(got, ref, what, failures):
 
 
 def _compare_uv(got, ref, what, failures):
-    """u and v where prim agrees on a hit: both within 1e-3 (of their
-    [0, 1] range) on >= 99.9% of those rays. A barycentric is a difference
+    """u and v where prim agrees on a hit (B1, B4, B6, B7 and the AOV
+    trace): both within 1e-3 (of their [0, 1] range) on >= 99.9% of those
+    rays. A barycentric is a difference
     of products, contracted differently by the kernel and by PyTorch, and a
     near-degenerate triangle magnifies that: on the bridge's camera rays
     0.3% of B7's closest hits differ by more than rtol 1e-4, atol 1e-5, up
@@ -1258,6 +1295,9 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
         srt = hier.hierarchical_intersect_sorted(packed, o, d, 1e-4, inf)
         s_agree, s_ties, s_err = _compare_hits(srt, ref, f"bvh/{name}/sorted",
                                                failures)
+        uv = [_compare_uv(hit, ref, f"bvh/{name}{suffix}", failures)
+              for hit, suffix in ((got, ""), (srt, "/sorted"))]
+        uv_agree, uv_err = min(u[0] for u in uv), max(u[1] for u in uv)
         # Occlusion within a finite segment, and the live prefix.
         t_max = torch.where(ref.prim >= 0, ref.t * 1.5, 20.0)
         t_max[::2] *= 0.5
@@ -1305,6 +1345,7 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
         results[name] = dict(
             agree=min(agree, s_agree), ties=ties + s_ties,
             max_abs_err=max(err, s_err), occlusion_agree=occ_agree, hits=hits,
+            uv_agree=uv_agree, uv_err=uv_err,
             box_tests=box_tests, tri_tests=tri_tests, steps=stats["steps"],
             ms=ms, any_ms=any_ms, sorted_ms=sorted_ms, plain_ms=plain_ms,
             blocks_per_sm=occupancy[0],
@@ -1314,7 +1355,8 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
         print(f"kernel/bvh/{name}: {R} rays x {n_tris} tris | hit share "
               f"{hits:.3f} | prim agrees off ties >= {min(agree, s_agree):.5f} "
               f"({ties + s_ties} ties), max |dt| {max(err, s_err):.3g}, "
-              f"occlusion agrees {occ_agree:.5f} | plain walk: "
+              f"u, v within 1e-3 on {uv_agree:.5f} of hits (max |du|, |dv| "
+              f"{uv_err:.3g}), occlusion agrees {occ_agree:.5f} | plain walk: "
               f"{stats['steps']} steps, {box_tests / R:.1f} box and "
               f"{tri_tests / R:.1f} triangle tests per ray, {rows_read} "
               f"distinct child records and {tris_read} distinct triangles "
@@ -1624,6 +1666,9 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
             out[key] = dict(agree=agree, ties=ties, max_abs_err=err)
         uv_agree, uv_err = _compare_uv(by_walk, walk_ref, f"vmem/{what}",
                                        failures)
+        scan_uv = _compare_uv(by_scan, scan_ref, f"clustered/{what}",
+                              failures)
+        out["clustered"].update(uv_agree=scan_uv[0], uv_err=scan_uv[1])
 
         # The walk within a finite segment (closest hit and occlusion), and
         # its live prefix as an int, an int32 and an int64 tensor.
@@ -1757,7 +1802,9 @@ def cluster_kernel_phase(device, dense_soup, device_times) -> dict:
         for key in ("clustered", "vmem"):
             k = out[key]
             work = (f"{k['fetches'] / n_blocks:.1f} of {n_clusters} clusters "
-                    f"fetched per block of {clustered.BLOCK_R}"
+                    f"fetched per block of {clustered.BLOCK_R}, u, v agree "
+                    f"on {k['uv_agree']:.5f} of hits (max |du|, |dv| "
+                    f"{k['uv_err']:.3g})"
                     if key == "clustered" else
                     f"{k['probes'] / n_groups:.1f} probes and "
                     f"{k['leaf_tests'] / n_groups:.2f} leaves per group of "
@@ -3192,6 +3239,407 @@ def train_profile(result, card) -> None:
               f"wrapper counted {counted}) | {parts} | {card}", flush=True)
 
 
+# -- phase 22: the user's own files ------------------------------------------
+
+FILES_DIR = os.path.join(REPO, "build", "files")
+FILES_GATE_RES = 128
+GLTF_ACCUMULATIONS = 2
+ENV_ACCUMULATIONS = 4
+SKY_W, SKY_H = 1024, 512
+TEXTURE_SIZE = 1024
+
+
+def _trace_counts() -> dict:
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
+    from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    return dict(B1=dense.launch_count, B2_B3=mega.launch_count,
+                B4=hier.launch_count, B6=clustered.launch_count,
+                B7=vmem.launch_count)
+
+
+def _viewer(argv, expect, what) -> dict:
+    """simple_viewer.main(argv) on the card with every count at 0 before →
+    its launches; each kernel of ``expect`` must have launched ("> 0") or
+    launched that many times, every other kernel not at all."""
+    from bifrost3d_tpu_torch.apps import simple_viewer
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    simple_viewer.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _trace_counts()
+    for name, n in counts.items():
+        want = expect.get(name, 0)
+        check(n > 0 if want == "> 0" else n == want,
+              f"{what}: launches {counts}, expected {expect}")
+    return dict(counts=counts, seconds=seconds)
+
+
+def _timed_frames(scene, cam, res, settings, first, n=3) -> dict:
+    """n render_sample_fast frames after the ones already run → median,
+    min and max ms, and each kernel's launches a frame."""
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    times = []
+    torch.cuda.synchronize()
+    _reset_counts()
+    for acc in range(first, first + n):
+        t0 = time.perf_counter()
+        pt.render_sample_fast(scene, cam, res, res, acc, settings)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_frame = {k: v / n for k, v in _trace_counts().items() if v}
+    return dict(ms=statistics.median(times), ms_min=min(times),
+                ms_max=max(times), per_frame=per_frame)
+
+
+def _sky(width=SKY_W, height=SKY_H) -> np.ndarray:
+    """A latlong sky: a zenith-to-horizon gradient, a darker ground and a
+    sun of radiance 4,000 about 0.5 degrees across."""
+    v = (np.arange(height) + 0.5) / height
+    u = (np.arange(width) + 0.5) / width
+    up = np.clip(1.0 - 2.0 * v, -1.0, 1.0)[:, None, None]
+    zenith = np.asarray([0.25, 0.45, 1.1])
+    horizon = np.asarray([0.95, 0.95, 1.0])
+    ground = np.asarray([0.12, 0.10, 0.09])
+    sky = np.where(up > 0, horizon + (zenith - horizon) * np.sqrt(
+        np.clip(up, 0.0, None)), ground * np.ones_like(up))
+    sky = np.broadcast_to(sky, (height, width, 3)).copy()
+    du = np.minimum(np.abs(u[None, :] - 0.3), 1 - np.abs(u[None, :] - 0.3))
+    dist = np.hypot(du * 2 * np.pi * np.sin(np.pi * 0.3), (v[:, None] - 0.3)
+                    * np.pi)
+    sky[dist < 0.0045] = 4000.0
+    return sky.astype(np.float32)
+
+
+def _textures(size=TEXTURE_SIZE):
+    """The torus grid's two images: an RGBA base colour (a checker of two
+    tints under noise, alpha below the MASK cutoff in a lattice of holes)
+    and a metallic-roughness image (roughness in G, metallic stripes in
+    B), seeded."""
+    rng = np.random.default_rng(12)
+    yy, xx = np.mgrid[0:size, 0:size]
+    checker = ((xx // 64 + yy // 64) % 2)[..., None]
+    base = np.where(checker, [200, 120, 60], [60, 140, 210]) + rng.normal(
+        0, 12, (size, size, 3))
+    alpha = np.where(((xx % 128) < 24) & ((yy % 128) < 24), 40, 255)
+    base = np.concatenate([base, alpha[..., None]], -1)
+    mr = np.stack([np.zeros_like(xx), 40 + 180 * (xx / size),
+                   np.where((yy // 96) % 3 == 0, 255, 0)], -1)
+    return (np.clip(base, 0, 255).astype(np.uint8),
+            np.clip(mr, 0, 255).astype(np.uint8))
+
+
+def _write_bridge_obj(path, device):
+    """TEST_SCENES[BRIDGE_SCENE]'s soup as OBJ + MTL: v / vt / vn per
+    corner, one usemtl group per material, Kd / Ns / illum / d from its
+    materials → (the soup, its materials per triangle)."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
+    from bifrost3d_tpu_torch.math.octahedral import octahedral_decode
+    from torch_scene_files import write_obj
+    scene, _ = TEST_SCENES[BRIDGE_SCENE](device=device)
+    tris = scene.tri_verts.cpu().numpy()
+    mat = scene.materials
+    materials = [dict(
+        name=f"bridge{i}", Kd=tuple(mat.tint[i].tolist()),
+        Ns=2.0 / float(mat.roughness[i]) ** 4 - 2.0,
+        illum=3 if float(mat.metallic[i]) > 0.5 else 2, d=1.0)
+        for i in range(int(mat.tint.shape[0]))]
+    tri_material = scene.tri_material.cpu().numpy()
+    write_obj(path, tris, tri_material, materials,
+              tri_normals=octahedral_decode(scene.tri_normals_oct).cpu()
+              .numpy(), tri_uvs=scene.tri_uvs.cpu().numpy())
+    return tris, tri_material
+
+
+def _files_f1(device, card, paths) -> dict:
+    """F1: bridge.obj (49,678 triangles) through the native tokenizer and
+    the viewer, the megakernel's BVH branch (B3)."""
+    from bifrost3d_tpu_torch.apps import simple_viewer
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.io import obj as tobj
+    obj = paths["obj"]
+    tris, tri_material = _write_bridge_obj(obj, device)
+    t0 = time.perf_counter()
+    meshes, mats = tobj.load_obj(obj, use_native=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_meshes, py_mats = tobj.load_obj(obj, use_native=False)
+    python_s = time.perf_counter() - t0
+    check(py_mats == mats and all(
+        np.array_equal(getattr(a[0], f), getattr(b[0], f))
+        for a, b in zip(meshes, py_meshes)
+        for f in ("indices", "positions", "normals", "texcoords")),
+        "F1: the native and the Python tokenizer disagree")
+    order = np.concatenate([np.nonzero(tri_material == k)[0]
+                            for k in range(len(mats))])
+    loaded = np.concatenate([m.positions.reshape(-1, 3, 3)
+                             for m, _, _ in meshes])
+    check(np.array_equal(loaded, tris[order]),
+          "F1: the loaded triangles are not those written")
+
+    png = os.path.join(FILES_DIR, "bridge.png")
+    run = _viewer(["--scene", obj, "-n", str(ACCUMULATIONS), "-o", png],
+                  {"B2_B3": ACCUMULATIONS}, "F1 viewer")
+    scene, cam = simple_viewer.build_scene_from_file(obj, None,
+                                                     (0.68, 0.92, 1.0),
+                                                     device=device)
+    settings = pt.RenderSettings(max_bounce_count=BOUNCES)
+    path = _expect_megakernel(scene, settings, "F1 bridge.obj")
+    _, img, rays = _kernel_frame(scene, cam, RES, 1, settings)
+    _, ref, ref_rays = _plain_frame(scene, cam, RES, 1, settings)
+    flips, max_err, mean_rel = _gate(img, ref, "F1: kernel vs plain",
+                                     KERNEL_FLIPS, KERNEL_MEAN)
+    frames = _timed_frames(scene, cam, RES, settings, ACCUMULATIONS)
+    out = dict(launches=run["counts"]["B2_B3"], native_s=native_s,
+               python_s=python_s, viewer_s=run["seconds"], flips=flips,
+               frames=frames, scene=(scene, cam), tris=len(tris))
+    print(f"files/F1 bridge.obj: {len(tris)} triangles, "
+          f"{os.path.getsize(obj) / 2**20:.1f} MiB | load: native tokenizer "
+          f"{native_s:.3f} s, Python tokenizer {python_s:.3f} s, the "
+          f"triangles those written | viewer -n {ACCUMULATIONS} {RES}x{RES} "
+          f"in {run['seconds']:.2f} s with load and build: {path}, launches "
+          f"{run['counts']} | {RES}² kernel vs plain {flips:.5f} flips, max "
+          f"|d| {max_err:.3g}, means {mean_rel:.2e} apart | render_sample_fast"
+          f" frame {frames['ms']:.3f} ms (median of 3, {frames['ms_min']:.3f}"
+          f"–{frames['ms_max']:.3f}), launches a frame {frames['per_frame']}"
+          f" | {card}", flush=True)
+    return out
+
+
+def _files_f2(device, card, paths) -> dict:
+    """F2: torus.glb (589,824 triangles, two 1024² PNG textures, MASK)
+    through the viewer, the pooled wavefront on the BVH trace (B4)."""
+    import warnings
+    from bifrost3d_tpu_torch.apps import simple_viewer
+    from bifrost3d_tpu_torch.apps.scenes import torus_grid_mesh
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.io import gltf as tgltf
+    from torch_scene_files import write_textured_glb
+    glb = paths["glb"]
+    mesh = torus_grid_mesh()
+    base, mr = _textures()
+    write_textured_glb(glb, mesh, base, mr, alpha_mode="MASK")
+    doc, buffers = tgltf._load_glb(glb)
+    t0 = time.perf_counter()
+    arrays = [tgltf._read_accessor(doc, buffers, i)
+              for i in range(len(doc["accessors"]))]
+    accessor_s = time.perf_counter() - t0
+    check(np.array_equal(arrays[0], mesh.positions) and np.array_equal(
+        arrays[2], mesh.texcoords), "F2: the strided accessors read back "
+        "other values")
+    t0 = time.perf_counter()
+    images = [tgltf._load_gltf_image(doc, buffers, i, FILES_DIR)
+              for i in range(2)]
+    png_s = time.perf_counter() - t0
+    check(np.array_equal((images[0] * 255 + 0.5).astype(np.uint8), base)
+          and np.array_equal((images[1] * 255 + 0.5).astype(np.uint8), mr),
+          "F2: the decoded PNGs are not the images written")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        tgltf.load_gltf(glb)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scene, cam = simple_viewer.build_scene_from_file(
+            glb, None, (0.68, 0.92, 1.0), device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    gltf_warnings = [str(w.message) for w in caught if "glTF" in str(
+        w.message)]
+    check(not gltf_warnings, f"F2: glTF warnings {gltf_warnings}")
+    check(scene.textures.count == 3, f"F2: {scene.textures.count} textures "
+          "in the bank, not tint-roughness, metallic and coverage")
+    settings = pt.RenderSettings(max_bounce_count=BOUNCES)
+    path = pt.explain_render_path(scene, settings)
+    check(path.startswith("wavefront [BVH trace"), f"F2: {path}")
+
+    png = os.path.join(FILES_DIR, "torus.png")
+    run = _viewer(["--scene", glb, "-n", str(GLTF_ACCUMULATIONS), "-o", png],
+                  {"B4": "> 0"}, "F2 viewer")
+    small = FILES_GATE_RES
+    kern = pt.render_sample_fast(scene, cam, small, small, 1, settings)
+    with mock.patch.object(hier, "hierarchical_intersect",
+                           hier.hierarchical_intersect_reference):
+        plain = pt.render_sample_fast(scene, cam, small, small, 1, settings)
+    flips, max_err, mean_rel = _gate(kern, plain, "F2: kernel vs plain trace")
+    frames = _timed_frames(scene, cam, RES, settings, GLTF_ACCUMULATIONS)
+    out = dict(launches=run["counts"]["B4"], accessor_s=accessor_s,
+               png_s=png_s, load_s=load_s, build_s=build_s,
+               viewer_s=run["seconds"], flips=flips, frames=frames,
+               scene=(scene, cam))
+    print(f"files/F2 torus.glb: {mesh.indices.shape[0]} triangles, "
+          f"{os.path.getsize(glb) / 2**20:.1f} MiB, interleaved stride-32 "
+          f"view, two {TEXTURE_SIZE}² Paeth PNGs | load: accessors "
+          f"{accessor_s:.3f} s, PNG decode {png_s:.3f} s, load_gltf "
+          f"{load_s:.3f} s, build_scene_from_file (the load again, the BVH, "
+          f"the packing, the bank) {build_s:.2f} s, 3 textures, "
+          f"no glTF warning | viewer -n {GLTF_ACCUMULATIONS} {RES}x{RES} in "
+          f"{run['seconds']:.2f} s with load and build: {path}, launches "
+          f"{run['counts']} | {small}² kernel vs plain trace {flips:.5f} "
+          f"flips, means {mean_rel:.2e} apart | render_sample_fast frame "
+          f"{frames['ms']:.1f} ms (median of 3, {frames['ms_min']:.1f}–"
+          f"{frames['ms_max']:.1f}), launches a frame {frames['per_frame']} | "
+          f"{card}", flush=True)
+    return out
+
+
+def _files_f3(device, card, paths) -> dict:
+    """F3: a 1024 × 512 EXR sky as --environment-map on CornellBox and on
+    bridge.obj: the pooled wavefront on the dense trace (B1)."""
+    from bifrost3d_tpu_torch.apps import simple_viewer
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.io import image as timage
+    exr = paths["sky"]
+    sky = _sky()
+    timage.save_exr(exr, sky)
+    t0 = time.perf_counter()
+    back = timage.load_image(exr)
+    exr_s = time.perf_counter() - t0
+    check(np.array_equal(back.view(np.uint32), sky.view(np.uint32)),
+          "F3: the EXR does not read back bit for bit")
+    out = dict(exr_s=exr_s, launches=0)
+    settings = pt.RenderSettings(max_bounce_count=BOUNCES)
+    for name, scene_arg in (("CornellBox", "CornellBox"),
+                            ("bridge.obj", paths["obj"])):
+        png = os.path.join(FILES_DIR, f"env_{name.split('.')[0]}.png")
+        run = _viewer(["--scene", scene_arg, "--environment-map", exr, "-n",
+                       str(ENV_ACCUMULATIONS), "-o", png], {"B1": "> 0"},
+                      f"F3 viewer {name}")
+        scene, cam = simple_viewer.viewer_scene(
+            scene_arg, back, (0.68, 0.92, 1.0), RES, RES, device=device)
+        path = pt.explain_render_path(scene, settings)
+        check(path.startswith("wavefront") and "environment" in path,
+              f"F3 {name}: {path}")
+        small = FILES_GATE_RES
+        kern = pt.render_sample_fast(scene, cam, small, small, 1, settings)
+        with mock.patch.object(dense, "pallas_intersect",
+                               dense.dense_intersect_reference):
+            plain = pt.render_sample_fast(scene, cam, small, small, 1,
+                                          settings)
+        flips, max_err, mean_rel = _gate(kern, plain,
+                                         f"F3 {name}: kernel vs plain trace")
+        frames = _timed_frames(scene, cam, RES, settings, ENV_ACCUMULATIONS)
+        out["launches"] += run["counts"]["B1"]
+        out[name] = dict(launches=run["counts"]["B1"], flips=flips,
+                         frames=frames, viewer_s=run["seconds"])
+        print(f"files/F3 {name} + sky.exr ({SKY_W}x{SKY_H}, read in "
+              f"{exr_s:.3f} s, bit for bit): viewer -n {ENV_ACCUMULATIONS} "
+              f"{RES}x{RES} in {run['seconds']:.2f} s: {path}, launches "
+              f"{run['counts']} | {small}² kernel vs plain trace "
+              f"{flips:.5f} flips, means {mean_rel:.2e} apart | "
+              f"render_sample_fast frame {frames['ms']:.1f} ms (median of 3, "
+              f"{frames['ms_min']:.1f}–{frames['ms_max']:.1f}), launches a "
+              f"frame {frames['per_frame']} | {card}", flush=True)
+    return out
+
+
+def _files_f4(device, card, paths, scenes) -> dict:
+    """F4: the six AOVs at 512² on bridge.obj (B1) and torus.glb (B4), one
+    closest-hit launch each, against the plain trace; the viewer's --aov
+    for each on bridge.obj and one on torus.glb, written as EXR."""
+    from bifrost3d_tpu_torch.apps import simple_viewer
+    from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
+    from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
+    from bifrost3d_tpu_torch.geometry.traverse import intersect_scene
+    from bifrost3d_tpu_torch.integrator.aov import render_aovs
+    from bifrost3d_tpu_torch.io import image as timage
+    from bifrost3d_tpu_torch.scene.camera import camera_rays
+    out = {}
+    cases = (("bridge.obj", "B1", dense, "pallas_intersect",
+              dense.dense_intersect_reference),
+             ("torus.glb", "B4", hier, "hierarchical_intersect",
+              hier.hierarchical_intersect_reference))
+    for (name, kernel, module, attr, reference), (scene, cam) in zip(
+            cases, scenes):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        aovs = render_aovs(scene, cam, RES, RES)
+        torch.cuda.synchronize()
+        aov_ms = (time.perf_counter() - t0) * 1e3
+        counts = _trace_counts()
+        check(counts[kernel] == 1 and sum(counts.values()) == 1,
+              f"F4 {name}: launches {counts}, expected one of {kernel}")
+        o, d = (x.reshape(-1, 3) for x in camera_rays(cam, RES, RES))
+        hit = intersect_scene(scene.bvh, scene.tri_verts, o, d,
+                              t_min=scene.scene_epsilon,
+                              tri_components=scene.tri_components,
+                              tri_clustered=scene.tri_clustered)
+        with mock.patch.object(module, attr, reference):
+            plain = render_aovs(scene, cam, RES, RES)
+            ref = intersect_scene(scene.bvh, scene.tri_verts, o, d,
+                                  t_min=scene.scene_epsilon,
+                                  tri_components=scene.tri_components,
+                                  tri_clustered=scene.tri_clustered)
+        failures = []
+        agree, ties, t_err = _compare_hits(hit, ref, f"F4 {name}", failures)
+        uv_share, uv_err = _compare_uv(hit, ref, f"F4 {name}", failures)
+        same = ((hit.prim == ref.prim) & (ref.prim >= 0)).reshape(RES, RES)
+        for key in ("tint", "roughness", "primitive_id"):
+            if not bool(torch.equal(aovs[key][same], plain[key][same])):
+                failures.append(f"F4 {name}: {key} differs where prim "
+                                "agrees")
+        t_ref = ref.t.reshape(RES, RES)[same]
+        d_err = (aovs["depth"][same] - plain["depth"][same]).abs()
+        if not bool((d_err <= 1e-5 * t_ref / (100.0 - 0.1) + 1e-7).all()):
+            failures.append(f"F4 {name}: depth beyond the t gate")
+        shares = {}
+        for key in ("shading_normal", "albedo"):
+            err = (aovs[key][same] - plain[key][same]).abs().amax(-1)
+            shares[key] = (float((err <= 1e-3).float().mean()),
+                           float(err.max()))
+            if shares[key][0] < 0.999:
+                failures.append(f"F4 {name}: {key} within 1e-3 on "
+                                f"{shares[key][0]:.5f} of the hits")
+        check(not failures, "; ".join(failures))
+        names = simple_viewer.AOVS if kernel == "B1" else ("primitive_id",)
+        scene_arg = paths["obj"] if kernel == "B1" else paths["glb"]
+        for aov in names:
+            exr = os.path.join(FILES_DIR, f"aov_{aov}_{kernel}.exr")
+            _viewer(["--scene", scene_arg, "--aov", aov, "-o", exr],
+                    {kernel: 1}, f"F4 viewer --aov {aov} {name}")
+            check(np.array_equal(timage.load_exr(exr),
+                                 simple_viewer.aov_image(aovs, aov)),
+                  f"F4 {name}: the viewer's {aov} EXR is not the AOV")
+        out[name] = dict(launches=1, aov_ms=aov_ms, agree=agree, ties=ties,
+                         t_err=t_err, uv_share=uv_share, uv_err=uv_err,
+                         shares=shares)
+        print(f"files/F4 {name}: render_aovs {RES}x{RES} in {aov_ms:.2f} ms, "
+              f"{kernel} launches 1 | vs the plain trace: prim agrees off "
+              f"ties {agree:.5f} ({ties} ties), max |dt| {t_err:.3g}, u, v "
+              f"within 1e-3 on {uv_share:.5f} (max {uv_err:.3g}); tint, "
+              f"roughness, primitive_id equal and depth within the t gate "
+              f"where prim agrees; shading normal within 1e-3 on "
+              f"{shares['shading_normal'][0]:.5f} (max "
+              f"{shares['shading_normal'][1]:.3g}), albedo on "
+              f"{shares['albedo'][0]:.5f} (max {shares['albedo'][1]:.3g}) | "
+              f"viewer --aov {', '.join(names)} -o .exr read back equal | "
+              f"{card}", flush=True)
+    return out
+
+
+def files_phase(device, card) -> dict:
+    """Phase 22: the viewer on files written here from seeded numpy (the
+    repository holds no model files): F1 an OBJ on B3, F2 a textured GLB on
+    B4, F3 an EXR environment map on B1, F4 the AOVs on B1 and B4."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    os.makedirs(FILES_DIR, exist_ok=True)
+    paths = {"obj": os.path.join(FILES_DIR, "bridge.obj"),
+             "glb": os.path.join(FILES_DIR, "torus.glb"),
+             "sky": os.path.join(FILES_DIR, "sky.exr")}
+    f1 = _files_f1(device, card, paths)
+    f2 = _files_f2(device, card, paths)
+    f3 = _files_f3(device, card, paths)
+    f4 = _files_f4(device, card, paths, (f1.pop("scene"), f2.pop("scene")))
+    return dict(F1=f1, F2=f2, F3=f3, F4=f4)
+
+
 def _kernel_row(name, source, replaces, launches, result) -> dict:
     """One kernel's entry of the JSON line; a culled trace (B1, B6) also
     gives the bound of the full scan or the TPU design it replaces, beside
@@ -3237,6 +3685,7 @@ def main() -> int:
     viewer_phase(device)
     frame_profile_phase(device)
     viewer_scenes_phase(device, card, path_d)
+    files = files_phase(device, card)
     train = train_phase(device, card)
     train_profile(fresh_process("train"), card)
     # No single PyTorch call computes any of the seven: library_ms is null.
@@ -3287,6 +3736,26 @@ def main() -> int:
         _kernel_row("bvh_intersect/train", "bvh_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_bvh.py:240",
                     train["torus"]["launches"], bvh["incoherent"]),
+        # The kernels again on the files phase: F1 (an OBJ, B3), F2 (a
+        # textured GLB, B4), F3 (an EXR map, B1 on CornellBox and the OBJ),
+        # F4 (the AOV trace, B1 on the OBJ and B4 on the GLB), each with the
+        # timing row of its kernel phase.
+        _kernel_row("mesh_megakernel_hier/obj", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:898",
+                    files["F1"]["launches"], hier_scenes[BRIDGE_SCENE]),
+        _kernel_row("bvh_intersect/gltf", "bvh_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_bvh.py:240",
+                    files["F2"]["launches"], bvh["incoherent"]),
+        _kernel_row("dense_intersect/envmap", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    files["F3"]["launches"], kernels["cornell/incoherent"]),
+        _kernel_row("dense_intersect/aov", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    files["F4"]["bridge.obj"]["launches"],
+                    kernels["bridge/coherent"]),
+        _kernel_row("bvh_intersect/aov", "bvh_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_bvh.py:240",
+                    files["F4"]["torus.glb"]["launches"], bvh["coherent"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1119,3 +1119,87 @@ def test_offset_ray_origin_gradient_on_card(cuda):
                                  allow_unused=True, materialize_grads=True)
     assert torch.equal(gp.cpu(), torch.tensor(cot))
     assert not bool(gn.any())
+
+
+# -- scenes loaded from files ----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def scene_files(tmp_path_factory):
+    """A 2,256-triangle sphere on a plane as OBJ + MTL (untextured, for the
+    megakernel's BVH branch) and a 4,608-triangle torus with PNG textures as
+    GLB (the pooled wavefront), both written with numpy only."""
+    from bifrost3d_tpu_torch.geometry.creation import make_torus
+    from bifrost3d_tpu_torch.geometry.mesh import combine_meshes
+    from torch_scene_files import write_obj, write_textured_glb
+    d = tmp_path_factory.mktemp("scene_files")
+    parts = [make_sphere(radius=0.5, slices=48, stacks=24),
+             make_plane(size=3.0)]
+    mesh = combine_meshes(parts)
+    idx = mesh.indices
+    write_obj(str(d / "ball.obj"), mesh.positions[idx],
+              np.repeat([0, 1], [p.indices.shape[0] for p in parts]),
+              [dict(name="ball", Kd=(0.8, 0.3, 0.2), Ns=60, illum=2, d=1.0),
+               dict(name="floor", Kd=(0.6, 0.6, 0.6), Ns=2, illum=2)],
+              tri_normals=mesh.normals[idx], tri_uvs=mesh.texcoords[idx])
+    rng = np.random.default_rng(4)
+    write_textured_glb(str(d / "torus.glb"),
+                       make_torus(major_segments=96, minor_segments=24),
+                       rng.integers(0, 256, (64, 64, 4)),
+                       rng.integers(0, 256, (64, 64, 3)))
+    return {"obj": str(d / "ball.obj"), "glb": str(d / "torus.glb")}
+
+
+def test_loaded_obj_renders_through_hier_megakernel(cuda, scene_files):
+    """The OBJ's scene on the card: the megakernel's BVH branch (B3), one
+    launch a frame and no trace-kernel launch, against its plain version
+    on the same lanes."""
+    from bifrost3d_tpu_torch.apps.simple_viewer import build_scene_from_file
+    scene, cam = build_scene_from_file(scene_files["obj"], None,
+                                       (0.68, 0.92, 1.0), device=cuda)
+    assert scene.tri_verts.shape[0] > mega.MAX_TRIS
+    settings = pt.RenderSettings(max_bounce_count=2)
+    assert pt.explain_render_path(scene, settings) == \
+        "megakernel (hier: cluster-BVH DMA trace)"
+    before = mega.launch_count, dense.launch_count, hier.launch_count
+    pt.render_sample_fast(scene, cam, 64, 64, 1, settings)
+    torch.cuda.synchronize()
+    assert (mega.launch_count, dense.launch_count, hier.launch_count) == (
+        before[0] + 1, before[1], before[2])
+    _assert_kernel_matches_plain(scene, cam, 64, settings)
+
+
+def test_loaded_glb_renders_through_bvh_kernel(cuda, scene_files, monkeypatch):
+    """The textured GLB (bilinear and metallic textures: the pooled
+    wavefront), forced onto the BVH trace (B4): the kernel launched, the
+    dense one not, the frame against the same frame on the plain trace; its
+    AOVs too, one B4 launch."""
+    from unittest import mock
+    from bifrost3d_tpu_torch.apps.simple_viewer import build_scene_from_file
+    from bifrost3d_tpu_torch.integrator.aov import render_aovs
+    monkeypatch.setattr(traverse, "PALLAS_MAX_TRIS", 100)
+    scene, cam = build_scene_from_file(scene_files["glb"], None,
+                                       (0.68, 0.92, 1.0), device=cuda)
+    assert scene.textures.count == 3 and scene.tri_clustered is not None
+    settings = pt.RenderSettings(max_bounce_count=2)
+    assert pt.explain_render_path(scene, settings).startswith(
+        "wavefront [BVH trace")
+    before, dense_before = hier.launch_count, dense.launch_count
+    img = pt.render_sample_fast(scene, cam, 64, 64, 1, settings)
+    torch.cuda.synchronize()
+    assert hier.launch_count > before and dense.launch_count == dense_before
+    with mock.patch.object(hier, "hierarchical_intersect",
+                           hier.hierarchical_intersect_reference):
+        ref = pt.render_sample_fast(scene, cam, 64, 64, 1, settings)
+    assert_statistical_gate(img.cpu().numpy(), ref.cpu().numpy())
+    assert float(img.mean()) > 0.01
+    before = hier.launch_count
+    aovs = render_aovs(scene, cam, 64, 64)
+    torch.cuda.synchronize()
+    assert hier.launch_count == before + 1
+    with mock.patch.object(hier, "hierarchical_intersect",
+                           hier.hierarchical_intersect_reference):
+        plain = render_aovs(scene, cam, 64, 64)
+    same = (aovs["primitive_id"] == plain["primitive_id"]).all(-1)
+    assert float(same.float().mean()) >= 0.999
+    for name in ("tint", "roughness"):
+        assert torch.equal(aovs[name][same], plain[name][same]), name

@@ -34,7 +34,9 @@ for new in ("apps.smallpt_app", "integrator.smallpt", "integrator.smallvpt",
             "geometry.pallas_clustered", "sampling.pmj",
             "math.distribution1d", "math.distribution2d",
             "lights.environment", "io.texture", "diff", "diff.render_grad",
-            "diff.edge_grad", "diff.mesh_edge_grad", "utils.tree"):
+            "diff.edge_grad", "diff.mesh_edge_grad", "utils.tree",
+            "io.image", "io.compare", "io.native_obj", "io.obj", "io.gltf",
+            "io.pixel_image", "integrator.aov", "apps.simple_viewer"):
     assert pkg.__name__ + "." + new in names, new
 assert not bad, bad
 """

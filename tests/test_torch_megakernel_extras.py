@@ -520,19 +520,22 @@ def test_viewer_settings_frame_matches_jax(jax_scenes):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--scene", "Sphere", "--environment-map", "sky.hdr"], "image reader"),
+    (["--scene", "Sphere", "--environment-map", "sky.exr"], "Sphere"),
     (["--scene", "Glass"], "Glass"),
     (["--scene", "MaterialScene"], "MaterialScene"),
 ])
 def test_viewer_names_what_is_not_ported(argv, message, tmp_path, capsys):
-    """``--environment-map`` still raises, naming the missing image reader;
-    Glass and MaterialScene, which raised before they were ported, render
-    (16 × 16, one accumulation) and the viewer's line names them."""
+    """Each renders (16 × 16, one accumulation) and the viewer's line names
+    it: ``--environment-map``, which raised for the missing image reader
+    until the EXR reader was ported (here a map written by the port's
+    save_exr), and Glass and MaterialScene, which raised before they were
+    ported."""
     from bifrost3d_tpu_torch.apps import simple_viewer
+    from bifrost3d_tpu_torch.io.image import save_exr
     if "--environment-map" in argv:
-        with pytest.raises(NotImplementedError, match=message):
-            simple_viewer.main(argv + ["--device", "cpu"])
-        return
+        sky = tmp_path / "sky.exr"
+        save_exr(str(sky), np.full((8, 16, 3), 0.5, np.float32))
+        argv = argv[:-1] + [str(sky)]
     out = tmp_path / "frame.png"
     simple_viewer.main(argv + ["--device", "cpu", "--window-size", "16x16",
                                "-n", "1", "-o", str(out)])

@@ -121,5 +121,9 @@ def test_png_odd_sizes(tmp_path):
 
 
 def test_only_png_output(tmp_path):
-    with pytest.raises(NotImplementedError, match="exr"):
-        timage.save_image(str(tmp_path / "x.exr"), np.zeros((2, 2, 3)))
+    """PNG and, since the EXR writer was ported, EXR; other formats raise."""
+    with pytest.raises(NotImplementedError, match="jpg"):
+        timage.save_image(str(tmp_path / "x.jpg"), np.zeros((2, 2, 3)))
+    timage.save_image(str(tmp_path / "x.exr"), np.full((2, 2, 3), 0.5))
+    np.testing.assert_array_equal(timage.load_exr(str(tmp_path / "x.exr")),
+                                  np.full((2, 2, 3), 0.5, np.float32))
