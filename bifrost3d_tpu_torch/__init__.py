@@ -1,11 +1,15 @@
 """bifrost3d_tpu_torch: the PyTorch and CUDA port of ``bifrost3d_tpu``.
 
 A second package beside the JAX one, with the same subpackage and module
-names so each module's counterpart is easy to find. It covers one slice of
-the system so far: CornellBox through the pooled compacting wavefront
-(``integrator.path_tracer.render_progressive``), with the dense
-Möller–Trumbore trace as a hand-written CUDA kernel
-(``csrc/dense_intersect.cu``, bound in ``geometry.pallas_intersect``).
+names so each module's counterpart is easy to find. It renders every mode
+of the JAX package's viewer: the nine built-in scenes and the user's OBJ
+and glTF files through the path tracer (the mesh megakernel, or the
+pooled compacting wavefront), with path regularization, trilinear mips,
+the denoised backend, checkpoint/resume and the AOVs; the rasterizer-style
+preview renderer; the SmallPT app; the EnvironmentConvolution app; and
+gradients through the wavefront (``diff``). Its seven trace and
+megakernels are hand-written CUDA (``csrc/``), each bound in the wrapper
+module of the JAX kernel it replaces.
 
 Conventions:
 
@@ -14,7 +18,7 @@ Conventions:
 - all randomness is the deterministic Owen-scrambled Sobol chain keyed by
   (accumulation, pixel hash, 8·bounce + dim), bit-exact with the JAX
   package;
-- a feature outside the slice raises ``NotImplementedError`` naming it
+- a feature that is not ported raises ``NotImplementedError`` naming it
   rather than rendering without it.
 
 This package imports ``torch`` and ``numpy`` only — never ``jax`` and

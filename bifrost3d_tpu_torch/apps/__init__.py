@@ -1,1 +1,2 @@
-"""Applications: the built-in scenes and the SimpleViewer-style CLI."""
+"""Applications: the built-in scenes, the SimpleViewer-style CLI, the
+SmallPT app and the EnvironmentConvolution app."""

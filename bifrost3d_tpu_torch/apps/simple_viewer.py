@@ -19,11 +19,17 @@ As the JAX viewer:
   1.0 whatever the window's;
 - the render settings are a plain ``RenderSettings`` with the bounce
   count, so shadow rays are binary any-hit queries on every scene;
-- an AOV is written as its values in [0, 1], not sRGB-encoded.
-
-``--renderer preview|denoised``, ``--path-regularization`` and
-``--checkpoint-dir`` raise ``NotImplementedError``: the preview renderer,
-the backends, path regularization and checkpoints are not ported.
+- an AOV is written as its values in [0, 1], not sRGB-encoded;
+- ``--renderer preview`` renders one frame of ``preview.render_preview``
+  (primary and shadow traces, SSAO), ``--renderer denoised`` ``-n``
+  frames of ``integrator/backend.DenoisedBackend`` (the running mean
+  filtered by the à-trous denoiser on its cadence), both without film
+  grain; ``--path-regularization`` sets the path tracer's
+  ``path_regularization_scale``;
+- ``--checkpoint-dir`` accumulates through ``SimpleBackend``, resumes from
+  the directory's latest ``ckpt_<n>.npz`` when its scene is ``--scene``
+  and n < ``-n`` (printing "resumed at accumulation n"), and writes a
+  checkpoint every ``--checkpoint-every`` accumulations and at the last.
 
 Usage::
 
@@ -153,15 +159,18 @@ def main(argv=None):
                         help="render an AOV instead of the beauty pass")
     parser.add_argument("--tonemapper", default="filmic", choices=_TONEMAPPERS)
     parser.add_argument("--path-regularization", type=float, default=0.0,
-                        help="not ported: any value but 0 raises")
+                        help="path regularization scale (0 = off)")
     parser.add_argument("--high-precision", action="store_true",
                         help="Kahan-compensated accumulation")
     parser.add_argument("--renderer", default="pathtracer",
                         choices=["pathtracer", "preview", "denoised"],
-                        help="only the path tracer is ported")
+                        help="path tracer, rasterizer-style preview (the "
+                             "reference's 'P' toggle), or denoised backend")
     parser.add_argument("--checkpoint-dir", default=None,
-                        help="not ported: raises")
-    parser.add_argument("--checkpoint-every", type=int, default=64)
+                        help="resume progressive accumulation from the "
+                             "latest checkpoint here and save new ones")
+    parser.add_argument("--checkpoint-every", type=int, default=64,
+                        help="checkpoint interval in accumulations")
     parser.add_argument("--device", default="cuda",
                         help="torch device to render on (cuda or cpu)")
     args = parser.parse_args(argv)
@@ -175,17 +184,6 @@ def main(argv=None):
     from bifrost3d_tpu_torch.post.pipeline import process
     from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
 
-    if not args.aov:
-        if args.renderer != "pathtracer":
-            raise NotImplementedError(
-                f"--renderer {args.renderer}: the preview renderer and the "
-                "denoised backend are not ported")
-        if args.path_regularization:
-            raise NotImplementedError(
-                "--path-regularization: path regularization is not ported")
-        if args.checkpoint_dir:
-            raise NotImplementedError(
-                "--checkpoint-dir: checkpoints are not ported")
     device = torch.device(args.device)
     width, height = (int(v) for v in args.window_size.split("x"))
     env = load_image(args.environment_map) if args.environment_map else None
@@ -197,21 +195,78 @@ def main(argv=None):
         camera = viewer_camera(args.camera_position, args.camera_target,
                                width, height, device)
 
+    post = CameraEffectsSettings.preset()._replace(
+        tonemapping_mode=_TONEMAPPERS.index(args.tonemapper), film_grain=0.0)
     t0 = time.time()
+    if args.renderer == "preview" and not args.aov:
+        from bifrost3d_tpu_torch.preview import render_preview
+        hdr = render_preview(scene, camera, width, height)
+        save_image(args.output, process(hdr, post))
+        print(f"rendered {args.scene} preview {width}x{height} on {device} "
+              f"in {time.time() - t0:.1f}s -> {args.output}")
+        return
+    if args.renderer == "denoised" and not args.aov:
+        from bifrost3d_tpu_torch.integrator.backend import DenoisedBackend
+        backend = DenoisedBackend(
+            scene, camera, width, height,
+            RenderSettings(max_bounce_count=args.max_bounces))
+        for _ in range(args.accumulations):
+            hdr = backend.render()
+        save_image(args.output, process(hdr, post))
+        print(f"rendered {args.scene} denoised {width}x{height} "
+              f"n={args.accumulations} on {device} in "
+              f"{time.time() - t0:.1f}s -> {args.output}")
+        return
     if args.aov:
         aovs = render_aovs(scene, camera, width, height)
         save_image(args.output, aov_image(aovs, args.aov), from_linear=False)
     else:
-        settings = RenderSettings(max_bounce_count=args.max_bounces)
-        hdr = render_progressive(scene, camera, width, height,
-                                 args.accumulations, settings,
-                                 high_precision=args.high_precision)
-        post = CameraEffectsSettings.preset()._replace(
-            tonemapping_mode=_TONEMAPPERS.index(args.tonemapper),
-            film_grain=0.0)
+        settings = RenderSettings(
+            max_bounce_count=args.max_bounces,
+            path_regularization_scale=args.path_regularization)
+        if args.checkpoint_dir:
+            hdr = _render_with_checkpoints(args, scene, camera, width,
+                                           height, settings)
+        else:
+            hdr = render_progressive(scene, camera, width, height,
+                                     args.accumulations, settings,
+                                     high_precision=args.high_precision)
         save_image(args.output, process(hdr, post))
     print(f"rendered {args.scene} {width}x{height} n={args.accumulations} "
           f"on {device} in {time.time() - t0:.1f}s -> {args.output}")
+
+
+def _render_with_checkpoints(args, scene, camera, width, height, settings):
+    """Durable progressive accumulation: resume from the latest checkpoint
+    of ``--checkpoint-dir`` (its scene ``--scene``, its step below ``-n``),
+    continue, and save every ``--checkpoint-every`` accumulations and at
+    the last → the running mean."""
+    import os
+    from bifrost3d_tpu_torch.integrator.backend import SimpleBackend
+    from bifrost3d_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    backend = SimpleBackend(scene, camera, width, height, settings)
+    resume = latest_checkpoint(args.checkpoint_dir)
+    if resume is not None:
+        state, step, meta = load_checkpoint(resume,
+                                            like={"buffer": backend.buffer})
+        if meta.get("scene") == args.scene and step < args.accumulations:
+            backend.buffer = state["buffer"]
+            backend.accumulations = step
+            print(f"resumed at accumulation {step} from {resume}")
+    hdr = backend.buffer
+    while backend.accumulations < args.accumulations:
+        hdr = backend.render()
+        n = backend.accumulations
+        if n % args.checkpoint_every == 0 or n == args.accumulations:
+            save_checkpoint(
+                os.path.join(args.checkpoint_dir, f"ckpt_{n}.npz"),
+                {"buffer": backend.buffer}, step=n,
+                metadata={"scene": args.scene})
+    return hdr
 
 
 if __name__ == "__main__":

@@ -1,3 +1,4 @@
-"""Integrators: the wavefront path tracer (fixed-iteration and pooled).
-Port of the slice's part of ``bifrost3d_tpu/integrator``.
+"""Integrators: the wavefront path tracer (fixed-iteration and pooled),
+the mesh and SmallPT megakernels, the AOV pass and the render backends.
+Port of ``bifrost3d_tpu/integrator``.
 """

@@ -49,9 +49,10 @@ A miss evaluates the scene's environment map with MIS against the last
 BSDF sample, the environment is one more NEE candidate (its presampled
 pool, or a search of its CDFs), textures scale tint, roughness, metallic
 and coverage, and coverage below a random number lets the ray pass.
-
-Not ported, and raising ``NotImplementedError`` when asked for: path
-regularization and trilinear textures.
+Trilinear textures take their mip level from the ray footprint
+(``_camera_pixel_angle`` × hit distance × texel density); path
+regularization raises both roughnesses of a hit to the minimum that keeps
+the peak BSDF pdf below the previous bounce's, scaled (MonteCarlo.cu:239-244).
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ from bifrost3d_tpu_torch.lights.types import (
     LightArray,
     LightSample,
 )
-from bifrost3d_tpu_torch.math.clip import maximum, minimum
+from bifrost3d_tpu_torch.bsdf.ggx import roughness_from_alpha
+from bifrost3d_tpu_torch.math.clip import absolute, maximum, minimum
 from bifrost3d_tpu_torch.math.octahedral import octahedral_decode
 from bifrost3d_tpu_torch.math.ray_offset import offset_ray_origin
 from bifrost3d_tpu_torch.math.vec import (
@@ -112,6 +114,9 @@ from bifrost3d_tpu_torch.scene.materials import (
 from bifrost3d_tpu_torch.scene.render_scene import RenderScene
 from bifrost3d_tpu_torch.shading.default_shading import DefaultShading
 from bifrost3d_tpu_torch.shading.diffuse_shading import DiffuseShading
+from bifrost3d_tpu_torch.shading.fittings import (
+    estimate_ggx_alpha_from_max_pdf,
+)
 from bifrost3d_tpu_torch.shading.transmissive_shading import (
     TransmissiveShading,
 )
@@ -126,9 +131,11 @@ class RenderSettings(NamedTuple):
     its order, so that a call with either package's arguments, positional
     or by keyword, builds the same settings.
 
-    The switches of features that are not ported
-    (``path_regularization_scale``, ``trilinear_textures``) are kept so
-    that asking for one raises. ``coverage_aware_shadows`` is the hint that
+    ``path_regularization_scale`` > 0 turns path regularization on, its
+    scale growing by ``path_regularization_decay`` per accumulation;
+    ``trilinear_textures`` is the hint that the texture bank holds
+    trilinear samplers (the ray footprint is then computed for their mip
+    level). ``coverage_aware_shadows`` is the hint that
     the scene holds semi-transparent surfaces (coverage < 1, coverage
     textures or cutouts): shadow rays then march through up to
     ``shadow_coverage_steps`` surfaces, multiplying by 1 - coverage
@@ -145,11 +152,9 @@ class RenderSettings(NamedTuple):
     intermediates (``torch.utils.checkpoint``); ``detached_replay_vjp``
     takes the backward from a replay of the forward's recorded hits, which
     traces no ray (:func:`render_sample_pixels_detached`). Neither changes
-    a forward frame. ``path_regularization_decay`` and
-    ``shading_models_present`` are accepted and change no frame: the port
-    reads the models present from the material table
-    (``RenderScene.shading_models``), and path regularization is not
-    ported.
+    a forward frame. ``shading_models_present`` is accepted and changes
+    no frame: the port reads the models present from the material table
+    (``RenderScene.shading_models``).
     """
 
     max_bounce_count: int = 4
@@ -188,14 +193,6 @@ def settings_for_scene(scene: RenderScene, **overrides) -> RenderSettings:
                          and scene.textures.has_trilinear())
     overrides.setdefault("remat_bounces", True)
     return RenderSettings(**overrides)
-
-
-def _check_supported(scene: RenderScene, settings: RenderSettings) -> None:
-    """Raise for every requested feature that is not ported."""
-    if settings.path_regularization_scale > 0.0:
-        raise NotImplementedError("path regularization is not ported yet")
-    if settings.trilinear_textures:
-        raise NotImplementedError("trilinear textures are not ported yet")
 
 
 def _reverse_halton_offsets(count: int = 8) -> np.ndarray:
@@ -280,17 +277,22 @@ class _ShadingBundle(NamedTuple):
 
 def _create_shading(present, model, tint, roughness, specularity, metallic,
                     coat, coat_roughness, cos_theta_o,
-                    thin_walled=None) -> _ShadingBundle:
+                    thin_walled=None, min_roughness=None) -> _ShadingBundle:
     """Build only the models in ``present`` (static); per-lane params.
     ``cos_theta_o`` is signed (negative seen from inside), as the
     Transmissive model needs it. Both roughnesses are held at the path
-    regularization's minimum roughness, zero while it is off, as JAX's
-    are: at roughness 0 the tie halves the gradient."""
-    roughness = maximum(roughness, 0.0)
+    regularization's minimum roughness ``min_roughness`` (per lane), or
+    while it is off (None) at zero, as JAX's are: at a tie the gradient
+    splits in half."""
+    if min_roughness is None:
+        roughness = maximum(roughness, 0.0)
+        coat_roughness = maximum(coat_roughness, 0.0)
+    else:
+        roughness = torch.maximum(roughness, min_roughness)
+        coat_roughness = torch.maximum(coat_roughness, min_roughness)
     default = DefaultShading.create(
         tint=tint, roughness=roughness, specularity=specularity,
-        metallic=metallic, coat=coat,
-        coat_roughness=maximum(coat_roughness, 0.0),
+        metallic=metallic, coat=coat, coat_roughness=coat_roughness,
         abs_cos_theta_o=torch.abs(cos_theta_o)) \
         if SHADING_DEFAULT in present else None
     diffuse = DiffuseShading.create(tint=tint, roughness=roughness) \
@@ -443,22 +445,25 @@ def _interpolate(bary, attr):
 
 
 def _surface_material_params(scene: RenderScene, mats, texcoord,
-                             tint_roughness_scale=None):
+                             tint_roughness_scale=None, footprint_uv=None,
+                             trilinear: bool = False):
     """Per-hit material parameters: constants × texture fetches ×
     per-vertex tint-roughness scale (the reference's get_tint_roughness /
     get_metallic / get_coverage, Types.h:353-416) → (tint, roughness,
-    metallic, coverage). ``mats`` is the per-lane ``materials.gather``."""
+    metallic, coverage). ``mats`` is the per-lane ``materials.gather``;
+    ``footprint_uv`` and ``trilinear`` select trilinear textures' mip
+    levels (:func:`sample_texture`)."""
     tint = mats.tint
     roughness = mats.roughness
     metallic = mats.metallic
     coverage_or_threshold = mats.coverage
-    tr = sample_texture(scene.textures, mats.tint_roughness_texture, texcoord)
+    fetch = functools.partial(sample_texture, scene.textures, uv=texcoord,
+                              footprint_uv=footprint_uv, trilinear=trilinear)
+    tr = fetch(mats.tint_roughness_texture)
     tint = tint * tr[..., :3]
     roughness = roughness * tr[..., 3]
-    metallic = metallic * sample_texture(
-        scene.textures, mats.metallic_texture, texcoord)[..., 0]
-    coverage_tex = sample_texture(
-        scene.textures, mats.coverage_texture, texcoord)[..., 0]
+    metallic = metallic * fetch(mats.metallic_texture)[..., 0]
+    coverage_tex = fetch(mats.coverage_texture)[..., 0]
     # A cutout binarizes the texture sample against the stored value, which
     # is then a threshold, not a coverage (Types.h:405-413; coverage and
     # cutout_threshold share storage, Material.h:84-85).
@@ -564,6 +569,7 @@ class _PathState(NamedTuple):
     throughput: torch.Tensor
     radiance: torch.Tensor
     bsdf_pdf: torch.Tensor        # last BSDF pdf (MIS); <= 0 disables MIS
+    bsdf_was_delta: torch.Tensor  # bool: the last bounce was a delta lobe
     pixel_hash: torch.Tensor      # int64 holding uint32
     bounce: torch.Tensor          # int64 per-lane bounce counter
     active: torch.Tensor
@@ -585,16 +591,19 @@ class _HitRecords(NamedTuple):
 
 def _wavefront_step(scene: RenderScene, settings: RenderSettings,
                     accumulation: int, state: _PathState,
-                    live_count=None, replay: Optional[_HitRecords] = None,
+                    pixel_angle=None, live_count=None,
+                    replay: Optional[_HitRecords] = None,
                     record: bool = False):
     """One iteration for every lane: trace, environment or light hits,
     shade, NEE with a shadow trace or march, BSDF sample → the next
     _PathState (and with ``record`` this iteration's _HitRecords).
-    ``live_count`` (int tensor, optional): the pool's sorted live prefix,
-    which the trace kernels stop at. ``replay``: a previous run's records
-    instead of the scene queries, so the step traces nothing."""
-    (origin, direction, throughput, radiance, bsdf_pdf, pixel_hash, bounce,
-     active) = state
+    ``pixel_angle`` (:func:`_camera_pixel_angle`) drives the ray footprint
+    of trilinear textures. ``live_count`` (int tensor, optional): the
+    pool's sorted live prefix, which the trace kernels stop at. ``replay``:
+    a previous run's records instead of the scene queries, so the step
+    traces nothing."""
+    (origin, direction, throughput, radiance, bsdf_pdf, bsdf_was_delta,
+     pixel_hash, bounce, active) = state
     eps = scene.scene_epsilon
 
     if replay is not None:
@@ -638,11 +647,27 @@ def _wavefront_step(scene: RenderScene, settings: RenderSettings,
     position = _interpolate(bary, v)
     shading_normal = normalize(_interpolate(bary, n))
     tr_scale = _interpolate(bary, tr)
-    geo_normal = normalize(cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]))
+    face = cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    geo_normal = normalize(face)
 
     mats = scene.materials.gather(mat_idx)
+    # Ray footprint in uv units for trilinear mip selection (Texture.h
+    # Trilinear): per-triangle texel density × the pixel's world-space
+    # width at the hit, spread by the incidence angle (capped at 20:1).
+    # Bounces reuse the segment-distance formula.
+    footprint_uv = None
+    if settings.trilinear_textures and pixel_angle is not None:
+        world_area = 0.5 * torch.linalg.vector_norm(face, dim=-1)
+        uv1 = uv[:, 1] - uv[:, 0]
+        uv2 = uv[:, 2] - uv[:, 0]
+        uv_area = 0.5 * absolute(uv1[:, 0] * uv2[:, 1] - uv1[:, 1] * uv2[:, 0])
+        density = torch.sqrt(uv_area / maximum(world_area, 1e-20))
+        t_safe = torch.where(hit.mask, hit.t, 0.0)
+        spread = maximum(absolute(dot(geo_normal, direction)), 0.05)
+        footprint_uv = density * t_safe * pixel_angle / spread
     tint, roughness, metallic, coverage = _surface_material_params(
-        scene, mats, _interpolate(bary, uv), tr_scale)
+        scene, mats, _interpolate(bary, uv), tr_scale, footprint_uv,
+        settings.trilinear_textures)
 
     # Cutouts are implicitly thin-walled (Types.h:384); a Transmissive
     # material's back face is its inside and is never culled.
@@ -666,10 +691,20 @@ def _wavefront_step(scene: RenderScene, settings: RenderSettings,
     wo = to_local(-direction, sn)
     cos_theta_o = torch.where(hit_from_front | thin_walled, wo[..., 2],
                               -wo[..., 2])
+
+    # Path regularization (MonteCarlo.cu:239-244): no floor after a delta
+    # bounce, on the primary one, or where the last pdf disabled MIS.
+    min_roughness = None
+    if settings.path_regularization_scale > 0.0:
+        scale = _regularization_scale(settings, accumulation)
+        min_alpha = estimate_ggx_alpha_from_max_pdf(
+            absolute(cos_theta_o), maximum(bsdf_pdf * scale, 1e-3))
+        min_roughness = torch.where(bsdf_was_delta | (bsdf_pdf <= 0.0), 0.0,
+                                    roughness_from_alpha(min_alpha))
     bundle = _create_shading(
         scene.shading_models, mats.shading_model, tint, roughness,
         mats.specularity, metallic, mats.coat, mats.coat_roughness,
-        cos_theta_o, thin_walled)
+        cos_theta_o, thin_walled, min_roughness)
 
     # Surface emission.
     radiance = radiance + torch.where(shade[..., None],
@@ -729,19 +764,36 @@ def _wavefront_step(scene: RenderScene, settings: RenderSettings,
     direction = torch.where(shade_c, new_dir, direction)
     throughput = torch.where(shade_c, new_throughput, throughput)
     bsdf_pdf = torch.where(shade, new_bsdf_pdf, bsdf_pdf)
+    bsdf_was_delta = torch.where(shade, s.is_delta, bsdf_was_delta)
     bounce = torch.where(shade, bounce + 1, bounce)
     active = (active & ~miss & ~light_hit
               & (~shade | (torch.amax(throughput, dim=-1) > 0.0))
               & (bounce <= settings.max_bounce_count))
     new_state = _PathState(origin, direction, throughput, radiance, bsdf_pdf,
-                           pixel_hash, bounce, active)
+                           bsdf_was_delta, pixel_hash, bounce, active)
     if record:
         return new_state, _HitRecords(hit.t, hit.prim, hit.u, hit.v,
                                       shadow_trans)
     return new_state
 
 
+def _regularization_scale(settings: RenderSettings, accumulation: int) -> float:
+    """scale · (1 + decay · accumulation), rounded as JAX's float32 0-d
+    arithmetic rounds it (every operand float32)."""
+    f32 = np.float32
+    return float(f32(settings.path_regularization_scale) * (
+        f32(1.0) + f32(settings.path_regularization_decay) * f32(accumulation)))
+
+
 # -- entry points ---------------------------------------------------------------
+
+def _camera_pixel_angle(camera: PinholeCamera, height: int):
+    """Vertical angular size of one pixel, fov_y / height with fov_y =
+    2·atan(1 / proj[1, 1]): what sets the ray footprint of trilinear mip
+    selection (a 0-d tensor on the camera's device)."""
+    f = camera.projection[1, 1]
+    return 2.0 * torch.atan(1.0 / maximum(f, 1e-6)) / height
+
 
 def _camera_lanes(camera: PinholeCamera, x, y, width: int, height: int,
                   accumulation: int, valid) -> _PathState:
@@ -766,6 +818,7 @@ def _camera_lanes(camera: PinholeCamera, x, y, width: int, height: int,
         throughput=torch.ones((r, 3), device=device),
         radiance=torch.zeros((r, 3), device=device),
         bsdf_pdf=torch.zeros(r, device=device),
+        bsdf_was_delta=torch.ones(r, dtype=torch.bool, device=device),
         pixel_hash=pixel_hash,
         bounce=torch.zeros(r, dtype=torch.int64, device=device),
         active=valid & torch.isfinite(origin[..., 0]))
@@ -806,14 +859,14 @@ def render_sample_pixels(scene: RenderScene, camera: PinholeCamera, x, y,
     integrator. ``settings.remat_bounces`` recomputes each iteration in the
     backward; ``settings.detached_replay_vjp`` takes the backward from
     :func:`render_sample_pixels_detached`."""
-    _check_supported(scene, settings)
     accumulation = int(accumulation)
     if settings.detached_replay_vjp and torch.is_grad_enabled():
         return render_sample_pixels_detached(scene, camera, x, y, width,
                                              height, accumulation, settings)
     state, shape = _pixel_lane_state(camera, x, y, width, accumulation,
                                      height)
-    step = functools.partial(_wavefront_step, scene, settings, accumulation)
+    step = functools.partial(_wavefront_step, scene, settings, accumulation,
+                             pixel_angle=_camera_pixel_angle(camera, height))
     for _ in range(_iterations(settings)):
         state = _step(step, state, settings.remat_bounces)
     return state.radiance.reshape(shape + (3,))
@@ -832,10 +885,11 @@ class _DetachedReplay(torch.autograd.Function):
         state, shape = _pixel_lane_state(camera, run["x"], run["y"],
                                          run["width"], accumulation,
                                          run["height"])
+        pixel_angle = _camera_pixel_angle(camera, run["height"])
         records = []
         for _ in range(_iterations(settings)):
             state, rec = _wavefront_step(scene, settings, accumulation, state,
-                                         record=True)
+                                         pixel_angle=pixel_angle, record=True)
             records.append(rec)
         ctx.run, ctx.records = run, records
         ctx.save_for_backward(*leaves)
@@ -852,9 +906,11 @@ class _DetachedReplay(torch.autograd.Function):
             state, shape = _pixel_lane_state(camera, run["x"], run["y"],
                                              run["width"], accumulation,
                                              run["height"])
+            pixel_angle = _camera_pixel_angle(camera, run["height"])
             for rec in ctx.records:
                 step = functools.partial(_wavefront_step, scene, settings,
-                                         accumulation, replay=rec)
+                                         accumulation, pixel_angle=pixel_angle,
+                                         replay=rec)
                 state = _step(step, state, settings.remat_bounces)
             wanted = [t for t, want in zip(leaves, wants) if want]
             grads = iter(torch.autograd.grad(
@@ -903,7 +959,6 @@ def render_rays(scene: RenderScene, origin, direction, pixel_hash,
     with (their probes need exact sub-pixel viewport positions).
     ``pixel_hash`` (an int or an integer tensor [r]) keys the Sobol chains,
     so probe pairs passing the same hash share their noise."""
-    _check_supported(scene, settings)
     accumulation = int(accumulation)
     r = origin.shape[0]
     device = origin.device
@@ -913,6 +968,7 @@ def render_rays(scene: RenderScene, origin, direction, pixel_hash,
         throughput=torch.ones((r, 3), device=device),
         radiance=torch.zeros((r, 3), device=device),
         bsdf_pdf=torch.zeros(r, device=device),
+        bsdf_was_delta=torch.ones(r, dtype=torch.bool, device=device),
         pixel_hash=torch.broadcast_to(
             torch.as_tensor(pixel_hash, dtype=torch.int64, device=device),
             (r,)),
@@ -968,7 +1024,6 @@ def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
     occupancy. The ray count is live lanes × 2 (closest + shadow) per
     iteration.
     """
-    _check_supported(scene, settings)
     accumulation = int(accumulation)
     device = scene.tri_verts.device
     n_pixels = width * height
@@ -977,6 +1032,7 @@ def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
     pixel_idx = torch.arange(r, dtype=torch.int64, device=device)
     state = _make_camera_lanes(camera, pixel_idx, width, height, accumulation)
     accum = torch.zeros((n_pixels, 3), device=device)
+    pixel_angle = _camera_pixel_angle(camera, height)
     next_pixel = torch.tensor(r, dtype=torch.int64, device=device)
     rays = torch.zeros((), dtype=torch.int64, device=device)
 
@@ -995,7 +1051,7 @@ def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
         live = n_active if settings.sort_rays_every == 1 else None
         rays = rays + 2 * n_active
         state = _wavefront_step(scene, settings, accumulation, state,
-                                live_count=live)
+                                pixel_angle=pixel_angle, live_count=live)
         done = (pixel_idx < n_pixels) & ~state.active
 
         # Each pixel finishes once per pass: add finished lanes into the

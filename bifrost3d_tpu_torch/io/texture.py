@@ -11,9 +11,10 @@ constants, the unorm helpers), the counterpart of the reference's
 All textures of a scene live in one padded atlas [n, atlas_h, max_w, 4]
 (the :class:`TextureBank`), so a per-lane fetch is one gather indexed by
 (texture id, y, x). :func:`sample_texture` fetches level 0 with NEAREST or
-bilinear filtering; trilinear minification (the ray footprint and the blend
-of two mip levels) is not ported and raises. The mip chain is packed as in
-the JAX package, so that the atlas is the same array.
+bilinear filtering, or, asked for trilinear minification with a ray
+footprint, blends the two mip levels around the footprint's level of
+detail. The mip chain is packed as in the JAX package, so that the atlas is
+the same array.
 
 ``jnp.mod`` is a floor-mod and ``jnp.round`` rounds half to even:
 ``torch.remainder`` and ``torch.round`` do the same.
@@ -25,6 +26,8 @@ from typing import List, NamedTuple
 
 import numpy as np
 import torch
+
+from bifrost3d_tpu_torch.math.clip import maximum
 
 # Filter modes (Assets/Texture.h sampler state).
 FILTER_NONE = 0
@@ -198,14 +201,15 @@ def sample_texture(bank, texture_id, uv, default=None, footprint_uv=None,
     """Per-lane texture fetch: texture_id [...] int (-1 = use default),
     uv [..., 2] → rgba [..., 4].
 
-    Nearest or bilinear per the texture's sampler state (Texture::sample2D)
-    on level 0; v = 0 is the bottom of the image (the reference's texcoord
-    convention). ``trilinear=True`` (mip blending by the ray footprint) is
-    not ported. A bank of no texture (or ``None``) answers with the default
-    and gathers nothing.
+    Nearest or bilinear per the texture's sampler state (Texture::sample2D);
+    v = 0 is the bottom of the image (the reference's texcoord convention).
+    Trilinear minification (Texture.h MinificationFilter::Trilinear): with
+    ``trilinear`` set and ``footprint_uv`` the ray footprint in uv units,
+    a ``FILTER_TRILINEAR`` texture blends the two mip levels around lod =
+    log2(max(footprint · size, 1)); other textures stay on level 0. A bank
+    of no texture (or ``None``) answers with the default and gathers
+    nothing.
     """
-    if trilinear:
-        raise NotImplementedError("trilinear textures are not ported yet")
     device = uv.device
     if default is None:
         default = torch.ones(4, dtype=torch.float32, device=device)
@@ -225,8 +229,23 @@ def sample_texture(bank, texture_id, uv, default=None, footprint_uv=None,
                      torch.clamp(u, 0.0, 1.0))
     fv = torch.where(wrap_v == WRAP_REPEAT, v - torch.floor(v),
                      torch.clamp(v, 0.0, 1.0))
-    out = _sample_level(bank, tid, fu, fv, wrap_u, wrap_v, filt,
-                        torch.zeros_like(tid))
+    if trilinear and footprint_uv is not None:
+        size = torch.maximum(bank.sizes[tid, 0], bank.sizes[tid, 1]).to(
+            torch.float32)
+        lod = torch.log2(maximum(footprint_uv * size, 1.0))
+        lod = torch.where(filt == FILTER_TRILINEAR, lod, 0.0)
+        top = bank.n_levels[tid].long() - 1
+        lod = torch.minimum(maximum(lod, 0.0), top.to(torch.float32))
+        l0 = lod.to(torch.int64)
+        l1 = torch.minimum(l0 + 1, top)
+        tl = (lod - l0.to(torch.float32))[..., None]
+        out = (_sample_level(bank, tid, fu, fv, wrap_u, wrap_v, filt, l0)
+               * (1.0 - tl)
+               + _sample_level(bank, tid, fu, fv, wrap_u, wrap_v, filt, l1)
+               * tl)
+    else:
+        out = _sample_level(bank, tid, fu, fv, wrap_u, wrap_v, filt,
+                            torch.zeros_like(tid))
     return torch.where((texture_id < 0)[..., None], default, out)
 
 

@@ -1,3 +1,4 @@
-"""Camera post effects: exposure, Gaussian bloom, vignette, tonemapping and
-film grain. Port of the slice's part of ``bifrost3d_tpu/post``.
+"""Camera post effects: exposure with eye adaptation, Gaussian and
+dual-kawase bloom, vignette, tonemapping and film grain. Port of
+``bifrost3d_tpu/post``.
 """

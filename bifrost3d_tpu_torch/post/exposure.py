@@ -1,7 +1,7 @@
 """Exposure estimation: fixed bias, log-average and 64-bin histogram.
 
 Port of ``bifrost3d_tpu/post/exposure.py`` (``fixed_exposure``,
-``log_average_exposure``, ``luminance_histogram``,
+``eye_adaptation``, ``log_average_exposure``, ``luminance_histogram``,
 ``histogram_exposure``). Each returns a linear exposure multiplier as a
 0-d tensor.
 """
@@ -18,6 +18,22 @@ HISTOGRAM_BINS = 64
 def fixed_exposure(log_luminance_bias=0.0, *, device):
     return torch.exp2(torch.tensor(log_luminance_bias, dtype=torch.float32,
                                    device=device))
+
+
+def eye_adaptation(current_exposure, target_exposure, delta_time,
+                   brightness_speed=3.0, darkness_speed=1.0):
+    """Temporal eye adaptation (Shaders/CameraEffects/Utils.hlsl:45-50):
+    lerp the exposure toward the target with an exponential rate that
+    differs for brightening and darkening (CameraEffects.h:71-73 defaults
+    3.0 / 1.0). Tensors of any matching shape; ``delta_time`` a number or
+    a tensor."""
+    delta_exposure = target_exposure - current_exposure
+    speed = torch.where(delta_exposure > 0.0, brightness_speed,
+                        darkness_speed)
+    delta_time = torch.as_tensor(delta_time, dtype=delta_exposure.dtype,
+                                 device=delta_exposure.device)
+    factor = 1.0 - torch.exp2(-delta_time * speed)
+    return current_exposure + delta_exposure * factor
 
 
 def _linear_exposure_from_average(average_luminance, log_luminance_bias):

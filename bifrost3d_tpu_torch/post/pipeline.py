@@ -1,17 +1,18 @@
 """The camera-effects chain: exposure → bloom → vignette → tonemap → grain.
 
-Port of ``bifrost3d_tpu/post/pipeline.py::process`` (its first-frame
-behaviour: eye adaptation snaps to the target exposure). The stateful
-variant with temporal eye adaptation and the dual-kawase bloom are not on
-the slice.
+Port of ``bifrost3d_tpu/post/pipeline.py`` (``process``,
+``process_stateful``): exposure (fixed, log-average or histogram, with
+temporal eye adaptation in the stateful variant), Gaussian or dual-kawase
+bloom, vignette, tonemapping and film grain.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bifrost3d_tpu_torch.post.bloom import gaussian_bloom
+from bifrost3d_tpu_torch.post.bloom import dual_kawase_bloom, gaussian_bloom
 from bifrost3d_tpu_torch.post.exposure import (
+    eye_adaptation,
     fixed_exposure,
     histogram_exposure,
     log_average_exposure,
@@ -29,6 +30,25 @@ from bifrost3d_tpu_torch.sampling.hashes import pcg2d, uint_to_unit_float
 def process(image, settings: CameraEffectsSettings = CameraEffectsSettings.preset(),
             frame_index: int = 0):
     """HDR radiance [h, w, 3] → display-ready linear [0, 1]."""
+    ldr, _ = _process(image, settings, frame_index, -1.0, 0.0)
+    return ldr
+
+
+def process_stateful(image, settings: CameraEffectsSettings,
+                     frame_index: int, previous_exposure, delta_time):
+    """Like :func:`process` but with temporal eye adaptation
+    (CameraEffects.cpp:456-469 + Utils.hlsl eye_adaptation): the exposure
+    lerps from ``previous_exposure`` toward the frame's target at the
+    settings' brightness/darkness speeds. Pass ``previous_exposure < 0``
+    on the first frame (adaptation snaps to the target). Returns
+    (ldr_image, applied_exposure), the exposure a 0-d tensor to feed back
+    next frame."""
+    return _process(image, settings, frame_index, previous_exposure,
+                    delta_time)
+
+
+def _process(image, settings: CameraEffectsSettings, frame_index: int,
+             previous_exposure, delta_time):
     h, w = image.shape[0], image.shape[1]
     device = image.device
 
@@ -43,12 +63,24 @@ def process(image, settings: CameraEffectsSettings = CameraEffectsSettings.prese
             settings.max_histogram_percentage, settings.log_luminance_bias)
     else:
         raise ValueError(f"unknown exposure mode {settings.exposure_mode}")
+    if settings.eye_adaptation_enabled:
+        previous = torch.as_tensor(previous_exposure, dtype=torch.float32,
+                                   device=device)
+        adapted = eye_adaptation(previous, exposure, delta_time,
+                                 settings.eye_adaptation_brightness,
+                                 settings.eye_adaptation_darkness)
+        # previous < 0 = no history (first frame): snap to the target.
+        exposure = torch.where(previous >= 0.0, adapted, exposure)
     image = image * exposure
 
     if settings.bloom_mode == 1:
-        raise NotImplementedError("dual-kawase bloom is not ported yet")
-    image = gaussian_bloom(image, settings.bloom_threshold,
-                           settings.bloom_support)
+        half_passes = max(1, int(round(settings.bloom_support * h / 128.0))) \
+            if settings.bloom_support > 0 else 0
+        image = dual_kawase_bloom(image, settings.bloom_threshold,
+                                  half_passes)
+    else:
+        image = gaussian_bloom(image, settings.bloom_threshold,
+                               settings.bloom_support)
 
     if settings.vignette > 0.0:
         ys = (torch.arange(h, device=device) + 0.5) / h - 0.5
@@ -68,4 +100,4 @@ def process(image, settings: CameraEffectsSettings = CameraEffectsSettings.prese
         noise = uint_to_unit_float(hashv) - 0.5
         image = image + (2.0 * settings.film_grain) * noise[..., None]
 
-    return torch.clamp(image, 0.0, 1.0)
+    return torch.clamp(image, 0.0, 1.0), exposure

@@ -53,7 +53,15 @@ class CameraEffectsSettings(NamedTuple):
     tonemapping_mode: int = TONEMAP_FILMIC
     tonemapping: TonemappingSettings = TonemappingSettings.aces()
     film_grain: float = 1.0 / 255.0
+    # Bloom variant: gaussian (the default) or dual-kawase, which reads
+    # bloom_support·height/128 as its number of half-res passes.
     bloom_mode: int = 0          # 0 = gaussian, 1 = dual-kawase
+    # Temporal eye adaptation (CameraEffects.h:71-73 defaults): the
+    # stateful post path (post.pipeline.process_stateful) lerps the
+    # exposure toward the target at these per-second exp2 rates.
+    eye_adaptation_enabled: bool = True
+    eye_adaptation_brightness: float = 3.0
+    eye_adaptation_darkness: float = 1.0
 
     @staticmethod
     def preset() -> "CameraEffectsSettings":

@@ -3,7 +3,8 @@
 Port of the lookup side of ``bifrost3d_tpu/shading/fittings.py``
 (``get_fittings``, ``_hat_weights``, ``_bilinear_2d``, ``sample_ggx_rho``,
 ``sample_ggx_with_fresnel_rho``, ``sample_burley_rho``,
-``sample_dielectric_ggx_rho``, ``_bilinear_2d_batch``). The tables are read by file path from the
+``sample_dielectric_ggx_rho``, ``_bilinear_2d_batch``, ``encode_pdf``,
+``estimate_ggx_alpha_from_max_pdf``). The tables are read by file path from the
 JAX package's ``shading/data/fittings.npz`` with ``np.load``; the JAX
 module is not imported and the table generators stay JAX-only.
 
@@ -20,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bifrost3d_tpu_torch.math.clip import absolute, clip, maximum
+from bifrost3d_tpu_torch.math.clip import absolute, clip, maximum, minimum
 
 FITTINGS_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -41,6 +42,7 @@ class Fittings(NamedTuple):
     burley: torch.Tensor            # [roughness, cos]
     dielectric_light: torch.Tensor  # [ior, roughness, cos, 2]
     dielectric_dense: torch.Tensor  # [ior, roughness, cos, 2]
+    bounded_vndf_alpha: torch.Tensor  # [cos, encoded max pdf]
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,3 +137,18 @@ def _bilinear_2d_batch(table, z, x, y):
                               ix[..., None, :]]           # [..., 3, 3, c]
     return torch.sum(wy[..., :, None, None] * wx[..., None, :, None] * taps,
                      dim=(-3, -2))
+
+
+def encode_pdf(pdf):
+    """Nonlinear PDF encoding (ShadingModels/Utils.h:104-130)."""
+    non_linear = pdf / (1.0 + pdf)
+    return minimum((non_linear - 0.13) / 0.87, 1.0)
+
+
+def estimate_ggx_alpha_from_max_pdf(cos_theta, max_pdf,
+                                    fittings: Fittings | None = None):
+    """Minimum GGX alpha for path regularization (GGXMinimumRoughness):
+    the smallest alpha whose peak bounded-VNDF reflection pdf at
+    ``cos_theta`` stays below ``max_pdf``."""
+    f = fittings if fittings is not None else get_fittings(cos_theta.device)
+    return _bilinear_2d(f.bounded_vndf_alpha, encode_pdf(max_pdf), cos_theta)

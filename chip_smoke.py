@@ -257,6 +257,30 @@ the last line):
    frame ms (median of 3, with the range) and each kernel's launches a
    frame, beside the card's name and power limit.
 
+23. viewer_modes: every mode of the viewer at its defaults (512², 4
+   bounces; accumulations cut), each item with every count at 0 before,
+   demanding its kernel and no other; card against CPU at 64². V1: the
+   viewer --path-regularization 1.0 -n 2 on CornellBox (the pooled
+   wavefront, "path regularization" named, B1), a frame's ms, the 64²
+   frame without and with path_regularization_decay 0.5 under the
+   statistical gate. V2: tests/test_textures.py's distant floor with a
+   1024² trilinear checker at 0 and 4 bounces (B1), frame ms, the 64²
+   gate, and level 0's row spread below the horizon over twice
+   trilinear's. V3: --renderer denoised -n 8 on CornellBox (the viewer,
+   8 B2 launches) and DenoisedBackend on hier_bridge_15k_env (8 B3), one
+   AOV trace each (the scene's trace kernel), the à-trous filter alone
+   (CUDA events) and a denoised render(); at 64² the AOVs, the running
+   mean and the denoised image against the CPU's filter. V4: --renderer
+   preview on CornellBox, Sphere and Opacity, render_preview on the
+   49,678-triangle bridge (B1) and the torus grid (B4): layers × (1 +
+   lights) trace launches a frame, frame ms, 64² card vs CPU (≤ 1% of
+   pixels off by > 1e-3 without SSAO, ≤ 5% with it, means within 0.5%). V5: -n 8 --checkpoint-every 4, then -n 12
+   resumed at accumulation 8, bit for bit an uninterrupted -n 12. V6:
+   environment_convolution on the 1024 x 512 EXR sky, 5 levels, 256
+   samples (seconds), each level of a 64 x 32 sky against the CPU's;
+   dual-kawase bloom + process_stateful over 8 frames of a 512² HDR frame
+   (ms, card vs CPU within 1e-5).
+
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s, counted from this run's inputs), and last the JSON
@@ -3640,6 +3664,434 @@ def files_phase(device, card) -> dict:
     return dict(F1=f1, F2=f2, F3=f3, F4=f4)
 
 
+# -- phase 23: every viewer mode -------------------------------------------------
+
+MODES_DIR = os.path.join(REPO, "build", "modes")
+MODES_GATE_RES = 64
+REG_ACCUMULATIONS = 2
+DENOISE_ACCUMULATIONS = 8
+# Preview scenes: name, whether a viewer scene (SCENES) or a TEST_SCENES one.
+PREVIEW_SCENES = (("CornellBox", True), ("Sphere", True), ("Opacity", True),
+                  (BRIDGE_SCENE, False), ("torus_grid", False))
+# Preview card vs CPU at 64²: share of pixels off by > 1e-3 without SSAO
+# (pixels where the kernel's trace and its plain version part at a triangle
+# edge: 0.44% of CornellBox's AOV pixels at 64²) and with it (the AO pass
+# reads those pixels' positions through taps up to 16 pixels away, and its
+# 9-tap cross blur spreads each over its row and column); the means within
+# 0.5%.
+PREVIEW_FLIPS, PREVIEW_SSAO_FLIPS, PREVIEW_MEAN = 0.01, 0.05, 0.005
+FLOOR_TEXTURE = 1024
+CONVOLUTION_LEVELS = "0.0,0.25,0.5,0.75,1.0"
+POST_FRAMES = 8
+
+
+def _viewer_said(argv, expect, what) -> dict:
+    """:func:`_viewer` with the viewer's standard output kept (and
+    printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = _viewer(argv, expect, what)
+    print(buf.getvalue(), end="", flush=True)
+    return dict(run, said=buf.getvalue())
+
+
+def _trace_kernel(scene) -> str:
+    """The trace kernel ``intersect_scene`` launches for the scene's
+    packing: B1 (dense table), B4 (BVH), B6 or B7."""
+    kind = type(scene.tri_clustered).__name__
+    return {"HierTriangles": "B4", "ClusteredTriangles": "B6",
+            "VmemTriangles": "B7"}.get(kind, "B1")
+
+
+def _frame_ms(fn, n=3) -> dict:
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(ms=statistics.median(times), ms_min=min(times),
+                ms_max=max(times))
+
+
+def _modes_v1(device, card) -> dict:
+    """V1: path regularization through the viewer: the pooled wavefront on
+    B1 ("path regularization" is the megakernel's reason)."""
+    from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    scene, cam = create_cornell_box(device=device)
+    settings = pt.RenderSettings(max_bounce_count=BOUNCES,
+                                 path_regularization_scale=1.0)
+    path = pt.explain_render_path(scene, settings)
+    check("path regularization" in path, f"V1: {path}")
+    run = _viewer_said(["--scene", "CornellBox", "--path-regularization",
+                        "1.0", "-n", str(REG_ACCUMULATIONS), "-o",
+                        os.path.join(MODES_DIR, "regularized.png")],
+                       {"B1": "> 0"}, "V1 viewer --path-regularization")
+    frames = _timed_frames(scene, cam, RES, settings, REG_ACCUMULATIONS, n=1)
+    cpu_scene, cpu_cam = create_cornell_box(device=torch.device("cpu"))
+    small, gates = MODES_GATE_RES, {}
+    for decay in (0.0, 0.5):
+        s = settings._replace(path_regularization_decay=decay)
+        img = pt.render_sample_fast(scene, cam, small, small, 3, s)
+        ref = pt.render_sample_fast(cpu_scene, cpu_cam, small, small, 3, s)
+        gates[decay] = _gate(img.reshape(-1, 3).cpu(), ref.reshape(-1, 3),
+                             f"V1 decay {decay}: card vs cpu")
+    out = dict(launches=run["counts"]["B1"], frames=frames, gates=gates,
+               viewer_s=run["seconds"])
+    print(f"viewer_modes/V1 path regularization: viewer --scene CornellBox "
+          f"--path-regularization 1.0 -n {REG_ACCUMULATIONS} {RES}x{RES} in "
+          f"{run['seconds']:.2f} s: {path}, launches {run['counts']} | "
+          f"render_sample_fast frame {frames['ms']:.1f} ms, launches a frame "
+          f"{frames['per_frame']} | {small}² card vs cpu: decay 0 "
+          f"{gates[0.0][0]:.5f} flips, means {gates[0.0][2]:.2e} apart; "
+          f"decay 0.5 {gates[0.5][0]:.5f} flips, means {gates[0.5][2]:.2e} "
+          f"apart | {card}", flush=True)
+    return out
+
+
+def _checker_floor(device, size):
+    """tests/test_textures.py's distant checkered floor with the port's
+    API: a 200-unit plane, a directional light and a size² trilinear
+    checker."""
+    from bifrost3d_tpu_torch.geometry.creation import make_plane
+    from bifrost3d_tpu_torch.io.texture import FILTER_TRILINEAR, TextureBank
+    from bifrost3d_tpu_torch.lights.types import LIGHT_DIRECTIONAL, LightArray
+    from bifrost3d_tpu_torch.scene.camera import perspective_camera
+    from bifrost3d_tpu_torch.scene.materials import MaterialArray
+    from bifrost3d_tpu_torch.scene.render_scene import build_render_scene
+    c = (np.indices((size, size)).sum(axis=0) % 2).astype(np.float32)
+    bank = TextureBank.build([dict(image=np.stack([c, c, c], -1),
+                                   filter=FILTER_TRILINEAR)], device=device)
+    mats = MaterialArray.build([dict(tint=(1, 1, 1), roughness=1.0,
+                                     tint_roughness_texture=0)],
+                               device=device)
+    lights = LightArray.build([
+        {"kind": LIGHT_DIRECTIONAL, "direction": (0, -1, 0.2),
+         "radiance": (3.0, 3.0, 3.0)}], device=device)
+    scene = build_render_scene([(make_plane(size=200.0), 0, None)], mats,
+                               lights, textures=bank, device=device)
+    cam = perspective_camera(eye=(0, 1.0, 0), target=(0, 0.0, 30.0),
+                             device=device)
+    return scene, cam
+
+
+def _row_spread(img, level0):
+    """Within-row spread of the band just below the horizon (the aliasing
+    measure of tests/test_textures.py)."""
+    horizon = next(i for i in range(img.shape[0])
+                   if float(level0[i].mean()) > 1e-4)
+    rows = slice(horizon + 1, horizon + 7)
+    return (float(img[rows].mean(-1).std(1).mean()),
+            float(level0[rows].mean(-1).std(1).mean()))
+
+
+def _modes_v2(device, card) -> dict:
+    """V2: trilinear mips on the distant floor, the pooled wavefront on
+    B1."""
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    scene, cam = _checker_floor(device, FLOOR_TEXTURE)
+    out = {}
+    for bounces in (0, BOUNCES):
+        settings = pt.settings_for_scene(scene, max_bounce_count=bounces,
+                                         next_event_sample_count=1)
+        check(settings.trilinear_textures, "V2: no trilinear hint")
+        path = pt.explain_render_path(scene, settings)
+        check(path.startswith("wavefront") and "non-nearest texture "
+              "filtering" in path, f"V2: {path}")
+        pt.render_sample_fast(scene, cam, RES, RES, 0, settings)
+        frames = _timed_frames(scene, cam, RES, settings, 1, n=2)
+        check(set(frames["per_frame"]) == {"B1"},
+              f"V2: launches a frame {frames['per_frame']}, expected B1 only")
+        out[bounces] = dict(frames=frames, path=path)
+    settings = pt.settings_for_scene(scene, max_bounce_count=0,
+                                     next_event_sample_count=1)
+    cpu_scene, cpu_cam = _checker_floor(torch.device("cpu"), FLOOR_TEXTURE)
+    small = MODES_GATE_RES
+    img = pt.render_sample_fast(scene, cam, small, small, 0, settings)
+    ref = pt.render_sample_fast(cpu_scene, cpu_cam, small, small, 0, settings)
+    gate = _gate(img.reshape(-1, 3).cpu(), ref.reshape(-1, 3),
+                 "V2: card vs cpu")
+    level0 = pt.render_sample_fast(scene, cam, small, small, 0,
+                                   settings._replace(trilinear_textures=False))
+    tri_std, l0_std = _row_spread(img.cpu(), level0.cpu())
+    check(l0_std > 2.0 * tri_std, f"V2: level 0's row spread {l0_std} is not "
+          f"above twice trilinear's {tri_std}")
+    out.update(gate=gate, spread=(tri_std, l0_std),
+               launches=sum(round(out[b]["frames"]["per_frame"].get("B1", 0))
+                            for b in (0, BOUNCES)))
+    print(f"viewer_modes/V2 trilinear: 200-unit floor, {FLOOR_TEXTURE}² "
+          f"trilinear checker, {RES}x{RES}: {out[0]['path']} | frame "
+          f"{out[0]['frames']['ms']:.1f} ms at 0 bounces, "
+          f"{out[BOUNCES]['frames']['ms']:.1f} ms at {BOUNCES}, B1 a frame "
+          f"{out[0]['frames']['per_frame'].get('B1', 0):.1f} / "
+          f"{out[BOUNCES]['frames']['per_frame'].get('B1', 0):.1f} | {small}² card vs"
+          f" cpu {gate[0]:.5f} flips, means {gate[2]:.2e} apart | row spread "
+          f"below the horizon: level 0 {l0_std:.4f}, trilinear "
+          f"{tri_std:.4f} | {card}", flush=True)
+    return out
+
+
+def _denoise_ms(backend) -> float:
+    """Median CUDA-event ms of the backend's à-trous filter alone on its
+    running mean and AOVs."""
+    from bifrost3d_tpu_torch.integrator.backend import atrous_denoise
+    args = (backend.buffer, backend._aovs["shading_normal"],
+            backend._aovs["albedo"], backend.denoise_iterations)
+    return _median_ms(lambda: atrous_denoise(*args), repeats=5, warmup=1)
+
+
+def _modes_v3(device, card) -> dict:
+    """V3: the denoised backend on CornellBox (the viewer, B2) and on
+    hier_bridge_15k_env (the backend, B3); one AOV trace each."""
+    from bifrost3d_tpu_torch.apps.scenes import SCENES, TEST_SCENES
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.integrator.backend import (
+        DenoisedBackend, atrous_denoise)
+    n, out = DENOISE_ACCUMULATIONS, {}
+    settings = pt.RenderSettings(max_bounce_count=BOUNCES)
+    for name, viewer in (("CornellBox", True),
+                         ("hier_bridge_15k_env", False)):
+        make = SCENES[name] if viewer else TEST_SCENES[name]
+        scene, cam = make(device=device)
+        trace = _trace_kernel(scene)
+        expect = {"B2_B3": n, trace: 1}
+        if viewer:
+            run = _viewer_said(["--scene", name, "--renderer", "denoised",
+                                "-n", str(n), "-o", os.path.join(
+                                    MODES_DIR, f"denoised_{name}.png")],
+                               expect, f"V3 viewer --renderer denoised {name}")
+            counts, seconds = run["counts"], run["seconds"]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        backend = DenoisedBackend(scene, cam, RES, RES, settings)
+        for _ in range(n):
+            backend.render()
+        torch.cuda.synchronize()
+        if not viewer:
+            counts, seconds = _trace_counts(), time.perf_counter() - t0
+            for k, v in counts.items():
+                check(v == expect.get(k, 0), f"V3 {name}: launches {counts}, "
+                      f"expected {expect}")
+        denoise = _denoise_ms(backend)
+        backend.accumulations = 15          # the next frame, 16, denoises
+        render = _frame_ms(backend.render, n=1)["ms"]
+        out[name] = dict(counts=counts, seconds=seconds, denoise_ms=denoise,
+                         render_ms=render, trace=trace)
+    # 64² on the card against the CPU: the AOVs, the running mean, and the
+    # denoised image against the CPU's filter on the card's own inputs.
+    small = MODES_GATE_RES
+    scene, cam = SCENES["CornellBox"](device=device)
+    cpu_scene, cpu_cam = SCENES["CornellBox"](device=torch.device("cpu"))
+    card_b = DenoisedBackend(scene, cam, small, small, settings)
+    cpu_b = DenoisedBackend(cpu_scene, cpu_cam, small, small, settings)
+    for _ in range(2):
+        img = card_b.render()
+        cpu_b.render()
+    aov_share = {}
+    for key in ("albedo", "shading_normal", "depth"):
+        a, b = card_b._aovs[key].cpu(), cpu_b._aovs[key]
+        d = (a - b).abs()
+        d = d.amax(-1) if d.dim() == 3 else d
+        aov_share[key] = float((d <= 1e-3).float().mean())
+        check(aov_share[key] >= 0.995, f"V3 AOV {key}: equal within 1e-3 on "
+              f"{aov_share[key]:.5f} of the pixels")
+    mean_gate = _gate(card_b.buffer.reshape(-1, 3).cpu(),
+                      cpu_b.buffer.reshape(-1, 3), "V3 running mean")
+    ref = atrous_denoise(card_b.buffer.cpu(),
+                         card_b._aovs["shading_normal"].cpu(),
+                         card_b._aovs["albedo"].cpu())
+    err = float((img.cpu() - ref).abs().max())
+    check(err <= 1e-4, f"V3: the card's denoise is {err} off the CPU's")
+    out.update(aov_share=aov_share, mean_gate=mean_gate, denoise_err=err)
+    for name in ("CornellBox", "hier_bridge_15k_env"):
+        d = out[name]
+        print(f"viewer_modes/V3 denoised {name}: {RES}x{RES} -n {n} in "
+              f"{d['seconds']:.2f} s, launches {d['counts']} (the AOV trace "
+              f"{d['trace']}) | à-trous alone {d['denoise_ms']:.2f} ms "
+              f"(CUDA events, 4 iterations), a denoised render() "
+              f"{d['render_ms']:.2f} ms | {card}", flush=True)
+    print(f"viewer_modes/V3 gate {small}²: AOVs equal within 1e-3 on "
+          f"{aov_share} | running mean card vs cpu {mean_gate[0]:.5f} flips |"
+          f" denoised image vs the CPU's filter on the card's inputs max "
+          f"|d| {err:.3g}", flush=True)
+    return out
+
+
+def _modes_v4(device, card) -> dict:
+    """V4: the preview renderer: a layer's primary trace and each light's
+    shadow trace launch the scene's trace kernel."""
+    from bifrost3d_tpu_torch.apps import scenes
+    from bifrost3d_tpu_torch.preview import render_preview
+    out = {}
+    cpu = torch.device("cpu")
+    for name, viewer in PREVIEW_SCENES:
+        make = scenes.SCENES[name] if viewer else scenes.TEST_SCENES[name]
+        scene, cam = make(device=device)
+        layers = 4 if bool(torch.any(scene.materials.coverage < 1.0)) else 1
+        trace = _trace_kernel(scene)
+        per_frame = layers * (1 + scene.lights.count)
+        if viewer:
+            run = _viewer_said(["--scene", name, "--renderer", "preview", "-o",
+                                os.path.join(MODES_DIR, f"preview_{name}.png")],
+                               {trace: per_frame},
+                               f"V4 viewer --renderer preview {name}")
+        else:
+            torch.cuda.synchronize()
+            _reset_counts()
+            render_preview(scene, cam, RES, RES)
+            torch.cuda.synchronize()
+            counts = _trace_counts()
+            for k, v in counts.items():
+                check(v == (per_frame if k == trace else 0),
+                      f"V4 {name}: launches {counts}, expected {per_frame} "
+                      f"of {trace}")
+        frames = _frame_ms(lambda: render_preview(scene, cam, RES, RES))
+        small = MODES_GATE_RES
+        cpu_scene, cpu_cam = make(device=cpu)
+        gate = {}
+        for ssao, budget in ((False, PREVIEW_FLIPS),
+                             (True, PREVIEW_SSAO_FLIPS)):
+            img = render_preview(scene, cam, small, small, enable_ssao=ssao)
+            ref = render_preview(cpu_scene, cpu_cam, small, small,
+                                 enable_ssao=ssao)
+            gate[ssao] = _gate(img.reshape(-1, 3).cpu(), ref.reshape(-1, 3),
+                               f"V4 {name} (SSAO {ssao}): card vs cpu",
+                               budget, PREVIEW_MEAN)
+        out[name] = dict(launches=per_frame, trace=trace, layers=layers,
+                         frames=frames, gate=gate,
+                         tris=int(scene.tri_verts.shape[0]))
+        print(f"viewer_modes/V4 preview {name}: {out[name]['tris']} "
+              f"triangles, {layers} layer(s), {scene.lights.count} light(s) | "
+              f"{trace} launches a {RES}x{RES} frame {per_frame} = layers × "
+              f"(1 + lights), no other kernel | frame {frames['ms']:.2f} ms "
+              f"(median of 3, {frames['ms_min']:.2f}–{frames['ms_max']:.2f}) |"
+              f" {small}² card vs cpu, pixels off by > 1e-3: SSAO off "
+              f"{gate[False][0]:.5f} (budget {PREVIEW_FLIPS}), on "
+              f"{gate[True][0]:.5f} (budget {PREVIEW_SSAO_FLIPS}), means "
+              f"{gate[True][2]:.2e} apart | {card}", flush=True)
+    return out
+
+
+def _modes_v5(device, card) -> dict:
+    """V5: checkpoint/resume: -n 8 every 4, then -n 12 from the same
+    directory, against an uninterrupted -n 12, bit for bit."""
+    import shutil
+    from bifrost3d_tpu_torch.io.image import load_exr
+    ckpt = os.path.join(MODES_DIR, "ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = ["--scene", "CornellBox", "--checkpoint-dir", ckpt,
+            "--checkpoint-every", "4"]
+    first = _viewer_said(base + ["-n", "8", "-o", os.path.join(
+        MODES_DIR, "ckpt_8.exr")], {"B2_B3": 8}, "V5 -n 8")
+    check(sorted(os.listdir(ckpt)) == ["ckpt_4.npz", "ckpt_8.npz"],
+          f"V5: checkpoints {sorted(os.listdir(ckpt))}")
+    resumed = _viewer_said(base + ["-n", "12", "-o", os.path.join(
+        MODES_DIR, "resumed_12.exr")], {"B2_B3": 4}, "V5 -n 12 resumed")
+    check("resumed at accumulation 8" in resumed["said"],
+          f"V5: the second run said {resumed['said']!r}")
+    whole = _viewer_said(["--scene", "CornellBox", "-n", "12", "-o",
+                          os.path.join(MODES_DIR, "whole_12.exr")],
+                         {"B2_B3": 12}, "V5 -n 12 uninterrupted")
+    a = load_exr(os.path.join(MODES_DIR, "resumed_12.exr"))
+    b = load_exr(os.path.join(MODES_DIR, "whole_12.exr"))
+    equal = bool(np.array_equal(a.view(np.uint32), b.view(np.uint32)))
+    check(equal, f"V5: the resumed image is off the uninterrupted one by "
+          f"{float(np.abs(a - b).max())}")
+    print(f"viewer_modes/V5 checkpoint: -n 8 every 4 in "
+          f"{first['seconds']:.2f} s, then -n 12 resumed at accumulation 8 in "
+          f"{resumed['seconds']:.2f} s (4 megakernel launches), uninterrupted "
+          f"-n 12 in {whole['seconds']:.2f} s | resumed image bit for bit "
+          f"the uninterrupted one: {equal} | {card}", flush=True)
+    return dict(launches=first["counts"]["B2_B3"]
+                + resumed["counts"]["B2_B3"], equal=equal)
+
+
+def _modes_v6(device, card) -> dict:
+    """V6: the EnvironmentConvolution app on the 1024 × 512 EXR sky, each
+    level against the CPU's on a 64 × 32 sky; dual-kawase bloom and
+    process_stateful over 8 frames of a 512² HDR frame."""
+    from bifrost3d_tpu_torch.apps import environment_convolution
+    from bifrost3d_tpu_torch.io.image import save_exr
+    from bifrost3d_tpu_torch.post.pipeline import process_stateful
+    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+    from bifrost3d_tpu_torch.preview.ibl import convolve_environment
+    exr = os.path.join(MODES_DIR, "sky.exr")
+    save_exr(exr, _sky())
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    environment_convolution.main([exr, "--roughness", CONVOLUTION_LEVELS,
+                                  "--output-dir", os.path.join(MODES_DIR,
+                                                               "ibl")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(sum(_trace_counts().values()) == 0, "V6: a kernel launched")
+    levels = [float(r) for r in CONVOLUTION_LEVELS.split(",")]
+    small = torch.tensor(_sky(64, 32))
+    card_mips = convolve_environment(small.to(device), levels, samples=256)
+    cpu_mips = convolve_environment(small, levels, samples=256)
+    gates = []
+    for (r, a), (_, b) in zip(card_mips, cpu_mips):
+        d = ((a.cpu() - b).abs() / b.abs().clamp_min(1e-3)).amax(-1)
+        gates.append((r, float((d > 1e-3).float().mean()), float(d.max())))
+        check(gates[-1][1] <= 0.01, f"V6 level {r}: {gates[-1][1]:.4f} of "
+              "texels off the CPU's by > 1e-3 relative")
+
+    rng = np.random.default_rng(23)
+    hdr = np.exp(rng.normal(-1.0, 1.2, (RES, RES, 3))).astype(np.float32)
+    hdr[200:210, 300:310] = 60.0
+    settings = CameraEffectsSettings.preset()._replace(
+        bloom_mode=1, bloom_threshold=2.0)
+    frames = [torch.tensor(hdr * s) for s in
+              np.linspace(0.5, 2.0, POST_FRAMES, dtype=np.float32)]
+    card_frames = [f.to(device) for f in frames]
+    prev_card, prev_cpu, times, worst = -1.0, -1.0, [], 0.0
+    for i, (f_card, f_cpu) in enumerate(zip(card_frames, frames)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ldr, prev_card = process_stateful(f_card, settings, i, prev_card,
+                                          1.0 / 30)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        ref, prev_cpu = process_stateful(f_cpu, settings, i, prev_cpu,
+                                         1.0 / 30)
+        worst = max(worst, float((ldr.cpu() - ref).abs().max()),
+                    abs(float(prev_card) - float(prev_cpu))
+                    / float(prev_cpu))
+    check(worst <= 1e-5, f"V6: process_stateful card vs cpu {worst}")
+    post_ms = statistics.median(times)
+    print(f"viewer_modes/V6 environment_convolution: {SKY_W}x{SKY_H} EXR, "
+          f"{len(levels)} levels, 256 samples in {seconds:.2f} s with the "
+          f"writes, no kernel | 64x32 card vs cpu per level (share of texels "
+          f"off by > 1e-3 relative, max): "
+          + ", ".join(f"{r:.2f}: {s:.4f} ({m:.2g})" for r, s, m in gates)
+          + f" | dual-kawase bloom + process_stateful {RES}² x{POST_FRAMES}: "
+          f"{post_ms:.2f} ms a frame (median), card vs cpu max |d| "
+          f"{worst:.2e} | {card}", flush=True)
+    return dict(seconds=seconds, gates=gates, post_ms=post_ms, post_err=worst)
+
+
+def viewer_modes_phase(device, card) -> dict:
+    """Phase 23: every mode of the viewer on the card at its defaults
+    (512², 4 bounces, accumulations cut): V1 path regularization, V2
+    trilinear mips, V3 the denoised backend, V4 the preview renderer, V5
+    checkpoint/resume, V6 the EnvironmentConvolution app and the stateful
+    post chain."""
+    os.makedirs(MODES_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    out = dict(V1=_modes_v1(device, card), V2=_modes_v2(device, card),
+               V3=_modes_v3(device, card), V4=_modes_v4(device, card),
+               V5=_modes_v5(device, card), V6=_modes_v6(device, card))
+    print(f"viewer_modes: V1–V6 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, result) -> dict:
     """One kernel's entry of the JSON line; a culled trace (B1, B6) also
     gives the bound of the full scan or the TPU design it replaces, beside
@@ -3686,6 +4138,7 @@ def main() -> int:
     frame_profile_phase(device)
     viewer_scenes_phase(device, card, path_d)
     files = files_phase(device, card)
+    modes = viewer_modes_phase(device, card)
     train = train_phase(device, card)
     train_profile(fresh_process("train"), card)
     # No single PyTorch call computes any of the seven: library_ms is null.
@@ -3756,6 +4209,38 @@ def main() -> int:
         _kernel_row("bvh_intersect/aov", "bvh_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_bvh.py:240",
                     files["F4"]["torus.glb"]["launches"], bvh["coherent"]),
+        # The kernels again on the viewer's modes (phase 23): V1 path
+        # regularization and V2 trilinear mips (B1, the pooled wavefront),
+        # V3 the denoised backend (B2 on CornellBox, B3 on
+        # hier_bridge_15k_env), V4 the preview's primary and shadow traces
+        # (B1 on CornellBox, Sphere, Opacity and the bridge, B4 on the torus
+        # grid), V5 the resumed viewer (B2), each with the timing row of
+        # its kernel phase.
+        _kernel_row("dense_intersect/regularization", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    modes["V1"]["launches"], kernels["cornell/incoherent"]),
+        _kernel_row("dense_intersect/trilinear", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    modes["V2"]["launches"], kernels["cornell/incoherent"]),
+        _kernel_row("mesh_megakernel/denoised", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
+                    modes["V3"]["CornellBox"]["counts"]["B2_B3"],
+                    scenes["CornellBox"]),
+        _kernel_row("mesh_megakernel_hier/denoised", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:898",
+                    modes["V3"]["hier_bridge_15k_env"]["counts"]["B2_B3"],
+                    path_d["hier_bridge_15k_env"]),
+        _kernel_row("dense_intersect/preview", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    sum(v["launches"] for v in modes["V4"].values()
+                        if v["trace"] == "B1"), kernels["cornell/camera"]),
+        _kernel_row("bvh_intersect/preview", "bvh_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_bvh.py:240",
+                    sum(v["launches"] for v in modes["V4"].values()
+                        if v["trace"] == "B4"), bvh["coherent"]),
+        _kernel_row("mesh_megakernel/checkpoint", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
+                    modes["V5"]["launches"], scenes["CornellBox"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3763,8 +4248,12 @@ def main() -> int:
     return 0
 
 
-# Phases that profile, each run alone in a process (fresh_process).
-PROFILES = {"traces": trace_device_phase,
+# Phases that profile, each run alone in a process (fresh_process); and
+# phase 23 alone (``python3 chip_smoke.py --profile viewer_modes``), whose
+# kernels build at first use.
+PROFILES = {"viewer_modes": lambda device: viewer_modes_phase(
+                device, device_phase()),
+            "traces": trace_device_phase,
             "pooled-dense": lambda device: pooled_frame_phase(device, "dense"),
             "pooled-clustered": lambda device: pooled_frame_phase(
                 device, "clustered"),

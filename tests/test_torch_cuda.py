@@ -1203,3 +1203,136 @@ def test_loaded_glb_renders_through_bvh_kernel(cuda, scene_files, monkeypatch):
     assert float(same.float().mean()) >= 0.999
     for name in ("tint", "roughness"):
         assert torch.equal(aovs[name][same], plain[name][same]), name
+
+
+# -- the viewer's modes ------------------------------------------------------------------
+
+def test_path_regularization_on_card_matches_cpu(cuda):
+    """Path regularization takes the pooled wavefront on the dense trace
+    (B1), never the megakernel; the card's 64² frame against the CPU's,
+    with and without decay."""
+    scene, cam = create_cornell_box(device=cuda)
+    cpu_scene, cpu_cam = create_cornell_box(device="cpu")
+    for decay in (0.0, 0.5):
+        settings = pt.RenderSettings(max_bounce_count=2,
+                                     path_regularization_scale=1.0,
+                                     path_regularization_decay=decay)
+        assert "path regularization" in pt.explain_render_path(scene, settings)
+        before = mega.launch_count, dense.launch_count
+        img = pt.render_sample_fast(scene, cam, 64, 64, 3, settings)
+        torch.cuda.synchronize()
+        assert mega.launch_count == before[0]
+        assert dense.launch_count > before[1]
+        ref = pt.render_sample_fast(cpu_scene, cpu_cam, 64, 64, 3, settings)
+        assert_statistical_gate(img.cpu().numpy(), ref.numpy())
+
+
+def _distant_floor(device):
+    """tests/test_textures.py's distant checkered floor with the port's
+    API: a 200-unit plane, a directional light, a 256² trilinear
+    checker."""
+    from bifrost3d_tpu_torch.io.texture import FILTER_TRILINEAR, TextureBank
+    from bifrost3d_tpu_torch.lights.types import LIGHT_DIRECTIONAL, LightArray
+    from bifrost3d_tpu_torch.scene.camera import perspective_camera
+    from bifrost3d_tpu_torch.scene.materials import MaterialArray
+    from bifrost3d_tpu_torch.scene.render_scene import build_render_scene
+    c = np.indices((256, 256)).sum(axis=0) % 2
+    bank = TextureBank.build([dict(image=np.stack([c, c, c], -1).astype(
+        np.float32), filter=FILTER_TRILINEAR)], device=device)
+    mats = MaterialArray.build([dict(tint=(1, 1, 1), roughness=1.0,
+                                     tint_roughness_texture=0)],
+                               device=device)
+    lights = LightArray.build([
+        {"kind": LIGHT_DIRECTIONAL, "direction": (0, -1, 0.2),
+         "radiance": (3.0, 3.0, 3.0)}], device=device)
+    scene = build_render_scene([(make_plane(size=200.0), 0, None)], mats,
+                               lights, textures=bank, device=device)
+    cam = perspective_camera(eye=(0, 1.0, 0), target=(0, 0.0, 30.0),
+                             device=device)
+    return scene, cam
+
+
+def test_trilinear_floor_on_card_matches_cpu(cuda):
+    scene, cam = _distant_floor(cuda)
+    cpu_scene, cpu_cam = _distant_floor("cpu")
+    settings = pt.settings_for_scene(scene, max_bounce_count=0,
+                                     next_event_sample_count=1)
+    assert settings.trilinear_textures
+    before = dense.launch_count
+    img = pt.render_sample_fast(scene, cam, 64, 64, 0, settings)
+    torch.cuda.synchronize()
+    assert dense.launch_count > before
+    ref = pt.render_sample_fast(cpu_scene, cpu_cam, 64, 64, 0, settings)
+    assert_statistical_gate(img.cpu().numpy(), ref.numpy())
+    level0 = pt.render_sample_fast(scene, cam, 64, 64, 0, settings._replace(
+        trilinear_textures=False)).cpu().numpy()
+    img = img.cpu().numpy()
+    horizon = next(i for i in range(64) if level0[i].mean() > 1e-4)
+    rows = slice(horizon + 1, horizon + 7)
+    assert level0[rows].mean(-1).std(1).mean() > \
+        2.0 * img[rows].mean(-1).std(1).mean()
+
+
+def test_denoised_backend_on_card(cuda):
+    """Three frames: three megakernel launches and one AOV trace (B1); the
+    running mean against the CPU's, the denoised image equal to the CPU's
+    filter on the card's own inputs."""
+    from bifrost3d_tpu_torch.integrator.backend import (
+        DenoisedBackend, atrous_denoise)
+    scene, cam = create_cornell_box(device=cuda)
+    cpu_scene, cpu_cam = create_cornell_box(device="cpu")
+    settings = pt.RenderSettings(max_bounce_count=2)
+    backend = DenoisedBackend(scene, cam, 64, 64, settings)
+    cpu = DenoisedBackend(cpu_scene, cpu_cam, 64, 64, settings)
+    before = mega.launch_count, dense.launch_count
+    means = []
+    for _ in range(3):
+        img = backend.render()
+        means.append(backend.buffer.cpu())
+        cpu.render()
+    torch.cuda.synchronize()
+    assert (mega.launch_count - before[0], dense.launch_count - before[1]) \
+        == (3, 1)
+    assert_statistical_gate(backend.buffer.cpu().numpy(), cpu.buffer.numpy())
+    # Frame 3 presents frame 2's image, denoised from frame 2's mean.
+    ref = atrous_denoise(means[1], backend._aovs["shading_normal"].cpu(),
+                         backend._aovs["albedo"].cpu())
+    torch.testing.assert_close(img.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_preview_on_card_matches_cpu(cuda):
+    """A layer's primary trace and each light's shadow trace launch the
+    dense trace kernel: 1 + 1 × lights a CornellBox frame, 4 + 4 × lights
+    an Opacity frame; each frame against the CPU's."""
+    from bifrost3d_tpu_torch.apps.scenes import SCENES
+    from bifrost3d_tpu_torch.preview import render_preview
+    for name, layers in (("CornellBox", 1), ("Opacity", 4)):
+        scene, cam = SCENES[name](device=cuda)
+        cpu_scene, cpu_cam = SCENES[name](device="cpu")
+        before = dense.launch_count
+        img = render_preview(scene, cam, 64, 64)
+        torch.cuda.synchronize()
+        assert dense.launch_count - before == layers * (
+            1 + scene.lights.count), name
+        ref = render_preview(cpu_scene, cpu_cam, 64, 64)
+        # chip_smoke.py's budgets: the trace kernel and its plain version
+        # part at triangle edges, and SSAO spreads those pixels.
+        assert_statistical_gate(img.cpu().numpy(), ref.numpy(), 0.05, 0.005)
+        img = render_preview(scene, cam, 64, 64, enable_ssao=False)
+        ref = render_preview(cpu_scene, cpu_cam, 64, 64, enable_ssao=False)
+        assert_statistical_gate(img.cpu().numpy(), ref.numpy(), 0.01, 0.005)
+
+
+def test_checkpoint_resume_on_card_is_bit_equal(cuda, tmp_path, capsys):
+    from bifrost3d_tpu_torch.apps import simple_viewer
+    from bifrost3d_tpu_torch.io.image import load_exr
+    base = ["--window-size", "64x64", "--checkpoint-every", "2"]
+    ckpt = str(tmp_path / "ckpt")
+    simple_viewer.main(base + ["-n", "2", "--checkpoint-dir", ckpt, "-o",
+                               str(tmp_path / "a.exr")])
+    simple_viewer.main(base + ["-n", "4", "--checkpoint-dir", ckpt, "-o",
+                               str(tmp_path / "b.exr")])
+    assert "resumed at accumulation 2" in capsys.readouterr().out
+    simple_viewer.main(base + ["-n", "4", "-o", str(tmp_path / "c.exr")])
+    b, c = load_exr(str(tmp_path / "b.exr")), load_exr(str(tmp_path / "c.exr"))
+    assert np.array_equal(b.view(np.uint32), c.view(np.uint32))

@@ -36,7 +36,10 @@ for new in ("apps.smallpt_app", "integrator.smallpt", "integrator.smallvpt",
             "lights.environment", "io.texture", "diff", "diff.render_grad",
             "diff.edge_grad", "diff.mesh_edge_grad", "utils.tree",
             "io.image", "io.compare", "io.native_obj", "io.obj", "io.gltf",
-            "io.pixel_image", "integrator.aov", "apps.simple_viewer"):
+            "io.pixel_image", "integrator.aov", "apps.simple_viewer",
+            "integrator.backend", "utils.checkpoint", "utils.profiling",
+            "preview", "preview.renderer", "preview.ibl", "preview.ssao",
+            "apps.environment_convolution"):
     assert pkg.__name__ + "." + new in names, new
 assert not bad, bad
 """

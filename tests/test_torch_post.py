@@ -91,9 +91,21 @@ def test_process_matches_jax(hdr, settings):
 
 
 def test_dual_kawase_raises(hdr):
-    settings = ttm.CameraEffectsSettings.preset()._replace(bloom_mode=1)
-    with pytest.raises(NotImplementedError, match="dual-kawase"):
-        tpipe.process(torch.tensor(hdr), settings)
+    """Dual-kawase bloom is ported (it raised before): ``process`` with
+    bloom mode 1 matches JAX's at test_process_matches_jax's 1e-5."""
+    settings = jtm.CameraEffectsSettings.preset()._replace(
+        bloom_mode=1, bloom_threshold=2.0, bloom_support=0.2)
+    port_settings = ttm.CameraEffectsSettings(**{
+        f: getattr(settings, f) for f in ttm.CameraEffectsSettings._fields})
+    port_settings = port_settings._replace(
+        tonemapping=ttm.TonemappingSettings(*settings.tonemapping))
+    got = tpipe.process(torch.tensor(hdr), port_settings, frame_index=1)
+    ref = jpipe.process(jnp.asarray(hdr), settings, frame_index=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    plain = tpipe.process(torch.tensor(hdr), port_settings._replace(
+        bloom_threshold=float("inf")), frame_index=1)
+    assert not torch.allclose(got, plain, atol=1e-3)
 
 
 def test_png_round_trip(tmp_path, hdr):

@@ -144,22 +144,27 @@ def test_explain_render_path(carried):
     (dict(coverage_aware_shadows=True), None),
     (dict(trilinear_textures=True), "trilinear"),
 ])
-def test_unported_settings_raise(carried, override, feature):
-    """Regularization and trilinear textures raise; coverage-aware shadows
-    are ported: on the opaque Cornell the march of closest hits gives the
-    binary shadow ray's frame."""
+def test_unported_settings_raise(jax_cornell, carried, override, feature):
+    """Every setting is ported (regularization and trilinear textures
+    raised before): on the opaque, untextured Cornell the march of closest
+    hits gives the binary shadow ray's frame and the trilinear hint
+    changes nothing; path regularization renders a lit frame, held
+    against JAX's in test_torch_regularization.py."""
     scene, cam = carried
     settings = tpt.settings_for_scene(scene, **override)
-    if feature is None:
-        img = tpt.render_sample_pooled(scene, cam, 8, 8, 0, settings)
-        ref = tpt.render_sample_pooled(scene, cam, 8, 8, 0,
-                                       tpt.settings_for_scene(scene))
-        np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=1e-5,
-                                   atol=1e-6)
-        assert float(img.mean()) > 0.0
+    img = tpt.render_sample_pooled(scene, cam, 8, 8, 0, settings)
+    ref = tpt.render_sample_pooled(scene, cam, 8, 8, 0,
+                                   tpt.settings_for_scene(scene))
+    assert torch.isfinite(img).all() and float(img.mean()) > 0.0
+    if feature == "path regularization":
+        jscene, jcam, _ = jax_cornell
+        jref = jpt.render_sample_pooled(
+            jscene, jcam, 8, 8, jnp.uint32(0),
+            jpt.settings_for_scene(jscene, **override))
+        assert_statistical_gate(img.numpy(), np.asarray(jref))
         return
-    with pytest.raises(NotImplementedError, match=feature):
-        tpt.render_sample_pooled(scene, cam, 8, 8, 0, settings)
+    np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_unported_shading_models_raise(jax_cornell):

@@ -110,15 +110,25 @@ def test_empty_bank_matches_jax():
 
 
 def test_has_trilinear_and_the_unported_filter():
-    tri = [{"image": np.ones((4, 4, 4), np.float32),
-            "filter": ttex.FILTER_TRILINEAR}]
+    """The trilinear filter is ported (it raised before): with a footprint
+    of the whole texture the fetch reads the last mip level, JAX's
+    value."""
+    img = np.random.default_rng(4).random((4, 4, 4)).astype(np.float32)
+    tri = [{"image": img, "filter": ttex.FILTER_TRILINEAR}]
     bank = ttex.TextureBank.build(tri, device="cpu")
-    assert bank.has_trilinear() and jtex.TextureBank.build(tri).has_trilinear()
+    jbank = jtex.TextureBank.build(tri)
+    assert bank.has_trilinear() and jbank.has_trilinear()
     assert int(bank.n_levels[0]) == 3
-    with pytest.raises(NotImplementedError, match="trilinear"):
-        ttex.sample_texture(bank, torch.zeros(2, dtype=torch.int32),
-                            torch.rand(2, 2), footprint_uv=torch.ones(2),
-                            trilinear=True)
+    uv = np.random.default_rng(5).random((2, 2)).astype(np.float32)
+    got = ttex.sample_texture(bank, torch.zeros(2, dtype=torch.int32),
+                              torch.tensor(uv), footprint_uv=torch.ones(2),
+                              trilinear=True)
+    ref = jtex.sample_texture(jbank, jnp.zeros(2, jnp.int32), jnp.asarray(uv),
+                              footprint_uv=jnp.ones(2), trilinear=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(got.numpy(), np.broadcast_to(
+        img.mean((0, 1)), (2, 4)), rtol=1e-5)
 
 
 @pytest.mark.parametrize("index", range(8))

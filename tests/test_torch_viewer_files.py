@@ -12,6 +12,8 @@ presampled pool under ``--environment-map``, a file's camera has aspect
 1.0 whatever the window.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -222,10 +224,20 @@ def test_file_camera_has_aspect_one(files):
     (["--path-regularization", "0.5"], "path regularization"),
     (["--checkpoint-dir", "ckpt"], "checkpoints"),
 ])
-def test_unported_flags_raise(argv, what):
-    with pytest.raises(NotImplementedError, match=what):
-        simple_viewer.main(["--device", "cpu", "--window-size", "8x8", "-n",
-                            "1"] + argv)
+def test_unported_flags_raise(argv, what, tmp_path, capsys):
+    """The four flags are ported (they raised before): each renders a
+    finite 8² PNG on the CPU, and says which renderer it took."""
+    out = tmp_path / "out.png"
+    argv = [a if a != "ckpt" else str(tmp_path / "ckpt") for a in argv]
+    simple_viewer.main(["--device", "cpu", "--window-size", "8x8", "-n",
+                        "2", "-o", str(out)] + argv)
+    img = timage.load_image(str(out))
+    assert img.shape[:2] == (8, 8) and np.isfinite(img).all()
+    said = capsys.readouterr().out
+    if what in ("preview", "denoised"):
+        assert f"{what} 8x8" in said, said
+    if what == "checkpoints":
+        assert sorted(os.listdir(tmp_path / "ckpt")) == ["ckpt_2.npz"]
 
 
 def test_obj_texture_path_raises_in_the_viewer(files, tmp_path):
