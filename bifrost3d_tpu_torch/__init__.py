@@ -6,8 +6,11 @@ of the JAX package's viewer: the nine built-in scenes and the user's OBJ
 and glTF files through the path tracer (the mesh megakernel, or the
 pooled compacting wavefront), with path regularization, trilinear mips,
 the denoised backend, checkpoint/resume and the AOVs; the rasterizer-style
-preview renderer; the SmallPT app; the EnvironmentConvolution app; and
-gradients through the wavefront (``diff``). Its seven trace and
+preview renderer; the live engine of the interactive viewer (``core``:
+the engine loop, UIDs, change sets and the compositor, over the
+``scene.datamodel`` managers, whose ``SceneSync`` keeps the device scene
+in step incrementally); the SmallPT app; the EnvironmentConvolution app;
+and gradients through the wavefront (``diff``). Its seven trace and
 megakernels are hand-written CUDA (``csrc/``), each bound in the wrapper
 module of the JAX kernel it replaces.
 

@@ -1,6 +1,7 @@
 """BSDF sample and response records.
 
-Port of ``bifrost3d_tpu/bsdf/types.py`` (``BSDFResponse``, ``BSDFSample``):
+Port of ``bifrost3d_tpu/bsdf/types.py`` (``BSDFResponse``, ``BSDFSample``,
+``invalidate``):
 a PDF is a plain value plus an explicit ``is_delta`` mask, and an invalid
 sample has ``pdf <= 0``.
 """
@@ -30,3 +31,13 @@ class BSDFSample(NamedTuple):
     pdf: torch.Tensor
     is_delta: torch.Tensor
     reflectance: torch.Tensor
+
+
+def invalidate(sample: BSDFSample, bad_mask) -> BSDFSample:
+    """Zero out pdf and reflectance where ``bad_mask``: a branch-free
+    discard."""
+    return BSDFSample(
+        direction=sample.direction,
+        pdf=torch.where(bad_mask, 0.0, sample.pdf),
+        is_delta=sample.is_delta & ~bad_mask,
+        reflectance=torch.where(bad_mask[..., None], 0.0, sample.reflectance))

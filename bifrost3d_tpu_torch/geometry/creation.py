@@ -1,14 +1,19 @@
-"""Procedural meshes: plane, box, UV sphere and torus (CCW winding, +Y up).
+"""Procedural meshes: plane, box, UV sphere, cylinder, beveled box, quad
+sphere and torus (CCW winding, +Y up).
 
 Port of ``bifrost3d_tpu/geometry/creation.py`` (``make_plane``,
-``make_box``, ``make_sphere``, ``make_torus``), host-side numpy.
+``make_box``, ``make_sphere``, ``make_cylinder``, ``make_beveled_box``,
+``make_spherical_box``, ``make_torus``), host-side numpy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from bifrost3d_tpu_torch.geometry.mesh import TriangleMesh
+from bifrost3d_tpu_torch.geometry.mesh import (
+    TriangleMesh,
+    merge_duplicate_vertices,
+)
 
 
 def _mesh(indices, positions, normals=None, uvs=None) -> TriangleMesh:
@@ -85,6 +90,73 @@ def make_sphere(radius: float = 0.5, slices: int = 32,
     p = pos[idx]
     area2 = np.linalg.norm(np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]), axis=-1)
     return _mesh(idx[area2 > 1e-12], pos, n.reshape(-1, 3), uvs)
+
+
+def make_cylinder(radius: float = 0.5, height: float = 1.0,
+                  slices: int = 32, stacks: int = 1) -> TriangleMesh:
+    """Capped cylinder along +Y."""
+    phi = np.linspace(0, 2 * np.pi, slices + 1)
+    ys = np.linspace(-0.5, 0.5, stacks + 1) * height
+    ph, yy = np.meshgrid(phi, ys, indexing="xy")
+    side_pos = np.stack([radius * np.cos(ph), yy, radius * np.sin(ph)],
+                        -1).reshape(-1, 3)
+    side_n = np.stack([np.cos(ph), np.zeros_like(ph), np.sin(ph)],
+                      -1).reshape(-1, 3)
+    side_uv = np.stack([ph.ravel() / (2 * np.pi), yy.ravel() / height + 0.5],
+                       -1)
+    parts = [(_grid_indices(slices, stacks, flip=True), side_pos, side_n,
+              side_uv)]
+    offset = side_pos.shape[0]
+    for sign in (1.0, -1.0):
+        center = np.asarray([[0.0, 0.5 * height * sign, 0.0]])
+        ring = np.stack([radius * np.cos(phi),
+                         np.full_like(phi, 0.5 * height * sign),
+                         radius * np.sin(phi)], -1)
+        pos = np.concatenate([center, ring])
+        nrm = np.tile([0.0, sign, 0.0], (pos.shape[0], 1))
+        uv = np.concatenate([[[0.5, 0.5]], np.stack(
+            [np.cos(phi), np.sin(phi)], -1) * 0.5 + 0.5])
+        k = np.arange(slices)
+        tri = np.stack([np.zeros_like(k), k + 1, k + 2], -1)
+        # The fan (c, ring_k, ring_k+1) winds -y; flip it for the top cap.
+        if sign > 0:
+            tri = tri[:, ::-1]
+        parts.append((tri + offset, pos, nrm, uv))
+        offset += pos.shape[0]
+    return _mesh(*(np.concatenate([p[i] for p in parts]) for i in range(4)))
+
+
+def make_beveled_box(size=1.0, bevel: float = 0.1,
+                     segments: int = 4) -> TriangleMesh:
+    """Box with rounded edges (MeshCreation::beveled_box): a tessellated
+    box whose vertices snap to ``core + b·normalize(p - core)``, ``core``
+    the point clamped to ±(half - b), ``b`` = ``bevel`` (in [0, 1]) × half
+    the smallest extent; normals are the snap directions, so faces stay
+    flat and edges and corners round."""
+    size = np.broadcast_to(np.asarray(size, np.float64), (3,))
+    half = size * 0.5
+    b = float(np.clip(bevel, 0.0, 1.0)) * float(half.min())
+    base = make_box(size=size, segments=max(2 * segments, 2))
+    pos = np.asarray(base.positions, np.float64)
+    inner = np.maximum(half - b, 0.0)
+    core = np.clip(pos, -inner, inner)
+    d = pos - core
+    dist = np.linalg.norm(d, axis=-1, keepdims=True)
+    n = np.where(dist > 1e-12, d / np.maximum(dist, 1e-12),
+                 np.asarray(base.normals, np.float64))
+    return merge_duplicate_vertices(
+        _mesh(base.indices, core + n * b, n, base.texcoords), tolerance=1e-6)
+
+
+def make_spherical_box(radius: float = 0.5,
+                       segments: int = 8) -> TriangleMesh:
+    """Quad sphere: a tessellated cube projected onto the sphere
+    (MeshCreation::spherical_box), without the UV sphere's pole pinch."""
+    base = make_box(size=1.0, segments=segments)
+    pos = np.asarray(base.positions, np.float64)
+    n = pos / np.linalg.norm(pos, axis=-1, keepdims=True)
+    return merge_duplicate_vertices(
+        _mesh(base.indices, n * radius, n, base.texcoords), tolerance=1e-6)
 
 
 def make_torus(major_radius: float = 1.0, minor_radius: float = 0.25,

@@ -1,8 +1,11 @@
 """Triangle meshes (host side).
 
-Port of the slice's part of ``bifrost3d_tpu/geometry/mesh.py``
-(``TriangleMesh``, ``mesh_aabb``, ``compute_smooth_normals``,
-``transform_mesh``, ``combine_meshes``). Meshes
+Port of ``bifrost3d_tpu/geometry/mesh.py`` (``TriangleMesh``,
+``mesh_aabb``, ``compute_hard_normals``, ``compute_smooth_normals``,
+``transform_mesh``, ``combine_meshes``, ``expand_indexed_buffers``,
+``merge_duplicate_vertices``, ``normals_correspond_to_winding_order``,
+``count_degenerate_primitives``), without JAX's per-vertex ``emission``
+buffer, which no port path reads. Meshes
 are assets built once on the host, so their buffers are numpy arrays;
 ``scene.render_scene.build_render_scene`` flattens them into device
 tensors.
@@ -27,6 +30,16 @@ def mesh_aabb(mesh: TriangleMesh):
     """(min, max) corner arrays — Mesh::compute_bounds."""
     pos = np.asarray(mesh.positions)
     return pos.min(axis=0), pos.max(axis=0)
+
+
+def compute_hard_normals(mesh: TriangleMesh) -> TriangleMesh:
+    """Flat-shaded normals: every triangle owns its three vertices, whose
+    normal is the face's (MeshUtils::compute_hard_normals)."""
+    m = expand_indexed_buffers(mesh)
+    p = np.asarray(m.positions).reshape(-1, 3, 3)
+    n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+    return m._replace(normals=np.repeat(n, 3, axis=0).astype(np.float32))
 
 
 def compute_smooth_normals(mesh: TriangleMesh) -> TriangleMesh:
@@ -90,3 +103,71 @@ def combine_meshes(meshes) -> TriangleMesh:
         normals=cat(normals) if any_normals else None,
         texcoords=cat(uvs) if any_uv else None,
         tint_roughness=cat(trs) if any_tr else None)
+
+
+def _attributes(mesh: TriangleMesh) -> tuple:
+    return (mesh.normals, mesh.texcoords, mesh.tint_roughness)
+
+
+def expand_indexed_buffers(mesh: TriangleMesh) -> TriangleMesh:
+    """Un-index: vertex i of triangle t becomes vertex 3t+i
+    (MeshUtils::expand_indexed_buffer)."""
+    idx = np.asarray(mesh.indices).reshape(-1)
+    return TriangleMesh(
+        np.arange(idx.size, dtype=np.int32).reshape(-1, 3),
+        np.asarray(mesh.positions)[idx],
+        *(None if b is None else np.asarray(b)[idx]
+          for b in _attributes(mesh)))
+
+
+def merge_duplicate_vertices(mesh: TriangleMesh,
+                             tolerance: float = 0.0) -> TriangleMesh:
+    """Weld vertices whose every present attribute matches, exactly at
+    tolerance 0 and after quantization by ``tolerance`` otherwise
+    (MeshUtils::merge_duplicate_vertices); the first occurrences keep
+    their order."""
+    parts = [np.asarray(mesh.positions)] + [
+        np.asarray(b) for b in _attributes(mesh) if b is not None]
+    key = np.concatenate(parts, axis=-1)
+    if tolerance > 0:
+        key = np.round(key / tolerance)
+    _, first, inverse = np.unique(key, axis=0, return_index=True,
+                                  return_inverse=True)
+    order = np.argsort(first)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    remap = rank[inverse.reshape(-1)]
+    keep = first[order]
+    return TriangleMesh(
+        remap[np.asarray(mesh.indices)].astype(np.int32),
+        np.asarray(mesh.positions)[keep],
+        *(None if b is None else np.asarray(b)[keep]
+          for b in _attributes(mesh)))
+
+
+def _face_normals(mesh: TriangleMesh) -> np.ndarray:
+    idx = np.asarray(mesh.indices)
+    pos = np.asarray(mesh.positions)
+    return np.cross(pos[idx[:, 1]] - pos[idx[:, 0]],
+                    pos[idx[:, 2]] - pos[idx[:, 0]])
+
+
+def normals_correspond_to_winding_order(mesh: TriangleMesh) -> bool:
+    """True if the vertex normals mostly agree with the CCW face normals."""
+    idx = np.asarray(mesh.indices)
+    n = np.asarray(mesh.normals)
+    face_n = _face_normals(mesh)
+    agree = 0.0
+    for k in range(3):
+        agree += np.sum(np.sum(face_n * n[idx[:, k]], axis=-1) > 0)
+    return bool(agree >= 0.5 * 3 * idx.shape[0])
+
+
+def count_degenerate_primitives(mesh: TriangleMesh,
+                                epsilon: float = 1e-10) -> int:
+    """Triangles with (near-)zero area or a repeated index."""
+    idx = np.asarray(mesh.indices)
+    area2 = np.linalg.norm(_face_normals(mesh), axis=-1)
+    repeated = ((idx[:, 0] == idx[:, 1]) | (idx[:, 1] == idx[:, 2])
+                | (idx[:, 0] == idx[:, 2]))
+    return int(np.sum((area2 <= epsilon) | repeated))

@@ -3,7 +3,7 @@
 Port of ``bifrost3d_tpu/lights/analytic.py`` (``_ray_sphere_t``,
 ``sphere_light_sample``/``_pdf``/``_evaluate``, ``spot_light_sample``/
 ``_pdf``/``_evaluate``, ``directional_light_sample``, ``sample_light``,
-``light_pdf``, ``evaluate_light``): every light type is evaluated
+``light_pdf``, ``evaluate_light``, ``is_delta_light``): every light type is evaluated
 branch-free and selected by its ``kind`` tag.
 """
 
@@ -244,3 +244,17 @@ def evaluate_light(lights: LightArray, index, lit_position, direction):
     k = kind[..., None]
     return torch.where(k == LIGHT_SPHERE, e_sphere,
                        torch.where(k == LIGHT_SPOT, e_spot, 0.0))
+
+
+def is_delta_light(lights: LightArray, index, lit_position):
+    """True where light ``index`` acts as a delta light from
+    ``lit_position``: a sphere subtending no angle, a spot of radius 0, or
+    a directional light."""
+    kind = lights.kind[index]
+    radius = lights.radius[index]
+    pos = lights.position[index]
+    sphere_delta = (radius * radius / maximum(
+        torch.sum(torch.square(pos - lit_position), dim=-1), 1e-10)
+    ) <= _SMALL_SIN2
+    return torch.where(kind == LIGHT_SPHERE, sphere_delta,
+                       torch.where(kind == LIGHT_SPOT, radius == 0.0, True))

@@ -1,8 +1,8 @@
 """Quaternion rotations, laid out ``(x, y, z, w)``.
 
-Port of the slice's part of ``bifrost3d_tpu/math/quaternion.py``
-(``quat_normalize``, ``quat_from_axis_angle``, ``quat_conjugate``,
-``quat_rotate``, ``quat_look_in``, ``quat_from_matrix``,
+Port of ``bifrost3d_tpu/math/quaternion.py`` (``quat_identity``,
+``quat_normalize``, ``quat_from_axis_angle``, ``quat_conjugate``,
+``quat_mul``, ``quat_rotate``, ``quat_look_in``, ``quat_from_matrix``,
 ``quat_to_matrix``).
 """
 
@@ -11,7 +11,11 @@ from __future__ import annotations
 import torch
 
 from bifrost3d_tpu_torch.math.clip import maximum
-from bifrost3d_tpu_torch.math.vec import cross, normalize
+from bifrost3d_tpu_torch.math.vec import cross, dot, normalize
+
+
+def quat_identity(dtype=torch.float32, *, device="cpu"):
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
 
 
 def quat_normalize(q):
@@ -27,6 +31,15 @@ def quat_from_axis_angle(axis, angle):
 
 def quat_conjugate(q):
     return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def quat_mul(a, b):
+    """Hamilton product a*b (apply b first, then a)."""
+    av, aw = a[..., :3], a[..., 3:4]
+    bv, bw = b[..., :3], b[..., 3:4]
+    v = aw * bv + bw * av + cross(av, bv)
+    w = aw * bw - dot(av, bv, keepdims=True)
+    return torch.cat([v, w], dim=-1)
 
 
 def quat_rotate(q, v):

@@ -1,8 +1,9 @@
 """TRS transforms: (translation, rotation quaternion, uniform scale).
 
-Port of the slice's part of ``bifrost3d_tpu/math/transform.py``
-(``Transform``, ``transform_point``, ``transform_vector``,
-``transform_inverse``, ``transform_look_at``).
+Port of ``bifrost3d_tpu/math/transform.py`` (``Transform``,
+``transform_identity``, ``transform_point``, ``transform_vector``,
+``transform_compose``, ``transform_inverse``, ``transform_delta``,
+``transform_look_at``).
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import torch
 
 from bifrost3d_tpu_torch.math.quaternion import (
     quat_conjugate,
+    quat_identity,
     quat_look_in,
+    quat_mul,
     quat_rotate,
 )
 
@@ -26,6 +29,13 @@ class Transform(NamedTuple):
     scale: torch.Tensor
 
 
+def transform_identity(*, device="cpu") -> Transform:
+    return Transform(
+        translation=torch.zeros(3, dtype=torch.float32, device=device),
+        rotation=quat_identity(device=device),
+        scale=torch.tensor(1.0, dtype=torch.float32, device=device))
+
+
 def transform_point(t: Transform, p):
     return t.translation + quat_rotate(t.rotation, p * t.scale[..., None])
 
@@ -35,11 +45,24 @@ def transform_vector(t: Transform, v):
     return quat_rotate(t.rotation, v * t.scale[..., None])
 
 
+def transform_compose(outer: Transform, inner: Transform) -> Transform:
+    """outer ∘ inner: apply ``inner`` first (Transform::operator*)."""
+    return Transform(
+        translation=transform_point(outer, inner.translation),
+        rotation=quat_mul(outer.rotation, inner.rotation),
+        scale=outer.scale * inner.scale)
+
+
 def transform_inverse(t: Transform) -> Transform:
     inv_scale = 1.0 / t.scale
     inv_rot = quat_conjugate(t.rotation)
     inv_trans = quat_rotate(inv_rot, -t.translation) * inv_scale[..., None]
     return Transform(inv_trans, inv_rot, inv_scale)
+
+
+def transform_delta(from_t: Transform, to_t: Transform) -> Transform:
+    """Delta D with D ∘ from == to."""
+    return transform_compose(to_t, transform_inverse(from_t))
 
 
 def transform_look_at(eye, target, up=None) -> Transform:

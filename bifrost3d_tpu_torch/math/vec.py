@@ -1,8 +1,9 @@
 """Vector math over broadcastable tensors.
 
-Port of ``bifrost3d_tpu/math/vec.py`` (``dot``, ``cross``, ``length``,
-``normalize``, ``safe_rsqrt``, ``lerp``, ``reflect``, ``refract``,
-``orthonormal_basis``, ``to_local``, ``to_world``): a "Vector3" is any
+Port of ``bifrost3d_tpu/math/vec.py`` (``vec3``, ``dot``, ``cross``,
+``length``, ``distance``, ``normalize``, ``safe_rsqrt``, ``lerp``,
+``reflect``, ``refract``, ``orthonormal_basis``, ``to_local``,
+``to_world``): a "Vector3" is any
 tensor whose last axis has size 3, and every helper broadcasts over leading
 axes.
 """
@@ -18,6 +19,14 @@ def gsafe(x, floor=0.0):
     """``max(x, max(floor, 1e-12))``: keeps sqrt operands off exactly 0,
     as the JAX package's ``_gsafe`` does for its gradients."""
     return maximum(x, max(floor, 1e-12))
+
+
+def vec3(x, y, z, dtype=torch.float32, *, device=None):
+    """Stack three broadcastable components into a trailing axis of size
+    3; a tensor component keeps its device unless ``device`` is given."""
+    return torch.stack(torch.broadcast_tensors(
+        *(torch.as_tensor(c, dtype=dtype, device=device) for c in (x, y, z))),
+        dim=-1)
 
 
 def dot(a, b, keepdims: bool = False):
@@ -36,6 +45,10 @@ def length_squared(v, keepdims: bool = False):
 
 def length(v, keepdims: bool = False):
     return torch.sqrt(length_squared(v, keepdims))
+
+
+def distance(a, b):
+    return length(a - b)
 
 
 def safe_rsqrt(x, eps=1e-20):

@@ -1,10 +1,9 @@
 """Tonemapping operators and the camera-effects settings.
 
 Port of ``bifrost3d_tpu/post/tonemap.py`` (``TonemappingSettings``,
-``CameraEffectsSettings``, ``filmic``, ``agx``, ``khronos_neutral``,
-``apply_tonemap``): linear sRGB radiance [..., 3] → displayable linear
-sRGB in [0, 1]. The eye-adaptation settings are left out with the
-stateful pipeline that reads them.
+``CameraEffectsSettings``, ``reinhard``, ``filmic``, ``agx``,
+``khronos_neutral``, ``apply_tonemap``): linear sRGB radiance [..., 3] →
+displayable linear sRGB in [0, 1].
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bifrost3d_tpu_torch.math.clip import maximum
+from bifrost3d_tpu_torch.math.color import luminance
 from bifrost3d_tpu_torch.math.vec import lerp
 
 TONEMAP_LINEAR = 0
@@ -66,6 +67,18 @@ class CameraEffectsSettings(NamedTuple):
     @staticmethod
     def preset() -> "CameraEffectsSettings":
         return CameraEffectsSettings()
+
+    @staticmethod
+    def linear() -> "CameraEffectsSettings":
+        return CameraEffectsSettings(
+            exposure_mode=EXPOSURE_FIXED, bloom_support=0.0, vignette=0.0,
+            tonemapping_mode=TONEMAP_LINEAR, film_grain=0.0)
+
+
+def reinhard(color, white_level_sqrd=1.0):
+    lum = luminance(color)[..., None]
+    tonemapped = lum * (1.0 + lum / white_level_sqrd) / (1.0 + lum)
+    return color * tonemapped / maximum(lum, 1e-10)
 
 
 def _mat(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:

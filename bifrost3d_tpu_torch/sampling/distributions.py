@@ -1,12 +1,14 @@
 """Monte-Carlo sampling distributions on tensors.
 
-Port of the slice's part of ``bifrost3d_tpu/sampling/distributions.py``:
+Port of ``bifrost3d_tpu/sampling/distributions.py``:
 ``concentric_disk_sample``, ``cone_pdf``/``cone_sample``,
-``uniform_hemisphere_sample``, ``cosine_hemisphere_pdf``/``_sample``,
-``ggx_ndf``, ``_ggx_lambda``, ``ggx_vndf_sample_halfway``,
+``uniform_sphere_sample``, ``uniform_hemisphere_sample``,
+``cosine_hemisphere_pdf``/``_sample``, ``ggx_ndf``, ``ggx_ndf_pdf``/
+``_sample`` (Walter 07), ``_ggx_lambda``, ``ggx_vndf_sample_halfway``,
 ``ggx_vndf_pdf``, ``ggx_vndf_sample`` (Dupuy & Benyoub 2023),
 ``ggx_bounded_vndf_sample``/``_pdf`` (Eto 2023), ``oren_nayar_cltc_sample``/``_pdf`` (EON CLTC) and
-``henyey_greenstein_phase``/``_sample``. Directions are in
+``henyey_greenstein_phase``/``_sample`` and
+``exponential_distance_sample``. Directions are in
 tangent space (+z = shading normal); samplers take ``u2 [..., 2]`` in
 [0, 1)² and return ``(direction [..., 3], pdf [...])``.
 """
@@ -55,6 +57,25 @@ def cone_sample(cos_theta_max, u2):
     return d, torch.broadcast_to(cone_pdf(cos_theta_max), cos_theta.shape)
 
 
+def uniform_sphere_sample(u2):
+    """Uniform sphere via the octahedral concentric map (RT Gems
+    16.5.4.2)."""
+    u = 2.0 * u2 - 1.0
+    d = 1.0 - (torch.abs(u[..., 0]) + torch.abs(u[..., 1]))
+    r = 1.0 - torch.abs(d)
+    safe_r = torch.where(r == 0.0, 1.0, r)
+    phi = torch.where(
+        r == 0.0, 0.0,
+        (PI / 4) * ((torch.abs(u[..., 0]) - torch.abs(u[..., 1])) / safe_r
+                    + 1.0))
+    f = r * torch.sqrt(gsafe(2.0 - r * r, 0.0))
+    x = f * torch.sign(u[..., 0]) * torch.cos(phi)
+    y = f * torch.sign(u[..., 1]) * torch.sin(phi)
+    z = torch.sign(d) * (1.0 - r * r)
+    pdf = torch.full_like(z, 0.25 * INV_PI)
+    return torch.stack([x, y, z], dim=-1), pdf
+
+
 def uniform_hemisphere_sample(u2):
     z = u2[..., 0]
     r = torch.sqrt(gsafe(1.0 - z * z))
@@ -85,6 +106,21 @@ def ggx_ndf(alpha, abs_cos_theta):
     s2 = maximum(1.0 - c2, 0.0)
     q = maximum(c2 * a2 + s2, 1e-9)
     return a2 / (PI * q * q)
+
+
+def ggx_ndf_pdf(alpha, abs_cos_theta):
+    return ggx_ndf(alpha, abs_cos_theta) * abs_cos_theta
+
+
+def ggx_ndf_sample(alpha, u2):
+    """Sample a halfway vector from D(h)·cosθ (Walter 07)."""
+    phi = TWO_PI * u2[..., 1]
+    tan2 = alpha * alpha * u2[..., 0] / maximum(1.0 - u2[..., 0], 1e-10)
+    cos_theta = 1.0 / torch.sqrt(1.0 + tan2)
+    r = torch.sqrt(gsafe(1.0 - cos_theta * cos_theta, 0.0))
+    h = torch.stack([r * torch.cos(phi), r * torch.sin(phi), cos_theta],
+                    dim=-1)
+    return h, ggx_ndf_pdf(alpha, cos_theta)
 
 
 def ggx_lambda(alpha, w):
@@ -249,3 +285,9 @@ def henyey_greenstein_sample(g: float, u2):
     d = torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
                      cos_theta], dim=-1)
     return d, henyey_greenstein_phase(g, cos_theta)
+
+
+def exponential_distance_sample(sigma_t, u):
+    """Free-flight distance ~ sigma_t·exp(-sigma_t·x) → (t, pdf)."""
+    t = -torch.log(maximum(1.0 - u, 1e-20)) / sigma_t
+    return t, sigma_t * torch.exp(-sigma_t * t)

@@ -1,8 +1,9 @@
 """Integer hashes on uint32 values carried in int64 tensors.
 
 Port of ``bifrost3d_tpu/sampling/hashes.py`` (``reverse_bits``,
-``cessen_owen_hash``, ``pcg2d``, ``jenkins_hash``, ``lcg_next``,
-``uint_to_unit_float``), bit-exact.
+``van_der_corput``, ``sobol2``, ``laine_karras_hash``,
+``cessen_owen_hash``, ``pcg2d``, ``teschner_hash``, ``jenkins_hash``,
+``lcg_next``, ``uint_to_unit_float``), bit-exact.
 
 torch has no uint32 ``+``, ``*``, ``>>`` or ``<<`` on the CPU, so every
 value here is a uint32 held in an int64 tensor, and each step is masked
@@ -43,6 +44,31 @@ def reverse_bits(x):
     return ((x << 16) | (x >> 16)) & M32
 
 
+def van_der_corput(n, scramble):
+    """Base-2 radical inverse with XOR scramble → float [0, 1)."""
+    return uint_to_unit_float(reverse_bits(u32(n)) ^ u32(scramble))
+
+
+def sobol2(n, scramble):
+    """Second Sobol dimension with XOR scramble → float [0, 1): the
+    reference's serial loop (RNG.h sobol2) over the 32 bits of ``n``."""
+    n = u32(n)
+    scramble = torch.broadcast_to(u32(scramble, n.device), n.shape)
+    v = 1 << 31
+    for bit in range(32):
+        scramble = scramble ^ (((n >> bit) & 1) * v)
+        v ^= v >> 1
+    return uint_to_unit_float(scramble)
+
+
+def laine_karras_hash(x, seed):
+    """Laine-Karras 2011 hash for fast Owen scrambling."""
+    x = (u32(x) + u32(seed)) & M32
+    for k in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
+        x = x ^ ((x * k) & M32)
+    return x
+
+
 def cessen_owen_hash(x, seed):
     """cessen's improved Laine-Karras hash (RNG.h:150-160)."""
     x = x ^ ((x * 0x3D20ADEA) & M32)
@@ -66,6 +92,14 @@ def pcg2d(x, y):
     x = x ^ (x >> 16)
     y = y ^ (y >> 16)
     return x, y
+
+
+def teschner_hash(x, y, z=None):
+    """Teschner et al. 2003 spatial hash (RNG.h teschner_hash)."""
+    h = ((u32(x) * 73856093) & M32) ^ ((u32(y) * 19349669) & M32)
+    if z is not None:
+        h = h ^ ((u32(z) * 83492791) & M32)
+    return h
 
 
 def jenkins_hash(x):

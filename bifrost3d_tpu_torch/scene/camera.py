@@ -1,7 +1,8 @@
 """Pinhole camera: +Z-forward perspective projection and ray generation.
 
 Port of ``bifrost3d_tpu/scene/camera.py`` (``PinholeCamera``,
-``perspective_projection``, ``perspective_camera``,
+``perspective_projection``, ``orthographic_projection``,
+``perspective_camera``,
 ``camera_ray_directions``, ``camera_rays``, ``project_to_screen``): near-
 and far-plane NDC
 points are unprojected through the inverse projection and rotated into
@@ -51,6 +52,23 @@ def perspective_projection(near, far, fov_radians, aspect, *, device):
     inv[2, 3] = 1.0
     inv[3, 2] = 1.0 / b
     inv[3, 3] = a / b
+    return proj.to(device), inv.to(device)
+
+
+def orthographic_projection(width, height, depth, *, device):
+    """Orthographic matrix and its inverse (Camera.cpp:268-287)."""
+    proj = torch.zeros((4, 4), dtype=torch.float32)
+    proj[0, 0] = 2.0 / width
+    proj[1, 1] = 2.0 / height
+    proj[2, 2] = 2.0 / depth
+    proj[2, 3] = -1.0
+    proj[3, 3] = 1.0
+    inv = torch.zeros((4, 4), dtype=torch.float32)
+    inv[0, 0] = 0.5 * width
+    inv[1, 1] = 0.5 * height
+    inv[2, 2] = 0.5 * depth
+    inv[2, 3] = 0.5 * depth
+    inv[3, 3] = 1.0
     return proj.to(device), inv.to(device)
 
 

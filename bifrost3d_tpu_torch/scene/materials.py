@@ -2,7 +2,7 @@
 
 Port of the slice's part of ``bifrost3d_tpu/scene/materials.py``
 (``MaterialArray`` with ``build`` and ``gather``, ``dielectric``,
-``metal``, ``transmissive``, the indices of refraction and their
+``coated_dielectric``, ``metal``, ``emissive``, ``transmissive``, the indices of refraction and their
 specularities, the metal tints the scenes use, the ``SHADING_*`` and
 ``FLAG_*`` constants). Texture slots index the scene's ``TextureBank``
 (``-1`` = untextured).
@@ -157,6 +157,12 @@ def dielectric(tint, roughness, specularity=DEFAULT_SPECULARITY, **kw):
     return dict(tint=tint, roughness=roughness, specularity=specularity, **kw)
 
 
+def coated_dielectric(tint, roughness, specularity=DEFAULT_SPECULARITY,
+                      coat_roughness=0.0, **kw):
+    return dict(tint=tint, roughness=roughness, specularity=specularity,
+                coat=1.0, coat_roughness=coat_roughness, **kw)
+
+
 def transmissive(tint, roughness, specularity=GLASS_SPECULARITY, **kw):
     return dict(shading_model=SHADING_TRANSMISSIVE, tint=tint,
                 roughness=roughness, specularity=specularity, **kw)
@@ -165,3 +171,7 @@ def transmissive(tint, roughness, specularity=GLASS_SPECULARITY, **kw):
 def metal(tint, roughness, **kw):
     return dict(tint=tint, roughness=roughness, specularity=1.0, metallic=1.0,
                 **kw)
+
+
+def emissive(radiance, **kw):
+    return dict(tint=(0, 0, 0), emission=radiance, **kw)

@@ -19,11 +19,13 @@ def tensor_key(*tensors) -> tuple:
 
 class VersionedCache:
     """A bounded dict from (tensor keys, extra hashable) to a value; cleared
-    whole when full."""
+    whole when full. ``stores`` counts the values stored: each one was a
+    miss that rebuilt its value."""
 
     def __init__(self, limit: int = 32):
         self._entries = {}
         self._limit = limit
+        self.stores = 0
 
     def lookup(self, tensors, extra=()):
         """→ (key, cached value or None) for these source tensors."""
@@ -37,6 +39,7 @@ class VersionedCache:
         if len(self._entries) >= self._limit:
             self._entries.clear()
         self._entries[key] = (value, tuple(tensors))
+        self.stores += 1
         return value
 
     def clear(self) -> None:

@@ -281,6 +281,36 @@ the last line):
    dual-kawase bloom + process_stateful over 8 frames of a 512² HDR frame
    (ms, card vs CPU within 1e-5).
 
+24. engine: the engine and the live viewer (core/, scene/datamodel,
+   core/compositor, apps/interactive_viewer) at the viewer's size (its
+   Sphere and Box datamodel scenes, the compositor at 512², 3 bounces, the
+   app's three renderers), each item with every count at 0 before. E1:
+   Sphere (2,210 triangles) through Compositor.attach(Engine), PathTracer,
+   8 ticks: exactly 8 B3 launches and no other; B3 on the SceneSync-built
+   scene against its plain version at 256² (≤ 0.2% of pixels off by >
+   1e-3, means within 0.5%); the 8-tick HDR screenshot of a 64²
+   compositor card vs CPU (3%, 2%); tick ms as the median of the last 4,
+   split into sync, render and post (utils/profiling). E2: edits on E1's
+   scene, 2 ticks each — a material tint, a light's power, the sphere's
+   node moved (the BVH refit), the environment tint, a mesh added (a full
+   rebuild) and an environment map (no presampled pool, as the JAX
+   package: the pooled wavefront on B1): SceneSync ms, the first frame's
+   ms, accumulation restarting at 1, explain_render_path, the stores of
+   the megakernel's _PACK_CACHE (none but for the refit and the rebuild)
+   and _FRAME_CACHE; the refit scene against a full build of the same
+   datamodel: the soup equal, B3's walk's hits on 65,536 camera rays off
+   ties (≥ 99.9%), a frame of each (3%, 2%), the repack's ms. E3: Box
+   with a second camera at z-index 1 on Preview: frames in z-order, B2
+   launches = ticks, B1 = ticks × (1 + lights); a 'w' through
+   CameraNavigation restarts only the first camera, and handle_updates
+   returns the same RenderScene. E4: the settings panel on Sphere:
+   Preview (B1 2 a frame), Denoised (B3 a frame, the AOV trace B1 once),
+   PathTracer, max bounces + 1 (accumulation restarts), path
+   regularization 0.5 (the pooled wavefront, B1). E5: python -m
+   bifrost3d_tpu_torch.apps.interactive_viewer --scene Sphere --ticks 12
+   --keys wwdpxp at 96x54 and 512x512, each in a process of its own: exit
+   0, the screenshot PNG finite and lit, the status line (fps, spp).
+
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s, counted from this run's inputs), and last the JSON
@@ -4092,6 +4122,445 @@ def viewer_modes_phase(device, card) -> dict:
     return out
 
 
+ENGINE_DIR = os.path.join(REPO, "build", "engine")
+ENGINE_BOUNCES = 3        # the interactive viewer's default --max-bounce
+ENGINE_TICKS = 8
+ENGINE_EDIT_TICKS = 2
+ENGINE_GATE_RES = 64
+ENGINE_SKY = (32, 64)     # a map the megakernel takes, but for its pool
+
+
+class _EngineRig:
+    """The interactive viewer's compositor on one of its datamodel scenes
+    (``apps/interactive_viewer.build_scene``) with the app's three
+    renderers, wired into an engine by ``Compositor.attach``; every tick's
+    sync, render and post stages timed by ``utils/profiling`` (each stage
+    waits for its device work)."""
+
+    def __init__(self, device, scene_name, res):
+        from bifrost3d_tpu_torch.apps import interactive_viewer as iv
+        from bifrost3d_tpu_torch.core import Engine
+        from bifrost3d_tpu_torch.core import compositor
+        from bifrost3d_tpu_torch.integrator import path_tracer as pt
+        from bifrost3d_tpu_torch.integrator.backend import (
+            DenoisedBackend, SimpleBackend)
+        from bifrost3d_tpu_torch.preview.renderer import PreviewBackend
+        from bifrost3d_tpu_torch.utils.profiling import StageTimings
+        self.data, self.cam = iv.build_scene(scene_name)
+        self.comp = compositor.Compositor(self.data, res, res, device=device)
+        self.settings = pt.RenderSettings(max_bounce_count=ENGINE_BOUNCES)
+        self.timings = StageTimings()
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                out = []
+                with self.timings.scope(name, out):
+                    out.append(fn(*args, **kwargs))
+                return out[0]
+            return call
+
+        def factory(make):
+            def build(scene, camera, w, h):
+                backend = make(scene, camera, w, h)
+                backend.render = timed("render", backend.render)
+                return backend
+            return build
+
+        s = self.settings
+        self.ids = {
+            "PathTracer": self.comp.add_renderer("PathTracer", factory(
+                lambda *a: SimpleBackend(*a, s))),
+            "Preview": self.comp.add_renderer("Preview", factory(
+                lambda *a: PreviewBackend(*a, enable_ssao=False))),
+            "Denoised": self.comp.add_renderer("Denoised", factory(
+                lambda *a: DenoisedBackend(*a, s)))}
+        self.data.cameras.set_renderer(self.cam, self.ids["PathTracer"])
+        self.comp.sync.handle_updates = timed("sync",
+                                              self.comp.sync.handle_updates)
+        self._post = mock.patch.object(
+            compositor, "process_stateful",
+            timed("post", compositor.process_stateful))
+        self.engine = Engine()
+        self.comp.attach(self.engine)
+
+    def tick(self) -> dict:
+        """One engine tick → its ms (host clock to a synchronise) and each
+        stage's."""
+        self.timings.reset()
+        torch.cuda.synchronize()
+        with self._post:
+            t0 = time.perf_counter()
+            self.engine.do_tick(1.0 / 60)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return dict(ms=ms, **{k: v[0] * 1e3 for k, v in
+                              self.timings.timings().items()})
+
+    def backend(self, cam=None):
+        cam = self.cam if cam is None else cam
+        return self.comp._backends.get(
+            (int(cam), self.data.cameras.get_renderer(cam)))
+
+    def scene(self):
+        return self.comp.sync.handle_updates()
+
+    def pinhole(self, device):
+        return self.data.cameras.to_pinhole(self.cam, device=device)
+
+
+def _median_ticks(ticks, last=4) -> dict:
+    keys = ("ms", "sync", "render", "post")
+    return {k: statistics.median(t.get(k, 0.0) for t in ticks[-last:])
+            for k in keys}
+
+
+def _engine_e1(device, card) -> dict:
+    """E1: Sphere through Compositor.attach(Engine), PathTracer, 8 ticks:
+    exactly 8 B3 launches; B3 on the SceneSync-built scene against its
+    plain version at 256²; the 8-tick HDR screenshot card vs CPU at 64²."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    rig = _EngineRig(device, "Sphere", RES)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    ticks = [rig.tick() for _ in range(ENGINE_TICKS)]
+    seconds = time.perf_counter() - t0
+    counts = _trace_counts()
+    check(counts == dict(B1=0, B2_B3=ENGINE_TICKS, B4=0, B6=0, B7=0),
+          f"E1: launches {counts} over {ENGINE_TICKS} ticks")
+    scene = rig.scene()
+    tris = int(scene.tri_verts.shape[0])
+    path = _expect_megakernel(scene, rig.settings, "E1 Sphere")
+    check(tris == 2210 and tris > mega.MAX_TRIS, f"E1: {tris} triangles")
+    check(rig.backend().accumulations == ENGINE_TICKS, "E1: accumulations")
+    small = SMALL_RES
+    cam = rig.pinhole(device)
+    _, img, _ = _kernel_frame(scene, cam, small, 3, rig.settings)
+    _, ref, _ = _plain_frame(scene, cam, small, 3, rig.settings)
+    kernel_gate = _gate(img, ref, "E1 B3 vs plain", KERNEL_FLIPS, KERNEL_MEAN)
+    shots = []
+    for where in (device, torch.device("cpu")):
+        small_rig = _EngineRig(where, "Sphere", ENGINE_GATE_RES)
+        small_rig.data.cameras.request_screenshot(
+            small_rig.cam, content="hdr", minimum_iteration_count=ENGINE_TICKS)
+        for _ in range(ENGINE_TICKS):
+            small_rig.tick()
+        (shot,) = small_rig.data.cameras.resolve_screenshot(small_rig.cam)
+        check(shot["iterations"] == ENGINE_TICKS, "E1: screenshot iterations")
+        shots.append(shot["image"].reshape(-1, 3).cpu())
+    shot_gate = _gate(shots[0], shots[1], "E1 HDR screenshot card vs cpu")
+    med = _median_ticks(ticks)
+    print(f"engine/E1 Sphere {tris} triangles, {RES}x{RES}, "
+          f"{ENGINE_BOUNCES} bounces: {path} | {ENGINE_TICKS} ticks through "
+          f"Compositor.attach(Engine) in {seconds:.2f} s, launches {counts} | "
+          f"tick {med['ms']:.3f} ms (median of the last 4: sync "
+          f"{med['sync']:.3f}, render {med['render']:.3f}, post "
+          f"{med['post']:.3f}), first tick {ticks[0]['ms']:.1f} ms | B3 vs "
+          f"plain at {small}²: {kernel_gate[0]:.5f} of pixels off by > 1e-3, "
+          f"max |d| {kernel_gate[1]:.3g}, means {kernel_gate[2]:.2e} apart | "
+          f"{ENGINE_GATE_RES}² {ENGINE_TICKS}-tick HDR screenshot card vs cpu "
+          f"{shot_gate[0]:.5f} flips, max |d| {shot_gate[1]:.3g}, means "
+          f"{shot_gate[2]:.2e} apart | {card}", flush=True)
+    return dict(rig=rig, launches=counts["B2_B3"], ticks=ticks, median=med,
+                kernel_gate=kernel_gate, shot_gate=shot_gate)
+
+
+def _sphere_node(data):
+    return next(n for n in data.nodes if data.nodes.get_name(n) == "ball")
+
+
+def _engine_edits(rig):
+    """E2's edits, in order: (name, what it does to the datamodel)."""
+    from bifrost3d_tpu_torch.geometry.creation import make_box
+    from bifrost3d_tpu_torch.math.transform import transform_identity
+    d = rig.data
+    red = next(m for m in d.materials
+               if d.materials.get_params(m)["tint"] == (0.8, 0.2, 0.15))
+    light = next(iter(d.lights))
+    root = next(iter(d.roots))
+
+    def move():
+        node = _sphere_node(d)
+        t = d.nodes.get_global_transform(node)
+        d.nodes.set_global_transform(node, t._replace(
+            translation=t.translation + torch.tensor([0.35, 0.1, 0.2])))
+
+    def add_mesh():
+        node = d.nodes.create("cube", transform_identity()._replace(
+            translation=torch.tensor([-1.2, -0.2, 0.4])))
+        d.nodes.set_parent(node, d.roots.get_root_node(root))
+        d.models.create(node, d.meshes.create("cube", make_box(size=0.5)),
+                        red)
+
+    def sky():
+        h, w = ENGINE_SKY
+        v = np.linspace(1.0, 0.2, h, dtype=np.float32)[:, None, None]
+        return np.broadcast_to(v * np.asarray([0.6, 0.8, 1.0], np.float32),
+                               (h, w, 3)).copy()
+
+    return (("tint", lambda: d.materials.set_tint(red, (0.2, 0.75, 0.3))),
+            ("light power", lambda: d.lights.set_power(light, (60, 60, 60))),
+            ("node move", move),
+            ("environment tint",
+             lambda: d.roots.set_environment_tint(root, (0.9, 0.7, 0.5))),
+            ("mesh added", add_mesh),
+            ("environment map",
+             lambda: d.roots.set_environment_map(root, sky())))
+
+
+def _refit_against_rebuild(device, rig, failures) -> dict:
+    """The refit scene against a full build of the same datamodel: the
+    soups equal, the B3 walk's hits on 256² camera rays off ties, and a
+    B3 frame of each under the statistical gate; the repack's ms."""
+    from bifrost3d_tpu_torch.geometry.pallas_bvh import pack_hierarchical
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.scene.datamodel import SceneSync
+    from bifrost3d_tpu_torch.utils.versioned import VersionedCache
+    refit = rig.scene()
+    rebuilt = SceneSync(rig.data, device=device).handle_updates()
+    check(torch.equal(refit.tri_verts, rebuilt.tri_verts),
+          "E2 refit: the soup differs from a full build's")
+    check(refit.bvh.node_a is not rebuilt.bvh.node_a, "E2: no rebuild")
+    small = SMALL_RES
+    cam = rig.pinhole(device)
+    lanes = mega.megakernel_inputs(refit, cam, small, small, 1, rig.settings)
+    hits = [mega.hier_trace_probe(pack_hierarchical(s.tri_verts, s.bvh),
+                                  lanes[6], lanes[7], 1e-4, float("inf"))
+            for s in (refit, rebuilt)]
+    agree, ties, dt = _compare_hits(hits[0], hits[1], "E2 refit vs rebuild "
+                                    "hits", failures)
+    _, a, _ = _kernel_frame(refit, cam, small, 1, rig.settings)
+    _, b, _ = _kernel_frame(rebuilt, cam, small, 1, rig.settings)
+    frame_gate = _gate(a, b, "E2 refit vs rebuild frame")
+    with mock.patch.object(mega, "_PACK_CACHE", VersionedCache()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mega._pack_scene(refit)
+        torch.cuda.synchronize()
+        pack_ms = (time.perf_counter() - t0) * 1e3
+    return dict(agree=agree, ties=ties, dt=dt, rays=int(lanes[6].shape[0]),
+                frame_gate=frame_gate, pack_ms=pack_ms)
+
+
+def _engine_e2(device, card, rig) -> dict:
+    """E2: incremental edits on E1's scene, each followed by 2 ticks."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    out, failures = {}, []
+    repacks = {"node move": 1, "mesh added": 1, "environment map": 0}
+    for name, edit in _engine_edits(rig):
+        packs, frames = mega._PACK_CACHE.stores, mega._FRAME_CACHE.stores
+        before = rig.scene()
+        torch.cuda.synchronize()
+        _reset_counts()
+        edit()
+        first = rig.tick()
+        restarted = rig.backend().accumulations
+        rest = [rig.tick() for _ in range(ENGINE_EDIT_TICKS - 1)]
+        counts = _trace_counts()
+        scene = rig.scene()
+        path = pt.explain_render_path(scene, rig.settings)
+        stores = (mega._PACK_CACHE.stores - packs,
+                  mega._FRAME_CACHE.stores - frames)
+        check(scene is not before, f"E2 {name}: the scene was not synced")
+        check(restarted == 1, f"E2 {name}: accumulation restarted at "
+              f"{restarted}")
+        check(stores[0] == repacks.get(name, 0),
+              f"E2 {name}: {stores[0]} geometry packs")
+        if name == "environment map":
+            check(path.startswith("wavefront") and "without presampled pool"
+                  in path, f"E2 {name}: {path}")
+            check(counts["B1"] > 0 and counts["B2_B3"] == 0,
+                  f"E2 {name}: launches {counts}")
+        else:
+            _expect_megakernel(scene, rig.settings, f"E2 {name}")
+            check(stores[1] == 1, f"E2 {name}: {stores[1]} frame tables")
+            check(counts == dict(B1=0, B2_B3=ENGINE_EDIT_TICKS, B4=0, B6=0,
+                                 B7=0), f"E2 {name}: launches {counts}")
+        out[name] = dict(sync_ms=first.get("sync", 0.0),
+                         first_ms=first["render"], tick_ms=first["ms"],
+                         later_ms=[t["ms"] for t in rest], restarted=restarted,
+                         path=path, pack_stores=stores[0],
+                         frame_stores=stores[1], counts=counts)
+        if name == "node move":
+            out[name]["refit"] = _refit_against_rebuild(device, rig, failures)
+    check(not failures, "; ".join(failures))
+    for name, r in out.items():
+        extra = ""
+        if "refit" in r:
+            f = r["refit"]
+            extra = (f" | refit vs full rebuild: soup equal, B3 walk's hits "
+                     f"agree off ties on {f['agree']:.5f} of {f['rays']} "
+                     f"camera rays ({f['ties']} ties), frame "
+                     f"{f['frame_gate'][0]:.5f} flips; the repack alone "
+                     f"{f['pack_ms']:.2f} ms")
+        print(f"engine/E2 {name}: SceneSync {r['sync_ms']:.2f} ms, first "
+              f"frame {r['first_ms']:.2f} ms (tick {r['tick_ms']:.2f}, then "
+              + ", ".join(f"{ms:.2f}" for ms in r["later_ms"])
+              + f" ms), accumulation restarted at {r['restarted']}, "
+              f"{r['path']}, stores: _PACK_CACHE {r['pack_stores']}, "
+              f"_FRAME_CACHE {r['frame_stores']}, launches {r['counts']}"
+              f"{extra} | {card}", flush=True)
+    return out
+
+
+def _engine_e3(device, card) -> dict:
+    """E3: Box with two cameras, the second at a higher z-index on
+    Preview: z-order, B2 launches = the first camera's ticks, and a 'w'
+    restarting only the first camera's backend without a scene sync."""
+    from bifrost3d_tpu_torch.apps.interactive_viewer import CameraNavigation
+    from bifrost3d_tpu_torch.core import Keyboard
+    rig = _EngineRig(device, "Box", RES)
+    d = rig.data
+    cam2 = d.cameras.create("pip", d.cameras._get(rig.cam).scene_root,
+                            transform=d.cameras.get_transform(rig.cam),
+                            z_index=1)
+    d.cameras.set_renderer(cam2, rig.ids["Preview"])
+    torch.cuda.synchronize()
+    _reset_counts()
+    ticks = [rig.tick() for _ in range(ENGINE_TICKS)]
+    counts = _trace_counts()
+    scene = rig.scene()
+    lights = scene.lights.count
+    want = dict(B1=ENGINE_TICKS * (1 + lights), B2_B3=ENGINE_TICKS, B4=0,
+                B6=0, B7=0)
+    check(counts == want, f"E3: launches {counts}, expected {want}")
+    _expect_megakernel(scene, rig.settings, "E3 Box")
+    frames = rig.comp.render()
+    check(list(frames) == [int(rig.cam), int(cam2)], f"E3: frames in order "
+          f"{list(frames)}")
+    kb = Keyboard()
+    kb.press("w")
+    kb.release("w")
+    CameraNavigation(d, rig.cam).handle(kb, 1.0 / 30)
+    moved = rig.tick()
+    first, second = rig.backend().accumulations, rig.backend(cam2).accumulations
+    check(rig.scene() is scene, "E3: a camera move synced the scene")
+    check(first == 1 and second == ENGINE_TICKS + 2,
+          f"E3: accumulations after 'w' {first}, {second}")
+    med = _median_ticks(ticks)
+    print(f"engine/E3 Box {int(scene.tri_verts.shape[0])} triangles, "
+          f"{RES}x{RES}, camera 1 PathTracer, camera 2 (z-index 1) Preview: "
+          f"frames in z-order, launches over {ENGINE_TICKS} ticks {counts} | "
+          f"tick {med['ms']:.3f} ms (median of the last 4: sync "
+          f"{med['sync']:.3f}, render {med['render']:.3f} both cameras, post "
+          f"{med['post']:.3f}) | 'w': the same RenderScene, camera 1 "
+          f"restarted at {first}, camera 2 at {second}, tick "
+          f"{moved['ms']:.2f} ms | {card}", flush=True)
+    return dict(launches=counts["B2_B3"], median=med, counts=counts)
+
+
+def _engine_e4(device, card) -> dict:
+    """E4: the renderer toggle and the settings panel on Sphere: Preview
+    (B1 layers × (1 + lights) a frame), Denoised (B3 a frame, its AOV
+    trace B1 once), max bounces +1, path regularization 0.5 (the pooled
+    wavefront on B1)."""
+    from bifrost3d_tpu_torch.apps.interactive_viewer import RenderingPanel
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    rig = _EngineRig(device, "Sphere", RES)
+    panel = RenderingPanel(rig.data, rig.comp, rig.cam,
+                           list(rig.ids.items()))
+    rig.tick()
+    rig.tick()
+    lights = rig.scene().lights.count
+    out = {}
+
+    def mode(name, keys, want):
+        for k in keys:
+            check(panel.handle(k), f"E4 {name}: the panel refused {k!r}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        ticks = [rig.tick() for _ in range(ENGINE_EDIT_TICKS)]
+        counts = _trace_counts()
+        for k, v in counts.items():
+            w = want.get(k, 0)
+            check(v > 0 if w == "> 0" else v == w,
+                  f"E4 {name}: launches {counts}, expected {want}")
+        b = rig.backend()
+        out[name] = dict(counts=counts, ms=[t["ms"] for t in ticks],
+                         accumulations=b.accumulations,
+                         path=pt.explain_render_path(
+                             rig.scene(), getattr(b, "settings",
+                                                  rig.settings)))
+
+    n = ENGINE_EDIT_TICKS
+    mode("Preview", ["g", "right"], dict(B1=n * (1 + lights)))
+    mode("Denoised", ["right"], dict(B2_B3=n, B1=1))
+    mode("PathTracer", ["right"], dict(B2_B3=n))
+    mode("max bounces +1", ["down", "right"], dict(B2_B3=n))
+    bounces = rig.backend().settings.max_bounce_count
+    check(bounces == ENGINE_BOUNCES + 1 and
+          out["max bounces +1"]["accumulations"] == n,
+          f"E4: bounces {bounces}, accumulations "
+          f"{out['max bounces +1']['accumulations']}")
+    mode("path reg. 0.5", ["down", "down", "right"], {"B1": "> 0"})
+    check(rig.backend().settings.path_regularization_scale == 0.5 and
+          "path regularization" in out["path reg. 0.5"]["path"],
+          f"E4: {out['path reg. 0.5']['path']}")
+    for name, r in out.items():
+        print(f"engine/E4 {name}: {RES}x{RES}, launches over {n} ticks "
+              f"{r['counts']}, ticks " + ", ".join(f"{ms:.2f}" for ms in
+                                                  r["ms"])
+              + f" ms, {r['accumulations']} accumulations, {r['path']} | "
+              f"{card}", flush=True)
+    return dict(launches=sum(r["counts"]["B1"] for r in out.values()),
+                modes=out)
+
+
+def _engine_e5(card) -> dict:
+    """E5: the app itself in a process of its own, at its default window
+    and at 512²: exit 0, the screenshot written, finite and lit, the
+    status line printed."""
+    from bifrost3d_tpu_torch.io.image import load_image
+    out = {}
+    for size in (None, f"{RES}x{RES}"):
+        shot = os.path.join(ENGINE_DIR, f"shot_{size or 'default'}.png")
+        if os.path.exists(shot):
+            os.remove(shot)
+        argv = [sys.executable, "-m", "bifrost3d_tpu_torch.apps."
+                "interactive_viewer", "--scene", "Sphere", "--ticks", "12",
+                "--keys", "wwdpxp", "--screenshot", shot]
+        if size:
+            argv += ["--window-size", size]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=300, cwd=REPO)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"E5 {size}: exit {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        status = proc.stdout.strip().splitlines()[-1]
+        check(" fps | " in status and status.endswith(" spp"),
+              f"E5 {size}: status line {status!r}")
+        img = load_image(shot)
+        check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.02,
+              f"E5 {size}: screenshot mean {float(img.mean())}")
+        out[size or "96x54"] = dict(seconds=seconds, status=status,
+                                    shape=img.shape, mean=float(img.mean()))
+    for size, r in out.items():
+        print(f"engine/E5 python -m bifrost3d_tpu_torch.apps."
+              f"interactive_viewer --scene Sphere --ticks 12 --keys wwdpxp "
+              f"({size}): exit 0 in {r['seconds']:.2f} s, screenshot "
+              f"{r['shape'][1]}x{r['shape'][0]} mean {r['mean']:.3f}, status "
+              f"'{r['status']}' | {card}", flush=True)
+    return out
+
+
+def engine_phase(device, card) -> dict:
+    """Phase 24: the engine and the live viewer on the card: E1 the
+    compositor's path tracer on Sphere (B3), E2 SceneSync's incremental
+    edits, E3 two cameras on Box (B2 and the preview's B1), E4 the
+    renderer toggle and the settings panel, E5 the app itself."""
+    os.makedirs(ENGINE_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    e1 = _engine_e1(device, card)
+    out = dict(E1=e1, E2=_engine_e2(device, card, e1.pop("rig")),
+               E3=_engine_e3(device, card), E4=_engine_e4(device, card),
+               E5=_engine_e5(card))
+    print(f"engine: E1–E5 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, result) -> dict:
     """One kernel's entry of the JSON line; a culled trace (B1, B6) also
     gives the bound of the full scan or the TPU design it replaces, beside
@@ -4139,6 +4608,7 @@ def main() -> int:
     viewer_scenes_phase(device, card, path_d)
     files = files_phase(device, card)
     modes = viewer_modes_phase(device, card)
+    engine = engine_phase(device, card)
     train = train_phase(device, card)
     train_profile(fresh_process("train"), card)
     # No single PyTorch call computes any of the seven: library_ms is null.
@@ -4241,6 +4711,19 @@ def main() -> int:
         _kernel_row("mesh_megakernel/checkpoint", "mesh_megakernel.cu",
                     "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
                     modes["V5"]["launches"], scenes["CornellBox"]),
+        # The kernels again on the engine (phase 24): E1 the compositor's
+        # path tracer on the viewer's Sphere (B3), E3 its Box (B2), E4 the
+        # preview, the denoiser's AOV trace and the regularized wavefront
+        # (B1), each with the timing row of its kernel phase.
+        _kernel_row("mesh_megakernel_hier/engine", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:898",
+                    engine["E1"]["launches"], hier_scenes[BRIDGE_SCENE]),
+        _kernel_row("mesh_megakernel/engine", "mesh_megakernel.cu",
+                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
+                    engine["E3"]["launches"], scenes["CornellBox"]),
+        _kernel_row("dense_intersect/engine", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    engine["E4"]["launches"], kernels["cornell/camera"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4249,10 +4732,11 @@ def main() -> int:
 
 
 # Phases that profile, each run alone in a process (fresh_process); and
-# phase 23 alone (``python3 chip_smoke.py --profile viewer_modes``), whose
-# kernels build at first use.
+# phases 23 and 24 alone (``python3 chip_smoke.py --profile viewer_modes``
+# or ``engine``), whose kernels build at first use.
 PROFILES = {"viewer_modes": lambda device: viewer_modes_phase(
                 device, device_phase()),
+            "engine": lambda device: engine_phase(device, device_phase()),
             "traces": trace_device_phase,
             "pooled-dense": lambda device: pooled_frame_phase(device, "dense"),
             "pooled-clustered": lambda device: pooled_frame_phase(

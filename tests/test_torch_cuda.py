@@ -1336,3 +1336,111 @@ def test_checkpoint_resume_on_card_is_bit_equal(cuda, tmp_path, capsys):
     simple_viewer.main(base + ["-n", "4", "-o", str(tmp_path / "c.exr")])
     b, c = load_exr(str(tmp_path / "b.exr")), load_exr(str(tmp_path / "c.exr"))
     assert np.array_equal(b.view(np.uint32), c.view(np.uint32))
+
+
+# -- The engine: SceneSync, the compositor and the live viewer ---------------------
+
+def _engine_compositor(device, scene="Sphere", size=64, bounces=2):
+    """The viewer's datamodel scene behind a compositor on ``device`` with
+    its path tracer, ticked once by an engine (the scene's first build)."""
+    from bifrost3d_tpu_torch.apps.interactive_viewer import build_scene
+    from bifrost3d_tpu_torch.core import Engine
+    from bifrost3d_tpu_torch.core.compositor import Compositor
+    from bifrost3d_tpu_torch.integrator.backend import SimpleBackend
+    data, cam = build_scene(scene)
+    comp = Compositor(data, size, size, device=device)
+    data.cameras.set_renderer(cam, comp.add_renderer(
+        "PathTracer", lambda s, c, w, h: SimpleBackend(
+            s, c, w, h, pt.RenderSettings(max_bounce_count=bounces))))
+    engine = Engine()
+    comp.attach(engine)
+    engine.do_tick(1.0 / 60)
+    torch.cuda.synchronize()
+    return data, cam, comp, engine
+
+
+def test_compositor_tick_on_sphere_is_one_hier_megakernel_launch(cuda):
+    """The viewer's Sphere (2,210 triangles) ticks through B3: one
+    megakernel launch a tick, no trace kernel; the HDR screenshot against
+    the CPU compositor's under the statistical gate."""
+    data, cam, comp, engine = _engine_compositor(cuda)
+    scene = comp.sync.handle_updates()
+    assert scene.tri_verts.shape[0] == 2210
+    assert pt.explain_render_path(scene, pt.RenderSettings(
+        max_bounce_count=2)) == "megakernel (hier: cluster-BVH DMA trace)"
+    before = mega.launch_count, dense.launch_count, hier.launch_count
+    for _ in range(3):
+        engine.do_tick(1.0 / 60)
+    torch.cuda.synchronize()
+    assert (mega.launch_count - before[0], dense.launch_count - before[1],
+            hier.launch_count - before[2]) == (3, 0, 0)
+    cpu_data, cpu_cam, cpu_comp, cpu_engine = _engine_compositor(
+        torch.device("cpu"))
+    for _ in range(3):
+        cpu_engine.do_tick(1.0 / 60)
+    for d, c in ((data, cam), (cpu_data, cpu_cam)):
+        d.cameras.request_screenshot(c, content="hdr")
+    engine.do_tick(1.0 / 60)
+    cpu_engine.do_tick(1.0 / 60)
+    (shot,) = data.cameras.resolve_screenshot(cam)
+    (ref,) = cpu_data.cameras.resolve_screenshot(cpu_cam)
+    assert shot["iterations"] == ref["iterations"] == 5
+    assert_statistical_gate(shot["image"].cpu().numpy(),
+                            ref["image"].numpy())
+
+
+def test_tint_edit_repacks_no_geometry(cuda):
+    """A material edit replaces the material table only: the megakernel's
+    geometry pack cache hits, its frame-table cache misses once."""
+    data, cam, comp, engine = _engine_compositor(cuda)
+    packs, frames = mega._PACK_CACHE.stores, mega._FRAME_CACHE.stores
+    engine.do_tick(1.0 / 60)
+    assert (mega._PACK_CACHE.stores, mega._FRAME_CACHE.stores) == (
+        packs, frames)
+    scene = comp.sync.handle_updates()
+    red = [m for m in data.materials if data.materials.get_params(m)[
+        "tint"] == (0.8, 0.2, 0.15)][0]
+    data.materials.set_tint(red, (0.2, 0.8, 0.15))
+    before = mega.launch_count
+    engine.do_tick(1.0 / 60)
+    torch.cuda.synchronize()
+    edited = comp.sync.handle_updates()
+    assert edited.tri_verts is scene.tri_verts and edited.bvh is scene.bvh
+    assert edited.materials is not scene.materials
+    assert mega._PACK_CACHE.stores == packs
+    assert mega._FRAME_CACHE.stores == frames + 1
+    assert mega.launch_count - before == 1
+    backend = next(iter(comp._backends.values()))
+    assert backend.accumulations == 1
+
+
+def test_camera_move_keeps_the_device_scene(cuda):
+    """A 'w' through the viewer's navigation moves the camera's host
+    transform: the device scene is the same object, the camera's
+    accumulation restarts."""
+    from bifrost3d_tpu_torch.apps.interactive_viewer import CameraNavigation
+    from bifrost3d_tpu_torch.core import Keyboard
+    data, cam, comp, engine = _engine_compositor(cuda)
+    engine.do_tick(1.0 / 60)
+    scene = comp.sync.handle_updates()
+    kb = Keyboard()
+    kb.press("w")
+    kb.release("w")
+    CameraNavigation(data, cam).handle(kb, 1.0 / 30)
+    assert data.cameras.get_transform(cam).translation.device.type == "cpu"
+    engine.do_tick(1.0 / 60)
+    assert comp.sync.handle_updates() is scene
+    assert next(iter(comp._backends.values())).accumulations == 1
+
+
+def test_interactive_viewer_runs_on_card(cuda, tmp_path, capsys):
+    from bifrost3d_tpu_torch.apps.interactive_viewer import run
+    shot = tmp_path / "shot.png"
+    frames, data, comp = run("Sphere", 64, 48, ticks=6, scripted_keys="wwpx",
+                             display=False, screenshot_path=str(shot),
+                             max_bounce=2, device=cuda)
+    frame = next(iter(frames.values()))
+    assert frame.device.type == "cuda" and frame.shape == (48, 64, 3)
+    assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.01
+    assert shot.exists()
+    assert "| Preview |" in capsys.readouterr().out

@@ -39,7 +39,10 @@ for new in ("apps.smallpt_app", "integrator.smallpt", "integrator.smallvpt",
             "io.pixel_image", "integrator.aov", "apps.simple_viewer",
             "integrator.backend", "utils.checkpoint", "utils.profiling",
             "preview", "preview.renderer", "preview.ibl", "preview.ssao",
-            "apps.environment_convolution"):
+            "apps.environment_convolution", "core", "core.uid",
+            "core.bitmask", "core.changeset", "core.engine", "core.input",
+            "core.compositor", "scene.datamodel",
+            "apps.interactive_viewer"):
     assert pkg.__name__ + "." + new in names, new
 assert not bad, bad
 """
