@@ -980,12 +980,16 @@ def render_rays(scene: RenderScene, origin, direction, pixel_hash,
 
 
 def _make_camera_lanes(camera: PinholeCamera, pixel_idx, width: int,
-                       height: int, accumulation: int):
-    """Lanes for flat pixel indices [r] (>= width·height = idle lane)."""
+                       height: int, accumulation: int, pixel_end=None):
+    """Lanes for flat pixel indices [r] (>= ``pixel_end``, by default
+    width·height, = idle lane). A sharded render passes the end of its own
+    pixel range; an index past the frame renders the frame's last pixel."""
     n_pixels = width * height
+    if pixel_end is None:
+        pixel_end = n_pixels
     safe_idx = torch.clamp_max(pixel_idx, n_pixels - 1)
     return _camera_lanes(camera, safe_idx % width, safe_idx // width, width,
-                         height, accumulation, pixel_idx < n_pixels)
+                         height, accumulation, pixel_idx < pixel_end)
 
 
 def pool_sort_order(origin, direction, active, lo, hi):
@@ -1014,26 +1018,36 @@ def _sorted_pool(scene: RenderScene, state: _PathState, pixel_idx):
 def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
                          width: int, height: int, accumulation: int,
                          settings: RenderSettings = RenderSettings(),
-                         pool_size: int = 65536, with_iters: bool = False):
-    """Pooled wavefront over the frame's flat pixels → (radiance
-    [width·height, 3], ray count [] int64[, wavefront steps]).
+                         pool_size: int = 65536, pixel_start: int = 0,
+                         n_pixels: int | None = None,
+                         with_iters: bool = False):
+    """Pooled wavefront over the flat pixel range [pixel_start,
+    pixel_start + n_pixels) (by default the whole frame) → (radiance
+    [n_pixels, 3], ray count [] int64[, wavefront steps]).
 
     A pool of ``pool_size`` lanes runs the wavefront step; finished lanes
-    add their radiance into the frame and are refilled with fresh camera
-    rays from the remaining pixels, so every trace runs near full
+    add their radiance into the range and are refilled with fresh camera
+    rays from its remaining pixels, so every trace runs near full
     occupancy. The ray count is live lanes × 2 (closest + shadow) per
-    iteration.
+    iteration. A sharded render (``parallel/render.py``) gives each shard
+    its own range: every pixel's lanes are the ones the whole frame would
+    give it, so the ranges of a frame put together are that frame.
     """
     accumulation = int(accumulation)
     device = scene.tri_verts.device
-    n_pixels = width * height
+    if n_pixels is None:
+        n_pixels = width * height
+    pixel_start = int(pixel_start)
+    pixel_end = pixel_start + n_pixels
     r = min(pool_size, n_pixels)
 
-    pixel_idx = torch.arange(r, dtype=torch.int64, device=device)
-    state = _make_camera_lanes(camera, pixel_idx, width, height, accumulation)
+    pixel_idx = pixel_start + torch.arange(r, dtype=torch.int64, device=device)
+    state = _make_camera_lanes(camera, pixel_idx, width, height, accumulation,
+                               pixel_end)
     accum = torch.zeros((n_pixels, 3), device=device)
     pixel_angle = _camera_pixel_angle(camera, height)
-    next_pixel = torch.tensor(r, dtype=torch.int64, device=device)
+    next_pixel = torch.tensor(pixel_start + r, dtype=torch.int64,
+                              device=device)
     rays = torch.zeros((), dtype=torch.int64, device=device)
 
     # Safety bound against pathological passthrough chains.
@@ -1041,7 +1055,7 @@ def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
     it = 0
     while it < max_iters:
         # The loop condition: one host sync per iteration.
-        if not bool((state.active.any() | (next_pixel < n_pixels)).item()):
+        if not bool((state.active.any() | (next_pixel < pixel_end)).item()):
             break
         if settings.sort_rays_every and it % settings.sort_rays_every == 0:
             state, pixel_idx = _sorted_pool(scene, state, pixel_idx)
@@ -1052,24 +1066,24 @@ def render_pixels_pooled(scene: RenderScene, camera: PinholeCamera,
         rays = rays + 2 * n_active
         state = _wavefront_step(scene, settings, accumulation, state,
                                 pixel_angle=pixel_angle, live_count=live)
-        done = (pixel_idx < n_pixels) & ~state.active
+        done = (pixel_idx < pixel_end) & ~state.active
 
         # Each pixel finishes once per pass: add finished lanes into the
-        # frame (in place; idle lanes add zeros).
+        # range (in place; idle lanes add zeros).
         accum.index_add_(
-            0, torch.clamp_max(pixel_idx, n_pixels - 1),
+            0, torch.clamp(pixel_idx - pixel_start, 0, n_pixels - 1),
             torch.where(done[..., None], state.radiance, 0.0))
 
         # Refill: hand each finished lane the next unstarted pixel.
         slot = torch.cumsum(done.to(torch.int64), dim=0) - 1
         new_idx = next_pixel + slot
-        refill = done & (new_idx < n_pixels)
+        refill = done & (new_idx < pixel_end)
         pixel_idx = torch.where(refill, new_idx,
-                                torch.where(done, n_pixels, pixel_idx))
-        next_pixel = torch.clamp_max(next_pixel + done.sum(), n_pixels)
+                                torch.where(done, pixel_end, pixel_idx))
+        next_pixel = torch.clamp_max(next_pixel + done.sum(), pixel_end)
 
         fresh = _make_camera_lanes(camera, pixel_idx, width, height,
-                                   accumulation)
+                                   accumulation, pixel_end)
         state = _PathState(*(
             torch.where(refill.reshape(refill.shape + (1,) * (f.dim() - 1)), f, s)
             for f, s in zip(fresh, state)))

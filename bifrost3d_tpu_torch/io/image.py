@@ -12,14 +12,18 @@ for an 8-bit, non-interlaced PNG of colour type 0 (grey, [h, w]), 2 (RGB),
 palettes unpack to the same indices), 4 (grey + alpha) or 6 (RGBA) as
 uint8. Those arrays are what the JAX package's ``load_image`` and glTF
 image reader hand on. A 16-bit, a grey 1/2/4-bit or an Adam7-interlaced
-PNG raises ``NotImplementedError``. Rows filtered None, Sub or Up are
+PNG raises ``NotImplementedError`` there; :func:`decode_image_bytes` (so
+``load_image``) reads those through PIL where it is installed, as the JAX
+package does. Rows filtered None, Sub or Up are
 undone a row at a time (Sub as a per-channel ``cumsum`` mod 256); an image
 with an Average or Paeth row is undone along its anti-diagonals, whose
 bytes do not depend on each other: h + w - 1 vector steps instead of a
 step per pixel.
 
-Other formats (JPG, TGA, HDR) are read through PIL where it is installed,
-as the JAX package reads them; without it they raise ``ImportError``.
+Other formats (JPG, TGA, HDR) are read, and formats other than PNG and EXR
+written, through PIL where it is installed, as the JAX package does;
+without it they raise ``ImportError`` (reading) or ``NotImplementedError``
+(writing).
 """
 
 from __future__ import annotations
@@ -165,19 +169,32 @@ def write_png(path: str, pixels: np.ndarray) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
-def decode_image_bytes(data: bytes, name: str) -> np.ndarray:
-    """An encoded image → ``np.asarray(PIL.Image.open(...))``: PNG by
-    :func:`decode_png`, anything else through PIL (``name`` says which file
-    in the error where PIL is not installed)."""
-    if data[:8] == _PNG_MAGIC:
-        return decode_png(data)
+def _pil_image():
+    """PIL's ``Image`` module, or None where PIL is not installed."""
     try:
         from PIL import Image
-    except ImportError as e:
+    except ImportError:
+        return None
+    return Image
+
+
+def decode_image_bytes(data: bytes, name: str) -> np.ndarray:
+    """An encoded image → ``np.asarray(PIL.Image.open(...))``: PNG by
+    :func:`decode_png`, a PNG it does not decode (16-bit, grey below 8
+    bits, interlaced) and anything else through PIL (``name`` says which
+    file in the error where PIL is not installed)."""
+    if data[:8] == _PNG_MAGIC:
+        try:
+            return decode_png(data)
+        except NotImplementedError:
+            if _pil_image() is None:
+                raise
+    image = _pil_image()
+    if image is None:
         raise ImportError(f"{name}: only PNG and EXR are read without PIL, "
-                          "which is not installed") from e
+                          "which is not installed")
     import io
-    return np.asarray(Image.open(io.BytesIO(data)))
+    return np.asarray(image.open(io.BytesIO(data)))
 
 
 # -- load / save ---------------------------------------------------------------
@@ -212,19 +229,24 @@ def srgb_encode_u8(linear_rgb) -> np.ndarray:
 
 
 def save_image(path: str, linear_rgb, from_linear: bool = True) -> None:
-    """Save float [h, w, 3] (numpy or tensor): PNG sRGB-encoded when
-    ``from_linear``, EXR linear. Other formats raise."""
+    """Save float [h, w, 3] (numpy or tensor): EXR linear; PNG, and through
+    PIL any other format it knows, sRGB-encoded when ``from_linear``."""
     arr = _to_numpy(linear_rgb).astype(np.float32)
     if path.lower().endswith(".exr"):
         save_exr(path, arr)
         return
-    if not path.lower().endswith(".png"):
+    png = path.lower().endswith(".png")
+    image = None if png else _pil_image()
+    if not png and image is None:
         raise NotImplementedError(
-            f"only PNG and EXR output are ported, not "
+            f"only PNG and EXR are written without PIL, not "
             f"{path.rsplit('.', 1)[-1]}")
     data = srgb_encode_u8(arr) if from_linear else (
         np.clip(arr, 0, 1) * 255 + 0.5).astype(np.uint8)
-    write_png(path, data)
+    if png:
+        write_png(path, data)
+    else:
+        image.fromarray(data).save(path)
 
 
 # -- minimal EXR (float32, uncompressed scanlines) ----------------------------

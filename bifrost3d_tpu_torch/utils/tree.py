@@ -35,3 +35,10 @@ def tree_flatten(tree):
         return build(iter(new_leaves))
 
     return leaves, unflatten
+
+
+def tree_to(tree, device):
+    """``tree`` with every tensor on ``device`` (a tensor already there is
+    kept by identity, so the kernels' table caches keep hitting)."""
+    leaves, unflatten = tree_flatten(tree)
+    return unflatten([t.to(device) for t in leaves])

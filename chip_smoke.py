@@ -311,6 +311,36 @@ the last line):
    --keys wwdpxp at 96x54 and 512x512, each in a process of its own: exit
    0, the screenshot PNG finite and lit, the status line (fps, spp).
 
+25. parallel: parallel/ on the card, each case with every count at 0
+   before. P1: make_sharded_render on CornellBox at 512², 4 bounces, over
+   the mesh [cuda:0] * 4, and at 512 x 509 (rows padded to a multiple of
+   4 and cropped), each against the unsharded render_pixels_pooled frame
+   (max |d| <= 1e-5; bit-equality printed), B1 launched and B4 not. P2:
+   the 589,824-triangle torus grid at 512² over 2 shards, B4 launched, the
+   same gate. P3: make_sharded_smallpt at 1024 x 768 over 4 shards
+   against the unsharded plain frame. P4: three steps of
+   make_sharded_train_step (the material and light parameters, lr 5e-3)
+   on bench_backward's scene (CornellBox 256², 2 bounces) over 2 shards:
+   the first step's loss and gradients against one shard's within atol
+   2e-6 and rtol 2e-4 (tests/test_parallel.py's all-reduce gate), the
+   first update lowering the loss. P5: parallel/distributed.run_selftest with 2 gloo ranks
+   on the card, then world size 1 under nccl: each process renders its
+   rows of SmallPT and CornellBox over the global mesh, all-reduces a
+   checksum and a gradient, and rank 0 holds them against one process's.
+   Each case prints its ms and its peak memory.
+26. fits: L1: shading/fittings.precompute_fittings at 4,096 samples on the
+   card (written to build/shading/), table by table against the port's
+   CPU run (the BRDF rho and bounded-VNDF tables within 1e-5, the
+   dielectric ones within 1e-2, 1e-4 on average) and, printed, against the shipped
+   fittings.npz. L2: shading/ltc_fit.precompute_ggx_ltc, the full 64 x 64
+   grid at 200 Nelder-Mead iterations a row (build/shading/ggx_ltc.npz),
+   held against the shipped ggx_ltc.npz by the fit's own objective in
+   float64: each row's sum at most 2 x the shipped table's, no cell above
+   the shipped cell by more than its row's total, and tests/test_ltc.py's
+   fit gate (relative L1 to the normalized GGX lobe under 12% at three
+   points); the per-cell ratios' quantiles printed. L3: apps/dev_analysis
+   all on the card (the SSS profile's integral within 1e-3 of 1).
+
 Then one JSON line of per-kernel results (each kernel's time beside its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
 over 67 TFLOP/s, counted from this run's inputs), and last the JSON
@@ -4561,6 +4591,385 @@ def engine_phase(device, card) -> dict:
     return out
 
 
+# -- phase 25: parallel/ (sharded renders and train steps) --------------------
+
+PARALLEL_SHARDS = 4
+PARALLEL_ODD_HEIGHT = 509     # not a multiple of the shard count
+PARALLEL_SMALLPT = (1024, 768)
+PARALLEL_TRAIN_STEPS = 3
+# At tests/test_parallel.py's 2e-2 the first Adam steps, which move every
+# parameter by about the rate whatever its gradient's size, raise this
+# scene's loss (my CPU runs at 24², 64² and 128², 2 bounces); at 5e-3 the
+# first update lowers it at each.
+PARALLEL_TRAIN_LR = 5e-3
+ALLREDUCE_ATOL, ALLREDUCE_RTOL = 2e-6, 2e-4   # tests/test_parallel.py
+SHARD_GATE = 1e-5             # sharded vs unsharded frame, max |d|
+
+
+def _peak_run(fn):
+    """fn() with the peak memory reset before → (result, ms to a
+    synchronise, peak bytes above what was held before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, torch.cuda.max_memory_allocated() - held
+
+
+def _sharded_case(what, sharded, unsharded, card) -> dict:
+    """A sharded frame with every count at 0 before, against the unsharded
+    frame of the same inputs (max |d| <= SHARD_GATE); an unsharded frame
+    first, untimed, so that neither time holds a build or a cache fill."""
+    unsharded()
+    _reset_counts()
+    img, ms, peak = _peak_run(sharded)
+    counts = _trace_counts()
+    ref, ref_ms, _ = _peak_run(unsharded)
+    check(img.shape == ref.shape, f"parallel/{what}: shape {tuple(img.shape)}"
+          f" vs {tuple(ref.shape)}")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-4,
+          f"parallel/{what}: frame not finite or black")
+    err = float((img - ref).abs().max())
+    check(err <= SHARD_GATE, f"parallel/{what}: max |d| {err:.3e} against "
+          f"the unsharded frame")
+    print(f"parallel/{what}: {ms:.1f} ms sharded, {ref_ms:.1f} ms unsharded "
+          f"| peak {_gib(peak)} above the scene | max |d| vs unsharded "
+          f"{err:.3e} (bit-equal: {bool(torch.equal(img, ref))}) | launches "
+          f"{counts} | {card}", flush=True)
+    return dict(ms=ms, unsharded_ms=ref_ms, peak=peak, max_abs_err=err,
+                counts=counts, bit_equal=bool(torch.equal(img, ref)))
+
+
+def _parallel_p4(device, card) -> dict:
+    """P4: make_sharded_train_step on bench_backward's scene over 2 shards,
+    3 steps; the first step's loss and gradients against one shard's."""
+    from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.parallel import make_sharded_train_step
+    scene, cam = create_cornell_box(device=device)
+    settings = pt.settings_for_scene(scene, max_bounce_count=TRAIN_BOUNCES)
+    with torch.no_grad():
+        target = pt.render_sample(scene, cam, TRAIN_RES, TRAIN_RES, 0,
+                                  settings)
+    start = scene._replace(materials=scene.materials._replace(
+        tint=torch.clamp(scene.materials.tint * 0.6 + 0.15, 0.0, 1.0)))
+    runs = {}
+    # An untimed first step fills the scene's caches.
+    warm_init, warm_step = make_sharded_train_step(
+        [device], TRAIN_RES, TRAIN_RES, settings,
+        learning_rate=PARALLEL_TRAIN_LR)
+    warm_step(*warm_init(start), start, cam, target, 0)
+    for shards in (1, 2):
+        init_fn, step_fn = make_sharded_train_step(
+            [device] * shards, TRAIN_RES, TRAIN_RES, settings,
+            learning_rate=PARALLEL_TRAIN_LR)
+        params, state = init_fn(start)
+        steps = []
+        for _ in range(PARALLEL_TRAIN_STEPS if shards == 2 else 1):
+            _reset_counts()
+            (params, state, loss), ms, peak = _peak_run(
+                lambda: step_fn(params, state, start, cam, target, 0))
+            steps.append(dict(loss=float(loss), ms=ms, peak=peak,
+                              B1=_trace_counts()["B1"],
+                              grads={k: v / 0.1 for k, v in state.mu.items()}
+                              if state.count == 1 else None))
+        runs[shards] = steps
+    one, two = runs[1][0], runs[2][0]
+    worst = 0.0
+    check(abs(two["loss"] - one["loss"]) <= ALLREDUCE_ATOL
+          + ALLREDUCE_RTOL * abs(one["loss"]), f"parallel/P4: loss "
+          f"{two['loss']} vs one shard's {one['loss']}")
+    for name, g in two["grads"].items():
+        ref = one["grads"][name]
+        check(bool(torch.isfinite(g).all()) and bool(torch.allclose(
+            g, ref, rtol=ALLREDUCE_RTOL, atol=ALLREDUCE_ATOL)),
+              f"parallel/P4: gradient of {name} differs from one shard's")
+        worst = max(worst, float((g - ref).abs().max()))
+    losses = [s["loss"] for s in runs[2]]
+    check(losses[1] < losses[0], f"parallel/P4: the first update did not "
+          f"lower the loss: {losses}")
+    out = dict(losses=losses, ms=[s["ms"] for s in runs[2]],
+               unsharded_ms=one["ms"], peak=max(s["peak"] for s in runs[2]),
+               launches=sum(s["B1"] for s in runs[2]), grad_max_abs=worst)
+    print(f"parallel/P4: make_sharded_train_step, CornellBox {TRAIN_RES}² "
+          f"{TRAIN_BOUNCES} bounces, 2 shards, {PARALLEL_TRAIN_STEPS} steps "
+          f"(lr {PARALLEL_TRAIN_LR}) | losses {', '.join(f'{x:.6f}' for x in losses)}"
+          f" | step ms {', '.join(f'{x:.1f}' for x in out['ms'])} (one shard "
+          f"{one['ms']:.1f}) | peak {_gib(out['peak'])} above the scene | "
+          f"first step vs one shard: loss within {abs(two['loss'] - one['loss']):.3e},"
+          f" gradients max |d| {worst:.3e} (atol {ALLREDUCE_ATOL}, rtol "
+          f"{ALLREDUCE_RTOL}) | B1 launches {out['launches']} | {card}",
+          flush=True)
+    return out
+
+
+def _parallel_p5(card) -> dict:
+    """P5: run_selftest with 2 gloo ranks on the card, then world size 1
+    (nccl), each process against the single-process frames."""
+    from bifrost3d_tpu_torch.parallel.distributed import run_selftest
+    out = {}
+    for name, processes in (("gloo", 2), ("nccl", 1)):
+        t0 = time.perf_counter()
+        report = run_selftest(num_processes=processes, devices_per_process=2,
+                              timeout=300.0, device="cuda")
+        seconds = time.perf_counter() - t0
+        check(f"backend={name}" in report and "device=cuda" in report,
+              f"parallel/P5: {report}")
+        out[name] = dict(seconds=seconds, report=report)
+        print(f"parallel/P5: run_selftest({processes} process(es) x 2 shards "
+              f"on the card): {report} in {seconds:.1f} s | {card}",
+              flush=True)
+    return out
+
+
+def parallel_phase(device, card) -> dict:
+    """Phase 25: parallel/ on the card. P1 the sharded CornellBox render
+    (B1), P2 the sharded torus grid (B4), P3 the sharded SmallPT frame, P4
+    the sharded train step, P5 the multi-process self-test."""
+    from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES, create_cornell_box
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    from bifrost3d_tpu_torch.integrator.smallpt import (
+        render_smallpt_accumulation)
+    from bifrost3d_tpu_torch.parallel import (
+        make_sharded_render, make_sharded_smallpt)
+    from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
+    t_phase = time.perf_counter()
+    out = {}
+    scene, cam = create_cornell_box(device=device)
+    settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
+    mesh = [device] * PARALLEL_SHARDS
+    for height in (RES, PARALLEL_ODD_HEIGHT):
+        def unsharded():
+            return pt.render_pixels_pooled(scene, cam, RES, height, 1,
+                                           settings)[0].reshape(height, RES, 3)
+        case = _sharded_case(
+            f"P1 CornellBox {RES}x{height} {BOUNCES} bounces over "
+            f"{PARALLEL_SHARDS} shards",
+            lambda: make_sharded_render(mesh, RES, height, settings)(
+                scene, cam, 1), unsharded, card)
+        check(case["counts"]["B1"] > 0 and case["counts"]["B4"] == 0,
+              f"parallel/P1: launches {case['counts']}")
+        out[f"P1/{height}"] = case
+    del scene, cam
+
+    t_scene, t_cam = TEST_SCENES["torus_grid"](device=device)
+    t_settings = pt.settings_for_scene(t_scene, max_bounce_count=BOUNCES)
+    case = _sharded_case(
+        f"P2 torus_grid ({int(t_scene.tri_verts.shape[0])} triangles) "
+        f"{TORUS_RES}² {BOUNCES} bounces over 2 shards",
+        lambda: make_sharded_render([device] * 2, TORUS_RES, TORUS_RES,
+                                    t_settings)(t_scene, t_cam, 1),
+        lambda: pt.render_pixels_pooled(t_scene, t_cam, TORUS_RES, TORUS_RES,
+                                        1, t_settings)[0].reshape(
+            TORUS_RES, TORUS_RES, 3), card)
+    check(case["counts"]["B4"] > 0 and case["counts"]["B1"] == 0,
+          f"parallel/P2: launches {case['counts']}")
+    out["P2"] = case
+    del t_scene, t_cam
+
+    s_scene = smallpt_scene(device=device)
+    w, h = PARALLEL_SMALLPT
+    out["P3"] = _sharded_case(
+        f"P3 SmallPT {w}x{h} (plain) over {PARALLEL_SHARDS} shards",
+        lambda: make_sharded_smallpt(mesh, w, h)(s_scene, 1),
+        lambda: render_smallpt_accumulation(s_scene, w, h, 1), card)
+    out["P4"] = _parallel_p4(device, card)
+    out["P5"] = _parallel_p5(card)
+    out["launches_B1"] = (sum(out[f"P1/{h}"]["counts"]["B1"]
+                              for h in (RES, PARALLEL_ODD_HEIGHT))
+                          + out["P4"]["launches"])
+    out["launches_B4"] = out["P2"]["counts"]["B4"]
+    print(f"parallel: P1–P5 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+# -- phase 26: the fits (precompute_fittings, the GGX LTC table, dev_analysis)
+
+FITS_SAMPLES = 4096
+DIELECTRIC_MAX, DIELECTRIC_MEAN = 1e-2, 1e-4
+LTC_ROW_SUM_MARGIN = 2.0      # a row's summed objective vs the shipped
+LTC_QUALITY = ((0.9, 0.4), (0.5, 0.6), (0.7, 0.9))  # tests/test_ltc.py
+LTC_QUALITY_L1 = 0.12
+
+
+def _ltc_objective(table, device) -> np.ndarray:
+    """The fit's own objective of every cell of a [R, C, 4] table, in
+    float64 on ``device`` → [R, C]."""
+    from bifrost3d_tpu_torch.shading import ltc_fit
+    r, c = table.shape[:2]
+    cos = torch.clamp_min(torch.arange(c, dtype=torch.float64, device=device)
+                          / (c - 1), ltc_fit._MIN_FIT_COS)
+    u2 = ltc_fit._stratified_u2(16, device, torch.float64)
+    out = np.zeros((r, c))
+    t = table.astype(np.float64)
+    p = np.concatenate([np.log(t[..., :2]), t[..., 2:]], axis=-1)
+    for j in range(r):
+        objective = ltc_fit._make_row_objective(
+            cos, ltc_fit._row_alpha(j, r), u2)
+        out[j] = objective(torch.tensor(p[j], device=device)[:, None, :])[
+            :, 0].cpu().numpy()
+    return out
+
+
+def _ltc_quality(table, device) -> list:
+    """tests/test_ltc.py's fit gate on ``table``: the relative L1 between
+    the LTC and the normalized GGX D·G lobe over 8,192 GGX samples at each
+    (cos θ, roughness) of LTC_QUALITY."""
+    from bifrost3d_tpu_torch.bsdf import ggx
+    from bifrost3d_tpu_torch.math import ltc
+    from bifrost3d_tpu_torch.shading.ltc_fit import (
+        ggx_reflection_ltc_coefficients)
+    table = torch.tensor(table, device=device)
+    u = torch.tensor(np.random.default_rng(6).uniform(size=(8192, 2)),
+                     dtype=torch.float32, device=device)
+    out = []
+    for cos_t, rough in LTC_QUALITY:
+        alpha = ggx.alpha_from_roughness(torch.tensor(rough, device=device))
+        lt = ggx_reflection_ltc_coefficients(
+            torch.tensor(cos_t, device=device),
+            torch.tensor(rough, device=device), table)
+        wo = torch.tensor([math.sqrt(1 - cos_t ** 2), 0.0, cos_t],
+                          device=device).expand(8192, 3)
+        s = ggx.r_sample(alpha.expand(8192), 1.0, wo, u)
+        f = ggx.r_evaluate(alpha, 1.0, wo, s.direction)[..., 0]
+        cos_wi = torch.clamp_min(s.direction[..., 2], 0.0)
+        weight = torch.where(s.pdf > 1e-12,
+                             f * cos_wi / torch.clamp_min(s.pdf, 1e-12), 0.0)
+        d_ggx = f * cos_wi / weight.mean()
+        ok = s.pdf > 1e-9
+        d_ltc = ltc.pdf(lt, s.direction)
+        out.append(float((d_ltc[ok] - d_ggx[ok]).abs().mean()
+                         / d_ggx[ok].mean()))
+    return out
+
+
+def _fits_l1(device, card) -> dict:
+    from bifrost3d_tpu_torch.shading import fittings
+    (card_tables), ms, peak = _peak_run(lambda: fittings.precompute_fittings(
+        FITS_SAMPLES, os.path.join(REPO, "build", "shading", "fittings.npz"),
+        device=device))
+    t0 = time.perf_counter()
+    cpu_tables = fittings.precompute_fittings(FITS_SAMPLES, None, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    out = dict(ms=ms, peak=peak, cpu_s=cpu_s, tables={})
+    with np.load(fittings.FITTINGS_PATH) as shipped:
+        for name in fittings.Fittings._fields:
+            got = getattr(card_tables, name).cpu().numpy()
+            vs_cpu = float(np.abs(got - getattr(cpu_tables, name).numpy()
+                                  ).max())
+            vs_shipped = float(np.abs(got - shipped[name]).max())
+            # test_torch_fittings_precompute.py's gates: a dielectric cell
+            # averages sample weights whose float32 value moves by up to 1%
+            # on near-grazing, near-smooth lanes, and that does not average
+            # out over more samples.
+            diff = np.abs(got - getattr(cpu_tables, name).numpy())
+            gate = (DIELECTRIC_MAX, DIELECTRIC_MEAN) if name.startswith(
+                "dielectric") else (1e-5, 1e-5)
+            check(np.isfinite(got).all() and diff.max() <= gate[0]
+                  and diff.mean() <= gate[1], f"fits/L1 {name}: card vs CPU "
+                  f"max |d| {diff.max():.3e}, mean {diff.mean():.3e}, gate "
+                  f"{gate}")
+            out["tables"][name] = dict(vs_cpu=vs_cpu, vs_shipped=vs_shipped)
+    print(f"fits/L1: precompute_fittings({FITS_SAMPLES}) on the card in "
+          f"{ms:.1f} ms (the CPU's {cpu_s:.1f} s), peak {_gib(peak)} | max "
+          f"|d| card vs CPU / vs the shipped fittings.npz: "
+          + "; ".join(f"{k} {v['vs_cpu']:.2e} / {v['vs_shipped']:.2e}"
+                      for k, v in out["tables"].items()) + f" | {card}",
+          flush=True)
+    return out
+
+
+def _fits_l2(device, card) -> dict:
+    from bifrost3d_tpu_torch.shading import ltc_fit
+    # The captured iteration (a CUDA graph) against the eager loop: the
+    # roughest row from zeros, bit for bit.
+    cos = torch.clamp_min(torch.arange(64, device=device) / 63.0,
+                          ltc_fit._MIN_FIT_COS)
+    u2 = ltc_fit._stratified_u2(16, device)
+    row_fit, rows_ms = {}, {}
+    for graph in (True, False):
+        row_fit[graph], row_ms, _ = _peak_run(lambda: ltc_fit.fit_row(
+            cos, ltc_fit._row_alpha(63, 64), torch.zeros((64, 4),
+                                                         device=device), u2,
+            ltc_fit._NM_ITERATIONS, graph=graph))
+        rows_ms[graph] = row_ms
+    check(all(torch.equal(a, b) for a, b in zip(row_fit[True],
+                                                 row_fit[False])),
+          "fits/L2: the captured Nelder-Mead row differs from the eager one")
+    table, ms, peak = _peak_run(lambda: ltc_fit.precompute_ggx_ltc(
+        os.path.join(REPO, "build", "shading", "ggx_ltc.npz"),
+        device=device))
+    with np.load(ltc_fit.TABLE_PATH) as data:
+        shipped = data["ggx_ltc"]
+    check(table.shape == shipped.shape and np.isfinite(table).all()
+          and (table[..., :2] > 0).all(), "fits/L2: table not finite")
+    got, ref = _ltc_objective(table, device), _ltc_objective(shipped, device)
+    rows = got.sum(axis=1) / ref.sum(axis=1)
+    excess = float(((got - ref) / ref.sum(axis=1, keepdims=True)).max())
+    ratio = got / ref
+    quality = _ltc_quality(table, device)
+    check(rows.max() <= LTC_ROW_SUM_MARGIN, f"fits/L2: a row's objective "
+          f"{rows.max():.3f} x the shipped table's")
+    check(excess <= 1.0, f"fits/L2: a cell's objective exceeds the shipped "
+          f"table's by {excess:.3f} x its row's total")
+    check(max(quality) < LTC_QUALITY_L1, f"fits/L2: relative L1 {quality}")
+    out = dict(ms=ms, peak=peak, row_ms=(rows_ms[True], rows_ms[False]),
+               row_ratio=(float(rows.min()), float(rows.max())),
+               excess=excess, cell_ratio=np.quantile(
+                   ratio, [0.0, 0.01, 0.5, 0.99, 1.0]).tolist(),
+               cells_over_2=int((ratio > 2).sum()), quality=quality)
+    print(f"fits/L2: precompute_ggx_ltc 64 x 64 cells, {ltc_fit._NM_ITERATIONS}"
+          f" Nelder-Mead iterations a row, on the card in {ms / 1e3:.1f} s, "
+          f"peak {_gib(peak)} (one row: {rows_ms[True]:.1f} ms as a "
+          f"captured iteration replayed, {rows_ms[False]:.1f} ms eager, bit "
+          f"for bit) | the fit's objective against the shipped "
+          f"table's: rows {rows.min():.3f}–{rows.max():.3f} x (gate "
+          f"{LTC_ROW_SUM_MARGIN}), cells quantiles 0/1/50/99/100% "
+          + "/".join(f"{x:.3g}" for x in out["cell_ratio"])
+          + f" x, {out['cells_over_2']} of {ratio.size} cells above 2 x, "
+          f"largest excess {excess:.3f} of its row's total (gate 1.0) | "
+          f"relative L1 to GGX at {LTC_QUALITY}: "
+          + ", ".join(f"{q:.4f}" for q in quality)
+          + f" (gate {LTC_QUALITY_L1}) | {card}", flush=True)
+    return out
+
+
+def _fits_l3(device, card) -> dict:
+    from bifrost3d_tpu_torch.apps import dev_analysis
+    out, ms, peak = _peak_run(lambda: dev_analysis.main(
+        ["all", "--device", str(device)]))
+    check(sorted(out) == ["normals", "seeding", "sss"], f"fits/L3: {out}")
+    for name, row in out["sss"].items():
+        check(abs(row["profile_integral"] - 1.0) < 1e-3,
+              f"fits/L3: the SSS profile integral {row}")
+    check(all(np.isfinite(v["mean_deg"]) for v in out["normals"].values()),
+          "fits/L3: normals")
+    print(f"fits/L3: dev_analysis all on the card in {ms:.1f} ms, peak "
+          f"{_gib(peak)} | seeding error std "
+          + ", ".join(f"{k} {v['error_std']:.4f}"
+                      for k, v in out["seeding"].items())
+          + " | normals mean° " + ", ".join(
+              f"{k} {v['mean_deg']:.5f}" for k, v in out["normals"].items())
+          + " | sss mean r " + ", ".join(
+              f"{k} {v['mean_r']:.4f}" for k, v in out["sss"].items())
+          + f" | {card}", flush=True)
+    return dict(ms=ms, peak=peak)
+
+
+def fits_phase(device, card) -> dict:
+    """Phase 26: the offline fits on the card. L1 precompute_fittings, L2
+    the 64 x 64 GGX LTC fit, L3 dev_analysis all."""
+    t0 = time.perf_counter()
+    out = dict(L1=_fits_l1(device, card), L2=_fits_l2(device, card),
+               L3=_fits_l3(device, card))
+    print(f"fits: L1–L3 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, result) -> dict:
     """One kernel's entry of the JSON line; a culled trace (B1, B6) also
     gives the bound of the full scan or the TPU design it replaces, beside
@@ -4611,6 +5020,8 @@ def main() -> int:
     engine = engine_phase(device, card)
     train = train_phase(device, card)
     train_profile(fresh_process("train"), card)
+    parallel = parallel_phase(device, card)
+    fits_phase(device, card)
     # No single PyTorch call computes any of the seven: library_ms is null.
     # The first seven rows are the seven kernels; then B2 and B3 again,
     # through their kExtras instantiations.
@@ -4724,6 +5135,16 @@ def main() -> int:
         _kernel_row("dense_intersect/engine", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
                     engine["E4"]["launches"], kernels["cornell/camera"]),
+        # The two traces again on parallel/ (phase 25): B1 in the sharded
+        # CornellBox renders (P1) and the sharded train step (P4), B4 in
+        # the sharded torus grid (P2), each with the timing row of its
+        # kernel phase.
+        _kernel_row("dense_intersect/parallel", "dense_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_intersect.py:74",
+                    parallel["launches_B1"], kernels["cornell/incoherent"]),
+        _kernel_row("bvh_intersect/parallel", "bvh_intersect.cu",
+                    "bifrost3d_tpu/geometry/pallas_bvh.py:240",
+                    parallel["launches_B4"], bvh["incoherent"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4732,8 +5153,8 @@ def main() -> int:
 
 
 # Phases that profile, each run alone in a process (fresh_process); and
-# phases 23 and 24 alone (``python3 chip_smoke.py --profile viewer_modes``
-# or ``engine``), whose kernels build at first use.
+# phases 23–26 alone (``python3 chip_smoke.py --profile viewer_modes``,
+# ``engine``, ``parallel`` or ``fits``), whose kernels build at first use.
 PROFILES = {"viewer_modes": lambda device: viewer_modes_phase(
                 device, device_phase()),
             "engine": lambda device: engine_phase(device, device_phase()),
@@ -4742,6 +5163,8 @@ PROFILES = {"viewer_modes": lambda device: viewer_modes_phase(
             "pooled-clustered": lambda device: pooled_frame_phase(
                 device, "clustered"),
             "pooled-vmem": lambda device: pooled_frame_phase(device, "vmem"),
+            "parallel": lambda device: parallel_phase(device, device_phase()),
+            "fits": lambda device: fits_phase(device, device_phase()),
             "train": train_profile_phase,
             "clip": clip_profile_phase}
 

@@ -1444,3 +1444,79 @@ def test_interactive_viewer_runs_on_card(cuda, tmp_path, capsys):
     assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.01
     assert shot.exists()
     assert "| Preview |" in capsys.readouterr().out
+
+
+# -- the last modules: parallel/, host_build, the fittings -------------------
+
+def test_sharded_render_on_card_equals_unsharded(cuda):
+    """Two shards on one card render the frame the unsharded pooled
+    wavefront renders, bit for bit, and launch the dense trace (B1)."""
+    from bifrost3d_tpu_torch.parallel import make_sharded_render
+    scene, cam = create_cornell_box(device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    full, _ = pt.render_pixels_pooled(scene, cam, 64, 61, 1, settings)
+    dense.reset_launch_count()
+    got = make_sharded_render([cuda] * 2, 64, 61, settings)(scene, cam, 1)
+    torch.cuda.synchronize()
+    assert dense.launch_count > 0
+    assert torch.equal(got, full.reshape(61, 64, 3))
+
+
+def test_sharded_train_step_on_card(cuda):
+    """Two shards' summed gradient equals one shard's within the all-reduce
+    tolerances, and a step moves the tint."""
+    from bifrost3d_tpu_torch.parallel import make_sharded_train_step
+    scene, cam = create_cornell_box(device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=1)
+    with torch.no_grad():
+        target = pt.render_sample(scene, cam, 32, 32, 0, settings)
+    start = scene._replace(materials=scene.materials._replace(
+        tint=torch.clamp(scene.materials.tint * 0.6 + 0.15, 0.0, 1.0)))
+    runs = []
+    for shards in (1, 2):
+        init_fn, step_fn = make_sharded_train_step([cuda] * shards, 32, 32,
+                                                   settings)
+        params, state = init_fn(start)
+        new, state, loss = step_fn(params, state, start, cam, target, 1)
+        runs.append((float(loss), state.mu["tint"] / 0.1, new["tint"]))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=2e-4, atol=2e-6)
+    torch.testing.assert_close(runs[1][1], runs[0][1], rtol=2e-4, atol=2e-6)
+    assert not torch.equal(runs[1][2], start.materials.tint)
+
+
+def test_host_build_lands_on_card(cuda):
+    from bifrost3d_tpu_torch.utils.hostbuild import host_build
+    scene, cam = host_build(create_cornell_box)(device="cpu")
+    assert scene.tri_verts.device.type == "cuda"
+    assert cam.projection.device.type == "cuda"
+    ref, _ = create_cornell_box(device="cpu")
+    assert torch.equal(scene.tri_verts.cpu(), ref.tri_verts)
+
+
+def test_precompute_fittings_on_card_matches_cpu(cuda):
+    from bifrost3d_tpu_torch.shading.fittings import precompute_fittings
+    card = precompute_fittings(256, None, device=cuda)
+    cpu = precompute_fittings(256, None, device="cpu")
+    for name in card._fields:
+        got, want = getattr(card, name), getattr(cpu, name)
+        assert got.device.type == "cuda"
+        diff = (got.cpu() - want).abs()
+        # tests/test_torch_fittings_precompute.py's gates.
+        if name.startswith("dielectric"):
+            assert diff.max() <= 1e-2 and diff.mean() <= 1e-4, name
+        else:
+            assert diff.max() <= 1e-5, name
+
+
+def test_ltc_fit_row_graph_equals_eager(cuda):
+    """The Nelder-Mead iteration captured as a CUDA graph and replayed
+    gives the eager loop's bits."""
+    from bifrost3d_tpu_torch.shading import ltc_fit
+    cos = torch.clamp_min(torch.arange(64, device=cuda) / 63.0,
+                          ltc_fit._MIN_FIT_COS)
+    u2 = ltc_fit._stratified_u2(16, cuda)
+    x0 = torch.zeros((64, 4), device=cuda)
+    runs = [ltc_fit.fit_row(cos, ltc_fit._row_alpha(40, 64), x0, u2, 12,
+                            graph=graph) for graph in (True, False)]
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)

@@ -26,7 +26,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bifrost3d_tpu", "triton"))
 print(len(names), bad)
-assert len(names) >= 60, names
+assert len(names) >= 72, names
 for new in ("apps.smallpt_app", "integrator.smallpt", "integrator.smallvpt",
             "integrator.pallas_smallpt", "scene.spheres", "scene.media",
             "math.morton", "geometry.bvh", "geometry.native",
@@ -42,7 +42,11 @@ for new in ("apps.smallpt_app", "integrator.smallpt", "integrator.smallvpt",
             "apps.environment_convolution", "core", "core.uid",
             "core.bitmask", "core.changeset", "core.engine", "core.input",
             "core.compositor", "scene.datamodel",
-            "apps.interactive_viewer"):
+            "apps.interactive_viewer", "parallel", "parallel.mesh",
+            "parallel.render", "parallel.distributed", "math.statistics",
+            "math.nelder_mead", "math.geometry2d3d", "math.ltc",
+            "shading.ltc_fit", "bsdf.burley_sss", "apps.dev_analysis",
+            "utils.hostbuild"):
     assert pkg.__name__ + "." + new in names, new
 assert not bad, bad
 """

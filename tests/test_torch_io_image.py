@@ -216,6 +216,94 @@ def test_sixteen_bit_and_interlaced_png_raise(tmp_path):
         timage.decode_png(_with_header(data, depth=16))
 
 
+def _raw_png(rows: bytes, w, h, depth, color_type, interlace=0) -> bytes:
+    """A PNG of already filtered scanline bytes."""
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    header = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, interlace)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def _low_bit_grey_png(values, depth) -> bytes:
+    """Grey values [h, w] < 2**depth packed MSB first, rows unfiltered."""
+    h, w = values.shape
+    bits = ((values[..., None] >> np.arange(depth - 1, -1, -1)) & 1)
+    packed = np.packbits(bits.reshape(h, w * depth).astype(np.uint8), axis=1)
+    return _raw_png(b"".join(b"\x00" + r.tobytes() for r in packed), w, h,
+                    depth, 0)
+
+
+def _adam7_png(pixels) -> bytes:
+    """uint8 RGB [h, w, 3] as an Adam7-interlaced PNG, rows unfiltered."""
+    h, w, _ = pixels.shape
+    rows = b""
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                           (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                           (0, 1, 1, 2)):
+        sub = pixels[y0::dy, x0::dx]
+        if sub.size:
+            rows += b"".join(b"\x00" + r.tobytes() for r in sub)
+    return _raw_png(rows, w, h, 8, 2, interlace=1)
+
+
+def _png_cases(tmp_path):
+    """PNGs the PIL-free decoder refuses: 16-bit grey and RGB (PIL-written),
+    1-, 2- and 4-bit grey, and Adam7-interlaced RGB."""
+    rng = np.random.default_rng(11)
+    cases = {}
+    Image.fromarray((rng.integers(0, 65536, (9, 7))).astype(np.uint16)
+                    ).save(tmp_path / "grey16.png")
+    cases["grey16"] = tmp_path / "grey16.png"
+    rgb16 = rng.integers(0, 65536, (6, 5, 3)).astype(">u2")
+    (tmp_path / "rgb16.png").write_bytes(_raw_png(
+        b"".join(b"\x00" + r.tobytes() for r in rgb16.reshape(6, 15)), 5, 6,
+        16, 2))
+    cases["rgb16"] = tmp_path / "rgb16.png"
+    for depth in (1, 2, 4):
+        path = tmp_path / f"grey{depth}.png"
+        path.write_bytes(_low_bit_grey_png(
+            rng.integers(0, 1 << depth, (7, 11)), depth))
+        cases[f"grey{depth}"] = path
+    (tmp_path / "adam7.png").write_bytes(_adam7_png(
+        rng.integers(0, 256, (13, 10, 3)).astype(np.uint8)))
+    cases["adam7"] = tmp_path / "adam7.png"
+    return cases
+
+
+@pytest.mark.parametrize("case", ["grey16", "rgb16", "grey1", "grey2",
+                                  "grey4", "adam7"])
+@pytest.mark.parametrize("to_linear", [False, True])
+def test_load_image_reads_other_pngs_through_pil(case, to_linear, tmp_path):
+    path = str(_png_cases(tmp_path)[case])
+    with pytest.raises(NotImplementedError):
+        timage.read_png(path)                      # the PIL-free decoder
+    want = np.asarray(jimage.load_image(path, to_linear))
+    got = timage.load_image(path, to_linear)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_other_pngs_raise_without_pil(tmp_path, monkeypatch):
+    cases = _png_cases(tmp_path)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for path in cases.values():
+        with pytest.raises(NotImplementedError):
+            timage.load_image(str(path))
+
+
+@pytest.mark.parametrize("ext", ["jpg", "bmp", "tga"])
+def test_save_image_other_formats_through_pil(ext, tmp_path):
+    img = np.random.default_rng(12).uniform(0, 1.2, (9, 8, 3)).astype(
+        np.float32)
+    for from_linear in (True, False):
+        timage.save_image(str(tmp_path / f"p.{ext}"), img, from_linear)
+        jimage.save_image(str(tmp_path / f"j.{ext}"), img, from_linear)
+        assert (tmp_path / f"p.{ext}").read_bytes() == \
+            (tmp_path / f"j.{ext}").read_bytes()
+
+
 def test_jpeg_needs_pil(tmp_path, monkeypatch):
     path = tmp_path / "photo.jpg"
     Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(path)

@@ -5,6 +5,8 @@ tests/test_post.py pins it against the reference); the PNG written with
 the standard library reads back through PIL byte for byte.
 """
 
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -132,8 +134,15 @@ def test_png_odd_sizes(tmp_path):
         timage.write_png(str(tmp_path / "y.png"), data[..., :2])
 
 
-def test_only_png_output(tmp_path):
-    """PNG and, since the EXR writer was ported, EXR; other formats raise."""
+def test_only_png_output(tmp_path, monkeypatch):
+    """PNG and EXR without PIL; other formats through PIL where it is
+    installed (the file the JAX package's ``save_image`` writes), and
+    without it they raise."""
+    img = np.random.default_rng(9).uniform(0, 1, (6, 5, 3)).astype(np.float32)
+    timage.save_image(str(tmp_path / "x.bmp"), img)
+    jimage.save_image(str(tmp_path / "j.bmp"), img)
+    assert (tmp_path / "x.bmp").read_bytes() == (tmp_path / "j.bmp").read_bytes()
+    monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(NotImplementedError, match="jpg"):
         timage.save_image(str(tmp_path / "x.jpg"), np.zeros((2, 2, 3)))
     timage.save_image(str(tmp_path / "x.exr"), np.full((2, 2, 3), 0.5))

@@ -219,7 +219,7 @@ def _run_jax(jax_fn, args, dtype, jit=False):
 # SLEEF's 1-ulp versions. Through a cancellation (``-b + sqrt(d)``,
 # ``1 - sqrt(1 - x)``) that ulp grows to tens.
 _ELEMENTARY = ("sqrt", "rsqrt", "sin", "cos", "exp", "log", "acos", "asin",
-               "atan", "atan2", "tan")
+               "atan", "atan2", "tan", "log2", "exp2")
 
 
 def _rounded_once(fn):
@@ -242,6 +242,10 @@ def elementary_rounded_once():
     tensors is its float64 value rounded once: the port's own arithmetic,
     with the host library's elementary functions taken out."""
     import torch
+    # Forward-mode AD scripts its decompositions (torch.jit) at its first
+    # use in a process, and the script compiler cannot read the wrappers:
+    # load them before patching.
+    torch.func.jvp(torch.neg, (torch.zeros(1),), (torch.ones(1),))
     saved = {name: getattr(torch, name) for name in _ELEMENTARY}
     try:
         for name, fn in saved.items():
