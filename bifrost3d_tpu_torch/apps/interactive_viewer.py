@@ -25,7 +25,7 @@ reference.
 The datamodel is host state; the compositor renders on ``device``. A tick
 that presents nothing copies nothing to the host: a frame comes back only
 to be drawn, and a screenshot only to be saved. Without a terminal the
-last status line is printed when the run ends.
+run prints nothing, as JAX's does.
 
 Run: ``python -m bifrost3d_tpu_torch.apps.interactive_viewer --scene Sphere
 --window-size 96x54`` (on the card; ``--device cpu`` for the CPU). Use
@@ -529,8 +529,6 @@ def run(scene_name="Sphere", width=96, height=54, ticks=None,
             engine.run(max_ticks=ticks)
     else:
         engine.run(max_ticks=ticks if ticks is not None else 64)
-    if not display:
-        print(window.name, flush=True)
     return state["frames"], data, comp
 
 

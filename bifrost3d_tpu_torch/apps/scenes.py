@@ -8,9 +8,9 @@ Port of ``bifrost3d_tpu/apps/scenes.py`` (``_trs``,
 ``create_opacity_scene``, ``create_test_scene``, ``SCENES``). Each builder
 takes JAX's parameters in JAX's order, then the port's own keyword-only
 (``device`` among them), and returns (RenderScene, PinholeCamera) on that
-device. ``create_material_scene`` builds its spheres: the shader-ball
-asset it would load is not in the repo, and JAX falls back to the same
-spheres without it.
+device. ``create_material_scene`` loads the Mori shader ball from
+``SHADERBALL_PATH`` (``BIFROST_SHADERBALL``, as in JAX) through the port's
+own glTF loader, and builds JAX's spheres where the asset is missing.
 
 ``TEST_SCENES`` holds the small scenes that the JAX package's megakernel
 tests build inline (``tests/test_pallas_mesh.py``: coated materials, a
@@ -38,6 +38,8 @@ uniform), and on the BVH branch ``hier_bridge_15k_env`` (that map over the
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -48,6 +50,8 @@ from bifrost3d_tpu_torch.geometry.creation import (
     make_torus,
 )
 from bifrost3d_tpu_torch.geometry.mesh import combine_meshes, transform_mesh
+from bifrost3d_tpu_torch.geometry.native import REPO_DIR
+from bifrost3d_tpu_torch.io.gltf import load_gltf
 from bifrost3d_tpu_torch.io.texture import FILTER_NONE, TextureBank
 from bifrost3d_tpu_torch.lights.types import (
     LIGHT_DIRECTIONAL,
@@ -132,6 +136,14 @@ def create_cornell_box(environment_map=None, aspect=1.0, *, device):
     return scene, camera
 
 
+# The Mori shader ball of the Bifrost3D sources
+# (apps/SimpleViewer/Resources/Shaderball.gltf). Without
+# ``BIFROST_SHADERBALL``, ``assets/Shaderball.gltf`` in the repository,
+# where the asset goes once the repository holds it: a default inside the
+# checkout, so that what lies around it never changes the scene.
+SHADERBALL_PATH = os.environ.get(
+    "BIFROST_SHADERBALL", os.path.join(REPO_DIR, "assets", "Shaderball.gltf"))
+
 MATERIAL_SCENE_COUNT = 7  # MaterialGUI::material_count (Material.cpp:20)
 # The teal dielectric and the gold metal that both material scenes sweep
 # between.
@@ -165,12 +177,26 @@ def _material_scene_light(device):
          "radiance": (3.0, 2.9, 2.5)}], device=device)
 
 
+def _load_shader_ball_meshes():
+    """Scenes/Utils.cpp load_shader_ball: keep Node5 (outside, gets the
+    test material) and Node2 (inside, rubber); drop the rest. Returns
+    (outside_mesh, inside_mesh), or None when the asset or either node is
+    missing. Reads ``SHADERBALL_PATH`` at call time."""
+    if not os.path.exists(SHADERBALL_PATH):
+        return None
+    meshes = load_gltf(SHADERBALL_PATH, load_textures=False)[0]
+    by_name = {name: mesh for mesh, _, name in meshes}
+    if "Node5" not in by_name or "Node2" not in by_name:
+        return None
+    return by_name["Node5"], by_name["Node2"]
+
+
 def create_material_scene(environment_map=None, aspect=1.0, *, device):
-    """Material.cpp create_material_scene: seven materials sweeping from a
-    teal dielectric (roughness 1) to gold metal (roughness 0.02) on the
-    checkered floor, lit by one directional light. Spheres (32 × 16) stand
-    where the shader balls would: JAX's fallback when the asset is not
-    mounted."""
+    """Material.cpp create_material_scene: seven Mori shader balls sweeping
+    from a teal dielectric (roughness 1) to gold metal (roughness 0.02),
+    rubber inside, on the checkered floor, lit by one directional light.
+    Without the shader-ball asset, spheres (32 × 16) stand where the balls
+    would, as in JAX."""
     floor_mesh, floor_mat, floor_tex = _checkered_floor_parts()
     textures = TextureBank.build([floor_tex], device=device)
     floor_mat["tint_roughness_texture"] = 0
@@ -180,11 +206,18 @@ def create_material_scene(environment_map=None, aspect=1.0, *, device):
         + _material_sweep(n), device=device)
 
     instances = [(floor_mesh, 0, _trs((0, -1.0, 0)))]
+    ball = _load_shader_ball_meshes()
     spacing = 1.2
     x0 = -spacing * 0.5 * (n - 1)
     for m in range(n):
-        instances.append((make_sphere(radius=0.5, slices=32, stacks=16),
-                          2 + m, _trs((x0 + m * spacing, 0.0, 0))))
+        x = x0 + m * spacing
+        if ball is not None:
+            outside, inside = ball
+            instances.append((outside, 2 + m, _trs((x, 0, 0), scale=2.0)))
+            instances.append((inside, 1, _trs((x, 0, 0), scale=2.0)))
+        else:
+            instances.append((make_sphere(radius=0.5, slices=32, stacks=16),
+                              2 + m, _trs((x, 0.0, 0))))
     scene = build_render_scene(instances, mats, _material_scene_light(device),
                                environment_map=environment_map,
                                textures=textures, device=device)

@@ -4,9 +4,10 @@ Port of ``bifrost3d_tpu/geometry/mesh.py`` (``TriangleMesh``,
 ``mesh_aabb``, ``compute_hard_normals``, ``compute_smooth_normals``,
 ``transform_mesh``, ``combine_meshes``, ``expand_indexed_buffers``,
 ``merge_duplicate_vertices``, ``normals_correspond_to_winding_order``,
-``count_degenerate_primitives``), without JAX's per-vertex ``emission``
-buffer, which no port path reads. Meshes
-are assets built once on the host, so their buffers are numpy arrays;
+``count_degenerate_primitives``). The per-vertex ``emission`` buffer
+rides through the mesh utilities and no renderer reads it, as in JAX.
+Meshes are assets built once on the host, so their buffers are numpy
+arrays;
 ``scene.render_scene.build_render_scene`` flattens them into device
 tensors.
 """
@@ -24,6 +25,7 @@ class TriangleMesh(NamedTuple):
     normals: Optional[np.ndarray] = None         # [v, 3] float32 (unit)
     texcoords: Optional[np.ndarray] = None       # [v, 2] float32
     tint_roughness: Optional[np.ndarray] = None  # [v, 4] float32
+    emission: Optional[np.ndarray] = None        # [v, 3] float32
 
 
 def mesh_aabb(mesh: TriangleMesh):
@@ -75,8 +77,9 @@ def combine_meshes(meshes) -> TriangleMesh:
     any_normals = any(m.normals is not None for m in meshes)
     any_uv = any(m.texcoords is not None for m in meshes)
     any_tr = any(m.tint_roughness is not None for m in meshes)
+    any_em = any(m.emission is not None for m in meshes)
 
-    indices, positions, normals, uvs, trs = [], [], [], [], []
+    indices, positions, normals, uvs, trs, ems = [], [], [], [], [], []
     offset = 0
     for m in meshes:
         v = m.positions.shape[0]
@@ -92,6 +95,9 @@ def combine_meshes(meshes) -> TriangleMesh:
             trs.append(np.asarray(m.tint_roughness)
                        if m.tint_roughness is not None
                        else np.tile([1, 1, 1, 1.0], (v, 1)))
+        if any_em:
+            ems.append(np.asarray(m.emission) if m.emission is not None
+                       else np.zeros((v, 3)))
         offset += v
 
     def cat(parts, dtype=np.float32):
@@ -102,11 +108,12 @@ def combine_meshes(meshes) -> TriangleMesh:
         positions=cat(positions),
         normals=cat(normals) if any_normals else None,
         texcoords=cat(uvs) if any_uv else None,
-        tint_roughness=cat(trs) if any_tr else None)
+        tint_roughness=cat(trs) if any_tr else None,
+        emission=cat(ems) if any_em else None)
 
 
 def _attributes(mesh: TriangleMesh) -> tuple:
-    return (mesh.normals, mesh.texcoords, mesh.tint_roughness)
+    return (mesh.normals, mesh.texcoords, mesh.tint_roughness, mesh.emission)
 
 
 def expand_indexed_buffers(mesh: TriangleMesh) -> TriangleMesh:

@@ -41,6 +41,7 @@ SMALLPT_CAM_ORIGIN = (50.0, 52.0, 295.6)
 SMALLPT_CAM_DIRECTION = (0.0, -0.042612, -1.0)
 MAX_DEPTH = 20
 RR_START_DEPTH = 5
+GLASS_RR_START_DEPTH = 0  # reference: 2 (splits before that; see docstring)
 EPS = 1e-2  # t-min epsilon, scaled up from the reference's 1e-4 for float32
 # Ray-origin offset along the geometric normal: hit positions on the
 # 1e5-radius wall spheres carry ~0.02 absolute error in float32, so new rays

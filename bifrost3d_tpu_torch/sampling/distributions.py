@@ -274,8 +274,13 @@ def henyey_greenstein_phase(g, cos_theta):
 
 
 def henyey_greenstein_sample(g: float, u2):
-    """Sample the HG phase function about +z → (direction, pdf)."""
-    if abs(g) < 1e-3:
+    """Sample the HG phase function about +z → (direction, pdf). ``g`` is
+    rounded to ``u2``'s dtype first, as JAX's ``jnp.asarray(g,
+    jnp.float32)``: every term then sees the same ``g``, which the
+    cancelling ``1 + g² - sqr_term²`` needs."""
+    small = abs(g) < 1e-3
+    g = torch.tensor(g, dtype=u2.dtype, device=u2.device)
+    if small:
         cos_theta = 1.0 - 2.0 * u2[..., 0]
     else:
         sqr_term = (1.0 - g * g) / (1.0 + g * (2.0 * u2[..., 0] - 1.0))

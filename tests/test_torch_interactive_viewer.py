@@ -45,9 +45,8 @@ def test_scripted_session_toggles_and_moves(tmp_path, capsys):
     assert float(t.translation[2]) > -3.0
     assert t.translation.device == CPU
     assert shot.exists()
-    # Without a terminal the last status line is printed.
-    said = capsys.readouterr().out
-    assert "| Preview |" in said and " fps | 4 spp" in said
+    # Without a terminal the run prints nothing, as JAX's does.
+    assert capsys.readouterr().out == ""
 
 
 def test_settings_panel_adjusts_renderer_live():
@@ -153,7 +152,31 @@ def test_main_runs_headless(tmp_path, capsys):
           "--ticks", "3", "--keys", "x", "--screenshot", str(shot),
           "--max-bounce", "1"])
     assert shot.exists()
-    assert "PathTracer" in capsys.readouterr().out
+    # JAX's main prints nothing either.
+    assert capsys.readouterr().out == ""
+
+
+def test_headless_run_prints_what_jax_prints(tmp_path, capsys):
+    """Fault C9: without a terminal the port's ``run`` printed its last
+    status line, JAX's nothing. Both runs' stdout must be equal."""
+    said = []
+    for run_fn, kw in ((jax_viewer.run, {}), (run, {"device": CPU})):
+        run_fn(scene_name="Box", width=8, height=6, ticks=3,
+               scripted_keys="wx", display=False,
+               screenshot_path=str(tmp_path / "shot.png"), max_bounce=1,
+               **kw)
+        said.append(capsys.readouterr().out)
+    assert said[1] == said[0] == ""
+
+
+def test_terminal_run_presents_the_status_line(capsys):
+    """With a display, each presented frame ends in the status line:
+    window name, frames per second, samples per pixel, key help."""
+    run(scene_name="Box", width=8, height=6, ticks=3, display=True,
+        max_bounce=1, device=CPU)
+    status = capsys.readouterr().out.split("\x1b[K")[-1].strip()
+    assert status.startswith("bifrost3d_tpu | PathTracer | ")
+    assert " fps | 3 spp | WASD move" in status, status
 
 
 def test_main_defaults_to_the_card(monkeypatch):

@@ -6,6 +6,9 @@ compared lane by lane where both sides took the same discrete decisions,
 and whole frames under the gate of tests/test_smallpt.py:111-127: fewer
 than 2% of the pixels off by more than 1e-4 and means within 2%. The JAX
 megakernel runs in interpret mode, as the JAX package's own tests run it.
+The plain renderer and the sphere intersection are also held against the
+float64 numpy reference ``tests/smallpt_reference.py`` with JAX's own
+gates (tests/test_smallpt.py:20-80).
 """
 
 import numpy as np
@@ -26,7 +29,12 @@ from bifrost3d_tpu_torch.integrator import smallpt as tspt
 from bifrost3d_tpu_torch.integrator import smallvpt as tvpt
 from bifrost3d_tpu_torch.sampling import hashes as thashes
 from bifrost3d_tpu_torch.scene import spheres as tspheres
-from torch_parity import assert_smallpt_gate, sphere_scene_arrays
+import smallpt_reference
+from torch_parity import (
+    assert_float64_reference_gate,
+    assert_smallpt_gate,
+    sphere_scene_arrays,
+)
 
 W, H = 32, 24
 LANES_W, LANES_H = 64, 48
@@ -123,6 +131,44 @@ def test_intersect_spheres_reports_misses(scenes):
     assert hit.tolist() == [True, False] and idx.tolist() == [0, -1]
     assert abs(float(t[0]) - (200.0 - 47.0 - 16.5)) < 1e-3
     assert torch.isinf(t[1])
+
+
+def test_intersect_spheres_matches_float64_reference():
+    """tests/test_smallpt.py:31-45 for the port: the same sphere hit and
+    float32 distances near the float64 reference's."""
+    scene = tspheres.smallpt_scene(device="cpu")
+    rng = np.random.default_rng(0)
+    o = np.asarray([50, 52, 295.6]) + rng.normal(size=(256, 3)) * 5
+    d = rng.normal(size=(256, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t64, i64, h64 = smallpt_reference.intersect(o, d)
+    t32, i32, h32 = tspheres.intersect_spheres(
+        scene, torch.tensor(o, dtype=torch.float32),
+        torch.tensor(d, dtype=torch.float32))
+    np.testing.assert_array_equal(h32.numpy(), h64)
+    np.testing.assert_array_equal(i32.numpy()[h64], i64[h64])
+    np.testing.assert_allclose(t32.numpy()[h64], t64[h64], rtol=1e-4,
+                               atol=2e-2)
+
+
+@pytest.fixture(scope="module")
+def float64_images():
+    """tests/test_smallpt.py's size and accumulations: 64 x 48 x 32."""
+    scene = tspheres.smallpt_scene(device="cpu")
+    return (tspt.render_smallpt(scene, 64, 48, 32).numpy(),
+            smallpt_reference.render(64, 48, 32))
+
+
+def test_render_smallpt_matches_float64_reference(float64_images):
+    """Relative RMS < 0.20 and > 80% of the pixels within 2%."""
+    ours, theirs = float64_images
+    assert_float64_reference_gate(ours, theirs)
+
+
+def test_render_smallpt_mean_matches_float64_reference(float64_images):
+    ours, theirs = float64_images
+    np.testing.assert_allclose(ours.astype(np.float64).mean(), theirs.mean(),
+                               rtol=0.03)
 
 
 def test_camera_ray_matches_jax():

@@ -1,7 +1,9 @@
 """The viewer's nine scenes on the port: JAX's names in JAX's order, the
 four builders of the Transmissive and material slice against JAX's array
 for array, every builder and ``path_rng_4d`` called with JAX's arguments,
-and every scene rendered through ``simple_viewer --device cpu``.
+and every scene rendered through ``simple_viewer --device cpu``. With
+``SHADERBALL_PATH`` pointing at a two-node glTF that the test writes, the
+port's MaterialScene loads the shader ball as JAX's does.
 
 A builder takes JAX's parameters in JAX's order; the port's own
 (``device`` among them) are keyword-only after them. Before, the port's
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from bifrost3d_tpu.apps import scenes as jax_scenes
+from bifrost3d_tpu.integrator import path_tracer as jpt
 from bifrost3d_tpu.sampling import sobol as jsobol
 
 from bifrost3d_tpu_torch.apps import scenes as port_scenes
@@ -28,8 +31,10 @@ from bifrost3d_tpu_torch.integrator import pallas_mesh as tpm
 from bifrost3d_tpu_torch.integrator import path_tracer as tpt
 from bifrost3d_tpu_torch.sampling import sobol as tsobol
 from bifrost3d_tpu_torch.scene.render_scene import render_scene_from_numpy
+from bifrost3d_tpu_torch.scene.camera import camera_from_numpy
 from test_torch_megakernel_extras import _assert_same_scene
-from torch_parity import camera_arrays, scene_arrays
+from torch_parity import (assert_statistical_gate, camera_arrays,
+                          scene_arrays, write_shader_ball)
 
 NEW = ("MaterialScene", "MaterialSceneLegacy", "Glass", "Test")
 
@@ -39,7 +44,12 @@ def test_scenes_are_jax_scenes_in_jax_order():
 
 
 @pytest.mark.parametrize("name", NEW)
-def test_new_builders_match_jax(name):
+def test_new_builders_match_jax(name, tmp_path, monkeypatch):
+    # MaterialScene's sphere fallback, whatever the machine holds at either
+    # package's default shader-ball path.
+    absent = str(tmp_path / "absent" / "Shaderball.gltf")
+    monkeypatch.setattr(jax_scenes, "SHADERBALL_PATH", absent)
+    monkeypatch.setattr(port_scenes, "SHADERBALL_PATH", absent)
     jscene, jcam = jax_scenes.SCENES[name]()
     ref = render_scene_from_numpy(scene_arrays(jscene), device="cpu")
     scene, cam = port_scenes.SCENES[name](device="cpu")
@@ -116,3 +126,36 @@ def test_viewer_renders_every_scene(name, tmp_path, capsys):
                         "16x16", "-n", "1", "-o", str(out)])
     assert out.stat().st_size > 0
     assert f"rendered {name} 16x16" in capsys.readouterr().out
+
+
+def test_material_scene_loads_the_shader_ball(tmp_path, monkeypatch):
+    path = str(tmp_path / "Shaderball.gltf")
+    ball = write_shader_ball(path, slices=12, stacks=6)
+    monkeypatch.setattr(jax_scenes, "SHADERBALL_PATH", path)
+    monkeypatch.setattr(port_scenes, "SHADERBALL_PATH", path)
+    jscene, jcam = jax_scenes.create_material_scene()
+    scene, cam = port_scenes.create_material_scene(device="cpu")
+    want = scene_arrays(jscene)
+    for field in ("tri_verts", "tri_normals_oct", "tri_uvs",
+                  "tri_tint_roughness", "tri_material"):
+        np.testing.assert_array_equal(getattr(scene, field).numpy(),
+                                      want[field], err_msg=field)
+    for field, value in want["materials"].items():
+        np.testing.assert_array_equal(
+            getattr(scene.materials, field).numpy(), value, err_msg=field)
+    floor = int((want["tri_material"] == 0).sum())
+    assert scene.tri_verts.shape[0] == floor + 7 * ball
+    # The rubber core takes material 1, each shell its sweep material; the
+    # two nodes are spheres of the same slices and stacks.
+    assert int((want["tri_material"] == 1).sum()) == 7 * (ball // 2)
+    assert sorted(set(want["tri_material"].tolist())) == list(range(9))
+    # On a card: the megakernel's BVH branch (kExtras: a textured floor).
+    assert tpm.megakernel_ineligibility_reasons(
+        scene, tpt.RenderSettings()) == []
+    assert tpm.MAX_TRIS < scene.tri_verts.shape[0] <= tpm.HIER_MAX_TRIS
+    ref = np.asarray(jpt.render_sample(jscene, jcam, 16, 16, 1,
+                                       jpt.RenderSettings()))
+    port_cam = camera_from_numpy(camera_arrays(jcam), device="cpu")
+    img = tpt.render_sample(scene, port_cam, 16, 16, 1,
+                            tpt.RenderSettings()).numpy()
+    assert_statistical_gate(img, ref)
