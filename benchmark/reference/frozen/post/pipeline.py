@@ -1,0 +1,103 @@
+"""The camera-effects chain: exposure → bloom → vignette → tonemap → grain.
+
+Port of ``bifrost3d_tpu/post/pipeline.py`` (``process``,
+``process_stateful``): exposure (fixed, log-average or histogram, with
+temporal eye adaptation in the stateful variant), Gaussian or dual-kawase
+bloom, vignette, tonemapping and film grain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from benchmark.reference.frozen.post.bloom import dual_kawase_bloom, gaussian_bloom
+from benchmark.reference.frozen.post.exposure import (
+    eye_adaptation,
+    fixed_exposure,
+    histogram_exposure,
+    log_average_exposure,
+)
+from benchmark.reference.frozen.post.tonemap import (
+    EXPOSURE_FIXED,
+    EXPOSURE_HISTOGRAM,
+    EXPOSURE_LOG_AVERAGE,
+    CameraEffectsSettings,
+    apply_tonemap,
+)
+from benchmark.reference.frozen.sampling.hashes import pcg2d, uint_to_unit_float
+
+
+def process(image, settings: CameraEffectsSettings = CameraEffectsSettings.preset(),
+            frame_index: int = 0):
+    """HDR radiance [h, w, 3] → display-ready linear [0, 1]."""
+    ldr, _ = _process(image, settings, frame_index, -1.0, 0.0)
+    return ldr
+
+
+def process_stateful(image, settings: CameraEffectsSettings,
+                     frame_index: int, previous_exposure, delta_time):
+    """Like :func:`process` but with temporal eye adaptation
+    (CameraEffects.cpp:456-469 + Utils.hlsl eye_adaptation): the exposure
+    lerps from ``previous_exposure`` toward the frame's target at the
+    settings' brightness/darkness speeds. Pass ``previous_exposure < 0``
+    on the first frame (adaptation snaps to the target). Returns
+    (ldr_image, applied_exposure), the exposure a 0-d tensor to feed back
+    next frame."""
+    return _process(image, settings, frame_index, previous_exposure,
+                    delta_time)
+
+
+def _process(image, settings: CameraEffectsSettings, frame_index: int,
+             previous_exposure, delta_time):
+    h, w = image.shape[0], image.shape[1]
+    device = image.device
+
+    if settings.exposure_mode == EXPOSURE_FIXED:
+        exposure = fixed_exposure(settings.log_luminance_bias, device=device)
+    elif settings.exposure_mode == EXPOSURE_LOG_AVERAGE:
+        exposure = log_average_exposure(image, settings.log_luminance_bias)
+    elif settings.exposure_mode == EXPOSURE_HISTOGRAM:
+        exposure = histogram_exposure(
+            image, settings.min_log_luminance, settings.max_log_luminance,
+            settings.min_histogram_percentage,
+            settings.max_histogram_percentage, settings.log_luminance_bias)
+    else:
+        raise ValueError(f"unknown exposure mode {settings.exposure_mode}")
+    if settings.eye_adaptation_enabled:
+        previous = torch.as_tensor(previous_exposure, dtype=torch.float32,
+                                   device=device)
+        adapted = eye_adaptation(previous, exposure, delta_time,
+                                 settings.eye_adaptation_brightness,
+                                 settings.eye_adaptation_darkness)
+        # previous < 0 = no history (first frame): snap to the target.
+        exposure = torch.where(previous >= 0.0, adapted, exposure)
+    image = image * exposure
+
+    if settings.bloom_mode == 1:
+        half_passes = max(1, int(round(settings.bloom_support * h / 128.0))) \
+            if settings.bloom_support > 0 else 0
+        image = dual_kawase_bloom(image, settings.bloom_threshold,
+                                  half_passes)
+    else:
+        image = gaussian_bloom(image, settings.bloom_threshold,
+                               settings.bloom_support)
+
+    if settings.vignette > 0.0:
+        ys = (torch.arange(h, device=device) + 0.5) / h - 0.5
+        xs = (torch.arange(w, device=device) + 0.5) / w - 0.5
+        r2 = (xs[None, :] ** 2 + ys[:, None] ** 2) * 2.0
+        falloff = 1.0 - settings.vignette * r2
+        image = image * torch.clamp(falloff, 0.0, 1.0)[..., None]
+
+    image = apply_tonemap(image, settings.tonemapping_mode,
+                          settings.tonemapping)
+
+    if settings.film_grain > 0.0:
+        xi = torch.arange(w, dtype=torch.int64, device=device)[None, :]
+        yi = torch.arange(h, dtype=torch.int64, device=device)[:, None]
+        hashv, _ = pcg2d((xi * 9781 + frame_index) & 0xFFFFFFFF,
+                         (yi * 6271 + frame_index * 31) & 0xFFFFFFFF)
+        noise = uint_to_unit_float(hashv) - 0.5
+        image = image + (2.0 * settings.film_grain) * noise[..., None]
+
+    return torch.clamp(image, 0.0, 1.0), exposure
