@@ -124,6 +124,7 @@ from bifrost3d_tpu_torch.scene.materials import (
 )
 from bifrost3d_tpu_torch.scene.render_scene import RenderScene
 from bifrost3d_tpu_torch.shading.fittings import get_fittings
+from bifrost3d_tpu_torch.utils.profiling import span
 from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
 MAX_TRIS = 1024
@@ -1101,92 +1102,100 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres,
     (:func:`megakernel_frame_inputs`); the other arguments are those of
     :func:`mesh_megakernel_reference` (``tri`` the dense table, or with
     ``cfg.hier`` the packed BVH). A frame whose ``cfg.extras`` is true
-    launches the ``kExtras`` instantiation."""
+    launches the ``kExtras`` instantiation. Under a ``torch.profiler``
+    session the call, from its checks to the launch's return, is span
+    ``b3d.megakernel.launch``."""
     global launch_count
-    device = scalars.device
-    n_lights = len(cfg.light_kinds)
-    if cfg.hier != isinstance(tri, HierTriangles):
-        raise TypeError("tri must be the packed BVH with cfg.hier, the "
-                        "dense [t_pad, 16] table without")
-    records = None
-    if cfg.hier:
-        tree, tri = tri, tri.tri_components
-        if not 0 < cfg.n_tris <= HIER_MAX_TRIS or cfg.n_tris != tree.n_tris \
-                or tri.shape != (cfg.n_tris, 12):
-            raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
-                             f"{HIER_MAX_TRIS}] or not the packed tree's")
-        records = _walk_records(tree, device)
-    else:
-        if not 0 < cfg.n_tris <= min(MAX_TRIS, tri.shape[0]):
-            raise ValueError(f"n_tris={cfg.n_tris} outside (0, {MAX_TRIS}] "
-                             "or the packed table")
-        if tri.shape[1] != 16:
-            raise ValueError("tri must be [t_pad, 16]")
-    if attr.shape != (ATTR_ROWS, tri.shape[0]):
-        raise ValueError(f"attr must be [{ATTR_ROWS}, t_pad]")
-    if mats.shape[0] > MAX_MATERIALS or mats.shape[1] != 16:
-        raise ValueError(f"mats must be [<= {MAX_MATERIALS}, 16]")
-    if n_lights > MAX_LIGHTS or lights.shape[1] != 12 \
-            or lights.shape[0] < n_lights:
-        raise ValueError(f"lights must be [<= {MAX_LIGHTS}, 12], one row "
-                         "per light kind")
-    if not 0 <= cfg.ris_count <= MAX_RIS:
-        raise ValueError(f"ris_count {cfg.ris_count} outside [0, {MAX_RIS}]")
-    if rho_ggx.shape != (32, 32) or rho_fres.shape != (32, 32):
-        raise ValueError("the rho tables must be [32, 32]")
-    for name, x in (("tri", tri), ("attr", attr), ("mats", mats),
-                    ("lights", lights), ("rho_ggx", rho_ggx),
-                    ("rho_fres", rho_fres), ("scalars", scalars)):
-        _check(name, x, torch.float32, device)
-    if scalars.shape != (4,):
-        raise ValueError("scalars must be [4]: epsilon, background rgb")
-    if not 0 <= cfg.shadow_steps <= 16:
-        raise ValueError(f"shadow_steps {cfg.shadow_steps} outside [0, 16]")
-    camera = _camera_params(frame, device)
-    extras = extras if extras is not None else KernelExtras()
-    tex_meta = mat_tex = None
-    if cfg.extras:
-        _check_extras(extras, cfg, int(mats.shape[0]), device)
-        tex_meta = _int_table(cfg.tex_meta, 6, device)
-        mat_tex = _int_table(cfg.mat_tex, 4, device)
-    env = cfg.env_meta or (0, 0, 0, 0, 0, False)
+    with span("megakernel.launch"):
+        device = scalars.device
+        n_lights = len(cfg.light_kinds)
+        if cfg.hier != isinstance(tri, HierTriangles):
+            raise TypeError("tri must be the packed BVH with cfg.hier, the "
+                            "dense [t_pad, 16] table without")
+        records = None
+        if cfg.hier:
+            tree, tri = tri, tri.tri_components
+            if not 0 < cfg.n_tris <= HIER_MAX_TRIS \
+                    or cfg.n_tris != tree.n_tris \
+                    or tri.shape != (cfg.n_tris, 12):
+                raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
+                                 f"{HIER_MAX_TRIS}] or not the packed tree's")
+            records = _walk_records(tree, device)
+        else:
+            if not 0 < cfg.n_tris <= min(MAX_TRIS, tri.shape[0]):
+                raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
+                                 f"{MAX_TRIS}] or the packed table")
+            if tri.shape[1] != 16:
+                raise ValueError("tri must be [t_pad, 16]")
+        if attr.shape != (ATTR_ROWS, tri.shape[0]):
+            raise ValueError(f"attr must be [{ATTR_ROWS}, t_pad]")
+        if mats.shape[0] > MAX_MATERIALS or mats.shape[1] != 16:
+            raise ValueError(f"mats must be [<= {MAX_MATERIALS}, 16]")
+        if n_lights > MAX_LIGHTS or lights.shape[1] != 12 \
+                or lights.shape[0] < n_lights:
+            raise ValueError(f"lights must be [<= {MAX_LIGHTS}, 12], one row "
+                             "per light kind")
+        if not 0 <= cfg.ris_count <= MAX_RIS:
+            raise ValueError(f"ris_count {cfg.ris_count} outside "
+                             f"[0, {MAX_RIS}]")
+        if rho_ggx.shape != (32, 32) or rho_fres.shape != (32, 32):
+            raise ValueError("the rho tables must be [32, 32]")
+        for name, x in (("tri", tri), ("attr", attr), ("mats", mats),
+                        ("lights", lights), ("rho_ggx", rho_ggx),
+                        ("rho_fres", rho_fres), ("scalars", scalars)):
+            _check(name, x, torch.float32, device)
+        if scalars.shape != (4,):
+            raise ValueError("scalars must be [4]: epsilon, background rgb")
+        if not 0 <= cfg.shadow_steps <= 16:
+            raise ValueError(f"shadow_steps {cfg.shadow_steps} outside "
+                             "[0, 16]")
+        camera = _camera_params(frame, device)
+        extras = extras if extras is not None else KernelExtras()
+        tex_meta = mat_tex = None
+        if cfg.extras:
+            _check_extras(extras, cfg, int(mats.shape[0]), device)
+            tex_meta = _int_table(cfg.tex_meta, 6, device)
+            mat_tex = _int_table(cfg.mat_tex, 4, device)
+        env = cfg.env_meta or (0, 0, 0, 0, 0, False)
 
-    def ptr(x):
-        return 0 if x is None else x.data_ptr()
+        def ptr(x):
+            return 0 if x is None else x.data_ptr()
 
-    p = camera["n_pixels"]
-    out = torch.empty(4 * p, dtype=torch.float32, device=device)
-    params = _Params(
-        tri=tri.data_ptr(), records=ptr(records), attr=attr.data_ptr(),
-        mats=mats.data_ptr(), lights=lights.data_ptr(),
-        rho_ggx=rho_ggx.data_ptr(), rho_fres=rho_fres.data_ptr(),
-        sobol=_sobol_dirs(device).data_ptr(), scalars=scalars.data_ptr(),
-        out=out.data_ptr(),
-        texels=ptr(extras.texels), tex_meta=ptr(tex_meta),
-        mat_tex=ptr(mat_tex), env_img=ptr(extras.env_img),
-        env_pdf=ptr(extras.env_pdf), env_pool=ptr(extras.env_pool),
-        extras=int(cfg.extras), n_tex=len(cfg.tex_meta),
-        any_coverage=int(cfg.any_coverage), shadow_steps=cfg.shadow_steps,
-        has_env=int(cfg.env_meta is not None), env_w=env[0], env_h=env[1],
-        env_pw=env[2], env_ph=env[3], env_pool_n=env[4],
-        n_nee_total=cfg.n_nee_total, n_tris=cfg.n_tris,
-        t_pad=int(tri.shape[0]), n_mats=int(mats.shape[0]),
-        n_lights=n_lights,
-        accumulation=int(accumulation) & 0xFFFFFFFF, n_iters=cfg.n_iters,
-        max_bounce=cfg.max_bounce, ris_count=cfg.ris_count,
-        firefly_clamp=cfg.firefly_clamp,
-        delta_light_clamp=cfg.delta_light_clamp,
-        has_coat=int(cfg.has_coat), has_diffuse=int(cfg.has_diffuse),
-        hier=int(cfg.hier), **camera)
-    for k, kind in enumerate(cfg.light_kinds):
-        params.light_kinds[k] = kind
-    params.ris_offsets[:] = _RIS_OFFSETS
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library().mesh_megakernel(ctypes.byref(params), _THREADS, stream)
-    if err != 0:
-        raise RuntimeError(f"mesh_megakernel launch failed: cudaError {err}")
-    launch_count += 1
-    return out[:3 * p].view(frame.height, frame.width, 3), out[3 * p:]
+        p = camera["n_pixels"]
+        out = torch.empty(4 * p, dtype=torch.float32, device=device)
+        params = _Params(
+            tri=tri.data_ptr(), records=ptr(records), attr=attr.data_ptr(),
+            mats=mats.data_ptr(), lights=lights.data_ptr(),
+            rho_ggx=rho_ggx.data_ptr(), rho_fres=rho_fres.data_ptr(),
+            sobol=_sobol_dirs(device).data_ptr(), scalars=scalars.data_ptr(),
+            out=out.data_ptr(),
+            texels=ptr(extras.texels), tex_meta=ptr(tex_meta),
+            mat_tex=ptr(mat_tex), env_img=ptr(extras.env_img),
+            env_pdf=ptr(extras.env_pdf), env_pool=ptr(extras.env_pool),
+            extras=int(cfg.extras), n_tex=len(cfg.tex_meta),
+            any_coverage=int(cfg.any_coverage), shadow_steps=cfg.shadow_steps,
+            has_env=int(cfg.env_meta is not None), env_w=env[0], env_h=env[1],
+            env_pw=env[2], env_ph=env[3], env_pool_n=env[4],
+            n_nee_total=cfg.n_nee_total, n_tris=cfg.n_tris,
+            t_pad=int(tri.shape[0]), n_mats=int(mats.shape[0]),
+            n_lights=n_lights,
+            accumulation=int(accumulation) & 0xFFFFFFFF, n_iters=cfg.n_iters,
+            max_bounce=cfg.max_bounce, ris_count=cfg.ris_count,
+            firefly_clamp=cfg.firefly_clamp,
+            delta_light_clamp=cfg.delta_light_clamp,
+            has_coat=int(cfg.has_coat), has_diffuse=int(cfg.has_diffuse),
+            hier=int(cfg.hier), **camera)
+        for k, kind in enumerate(cfg.light_kinds):
+            params.light_kinds[k] = kind
+        params.ris_offsets[:] = _RIS_OFFSETS
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().mesh_megakernel(ctypes.byref(params), _THREADS,
+                                         stream)
+        if err != 0:
+            raise RuntimeError("mesh_megakernel launch failed: cudaError "
+                               f"{err}")
+        launch_count += 1
+        return out[:3 * p].view(frame.height, frame.width, 3), out[3 * p:]
 
 
 def camera_probe(frame: CameraFrame, accumulation: int):
@@ -1388,20 +1397,23 @@ def megakernel_frame_inputs(scene: RenderScene, camera, width: int,
 
 def render_mesh_megakernel(scene: RenderScene, camera, width: int,
                            height: int, accumulation: int,
-                           settings: RenderSettings = RenderSettings()):
+                           settings: RenderSettings = RenderSettings(),
+                           sum_rays: bool = True):
     """One progressive frame through the mesh megakernel → (radiance
     [height, width, 3], rays [] — live lanes × 2 per iteration, the same
     in-run tally the pooled wavefront reports; on the card it stays there
     until read). On the card this is one launch of the kernel (and one for
-    the ray sum); on the CPU the plain version renders raster lanes."""
+    the ray sum); on the CPU the plain version renders raster lanes.
+    ``sum_rays`` False returns each lane's tally [height·width] instead,
+    and launches no sum."""
     device = scene.tri_verts.device
     if device.type == "cuda":
         img, rays = mesh_megakernel_cuda(*megakernel_frame_inputs(
             scene, camera, width, height, accumulation, settings))
-        return img, rays.sum()
-    if device.type != "cpu":
+    elif device.type == "cpu":
+        r, g, b, rays = mesh_megakernel_reference(*megakernel_inputs(
+            scene, camera, width, height, accumulation, settings))
+        img = torch.stack([r, g, b], dim=-1).reshape(height, width, 3)
+    else:
         raise ValueError(f"no mesh megakernel for a scene on {device}")
-    r, g, b, rays = mesh_megakernel_reference(*megakernel_inputs(
-        scene, camera, width, height, accumulation, settings))
-    return torch.stack([r, g, b], dim=-1).reshape(height, width, 3), \
-        rays.sum()
+    return img, (rays.sum() if sum_rays else rays)

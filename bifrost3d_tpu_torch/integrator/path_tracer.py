@@ -120,6 +120,7 @@ from bifrost3d_tpu_torch.shading.fittings import (
 from bifrost3d_tpu_torch.shading.transmissive_shading import (
     TransmissiveShading,
 )
+from bifrost3d_tpu_torch.utils.profiling import span
 from bifrost3d_tpu_torch.utils.tree import tree_flatten
 from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
@@ -1176,7 +1177,8 @@ def render_sample_fast(scene: RenderScene, camera: PinholeCamera,
         logger.info("render path: %s", explain_render_path(scene, settings))
     if mega:
         img, _ = pallas_mesh.render_mesh_megakernel(
-            scene, camera, width, height, accumulation, settings)
+            scene, camera, width, height, accumulation, settings,
+            sum_rays=False)
         return img
     return render_sample_pooled(scene, camera, width, height, accumulation,
                                 settings, pool_size)
@@ -1192,23 +1194,29 @@ def render_progressive(scene: RenderScene, camera: PinholeCamera,
     ``high_precision`` keeps the running sum in Kahan-compensated float32
     (a (sum, compensation) pair) and divides once at the end — the
     counterpart of the reference's double-precision accumulation buffer.
-    Each sample renders through :func:`render_sample_fast`.
+    Each sample renders through :func:`render_sample_fast`. Under a
+    ``torch.profiler`` session the call is span ``b3d.render.progressive``
+    and each accumulation, its frame and its lerp (or Kahan step),
+    ``b3d.render.frame``.
     """
     device = scene.tri_verts.device
-    if high_precision:
-        total = torch.zeros((height, width, 3), device=device)
-        comp = torch.zeros((height, width, 3), device=device)
+    with span("render.progressive"):
+        if high_precision:
+            total = torch.zeros((height, width, 3), device=device)
+            comp = torch.zeros((height, width, 3), device=device)
+            for n in range(accumulations):
+                with span("render.frame"):
+                    frame = render_sample_fast(scene, camera, width, height,
+                                               n, settings, pool_size)
+                    y = frame - comp
+                    t = total + y
+                    comp = (t - total) - y
+                    total = t
+            return total / max(accumulations, 1)
+        buffer = torch.zeros((height, width, 3), device=device)
         for n in range(accumulations):
-            frame = render_sample_fast(scene, camera, width, height, n,
-                                       settings, pool_size)
-            y = frame - comp
-            t = total + y
-            comp = (t - total) - y
-            total = t
-        return total / max(accumulations, 1)
-    buffer = torch.zeros((height, width, 3), device=device)
-    for n in range(accumulations):
-        frame = render_sample_fast(scene, camera, width, height, n, settings,
-                                   pool_size)
-        buffer = buffer + (frame - buffer) / (n + 1)
-    return buffer
+            with span("render.frame"):
+                frame = render_sample_fast(scene, camera, width, height, n,
+                                           settings, pool_size)
+                buffer = buffer + (frame - buffer) / (n + 1)
+        return buffer

@@ -25,6 +25,7 @@ from bifrost3d_tpu_torch.post.tonemap import (
     apply_tonemap,
 )
 from bifrost3d_tpu_torch.sampling.hashes import pcg2d, uint_to_unit_float
+from bifrost3d_tpu_torch.utils.profiling import span
 
 
 def process(image, settings: CameraEffectsSettings = CameraEffectsSettings.preset(),
@@ -49,55 +50,72 @@ def process_stateful(image, settings: CameraEffectsSettings,
 
 def _process(image, settings: CameraEffectsSettings, frame_index: int,
              previous_exposure, delta_time):
-    h, w = image.shape[0], image.shape[1]
-    device = image.device
+    """The chain; under a ``torch.profiler`` session it is span
+    ``b3d.post.process``, with one span per stage that runs:
+    ``b3d.post.exposure`` (eye adaptation included), ``.bloom``,
+    ``.vignette``, ``.tonemap`` and ``.grain``."""
+    with span("post.process"):
+        h, w = image.shape[0], image.shape[1]
+        device = image.device
 
-    if settings.exposure_mode == EXPOSURE_FIXED:
-        exposure = fixed_exposure(settings.log_luminance_bias, device=device)
-    elif settings.exposure_mode == EXPOSURE_LOG_AVERAGE:
-        exposure = log_average_exposure(image, settings.log_luminance_bias)
-    elif settings.exposure_mode == EXPOSURE_HISTOGRAM:
-        exposure = histogram_exposure(
-            image, settings.min_log_luminance, settings.max_log_luminance,
-            settings.min_histogram_percentage,
-            settings.max_histogram_percentage, settings.log_luminance_bias)
-    else:
-        raise ValueError(f"unknown exposure mode {settings.exposure_mode}")
-    if settings.eye_adaptation_enabled:
-        previous = torch.as_tensor(previous_exposure, dtype=torch.float32,
-                                   device=device)
-        adapted = eye_adaptation(previous, exposure, delta_time,
-                                 settings.eye_adaptation_brightness,
-                                 settings.eye_adaptation_darkness)
-        # previous < 0 = no history (first frame): snap to the target.
-        exposure = torch.where(previous >= 0.0, adapted, exposure)
-    image = image * exposure
+        with span("post.exposure"):
+            if settings.exposure_mode == EXPOSURE_FIXED:
+                exposure = fixed_exposure(settings.log_luminance_bias,
+                                          device=device)
+            elif settings.exposure_mode == EXPOSURE_LOG_AVERAGE:
+                exposure = log_average_exposure(image,
+                                                settings.log_luminance_bias)
+            elif settings.exposure_mode == EXPOSURE_HISTOGRAM:
+                exposure = histogram_exposure(
+                    image, settings.min_log_luminance,
+                    settings.max_log_luminance,
+                    settings.min_histogram_percentage,
+                    settings.max_histogram_percentage,
+                    settings.log_luminance_bias)
+            else:
+                raise ValueError(
+                    f"unknown exposure mode {settings.exposure_mode}")
+            if settings.eye_adaptation_enabled:
+                previous = torch.as_tensor(previous_exposure,
+                                           dtype=torch.float32, device=device)
+                adapted = eye_adaptation(previous, exposure, delta_time,
+                                         settings.eye_adaptation_brightness,
+                                         settings.eye_adaptation_darkness)
+                # previous < 0 = no history (first frame): snap to the
+                # target.
+                exposure = torch.where(previous >= 0.0, adapted, exposure)
+            image = image * exposure
 
-    if settings.bloom_mode == 1:
-        half_passes = max(1, int(round(settings.bloom_support * h / 128.0))) \
-            if settings.bloom_support > 0 else 0
-        image = dual_kawase_bloom(image, settings.bloom_threshold,
-                                  half_passes)
-    else:
-        image = gaussian_bloom(image, settings.bloom_threshold,
-                               settings.bloom_support)
+        with span("post.bloom"):
+            if settings.bloom_mode == 1:
+                half_passes = max(1, int(round(
+                    settings.bloom_support * h / 128.0))) \
+                    if settings.bloom_support > 0 else 0
+                image = dual_kawase_bloom(image, settings.bloom_threshold,
+                                          half_passes)
+            else:
+                image = gaussian_bloom(image, settings.bloom_threshold,
+                                       settings.bloom_support)
 
-    if settings.vignette > 0.0:
-        ys = (torch.arange(h, device=device) + 0.5) / h - 0.5
-        xs = (torch.arange(w, device=device) + 0.5) / w - 0.5
-        r2 = (xs[None, :] ** 2 + ys[:, None] ** 2) * 2.0
-        falloff = 1.0 - settings.vignette * r2
-        image = image * torch.clamp(falloff, 0.0, 1.0)[..., None]
+        if settings.vignette > 0.0:
+            with span("post.vignette"):
+                ys = (torch.arange(h, device=device) + 0.5) / h - 0.5
+                xs = (torch.arange(w, device=device) + 0.5) / w - 0.5
+                r2 = (xs[None, :] ** 2 + ys[:, None] ** 2) * 2.0
+                falloff = 1.0 - settings.vignette * r2
+                image = image * torch.clamp(falloff, 0.0, 1.0)[..., None]
 
-    image = apply_tonemap(image, settings.tonemapping_mode,
-                          settings.tonemapping)
+        with span("post.tonemap"):
+            image = apply_tonemap(image, settings.tonemapping_mode,
+                                  settings.tonemapping)
 
-    if settings.film_grain > 0.0:
-        xi = torch.arange(w, dtype=torch.int64, device=device)[None, :]
-        yi = torch.arange(h, dtype=torch.int64, device=device)[:, None]
-        hashv, _ = pcg2d((xi * 9781 + frame_index) & 0xFFFFFFFF,
-                         (yi * 6271 + frame_index * 31) & 0xFFFFFFFF)
-        noise = uint_to_unit_float(hashv) - 0.5
-        image = image + (2.0 * settings.film_grain) * noise[..., None]
+        if settings.film_grain > 0.0:
+            with span("post.grain"):
+                xi = torch.arange(w, dtype=torch.int64, device=device)[None, :]
+                yi = torch.arange(h, dtype=torch.int64, device=device)[:, None]
+                hashv, _ = pcg2d((xi * 9781 + frame_index) & 0xFFFFFFFF,
+                                 (yi * 6271 + frame_index * 31) & 0xFFFFFFFF)
+                noise = uint_to_unit_float(hashv) - 0.5
+                image = image + (2.0 * settings.film_grain) * noise[..., None]
 
-    return torch.clamp(image, 0.0, 1.0), exposure
+        return torch.clamp(image, 0.0, 1.0), exposure

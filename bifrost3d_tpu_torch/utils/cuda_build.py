@@ -6,7 +6,8 @@ The kernels have a plain C interface and are loaded with ``ctypes``:
 The library goes to ``build/kernels/`` at the repository root, named by a
 hash of its source and of the ``csrc/`` headers it includes, and is built
 at first use. A missing ``nvcc`` or a
-failed build raises; nothing falls back to a plain version.
+failed build raises; nothing falls back to a plain version. ``builds``
+counts the nvcc runs of the process and ``loads`` the libraries loaded.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 CUDA_HOME_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+builds = 0
+loads = 0
 
 
 def find_nvcc() -> str:
@@ -69,10 +73,12 @@ def library_path(source: str) -> str:
 def build(source: str) -> str:
     """Compile ``csrc/<source>`` unless its library exists → the .so path.
     The compiler's register report is kept beside it as ``.log``."""
+    global builds
     out = library_path(source)
     if os.path.exists(out):
         return out
     nvcc = find_nvcc()
+    builds += 1
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -94,4 +100,7 @@ def build(source: str) -> str:
 @functools.lru_cache(maxsize=None)
 def load(source: str) -> ctypes.CDLL:
     """Build if needed and load ``csrc/<source>`` (once per process)."""
-    return ctypes.CDLL(build(source))
+    global loads
+    lib = ctypes.CDLL(build(source))
+    loads += 1
+    return lib

@@ -1,5 +1,5 @@
-"""Profiling helpers: named stage timings, a frame-rate meter and a device
-trace.
+"""Profiling helpers: named stage timings, a frame-rate meter, a device
+trace, the port's own spans and a snapshot of its counters.
 
 Port of ``bifrost3d_tpu/utils/profiling.py`` (``device_trace``,
 ``StageTimings``, ``FrameTimer``), the counterparts of the reference's
@@ -8,16 +8,66 @@ FPS (``SimpleViewer/main.cpp:72-88``). A stage's scope waits for the
 device of the tensors it is given before it stops its clock, as JAX's
 ``block_until_ready`` does, so that it times the device's work and not
 the dispatch; it also annotates a running ``torch.profiler`` trace.
+
+:func:`span` marks a layer boundary of the render path (``b3d.`` names)
+in a running ``torch.profiler`` session and costs one check when none
+runs; :func:`counters` reads the launch, cache and build counters the
+modules keep.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 from collections import OrderedDict, deque
 
 import torch
+
+SPAN_PREFIX = "b3d."
+_PACKAGE = __name__.split(".")[0] + "."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host span ``b3d.<name>`` while a ``torch.profiler`` session runs,
+    else one shared no-op context (the session is the only switch).
+
+    The span is a function-scope record (``_RecordFunctionFast``): kineto
+    places it on the card's clock among the host's operators, and unlike
+    ``record_function``'s user annotation it leaves no copy among the
+    card's activities, so a trace's device events, launches and busy time
+    are the same with or without it."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+
+
+def counters() -> dict:
+    """{name: int} of the counters the port's loaded modules keep: each
+    kernel wrapper's ``launch_count`` as ``<module>.launches``, each
+    module-level ``VersionedCache``'s ``stores`` (misses that rebuilt a
+    table) as ``<module>.<cache>.stores``, and ``utils.cuda_build``'s
+    ``builds`` (nvcc runs) and ``loads`` (libraries loaded). Modules are
+    named below the package; none is imported."""
+    versioned = sys.modules.get(_PACKAGE + "utils.versioned")
+    cache_type = versioned.VersionedCache if versioned else ()
+    out = {}
+    for name, module in list(sys.modules.items()):
+        if not name.startswith(_PACKAGE) or module is None:
+            continue
+        short = name[len(_PACKAGE):]
+        for attr, value in list(vars(module).items()):
+            if attr == "launch_count" and isinstance(value, int):
+                out[f"{short}.launches"] = value
+            elif isinstance(value, cache_type):
+                out[f"{short}.{attr}.stores"] = value.stores
+    build = sys.modules.get(_PACKAGE + "utils.cuda_build")
+    if build is not None:
+        out["utils.cuda_build.builds"] = build.builds
+        out["utils.cuda_build.loads"] = build.loads
+    return dict(sorted(out.items()))
 
 
 @contextlib.contextmanager

@@ -324,6 +324,44 @@ def test_megakernel_frame_makes_no_host_sync(cuda):
     assert float(img.mean()) > 0.0
 
 
+def test_spans_leave_no_device_events(cuda):
+    """Under a CPU + CUDA profiler session a progressive render and its post
+    leave their ``b3d.`` spans on the host only (no device-side copy that
+    a trace would count as a launch or as busy time), and a frame of the
+    product dispatch is the megakernel's one launch: no sum of the ray
+    tally it drops."""
+    from torch.profiler import ProfilerActivity, profile
+    from bifrost3d_tpu_torch.post.pipeline import process
+    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+    scene, cam = create_cornell_box(device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    pt.render_sample_fast(scene, cam, 64, 64, 0, settings)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        process(pt.render_progressive(scene, cam, 64, 64, 2, settings),
+                CameraEffectsSettings.preset())
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as frame:
+        pt.render_sample_fast(scene, cam, 64, 64, 1, settings)
+        torch.cuda.synchronize()
+    device = torch.autograd.DeviceType.CUDA
+    host, card = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == device:
+            card.append(e.name())
+        elif e.name().startswith("b3d."):
+            host[e.name()] = host.get(e.name(), 0) + 1
+    assert not [n for n in card if n.startswith("b3d.")]
+    assert host["b3d.render.progressive"] == 1
+    assert host["b3d.render.frame"] == host["b3d.megakernel.launch"] == 2
+    assert host["b3d.post.process"] == host["b3d.post.tonemap"] == 1
+    kernels = [e.name() for e in frame.profiler.kineto_results.events()
+               if e.device_type() == device]
+    assert len(kernels) == 1 and "mesh_megakernel" in kernels[0], kernels
+
+
 def test_megakernel_sees_in_place_writes(cuda):
     """A frame after an in-place write to the scene's tensors equals a frame
     of a freshly built scene with the same values."""
