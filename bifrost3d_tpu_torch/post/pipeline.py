@@ -4,12 +4,20 @@ Port of ``bifrost3d_tpu/post/pipeline.py`` (``process``,
 ``process_stateful``): exposure (fixed, log-average or histogram, with
 temporal eye adaptation in the stateful variant), Gaussian or dual-kawase
 bloom, vignette, tonemapping and film grain.
+
+An image on a CUDA card goes through the two kernels of
+``post/post_chain.py`` (``csrc/post_chain.cu``), which take every setting
+as an argument and so copy nothing to the card and wait for nothing; any
+other image through the eager chain, :func:`_process_plain`, their plain
+version.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from bifrost3d_tpu_torch.post import post_chain
 from bifrost3d_tpu_torch.post.bloom import dual_kawase_bloom, gaussian_bloom
 from bifrost3d_tpu_torch.post.exposure import (
     eye_adaptation,
@@ -50,10 +58,55 @@ def process_stateful(image, settings: CameraEffectsSettings,
 
 def _process(image, settings: CameraEffectsSettings, frame_index: int,
              previous_exposure, delta_time):
-    """The chain; under a ``torch.profiler`` session it is span
-    ``b3d.post.process``, with one span per stage that runs:
-    ``b3d.post.exposure`` (eye adaptation included), ``.bloom``,
-    ``.vignette``, ``.tonemap`` and ``.grain``."""
+    """The chain, chosen by the image's device: on a CUDA card the two
+    kernels of ``post/post_chain.py`` (no host copy, no wait; bloom, where
+    it runs, eager between them), elsewhere :func:`_process_plain`."""
+    if image.device.type == "cuda":
+        return _process_cuda(image, settings, frame_index, previous_exposure,
+                             delta_time)
+    return _process_plain(image, settings, frame_index, previous_exposure,
+                          delta_time)
+
+
+def _bloom(image, settings: CameraEffectsSettings):
+    """The settings' bloom of ``image`` (itself where bloom is off)."""
+    if settings.bloom_mode == 1:
+        h = image.shape[0]
+        half_passes = max(1, int(round(
+            settings.bloom_support * h / 128.0))) \
+            if settings.bloom_support > 0 else 0
+        return dual_kawase_bloom(image, settings.bloom_threshold, half_passes)
+    return gaussian_bloom(image, settings.bloom_threshold,
+                          settings.bloom_support)
+
+
+def _process_cuda(image, settings: CameraEffectsSettings, frame_index: int,
+                  previous_exposure, delta_time):
+    """The chain on the card; under a ``torch.profiler`` session span
+    ``b3d.post.process`` holds ``b3d.post.exposure`` (the exposure kernel),
+    ``.bloom`` where bloom runs, and ``.tonemap`` (the apply kernel)."""
+    with span("post.process"):
+        with span("post.exposure"):
+            exposure = post_chain.exposure_cuda(image, settings,
+                                                previous_exposure, delta_time)
+        scale = exposure
+        # gaussian_bloom and dual_kawase_bloom return their input unless
+        # the threshold is finite and the support positive.
+        if np.isfinite(settings.bloom_threshold) and settings.bloom_support > 0:
+            with span("post.bloom"):
+                image = _bloom(image * exposure, settings)
+            scale = 1.0
+        with span("post.tonemap"):
+            ldr = post_chain.apply_cuda(image, scale, settings, frame_index)
+        return ldr, exposure
+
+
+def _process_plain(image, settings: CameraEffectsSettings, frame_index: int,
+                   previous_exposure, delta_time):
+    """The eager chain, on any device (the kernels' plain version); under a
+    ``torch.profiler`` session it is span ``b3d.post.process``, with one
+    span per stage that runs: ``b3d.post.exposure`` (eye adaptation
+    included), ``.bloom``, ``.vignette``, ``.tonemap`` and ``.grain``."""
     with span("post.process"):
         h, w = image.shape[0], image.shape[1]
         device = image.device
@@ -87,15 +140,7 @@ def _process(image, settings: CameraEffectsSettings, frame_index: int,
             image = image * exposure
 
         with span("post.bloom"):
-            if settings.bloom_mode == 1:
-                half_passes = max(1, int(round(
-                    settings.bloom_support * h / 128.0))) \
-                    if settings.bloom_support > 0 else 0
-                image = dual_kawase_bloom(image, settings.bloom_threshold,
-                                          half_passes)
-            else:
-                image = gaussian_bloom(image, settings.bloom_threshold,
-                                       settings.bloom_support)
+            image = _bloom(image, settings)
 
         if settings.vignette > 0.0:
             with span("post.vignette"):

@@ -10,8 +10,8 @@ the last line):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and convolutions.
-2. build: compiles the six sources of the seven kernels
-   (csrc/dense_intersect.cu, csrc/mesh_megakernel.cu with its dense and BVH
+2. build: compiles the seven sources of the seven kernels and the post
+   chain (csrc/post_chain.cu, csrc/dense_intersect.cu, csrc/mesh_megakernel.cu with its dense and BVH
    instantiations, each with and without the environment, texture and
    cutout branches, csrc/smallpt_megakernel.cu, csrc/bvh_intersect.cu,
    csrc/clustered_intersect.cu and csrc/vmem_intersect.cu; all but B4's and
@@ -361,6 +361,12 @@ the last line):
    assert_float64_reference_gate). P3: the headless interactive viewer
    (run on the card, no terminal) prints nothing, as JAX's, and returns
    a finite frame of its window's size.
+28. post (a process of its own): the post chain's two kernels
+   (csrc/post_chain.cu) at 512² with the viewer's settings against the
+   eager chain on the card (LDR max abs and exposure relative <= 1e-5),
+   with no host sync; call ms of both, the kernels' device ms, launches
+   a call, the bound (the image read once, the LDR written once).
+   Alone: python3 chip_smoke.py --profile post.
 
 After each phase, or a few phases together, a "time:" line gives the
 seconds since the start and since the line before (a run of the whole
@@ -395,7 +401,7 @@ ACCUMULATIONS = 8
 BOUNCES = 4
 SOURCES = ("dense_intersect.cu", "mesh_megakernel.cu",
            "smallpt_megakernel.cu", "bvh_intersect.cu",
-           "clustered_intersect.cu", "vmem_intersect.cu")
+           "clustered_intersect.cu", "vmem_intersect.cu", "post_chain.cu")
 SMALLPT_W, SMALLPT_H = 1024, 768
 TORUS_RES = 512
 TORUS_TRIS = 589824
@@ -5172,6 +5178,62 @@ def parity_phase(device, card) -> dict:
     return out
 
 
+# Operations a pixel of the post chain's two kernels with the viewer's
+# settings: luminance, log2 and bin (~30); exposure and vignette (~15);
+# filmic: two 3 x 3 products (36), per channel a log10, two exps (~20
+# each) and ~25 more (~255).
+POST_OPS_PER_PIXEL = 336
+
+
+def post_phase(device) -> dict:
+    """Phase 28: the post chain's two kernels (``post/post_chain.py``) at
+    512² with the viewer's settings (histogram exposure, eye adaptation
+    snapping, vignette 0.63, filmic, no grain) against the eager chain on
+    the card (LDR max abs and exposure relative ≤ 1e-5), with no host sync
+    (sync debug mode raising); call ms of both (CUDA events), the kernels'
+    device ms, launches a call, and the bound: the image read once and
+    the LDR written once (the histogram pass reads it a second time)."""
+    from bifrost3d_tpu_torch.post import pipeline, post_chain
+    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+    rng = np.random.default_rng(28)
+    image = torch.tensor(np.exp(rng.normal(-1.0, 1.5, (RES, RES, 3)))
+                         .astype(np.float32), device=device)
+    settings = CameraEffectsSettings.preset()._replace(film_grain=0.0)
+
+    def fused():
+        return pipeline._process(image, settings, 0, -1.0, 0.0)
+
+    def plain():
+        return pipeline._process_plain(image, settings, 0, -1.0, 0.0)
+
+    (ldr, exposure), (ref, ref_exposure) = fused(), plain()
+    err = float((ldr - ref).abs().max())
+    rel = abs(float(exposure) / float(ref_exposure) - 1.0)
+    check(err <= 1e-5 and rel <= 1e-5,
+          f"post: kernels vs eager chain LDR {err:.3g}, exposure {rel:.3g}")
+    before = post_chain.launch_count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = post_chain.launch_count - before
+    ms, plain_ms = _median_ms(fused), _median_ms(plain)
+    kernel_ms = device_ms([("post", fused)])["post"]
+    out = dict(launches=launches, max_abs_err=err, exposure_rel=rel, ms=ms,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
+               **roofline(2 * image.numel() * 4,
+                          POST_OPS_PER_PIXEL * RES * RES))
+    device_text = ("not measured" if kernel_ms is None
+                   else f"{kernel_ms:.4f} ms")
+    print(f"post: {RES}² kernels {launches} launches, call {ms:.4f} ms, "
+          f"device {device_text}, eager chain {plain_ms:.4f} ms, bound "
+          f"{out['bound_ms']:.5f} ms by {out['bound_by']}; LDR {err:.3g}, "
+          f"exposure {rel:.3g} | {smi()}", flush=True)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, result) -> dict:
     """One kernel's entry of the JSON line; a culled trace (B1, B6) also
     gives the bound of the full scan or the TPU design it replaces, beside
@@ -5255,6 +5317,8 @@ def main() -> int:
     lap("fits")
     parity = parity_phase(device, card)
     lap("parity")
+    post = fresh_process("post")
+    lap("post (a process of its own)")
     # No single PyTorch call computes any of the seven: library_ms is null.
     # The first seven rows are the seven kernels; then B2 and B3 again,
     # through their kExtras instantiations.
@@ -5384,6 +5448,10 @@ def main() -> int:
         _kernel_row("mesh_megakernel_hier/shaderball", "mesh_megakernel.cu",
                     "bifrost3d_tpu/integrator/pallas_mesh.py:898",
                     parity["P1"]["launches"], parity["P1"]),
+        # The post chain (phase 28): two kernels that replace no TPU
+        # kernel (the JAX post chain is jnp).
+        _kernel_row("post_chain", "post_chain.cu", None, post["launches"],
+                    post),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5391,8 +5459,8 @@ def main() -> int:
     return 0
 
 
-# Phases that profile, each run alone in a process (fresh_process); and
-# phases 23–27 alone (``python3 chip_smoke.py --profile viewer_modes``,
+# Phases that profile, each run alone in a process (fresh_process; the
+# post chain's phase 28 among them); and phases 23–27 alone (``python3 chip_smoke.py --profile viewer_modes``,
 # ``engine``, ``parallel``, ``fits`` or ``parity``), whose kernels build at
 # first use.
 PROFILES = {"viewer_modes": lambda device: viewer_modes_phase(
@@ -5407,7 +5475,8 @@ PROFILES = {"viewer_modes": lambda device: viewer_modes_phase(
             "fits": lambda device: fits_phase(device, device_phase()),
             "parity": lambda device: parity_phase(device, device_phase()),
             "train": train_profile_phase,
-            "clip": clip_profile_phase}
+            "clip": clip_profile_phase,
+            "post": post_phase}
 
 
 if __name__ == "__main__":
