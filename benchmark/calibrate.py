@@ -32,8 +32,8 @@ def main() -> int:
     p.add_argument("--seeds", required=True)
     p.add_argument("--control-seeds", default="")
     p.add_argument("--fault", default=None,
-                   help="read the numbers with this fault of harness/faults.py "
-                        "planted under the timed path (after set-up)")
+                   help="read the numbers with this fault of the cell's job "
+                        "(faults/<job>.py) planted under the timed path")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("calibrate: no CUDA card", file=sys.stderr)

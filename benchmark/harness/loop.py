@@ -51,16 +51,22 @@ def closed_loop(s, seconds: float, run) -> tuple:
 
 def traced(device, run) -> profiling.Segment | None:
     """``run()`` under torch.profiler between two spin kernels → the traced
-    segment (None where the card's trace was lost)."""
+    segment (None where the card's trace was lost). The program's counters
+    are read just before the session opens and just after it closes, so
+    reading them adds no time to the segment."""
     from torch.profiler import ProfilerActivity, profile
     sync(device)
+    before = profiling.program_counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiling.spin()
         run()
         profiling.spin()
         sync(device)
-    return profiling.segment(prof)
+    # A counter first seen after the session counts from 0.
+    counters = {k: v - before.get(k, 0)
+                for k, v in profiling.program_counters().items()}
+    return profiling.segment(prof, counters)
 
 
 def device_reading(seg) -> dict:

@@ -1,12 +1,23 @@
 """``BENCHMARK.json`` and the files its names lead to.
 
-Everything of one configuration, traffic mix, cell or per-layer metric is
-found by name, so a later change adds a cell or a metric as new files and
-new entries: ``configs/<config>.json`` (the configuration's ``file``),
-``traffic/<traffic>.json`` (its ``job`` names ``jobs/<job>.py``, the
-general loop that reads it), ``checks/<cell>.json`` (the size and the
-limits of the cell's output check) and ``metrics/<metric>.py`` (one
-per-layer reader).
+Everything of one configuration, traffic mix, traffic job, cell or
+per-layer metric is found by name, so a later change adds a cell or a
+metric as new files and new entries only. A new cell brings:
+
+- ``configs/<config>.json``: the configuration's ``file``;
+- ``traffic/<traffic>.json``: the mix's parameters, whose ``job`` names
+  ``jobs/<job>.py``, the general loop that reads it (``setup``,
+  ``window``, ``trace``, ``check``, ``calibrate``);
+- ``faults/<job>.py``: that job's faults (``harness/faults.py``);
+- ``checks/<cell>.json``: the size and the limits of the cell's output
+  check;
+- ``metrics/<metric>.py``: one per-layer reader each;
+- ``tests/test_config_<config>.py``, for a configuration that is not one
+  of the SimpleViewer's scenes (its file names no ``upstream_scene``): the
+  test that ties its file to the port's own scene.
+
+A cell whose job or configuration another cell already uses brings only
+the files that are new to it.
 """
 
 from __future__ import annotations
@@ -68,7 +79,7 @@ def resolve(name: str, bench: dict | None = None, root: str = ROOT) -> Cell:
                 per_layer)
 
 
-def _load(path: str, module_name: str):
+def load_module(path: str, module_name: str):
     spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -77,12 +88,14 @@ def _load(path: str, module_name: str):
 
 def job_module(traffic: dict):
     """The general loop that ``traffic["job"]`` names."""
-    return _load(os.path.join(BENCH_DIR, "jobs", traffic["job"] + ".py"),
-                 "benchmark_job_" + traffic["job"])
+    return load_module(
+        os.path.join(BENCH_DIR, "jobs", traffic["job"] + ".py"),
+        "benchmark_job_" + traffic["job"])
 
 
 def metric_reader(name: str):
     """The reader of per-layer metric ``name``: a module with ``read(reading)
     → float or None``."""
-    return _load(os.path.join(BENCH_DIR, "metrics", name + ".py"),
-                 "benchmark_metric_" + name.replace(".", "_").replace("-", "_"))
+    return load_module(
+        os.path.join(BENCH_DIR, "metrics", name + ".py"),
+        "benchmark_metric_" + name.replace(".", "_").replace("-", "_"))

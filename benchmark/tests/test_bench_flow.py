@@ -58,8 +58,18 @@ def test_traffic_runs_on_the_cpu(tiny_cells, cell):
         assert m["value"] >= 0 and m["unit"]
 
 
-@pytest.mark.parametrize("cell, fault", [
-    (c, f) for c in CELLS for f in sorted(faults.FAULTS[JOBS[c]])])
+def _fault_cases():
+    """(cell, fault) of every cell's job; a job without a faults file adds
+    no case here and fails ``test_bench_spec.py::test_job_has_faults``."""
+    for c in CELLS:
+        try:
+            names = sorted(faults.faults_of(JOBS[c]))
+        except FileNotFoundError:
+            continue
+        yield from ((c, f) for f in names)
+
+
+@pytest.mark.parametrize("cell, fault", list(_fault_cases()))
 def test_fault_makes_correct_false(tiny_cells, monkeypatch, cell, fault):
     faults.plant(JOBS[cell], fault, monkeypatch.setattr)
     assert _run(cell)["correct"] is False
@@ -106,26 +116,71 @@ def test_roofline_counts_repeat(tiny_cells, cell):
 
 def test_segment_readers():
     E = profiling.Event
-    seg = profiling.Segment(
-        device=[E("mesh_megakernel_kernel<1>", 0, 40), E("Memset (Device)",
-                                                         30, 50),
-                E("Memcpy DtoH", 80, 90)],
-        spans=[E("bench.job", 0, 100), E("bench.post", 50, 80)],
-        start_ns=0, end_ns=100)
-    assert seg.launches() == 2
-    assert seg.busy_s() == 60e-9
-    assert seg.device_s("mesh_megakernel") == 40e-9
-    b = seg.breakdown()
-    assert b["idle_gaps"][0] == ["bench.post", 30e-9]
+    device = [E("mesh_megakernel_kernel<1>", 0, 40), E("Memset (Device)", 30, 50),
+              E("Memcpy DtoH", 80, 90)]
+    spans = [E("bench.job", 0, 100), E("bench.post", 50, 80)]
+    plain = profiling.Segment(device=device, spans=spans, start_ns=0,
+                              end_ns=100)
+    # The program's spans: a job's render around two frames, the second
+    # holding the megakernel's launch, then the post; the idle gaps are
+    # [50, 80) (midpoint 65, in post.exposure) and [90, 100) (95, in no
+    # program span).
+    program_spans = [E("b3d.render.progressive", 0, 45),
+                     E("b3d.render.frame", 0, 20), E("b3d.render.frame", 20, 44),
+                     E("b3d.megakernel.launch", 22, 30),
+                     E("b3d.post.process", 45, 90),
+                     E("b3d.post.exposure", 60, 70)]
+    counters = {"integrator.pallas_mesh.launches": 128,
+                "integrator.pallas_mesh._PACK_CACHE.stores": 1,
+                "utils.versioned.x.stores": 0,
+                "utils.cuda_build.builds": 0, "utils.cuda_build.loads": 1}
+    seg = plain._replace(program_spans=program_spans, counters=counters)
+    for s in (plain, seg):
+        assert s.launches() == 2
+        assert s.busy_s() == 60e-9
+        assert s.device_s("mesh_megakernel") == 40e-9
+        b = s.breakdown()
+        assert b["device_ops"] == [["mesh_megakernel_kernel<1>", 40e-9],
+                                   ["Memset (Device)", 20e-9],
+                                   ["Memcpy DtoH", 10e-9]]
+        assert b["idle_gaps"] == [["bench.post", 30e-9],
+                                  ["bench.job", 10e-9]]
+    assert plain.breakdown()["idle_gaps_program"] == [
+        ["host:outside_spans", 40e-9]]
+    assert seg.breakdown()["idle_gaps_program"] == [
+        ["b3d.post.exposure", 30e-9], ["host:outside_spans", 10e-9]]
+    assert seg.idle_in(("b3d.post.",)) == 30e-9
+    assert seg.idle_in(("b3d.render.", "b3d.megakernel.")) == 0.0
+    # A gap at 42 (midpoint in a frame and in the progressive span) counts
+    # once.
+    late = seg._replace(device=[E("a", 0, 40), E("b", 44, 60),
+                                E("c", 80, 90)])
+    assert late.idle_in(("b3d.render.", "b3d.megakernel.")) == 4e-9
     reading = {"segment": seg, "jobs": 1, "accumulations": 2,
                "least_time_per_frame_s": 4e-9, "post_ms": [1.0, 3.0],
                "scene_build_s": 0.5}
+    for r in (reading, dict(reading, segment=plain)):
+        read = lambda name: spec.metric_reader(name).read(r)  # noqa: E731
+        assert read("megakernel_roofline_pct") == pytest.approx(20.0)
+        assert read("launches_per_sample") == 1.0
+        assert read("post_ms") == 2.0
+        assert read("device_idle_pct.render") == pytest.approx(40.0)
+        assert read("scene_build_s") == 0.5
     read = lambda name: spec.metric_reader(name).read(reading)  # noqa: E731
-    assert read("megakernel_roofline_pct") == pytest.approx(20.0)
-    assert read("launches_per_sample") == 1.0
-    assert read("post_ms") == 2.0
-    assert read("device_idle_pct.render") == pytest.approx(40.0)
-    assert read("scene_build_s") == 0.5
+    assert read("frame_enqueue_us") == pytest.approx(0.022)
+    assert read("dispatch_idle_ms") == 0.0
+    assert spec.metric_reader("dispatch_idle_ms").read(
+        dict(reading, segment=late, jobs=2)) == pytest.approx(2e-6)
+    assert read("host_rebuilds_per_job") == 2.0
+    assert spec.metric_reader("host_rebuilds_per_job").read(
+        dict(reading, jobs=4)) == 0.5
+    # Without program spans or counters the new readers read nothing.
+    for name in ("frame_enqueue_us", "dispatch_idle_ms",
+                 "host_rebuilds_per_job"):
+        assert spec.metric_reader(name).read(
+            dict(reading, segment=plain)) is None
+        assert spec.metric_reader(name).read(
+            dict(reading, segment=None)) is None
 
 
 @pytest.mark.cuda

@@ -1,7 +1,12 @@
-"""Each configuration's file against the published scene it stands for:
-the port builds from the file, through the harness, exactly the scene and
-camera that ``apps/simple_viewer.viewer_scene`` builds for the upstream
-scene at the configuration's size and background."""
+"""Each SimpleViewer configuration's file against the published scene it
+stands for: the port builds from the file, through the harness, exactly
+the scene and camera that ``apps/simple_viewer.viewer_scene`` builds for
+the upstream scene at the configuration's size and background.
+
+A configuration's file that names an ``upstream_scene`` is a viewer
+scene and is checked here; a configuration of another kind brings its own
+``tests/test_config_<name>.py`` (``test_bench_spec.py`` holds every
+configuration to one or the other)."""
 
 import pytest
 import torch
@@ -10,6 +15,8 @@ from benchmark.harness import program, spec
 from benchmark.reference.scene import raw_scene
 
 CONFIGS = spec.load_benchmark()["configs"]
+VIEWER_CONFIGS = [c for c in CONFIGS if "upstream_scene" in spec._json(
+    f"{spec.ROOT}/{c['file']}")]
 
 
 def _leaves(x, path="scene"):
@@ -37,7 +44,7 @@ def _assert_same(got, want):
         assert torch.equal(g, w), path
 
 
-@pytest.mark.parametrize("config", [c["name"] for c in CONFIGS])
+@pytest.mark.parametrize("config", [c["name"] for c in VIEWER_CONFIGS])
 def test_config_builds_the_viewer_scene(config):
     from bifrost3d_tpu_torch.apps.simple_viewer import viewer_scene
     cfg = next(spec._json(f"{spec.ROOT}/{c['file']}") for c in CONFIGS
