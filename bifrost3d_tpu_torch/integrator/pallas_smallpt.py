@@ -32,6 +32,7 @@ from bifrost3d_tpu_torch.integrator.smallpt import (
     render_smallpt_accumulation,
 )
 from bifrost3d_tpu_torch.scene.spheres import SphereScene
+from bifrost3d_tpu_torch.utils.profiling import span
 from bifrost3d_tpu_torch.utils.versioned import VersionedCache
 
 MAX_SPHERES = 64     # the kernel's shared-memory table
@@ -121,17 +122,20 @@ def blocks_per_sm() -> int:
 
 def _launch(scene: SphereScene, width: int, height: int, accumulation: int,
             inv_n: float, out, counter) -> None:
-    """One launch writing (inv_n = 0) or lerping into ``out``."""
+    """One launch writing (inv_n = 0) or lerping into ``out``. Under a
+    ``torch.profiler`` session the call, from its checks to the launch's
+    return, is span ``b3d.smallpt.launch``."""
     global launch_count
-    if width <= 0 or height <= 0 or 3 * width * height >= 2**31:
-        raise ValueError(f"{width}x{height} pixels outside the kernel's "
-                         "int32 indexing")
-    sph, bsdf, cam = kernel_inputs(scene, width, height)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = _library().smallpt_megakernel(
-        sph.data_ptr(), bsdf.data_ptr(), int(sph.shape[0]), cam.data_ptr(),
-        width, height, int(accumulation) & 0xFFFFFFFF, inv_n, out.data_ptr(),
-        counter.data_ptr(), _THREADS, stream)
+    with span("smallpt.launch"):
+        if width <= 0 or height <= 0 or 3 * width * height >= 2**31:
+            raise ValueError(f"{width}x{height} pixels outside the kernel's "
+                             "int32 indexing")
+        sph, bsdf, cam = kernel_inputs(scene, width, height)
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = _library().smallpt_megakernel(
+            sph.data_ptr(), bsdf.data_ptr(), int(sph.shape[0]),
+            cam.data_ptr(), width, height, int(accumulation) & 0xFFFFFFFF,
+            inv_n, out.data_ptr(), counter.data_ptr(), _THREADS, stream)
     if err != 0:
         raise RuntimeError(f"smallpt_megakernel launch failed: cudaError {err}")
     launch_count += 1

@@ -362,6 +362,28 @@ def test_spans_leave_no_device_events(cuda):
     assert len(kernels) == 1 and "mesh_megakernel" in kernels[0], kernels
 
 
+def test_smallpt_spans_leave_no_device_events(cuda):
+    """The SmallPT app's spans stay on the host under a CPU + CUDA session:
+    one ``b3d.smallpt.progressive`` a call, a ``.frame`` and a ``.launch``
+    an accumulation, and on the card one kernel an accumulation."""
+    from torch.profiler import ProfilerActivity, profile
+    smallpt_app.render_progressive(64, 48, 1, quiet=True, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        smallpt_app.render_progressive(64, 48, 2, quiet=True, device=cuda)
+    device = torch.autograd.DeviceType.CUDA
+    host, card = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == device:
+            card.append(e.name())
+        elif e.name().startswith("b3d."):
+            host[e.name()] = host.get(e.name(), 0) + 1
+    assert not [n for n in card if n.startswith("b3d.")]
+    assert host == {"b3d.smallpt.progressive": 1, "b3d.smallpt.frame": 2,
+                    "b3d.smallpt.launch": 2}
+    assert len([n for n in card if "smallpt_kernel" in n]) == 2, card
+
+
 def test_megakernel_sees_in_place_writes(cuda):
     """A frame after an in-place write to the scene's tensors equals a frame
     of a freshly built scene with the same values."""

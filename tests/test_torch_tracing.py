@@ -6,7 +6,9 @@ Under one, a progressive render of CornellBox (8 x 8, 2 accumulations,
 the dispatch sent to the megakernel's plain version as on a card it would
 take the kernel) and its post chain leave ``b3d.`` host spans nested as
 the layers are: one ``render.progressive`` holding one ``render.frame``
-per accumulation, and ``post.process`` holding each stage that runs.
+per accumulation, and ``post.process`` holding each stage that runs;
+the SmallPT app's render (16 x 12, 2 accumulations) one
+``smallpt.progressive`` holding one ``smallpt.frame`` per accumulation.
 ``counters`` reads the launch, cache and build counters of the loaded
 modules; a material table replaced by ``_replace`` rebuilds the frame's
 tables once. The product dispatch launches no sum of the ray tally it
@@ -19,6 +21,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from bifrost3d_tpu_torch.apps import smallpt_app
 from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
 from bifrost3d_tpu_torch.integrator import pallas_mesh as tpm
 from bifrost3d_tpu_torch.integrator import path_tracer as tpt
@@ -103,6 +106,41 @@ def test_render_and_post_spans_nest_as_the_layers(cornell, on_the_megakernel,
     assert set(by_name) == {"b3d.render.progressive", "b3d.render.frame",
                             "b3d.post.process",
                             *(f"b3d.post.{n}" for n in STAGES)}
+
+
+def test_smallpt_spans_nest_as_the_layers():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = smallpt_app.render_progressive(16, 12, ACCUMULATIONS,
+                                                quiet=True, device="cpu")
+    spans = _spans(prof)
+    progressive = [s for s in spans if s[0] == "b3d.smallpt.progressive"]
+    frames = [s for s in spans if s[0] == "b3d.smallpt.frame"]
+    assert len(progressive) == 1 and len(frames) == ACCUMULATIONS
+    assert all(_inside(f, progressive[0]) for f in frames)
+    assert frames[0][2] <= frames[1][1]
+    # The kernel's launch span is the card's: the plain version has none.
+    assert {s[0] for s in spans} == {"b3d.smallpt.progressive",
+                                     "b3d.smallpt.frame"}
+    plain = smallpt_app.render_progressive(16, 12, ACCUMULATIONS, quiet=True,
+                                           device="cpu")
+    assert torch.equal(traced.view(torch.int32), plain.view(torch.int32))
+
+
+def test_smallpt_spans_record_nothing_without_a_session(monkeypatch):
+    made = []
+    real = torch._C._profiler._RecordFunctionFast
+
+    def record(name, *a, **kw):
+        made.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", record)
+    img = smallpt_app.render_progressive(16, 12, ACCUMULATIONS, quiet=True,
+                                         device="cpu")
+    assert img.shape == (12, 16, 3) and made == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        smallpt_app.render_progressive(16, 12, 1, quiet=True, device="cpu")
+    assert made == ["b3d.smallpt.progressive", "b3d.smallpt.frame"]
 
 
 def test_post_spans_only_for_the_stages_that_run():
