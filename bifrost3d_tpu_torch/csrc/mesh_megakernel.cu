@@ -33,7 +33,8 @@
 //     BVH branch one small tile per warp), the pcg2d pixel hash, the Sobol
 //     camera jitter and the ray through the camera's matrices, as
 //     path_tracer._camera_lanes does; it writes its radiance at its pixel in
-//     raster order, so a frame is this one launch;
+//     raster order, or lerps it into the progressive running mean there in
+//     place, so an accumulation is this one launch;
 //   - the triangle table (v0, e1, e2 as three float4 records, ≤ 1024
 //     triangles, at most 48 KB, copied with cp.async) with one padded box
 //     per chunk of 32 consecutive triangles, the two 32×32 rho tables, the
@@ -213,6 +214,12 @@ struct MegakernelParams {
   int has_env;               // scalars[1:4] is then the map's tint
   int env_w, env_h, env_pw, env_ph, env_pool_n;
   int n_nee_total;           // n_lights, + 1 when the pool holds > 1 sample
+  // Last, so that the fields above keep their offsets: placed among them,
+  // these two gave the kHier + kExtras instantiation 3 more registers.
+  float* accum;              // null, or the running mean [n_pixels, 3] in
+                             // raster order, which the frame is lerped into
+                             // in place (out is then unused)
+  float inv_n;               // with accum: the lerp's weight, 1 / (n + 1)
 };
 
 namespace {
@@ -1395,8 +1402,19 @@ __global__ void mesh_megakernel_kernel(const MegakernelParams p) {
     active = max3(throughput) > 0.0f && bounce <= static_cast<uint32_t>(p.max_bounce);
   }
 
-  // Raster order: the image [height, width, 3], then the rays [height, width].
+  // Raster order: the image [height, width, 3], then the rays [height, width];
+  // or the radiance lerped into the running mean in place, a = a + (r - a) *
+  // inv_n, rounded op by op as torch's eager `buffer + (frame - buffer) / (n +
+  // 1)` is on the card (a division by a host scalar is a multiplication by
+  // its float reciprocal there), and no ray tally.
   const int pix = py * p.width + px;
+  if (p.accum != nullptr) {
+    float* a = p.accum + 3 * pix;
+    a[0] = __fadd_rn(a[0], __fmul_rn(__fsub_rn(radiance.x, a[0]), p.inv_n));
+    a[1] = __fadd_rn(a[1], __fmul_rn(__fsub_rn(radiance.y, a[1]), p.inv_n));
+    a[2] = __fadd_rn(a[2], __fmul_rn(__fsub_rn(radiance.z, a[2]), p.inv_n));
+    return;
+  }
   p.out[3 * pix] = radiance.x;
   p.out[3 * pix + 1] = radiance.y;
   p.out[3 * pix + 2] = radiance.z;

@@ -28,7 +28,9 @@ registers.
 :func:`render_mesh_megakernel` dispatches on the scene's device: CUDA
 tensors launch the kernel, CPU tensors take the plain PyTorch version
 :func:`mesh_megakernel_reference`, anything else raises. A failed build or
-launch raises; nothing falls back. ``launch_count`` counts kernel launches.
+launch raises; nothing falls back. ``launch_count`` counts kernel launches,
+``accumulate_count`` the accumulations lerped into a running mean in the
+kernel (:class:`MegakernelAccumulator`).
 
 A frame on the card is one launch: each thread makes its own camera lane
 (pixel, pcg2d hash, Sobol jitter, ray through the camera's matrices) and
@@ -39,7 +41,10 @@ padded box the ray misses or enters beyond its best hit. The plain version
 takes the lanes made in torch (:func:`megakernel_inputs`). Every table a
 frame reads is cached per (identity, version) of the scene tensors it comes
 from, and so is the eligibility verdict: after a scene's first frame a
-frame reads nothing back from the card.
+frame reads nothing back from the card. The progressive loop prepares the
+launch once a render (:class:`MegakernelAccumulator`), and the kernel lerps
+each accumulation into the running mean in place: an accumulation is one
+launch.
 
 A scene with an environment map, a bound texture, a cutout or
 coverage-aware shadows launches the kernel's ``kExtras`` instantiation (one
@@ -144,6 +149,7 @@ _BIG = 3.0e38
 _THREADS = 128            # the kernel's block size, one pixel per thread
 
 launch_count = 0
+accumulate_count = 0
 
 
 def reset_launch_count() -> None:
@@ -940,6 +946,7 @@ class _Params(ctypes.Structure):
         ("env_h", ctypes.c_int), ("env_pw", ctypes.c_int),
         ("env_ph", ctypes.c_int), ("env_pool_n", ctypes.c_int),
         ("n_nee_total", ctypes.c_int),
+        ("accum", ctypes.c_void_p), ("inv_n", ctypes.c_float),
     ]
 
 
@@ -1093,6 +1100,101 @@ def _walk_records(tree: HierTriangles, device) -> torch.Tensor:
     return records
 
 
+def _launch_params(tri, attr, mats, lights, rho_ggx, rho_fres,
+                   frame: CameraFrame, accumulation: int, scalars, extras,
+                   cfg: KernelConfig) -> tuple:
+    """The checked ``_Params`` of one frame, with ``out`` and ``accum`` left
+    null → (params, the tables made here that params points at)."""
+    device = scalars.device
+    n_lights = len(cfg.light_kinds)
+    if cfg.hier != isinstance(tri, HierTriangles):
+        raise TypeError("tri must be the packed BVH with cfg.hier, the "
+                        "dense [t_pad, 16] table without")
+    records = None
+    if cfg.hier:
+        tree, tri = tri, tri.tri_components
+        if not 0 < cfg.n_tris <= HIER_MAX_TRIS \
+                or cfg.n_tris != tree.n_tris \
+                or tri.shape != (cfg.n_tris, 12):
+            raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
+                             f"{HIER_MAX_TRIS}] or not the packed tree's")
+        records = _walk_records(tree, device)
+    else:
+        if not 0 < cfg.n_tris <= min(MAX_TRIS, tri.shape[0]):
+            raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
+                             f"{MAX_TRIS}] or the packed table")
+        if tri.shape[1] != 16:
+            raise ValueError("tri must be [t_pad, 16]")
+    if attr.shape != (ATTR_ROWS, tri.shape[0]):
+        raise ValueError(f"attr must be [{ATTR_ROWS}, t_pad]")
+    if mats.shape[0] > MAX_MATERIALS or mats.shape[1] != 16:
+        raise ValueError(f"mats must be [<= {MAX_MATERIALS}, 16]")
+    if n_lights > MAX_LIGHTS or lights.shape[1] != 12 \
+            or lights.shape[0] < n_lights:
+        raise ValueError(f"lights must be [<= {MAX_LIGHTS}, 12], one row "
+                         "per light kind")
+    if not 0 <= cfg.ris_count <= MAX_RIS:
+        raise ValueError(f"ris_count {cfg.ris_count} outside "
+                         f"[0, {MAX_RIS}]")
+    if rho_ggx.shape != (32, 32) or rho_fres.shape != (32, 32):
+        raise ValueError("the rho tables must be [32, 32]")
+    for name, x in (("tri", tri), ("attr", attr), ("mats", mats),
+                    ("lights", lights), ("rho_ggx", rho_ggx),
+                    ("rho_fres", rho_fres), ("scalars", scalars)):
+        _check(name, x, torch.float32, device)
+    if scalars.shape != (4,):
+        raise ValueError("scalars must be [4]: epsilon, background rgb")
+    if not 0 <= cfg.shadow_steps <= 16:
+        raise ValueError(f"shadow_steps {cfg.shadow_steps} outside "
+                         "[0, 16]")
+    camera = _camera_params(frame, device)
+    extras = extras if extras is not None else KernelExtras()
+    tex_meta = mat_tex = None
+    if cfg.extras:
+        _check_extras(extras, cfg, int(mats.shape[0]), device)
+        tex_meta = _int_table(cfg.tex_meta, 6, device)
+        mat_tex = _int_table(cfg.mat_tex, 4, device)
+    env = cfg.env_meta or (0, 0, 0, 0, 0, False)
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
+    params = _Params(
+        tri=tri.data_ptr(), records=ptr(records), attr=attr.data_ptr(),
+        mats=mats.data_ptr(), lights=lights.data_ptr(),
+        rho_ggx=rho_ggx.data_ptr(), rho_fres=rho_fres.data_ptr(),
+        sobol=_sobol_dirs(device).data_ptr(), scalars=scalars.data_ptr(),
+        texels=ptr(extras.texels), tex_meta=ptr(tex_meta),
+        mat_tex=ptr(mat_tex), env_img=ptr(extras.env_img),
+        env_pdf=ptr(extras.env_pdf), env_pool=ptr(extras.env_pool),
+        extras=int(cfg.extras), n_tex=len(cfg.tex_meta),
+        any_coverage=int(cfg.any_coverage), shadow_steps=cfg.shadow_steps,
+        has_env=int(cfg.env_meta is not None), env_w=env[0], env_h=env[1],
+        env_pw=env[2], env_ph=env[3], env_pool_n=env[4],
+        n_nee_total=cfg.n_nee_total, n_tris=cfg.n_tris,
+        t_pad=int(tri.shape[0]), n_mats=int(mats.shape[0]),
+        n_lights=n_lights,
+        accumulation=int(accumulation) & 0xFFFFFFFF, n_iters=cfg.n_iters,
+        max_bounce=cfg.max_bounce, ris_count=cfg.ris_count,
+        firefly_clamp=cfg.firefly_clamp,
+        delta_light_clamp=cfg.delta_light_clamp,
+        has_coat=int(cfg.has_coat), has_diffuse=int(cfg.has_diffuse),
+        hier=int(cfg.hier), **camera)
+    for k, kind in enumerate(cfg.light_kinds):
+        params.light_kinds[k] = kind
+    params.ris_offsets[:] = _RIS_OFFSETS
+    return params, (tex_meta, mat_tex)
+
+
+def _launch(params: _Params, stream) -> None:
+    """One launch of the kernel on ``stream``; a failed launch raises."""
+    global launch_count
+    err = _library().mesh_megakernel(ctypes.byref(params), _THREADS, stream)
+    if err != 0:
+        raise RuntimeError(f"mesh_megakernel launch failed: cudaError {err}")
+    launch_count += 1
+
+
 def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres,
                          frame: CameraFrame, accumulation: int, scalars,
                          extras, cfg: KernelConfig):
@@ -1105,96 +1207,13 @@ def mesh_megakernel_cuda(tri, attr, mats, lights, rho_ggx, rho_fres,
     launches the ``kExtras`` instantiation. Under a ``torch.profiler``
     session the call, from its checks to the launch's return, is span
     ``b3d.megakernel.launch``."""
-    global launch_count
     with span("megakernel.launch"):
-        device = scalars.device
-        n_lights = len(cfg.light_kinds)
-        if cfg.hier != isinstance(tri, HierTriangles):
-            raise TypeError("tri must be the packed BVH with cfg.hier, the "
-                            "dense [t_pad, 16] table without")
-        records = None
-        if cfg.hier:
-            tree, tri = tri, tri.tri_components
-            if not 0 < cfg.n_tris <= HIER_MAX_TRIS \
-                    or cfg.n_tris != tree.n_tris \
-                    or tri.shape != (cfg.n_tris, 12):
-                raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
-                                 f"{HIER_MAX_TRIS}] or not the packed tree's")
-            records = _walk_records(tree, device)
-        else:
-            if not 0 < cfg.n_tris <= min(MAX_TRIS, tri.shape[0]):
-                raise ValueError(f"n_tris={cfg.n_tris} outside (0, "
-                                 f"{MAX_TRIS}] or the packed table")
-            if tri.shape[1] != 16:
-                raise ValueError("tri must be [t_pad, 16]")
-        if attr.shape != (ATTR_ROWS, tri.shape[0]):
-            raise ValueError(f"attr must be [{ATTR_ROWS}, t_pad]")
-        if mats.shape[0] > MAX_MATERIALS or mats.shape[1] != 16:
-            raise ValueError(f"mats must be [<= {MAX_MATERIALS}, 16]")
-        if n_lights > MAX_LIGHTS or lights.shape[1] != 12 \
-                or lights.shape[0] < n_lights:
-            raise ValueError(f"lights must be [<= {MAX_LIGHTS}, 12], one row "
-                             "per light kind")
-        if not 0 <= cfg.ris_count <= MAX_RIS:
-            raise ValueError(f"ris_count {cfg.ris_count} outside "
-                             f"[0, {MAX_RIS}]")
-        if rho_ggx.shape != (32, 32) or rho_fres.shape != (32, 32):
-            raise ValueError("the rho tables must be [32, 32]")
-        for name, x in (("tri", tri), ("attr", attr), ("mats", mats),
-                        ("lights", lights), ("rho_ggx", rho_ggx),
-                        ("rho_fres", rho_fres), ("scalars", scalars)):
-            _check(name, x, torch.float32, device)
-        if scalars.shape != (4,):
-            raise ValueError("scalars must be [4]: epsilon, background rgb")
-        if not 0 <= cfg.shadow_steps <= 16:
-            raise ValueError(f"shadow_steps {cfg.shadow_steps} outside "
-                             "[0, 16]")
-        camera = _camera_params(frame, device)
-        extras = extras if extras is not None else KernelExtras()
-        tex_meta = mat_tex = None
-        if cfg.extras:
-            _check_extras(extras, cfg, int(mats.shape[0]), device)
-            tex_meta = _int_table(cfg.tex_meta, 6, device)
-            mat_tex = _int_table(cfg.mat_tex, 4, device)
-        env = cfg.env_meta or (0, 0, 0, 0, 0, False)
-
-        def ptr(x):
-            return 0 if x is None else x.data_ptr()
-
-        p = camera["n_pixels"]
-        out = torch.empty(4 * p, dtype=torch.float32, device=device)
-        params = _Params(
-            tri=tri.data_ptr(), records=ptr(records), attr=attr.data_ptr(),
-            mats=mats.data_ptr(), lights=lights.data_ptr(),
-            rho_ggx=rho_ggx.data_ptr(), rho_fres=rho_fres.data_ptr(),
-            sobol=_sobol_dirs(device).data_ptr(), scalars=scalars.data_ptr(),
-            out=out.data_ptr(),
-            texels=ptr(extras.texels), tex_meta=ptr(tex_meta),
-            mat_tex=ptr(mat_tex), env_img=ptr(extras.env_img),
-            env_pdf=ptr(extras.env_pdf), env_pool=ptr(extras.env_pool),
-            extras=int(cfg.extras), n_tex=len(cfg.tex_meta),
-            any_coverage=int(cfg.any_coverage), shadow_steps=cfg.shadow_steps,
-            has_env=int(cfg.env_meta is not None), env_w=env[0], env_h=env[1],
-            env_pw=env[2], env_ph=env[3], env_pool_n=env[4],
-            n_nee_total=cfg.n_nee_total, n_tris=cfg.n_tris,
-            t_pad=int(tri.shape[0]), n_mats=int(mats.shape[0]),
-            n_lights=n_lights,
-            accumulation=int(accumulation) & 0xFFFFFFFF, n_iters=cfg.n_iters,
-            max_bounce=cfg.max_bounce, ris_count=cfg.ris_count,
-            firefly_clamp=cfg.firefly_clamp,
-            delta_light_clamp=cfg.delta_light_clamp,
-            has_coat=int(cfg.has_coat), has_diffuse=int(cfg.has_diffuse),
-            hier=int(cfg.hier), **camera)
-        for k, kind in enumerate(cfg.light_kinds):
-            params.light_kinds[k] = kind
-        params.ris_offsets[:] = _RIS_OFFSETS
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().mesh_megakernel(ctypes.byref(params), _THREADS,
-                                         stream)
-        if err != 0:
-            raise RuntimeError("mesh_megakernel launch failed: cudaError "
-                               f"{err}")
-        launch_count += 1
+        params, _ = _launch_params(tri, attr, mats, lights, rho_ggx, rho_fres,
+                                   frame, accumulation, scalars, extras, cfg)
+        p = params.n_pixels
+        out = torch.empty(4 * p, dtype=torch.float32, device=scalars.device)
+        params.out = out.data_ptr()
+        _launch(params, torch.cuda.current_stream(scalars.device).cuda_stream)
         return out[:3 * p].view(frame.height, frame.width, 3), out[3 * p:]
 
 
@@ -1417,3 +1436,43 @@ def render_mesh_megakernel(scene: RenderScene, camera, width: int,
     else:
         raise ValueError(f"no mesh megakernel for a scene on {device}")
     return img, (rays.sum() if sum_rays else rays)
+
+
+class MegakernelAccumulator:
+    """The progressive loop's prepared launch on the card: accumulation
+    after accumulation of ``scene`` seen from ``camera``, each lerped by the
+    kernel into the running mean ``buffer`` [height, width, 3] in place, bit
+    for bit torch's eager ``buffer + (frame - buffer) / (n + 1)`` over
+    :func:`render_mesh_megakernel`'s frames. The frame's tables, every
+    check and the launch's arguments are made once, here; an accumulation
+    sets its number and weight and makes the call (the kernel takes its
+    arguments by value, so they may change as soon as the call returns).
+    The scene, the camera and the buffer must stay as they are while it is
+    used."""
+
+    def __init__(self, scene: RenderScene, camera, width: int, height: int,
+                 settings: RenderSettings, buffer):
+        inputs = megakernel_frame_inputs(scene, camera, width, height, 0,
+                                         settings)
+        device = scene.tri_verts.device
+        if buffer.shape != (height, width, 3) \
+                or buffer.dtype != torch.float32 or buffer.device != device \
+                or not buffer.is_contiguous():
+            raise ValueError(f"buffer must be a contiguous float32 [{height}, "
+                             f"{width}, 3] on {device}")
+        self._params, made = _launch_params(*inputs)
+        self._params.accum = buffer.data_ptr()
+        self._keep = (inputs, made, buffer)
+        self._stream = torch.cuda.current_stream(device).cuda_stream
+
+    def accumulate(self, n: int) -> None:
+        """Accumulation ``n`` (from 0) lerped into the buffer with weight
+        1 / (n + 1): one launch, span ``b3d.megakernel.launch``."""
+        global accumulate_count
+        with span("megakernel.launch"):
+            self._params.accumulation = int(n) & 0xFFFFFFFF
+            # torch divides by a host scalar on the card as a multiplication
+            # by the scalar's float32 reciprocal.
+            self._params.inv_n = float(np.float32(1) / np.float32(n + 1))
+            _launch(self._params, self._stream)
+            accumulate_count += 1

@@ -1153,6 +1153,23 @@ def explain_render_path(scene: RenderScene,
     return "wavefront" + trace + ": " + ", ".join(reasons)
 
 
+def _takes_megakernel(scene: RenderScene, settings: RenderSettings) -> bool:
+    """Whether the scene renders through the mesh megakernel: it is on a
+    CUDA card and megakernel-eligible. The chosen path, with the reasons
+    against the megakernel, is logged at INFO once per scene identity
+    (:func:`explain_render_path`)."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh
+    mega = (_device_kind(scene) == "cuda"
+            and pallas_mesh.mesh_megakernel_eligible(scene, settings))
+    key = (id(scene.tri_verts), id(scene.materials.tint), mega)
+    if key not in _EXPLAINED_PATHS:
+        if len(_EXPLAINED_PATHS) > 256:
+            _EXPLAINED_PATHS.clear()
+        _EXPLAINED_PATHS.add(key)
+        logger.info("render path: %s", explain_render_path(scene, settings))
+    return mega
+
+
 def render_sample_fast(scene: RenderScene, camera: PinholeCamera,
                        width: int, height: int, accumulation: int,
                        settings: RenderSettings = RenderSettings(),
@@ -1166,16 +1183,8 @@ def render_sample_fast(scene: RenderScene, camera: PinholeCamera,
     The chosen path, with the reasons against the megakernel, is logged
     at INFO once per scene identity (:func:`explain_render_path`).
     """
-    from bifrost3d_tpu_torch.integrator import pallas_mesh
-    mega = (_device_kind(scene) == "cuda"
-            and pallas_mesh.mesh_megakernel_eligible(scene, settings))
-    key = (id(scene.tri_verts), id(scene.materials.tint), mega)
-    if key not in _EXPLAINED_PATHS:
-        if len(_EXPLAINED_PATHS) > 256:
-            _EXPLAINED_PATHS.clear()
-        _EXPLAINED_PATHS.add(key)
-        logger.info("render path: %s", explain_render_path(scene, settings))
-    if mega:
+    if _takes_megakernel(scene, settings):
+        from bifrost3d_tpu_torch.integrator import pallas_mesh
         img, _ = pallas_mesh.render_mesh_megakernel(
             scene, camera, width, height, accumulation, settings,
             sum_rays=False)
@@ -1194,7 +1203,11 @@ def render_progressive(scene: RenderScene, camera: PinholeCamera,
     ``high_precision`` keeps the running sum in Kahan-compensated float32
     (a (sum, compensation) pair) and divides once at the end — the
     counterpart of the reference's double-precision accumulation buffer.
-    Each sample renders through :func:`render_sample_fast`. Under a
+    Each sample renders through :func:`render_sample_fast`, except where
+    that takes the mesh megakernel and the running mean is plain float32:
+    there the launch is prepared once and the kernel lerps each sample into
+    the running mean in place (``pallas_mesh.MegakernelAccumulator``, one
+    launch an accumulation), bit for bit the same result. Under a
     ``torch.profiler`` session the call is span ``b3d.render.progressive``
     and each accumulation, its frame and its lerp (or Kahan step),
     ``b3d.render.frame``.
@@ -1214,6 +1227,19 @@ def render_progressive(scene: RenderScene, camera: PinholeCamera,
                     total = t
             return total / max(accumulations, 1)
         buffer = torch.zeros((height, width, 3), device=device)
+        # The lerp in the kernel is the card's: where the megakernel's
+        # dispatch meets a CPU scene (the CPU tests drive it so, with the
+        # device kind patched), render_mesh_megakernel takes its plain
+        # version and torch lerps.
+        if buffer.is_cuda and _takes_megakernel(scene, settings):
+            from bifrost3d_tpu_torch.integrator.pallas_mesh import (
+                MegakernelAccumulator)
+            accumulator = MegakernelAccumulator(scene, camera, width, height,
+                                                settings, buffer)
+            for n in range(accumulations):
+                with span("render.frame"):
+                    accumulator.accumulate(n)
+            return buffer
         for n in range(accumulations):
             with span("render.frame"):
                 frame = render_sample_fast(scene, camera, width, height, n,

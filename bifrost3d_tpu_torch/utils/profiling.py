@@ -28,6 +28,9 @@ import torch
 SPAN_PREFIX = "b3d."
 _PACKAGE = __name__.split(".")[0] + "."
 _NO_SPAN = contextlib.nullcontext()
+# A module's int counters, by attribute, and the names counters() gives them.
+_COUNTS = {"launch_count": "launches",
+           "accumulate_count": "accumulated_frames"}
 
 
 def span(name: str):
@@ -46,7 +49,9 @@ def span(name: str):
 
 def counters() -> dict:
     """{name: int} of the counters the port's loaded modules keep: each
-    kernel wrapper's ``launch_count`` as ``<module>.launches``, each
+    kernel wrapper's ``launch_count`` as ``<module>.launches`` (and the mesh
+    megakernel's ``accumulate_count``, the accumulations it lerped into a
+    running mean, as ``<module>.accumulated_frames``), each
     module-level ``VersionedCache``'s ``stores`` (misses that rebuilt a
     table) as ``<module>.<cache>.stores``, and ``utils.cuda_build``'s
     ``builds`` (nvcc runs) and ``loads`` (libraries loaded). Modules are
@@ -59,8 +64,8 @@ def counters() -> dict:
             continue
         short = name[len(_PACKAGE):]
         for attr, value in list(vars(module).items()):
-            if attr == "launch_count" and isinstance(value, int):
-                out[f"{short}.launches"] = value
+            if attr in _COUNTS and isinstance(value, int):
+                out[f"{short}.{_COUNTS[attr]}"] = value
             elif isinstance(value, cache_type):
                 out[f"{short}.{attr}.stores"] = value.stores
     build = sys.modules.get(_PACKAGE + "utils.cuda_build")

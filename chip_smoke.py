@@ -67,8 +67,12 @@ the last line):
    and the frame time and rays/s of render_sample_fast.
 7. progressive: CornellBox 512² × 8 accumulations through
    render_progressive, the main path: the megakernel's launch count must
-   rise by exactly 8, the image be finite and lit; it is tonemapped and
-   written to build/cornell_512.png; time and peak memory are printed.
+   rise by exactly 8, the image be finite and lit and bit-equal to the
+   eager loop's (render_sample_fast's frames lerped by torch), and the
+   kernel's lerp hold against the plain version's over accumulations 0 and
+   1, each from the plain running mean so far (0.2%, 0.5%); it is
+   tonemapped and written to build/cornell_512.png; time and peak memory
+   are printed.
 8. kernel/smallpt: the SmallPT megakernel at 1024 x 768, accumulations 1
    and 2, against its plain version (the eager wavefront over all
    pixels): share of pixels off by > 1e-4 and relative gap of the means,
@@ -141,7 +145,8 @@ the last line):
 14. hier_bridge: the 49,678-triangle scene at 512², 4 bounces, 8
    accumulations through render_progressive, main path C:
    explain_render_path says megakernel, exactly 8 megakernel launches and
-   no launch of a trace kernel; frame time and rays/s of
+   no launch of a trace kernel, the image bit-equal to the eager loop's
+   (phase 7); frame time and rays/s of
    render_sample_fast beside one pooled-wavefront frame, which it must
    match under the statistical gate; the other two bridge scenes and the
    258,048-triangle torus_grid_28 one frame each.
@@ -177,7 +182,9 @@ the last line):
    written as a PNG: exactly 8 launches of the megakernel's kExtras
    instantiation and no launch of a trace kernel; the kernel at the path's
    shape against its plain version (at most 0.2% of pixels off by > 1e-3,
-   means within 0.5%); frame time and
+   means within 0.5%); the running mean bit-equal to the eager loop's and
+   the kernel's lerp against the plain version's, as in phase 7; frame
+   time and
    rays/s of render_sample_fast (median of 5), the kernel's median time
    (CUDA events) beside its plain version's (one run) and its bound, which
    counts the shadow traces that the plain version made (one any-hit query
@@ -1024,6 +1031,46 @@ def _plain_frame(scene, cam, res, accumulation, settings, stats=None):
     return args, torch.stack([r, g, b], dim=-1), rays
 
 
+def _check_eager_mean(name, scene, cam, res, settings, hdr) -> None:
+    """render_progressive's running mean ``hdr`` [res, res, 3] (the
+    megakernel lerps each accumulation into it, one launch an accumulation)
+    must be the eager loop's bit for bit: render_sample_fast's frames, the
+    mean lerped by torch."""
+    from bifrost3d_tpu_torch.integrator import path_tracer as pt
+    eager = torch.zeros_like(hdr)
+    for n in range(ACCUMULATIONS):
+        frame = pt.render_sample_fast(scene, cam, res, res, n, settings)
+        eager = eager + (frame - eager) / (n + 1)
+    check(torch.equal(hdr.view(torch.int32), eager.view(torch.int32)),
+          f"{name}: render_progressive's running mean is not the eager "
+          "loop's bit for bit")
+
+
+def _check_plain_mean(name, scene, cam, res, settings, plain1) -> float:
+    """The main path's launch (pallas_mesh.MegakernelAccumulator) against
+    the plain version over accumulations 0 and 1, each from the plain
+    running mean so far, so that both lerp the same buffer (a pixel whose
+    path parts in one frame stays off in a longer mean), under the kernel's
+    gates. ``plain1`` is the plain frame of accumulation 1 [res², 3] →
+    the larger share of pixels off by > 1e-3."""
+    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+    _, plain0, _ = _plain_frame(scene, cam, res, 0, settings)
+    buffer = torch.zeros((res, res, 3), device=plain0.device)
+    accumulator = mega.MegakernelAccumulator(scene, cam, res, res, settings,
+                                             buffer)
+    mean = torch.zeros_like(plain0)
+    worst = 0.0
+    for n, frame in enumerate((plain0, plain1)):
+        buffer.view(-1, 3).copy_(mean)
+        accumulator.accumulate(n)
+        mean = mean + (frame - mean) / (n + 1)
+        flips, _, _ = _gate(buffer.view(-1, 3), mean,
+                            f"{name}: running mean of {n + 1} vs plain",
+                            KERNEL_FLIPS, KERNEL_MEAN)
+        worst = max(worst, flips)
+    return worst
+
+
 def _reset_counts():
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
@@ -1202,6 +1249,10 @@ def progressive_phase(device) -> dict:
     mean = float(hdr.mean())
     check(mean > 0.05, f"image mean {mean} is not lit")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    _check_eager_mean("CornellBox", scene, cam, RES, settings, hdr)
+    _, plain1, _ = _plain_frame(scene, cam, RES, 1, settings)
+    plain_flips = _check_plain_mean("CornellBox", scene, cam, RES, settings,
+                                    plain1)
 
     ldr = process(hdr, CameraEffectsSettings.preset()._replace(film_grain=0.0))
     png = os.path.join(REPO, "build", "cornell_512.png")
@@ -1211,10 +1262,11 @@ def progressive_phase(device) -> dict:
     print(f"progressive: CornellBox {RES}x{RES} {BOUNCES} bounces "
           f"x{ACCUMULATIONS} through render_progressive in {seconds:.3f} s | "
           f"megakernel launches {launches}, trace launches {trace_launches} "
-          f"| mean {mean:.4f} | peak {peak_gib:.3f} GiB | "
+          f"| mean {mean:.4f} | running mean bit-equal to the eager loop's, "
+          f"vs plain {plain_flips:.5f} flips | peak {peak_gib:.3f} GiB | "
           f"{os.path.relpath(png, REPO)}", flush=True)
     return dict(launches=launches, seconds=seconds, mean=mean,
-                peak_gib=peak_gib)
+                peak_gib=peak_gib, plain_mean_flips=plain_flips)
 
 
 def smallpt_kernel_phase(device) -> dict:
@@ -2232,6 +2284,7 @@ def hier_path_phase(device) -> dict:
     mean = float(hdr.mean())
     check(mean > 0.02, f"bridge image mean {mean} is not lit")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    _check_eager_mean(BRIDGE_SCENE, scene, cam, res, settings, hdr)
     png = os.path.join(REPO, "build", f"{BRIDGE_SCENE}_{res}.png")
     os.makedirs(os.path.dirname(png), exist_ok=True)
     save_image(png, process(hdr, CameraEffectsSettings.preset()._replace(
@@ -2265,7 +2318,8 @@ def hier_path_phase(device) -> dict:
           f"{build_s:.2f} s, packed in {pack_s:.2f} s | {res}x{res} {BOUNCES} "
           f"bounces x{ACCUMULATIONS} through render_progressive in "
           f"{seconds:.3f} s | megakernel launches {launches}, trace-kernel "
-          f"launches {trace_launches} | mean {mean:.4f} | render_sample_fast "
+          f"launches {trace_launches} | mean {mean:.4f}, bit-equal to the "
+          f"eager loop's | render_sample_fast "
           f"frame {out['frame_ms']:.2f} ms, {out['rays_per_s'] / 1e6:.1f} M "
           f"rays/s (median of 5) | pooled wavefront frame {pooled_ms:.0f} ms, "
           f"{pooled_rays} rays, gate {flips:.4f} flips | peak "
@@ -2500,8 +2554,10 @@ def extras_path_phase(device) -> dict:
 def _extras_path(name, scene, cam, tag="extras_path") -> dict:
     """One scene of main path D: RES² × ACCUMULATIONS through
     render_progressive with every count at 0 (exactly one megakernel
-    launch a frame, no trace launch), render_sample_fast frame ms, and the
-    kernel at the path's shape beside its plain version and its bound."""
+    launch a frame, no trace launch), its running mean against the eager
+    loop's and the plain version's (_check_eager_mean, _check_plain_mean),
+    render_sample_fast frame ms, and the kernel at the path's shape beside
+    its plain version and its bound."""
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
     from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
@@ -2571,6 +2627,8 @@ def _extras_path(name, scene, cam, tag="extras_path") -> dict:
     flips, max_err, _ = _gate(img.reshape(-1, 3), ref,
                               f"{name} {res}: kernel vs plain",
                               KERNEL_FLIPS, KERNEL_MEAN)
+    _check_eager_mean(name, scene, cam, res, settings, hdr)
+    mean_flips = _check_plain_mean(name, scene, cam, res, settings, ref)
     rays = float(got_rays.sum())
     # Bytes: per pixel 16 B out; the triangle (or tree) and attribute
     # tables and every table of the extras once. Operations: one
@@ -2600,7 +2658,8 @@ def _extras_path(name, scene, cam, tag="extras_path") -> dict:
     out = dict(
         path=path, tris=n_tris, launches=launches, seconds=seconds,
         mean=mean, ms=ms,
-        plain_ms=plain_ms, max_abs_err=max_err, flips=flips, rays=rays,
+        plain_ms=plain_ms, max_abs_err=max_err, flips=flips,
+        plain_mean_flips=mean_flips, rays=rays,
         march_traces=march, shadow_traces=shadow,
         box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
         frame_ms=statistics.median(frame_ms),
@@ -2613,7 +2672,9 @@ def _extras_path(name, scene, cam, tag="extras_path") -> dict:
           f"{out['frame_ms']:.2f} ms, "
           f"{out['rays_per_s'] / 1e6:.1f} M rays/s (median of 5) | "
           f"kernel {ms:.3f} ms (median of 10), plain {plain_ms:.0f} ms "
-          f"(one run), vs plain {flips:.5f} flips | {rays:.0f} rays, "
+          f"(one run), vs plain {flips:.5f} flips | running mean "
+          f"bit-equal to the eager loop's, vs plain {mean_flips:.5f} flips | "
+          f"{rays:.0f} rays, "
           f"{shadow} shadow and {march} march traces, {work}, tables "
           f"{table_bytes / 1024:.0f} KiB | bound "
           f"{out['bound_ms']:.5f} ms by {out['bound_by']} | "

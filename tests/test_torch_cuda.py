@@ -7,12 +7,21 @@ run them as::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from bifrost3d_tpu_torch.apps import smallpt_app
-from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES, create_cornell_box
+from bifrost3d_tpu_torch.apps.scenes import (
+    TEST_SCENES,
+    create_cornell_box,
+    create_material_scene,
+)
 from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
 from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
 from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
@@ -25,6 +34,7 @@ from bifrost3d_tpu_torch.integrator import path_tracer as pt
 from bifrost3d_tpu_torch.sampling import hashes
 from bifrost3d_tpu_torch.sampling.sobol import path_rng_4d
 from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
+from bifrost3d_tpu_torch.utils import profiling
 import smallpt_reference
 from torch_parity import (
     assert_float64_reference_gate,
@@ -35,6 +45,8 @@ from torch_parity import (
 )
 
 pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -199,6 +211,68 @@ def test_render_progressive_on_card(cuda):
     assert pt.explain_render_path(scene) == "megakernel"
 
 
+def _eager_progressive(scene, cam, res, accumulations, settings):
+    """The progressive loop as it ran before the kernel's lerp: each frame
+    through ``render_sample_fast``, the running mean in torch."""
+    buffer = torch.zeros((res, res, 3), device=scene.tri_verts.device)
+    for n in range(accumulations):
+        frame = pt.render_sample_fast(scene, cam, res, res, n, settings)
+        buffer = buffer + (frame - buffer) / (n + 1)
+    return buffer
+
+
+@pytest.mark.parametrize("name", ["cornell", "material_scene"])
+def test_fused_progressive_is_the_eager_loop_bit_for_bit(cuda, name):
+    """On the card ``render_progressive`` lerps each accumulation into the
+    running mean inside the megakernel (B2 dense on CornellBox, B3 ``kHier``
+    + ``kExtras`` on MaterialScene): bit for bit the eager loop's image, one
+    launch an accumulation and no host sync; the Kahan branch keeps the
+    eager loop and lerps nothing in the kernel."""
+    make = {"cornell": create_cornell_box,
+            "material_scene": create_material_scene}[name]
+    scene, cam = make(device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=4)
+    res, n = 64, 8
+    assert pt.explain_render_path(scene) == (
+        "megakernel" if name == "cornell"
+        else "megakernel (hier: cluster-BVH DMA trace)")
+    eager = _eager_progressive(scene, cam, res, n, settings)
+    pt.render_progressive(scene, cam, res, res, 1, settings)
+    torch.cuda.synchronize()
+    before = mega.launch_count, mega.accumulate_count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = pt.render_progressive(scene, cam, res, res, n, settings)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (mega.launch_count, mega.accumulate_count) == (before[0] + n,
+                                                          before[1] + n)
+    assert profiling.counters()["integrator.pallas_mesh.accumulated_frames"] \
+        == before[1] + n
+    assert torch.equal(fused.view(torch.int32), eager.view(torch.int32))
+    assert float(fused.mean()) > 0.0
+    kahan = pt.render_progressive(scene, cam, res, res, 2, settings,
+                                  high_precision=True)
+    assert mega.accumulate_count == before[1] + n
+    assert mega.launch_count == before[0] + n + 2
+    assert bool(torch.isfinite(kahan).all())
+
+
+def test_accumulator_checks_its_buffer(cuda):
+    scene, cam = create_cornell_box(device=cuda)
+    settings = pt.settings_for_scene(scene, max_bounce_count=2)
+    buffer = torch.zeros((16, 16, 3), device=cuda)
+    for bad in (buffer[:, :-1], buffer.double(), buffer.cpu(),
+                buffer.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError, match="buffer must be"):
+            mega.MegakernelAccumulator(scene, cam, 16, 16, settings, bad)
+    acc = mega.MegakernelAccumulator(scene, cam, 16, 16, settings, buffer)
+    acc.accumulate(0)
+    frame, _ = mega.render_mesh_megakernel(scene, cam, 16, 16, 0, settings,
+                                           sum_rays=False)
+    assert torch.equal(buffer, frame)
+
+
 def _kernel_vs_plain(scene, cam, res, accumulation, settings):
     """One frame through the kernel (its own camera lanes, one launch) and
     through the plain version (the torch lanes in raster order) → (kernel
@@ -324,41 +398,59 @@ def test_megakernel_frame_makes_no_host_sync(cuda):
     assert float(img.mean()) > 0.0
 
 
+# Run in a process of its own: torch.profiler on the card has lost the
+# card's trace in a later session of one process, and this test holds two
+# sessions after the profiling tests above.
+_SPAN_EVENTS = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
+from bifrost3d_tpu_torch.integrator import path_tracer as pt
+from bifrost3d_tpu_torch.post.pipeline import process
+from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
+scene, cam = create_cornell_box(device="cuda")
+settings = pt.settings_for_scene(scene, max_bounce_count=2)
+pt.render_sample_fast(scene, cam, 64, 64, 0, settings)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    process(pt.render_progressive(scene, cam, 64, 64, 2, settings),
+            CameraEffectsSettings.preset())
+    torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as frame:
+    pt.render_sample_fast(scene, cam, 64, 64, 1, settings)
+    torch.cuda.synchronize()
+device = torch.autograd.DeviceType.CUDA
+events = prof.profiler.kineto_results.events()
+print(json.dumps({
+    "card": [e.name() for e in events if e.device_type() == device],
+    "host": [e.name() for e in events if e.device_type() != device
+             and e.name().startswith("b3d.")],
+    "kernels": [e.name() for e in frame.profiler.kineto_results.events()
+                if e.device_type() == device]}))
+"""
+
+
 def test_spans_leave_no_device_events(cuda):
     """Under a CPU + CUDA profiler session a progressive render and its post
     leave their ``b3d.`` spans on the host only (no device-side copy that
     a trace would count as a launch or as busy time), and a frame of the
     product dispatch is the megakernel's one launch: no sum of the ray
     tally it drops."""
-    from torch.profiler import ProfilerActivity, profile
-    from bifrost3d_tpu_torch.post.pipeline import process
-    from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
-    scene, cam = create_cornell_box(device=cuda)
-    settings = pt.settings_for_scene(scene, max_bounce_count=2)
-    pt.render_sample_fast(scene, cam, 64, 64, 0, settings)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        process(pt.render_progressive(scene, cam, 64, 64, 2, settings),
-                CameraEffectsSettings.preset())
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as frame:
-        pt.render_sample_fast(scene, cam, 64, 64, 1, settings)
-        torch.cuda.synchronize()
-    device = torch.autograd.DeviceType.CUDA
-    host, card = {}, []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == device:
-            card.append(e.name())
-        elif e.name().startswith("b3d."):
-            host[e.name()] = host.get(e.name(), 0) + 1
+    proc = subprocess.run([sys.executable, "-c", _SPAN_EVENTS],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.splitlines()[-1])
+    card, kernels = got["card"], got["kernels"]
+    host = {}
+    for name in got["host"]:
+        host[name] = host.get(name, 0) + 1
     assert not [n for n in card if n.startswith("b3d.")]
     assert host["b3d.render.progressive"] == 1
     assert host["b3d.render.frame"] == host["b3d.megakernel.launch"] == 2
     assert host["b3d.post.process"] == host["b3d.post.tonemap"] == 1
-    kernels = [e.name() for e in frame.profiler.kineto_results.events()
-               if e.device_type() == device]
     assert len(kernels) == 1 and "mesh_megakernel" in kernels[0], kernels
 
 

@@ -10,11 +10,15 @@ per accumulation, and ``post.process`` holding each stage that runs;
 the SmallPT app's render (16 x 12, 2 accumulations) one
 ``smallpt.progressive`` holding one ``smallpt.frame`` per accumulation.
 ``counters`` reads the launch, cache and build counters of the loaded
-modules; a material table replaced by ``_replace`` rebuilds the frame's
-tables once. The product dispatch launches no sum of the ray tally it
-drops.
+modules and the megakernel's accumulated frames, which a progressive
+render on the CPU leaves as they were; a material table replaced by
+``_replace`` rebuilds the frame's tables once. The product dispatch
+launches no sum of the ray tally it drops. The kernel's argument struct
+and its ctypes mirror name the same fields in the same order.
 """
 
+import os
+import re
 import sys
 
 import pytest
@@ -172,6 +176,45 @@ def test_counters_name_the_launches_and_the_cache_stores(cornell,
     assert got["integrator.pallas_mesh._FRAME_CACHE.stores"] >= 1
     assert got["integrator.pallas_mesh._FRAME_CACHE.stores"] == \
         tpm._FRAME_CACHE.stores
+
+
+@pytest.mark.parametrize("dispatch", ["wavefront", "megakernel"])
+def test_progressive_render_on_the_cpu_lerps_in_torch(cornell, monkeypatch,
+                                                      dispatch):
+    """``counters`` names the frames the megakernel lerped into a running
+    mean; a progressive render on the CPU, through the pooled wavefront or
+    the megakernel's plain version, lerps none there and returns the eager
+    loop's running mean bit for bit."""
+    scene, camera, settings = cornell
+    if dispatch == "megakernel":
+        monkeypatch.setattr(tpt, "_device_kind", lambda scene: "cuda")
+    name = "integrator.pallas_mesh.accumulated_frames"
+    before = profiling.counters()
+    assert before[name] == tpm.accumulate_count
+    img = tpt.render_progressive(scene, camera, RES, RES, ACCUMULATIONS,
+                                 settings)
+    assert profiling.counters()[name] == before[name]
+    eager = torch.zeros((RES, RES, 3))
+    for n in range(ACCUMULATIONS):
+        frame = tpt.render_sample_fast(scene, camera, RES, RES, n, settings)
+        eager = eager + (frame - eager) / (n + 1)
+    assert torch.equal(img.view(torch.int32), eager.view(torch.int32))
+
+
+def test_kernel_params_mirror_the_cuda_struct():
+    """``pallas_mesh._Params`` names ``MegakernelParams``' fields in the
+    kernel source's order (the card checks only their total size)."""
+    source = os.path.join(os.path.dirname(tpm.__file__), os.pardir, "csrc",
+                          "mesh_megakernel.cu")
+    with open(source) as f:
+        text = f.read()
+    body = text[text.index("struct MegakernelParams {"):]
+    body = re.sub(r"//[^\n]*", "", body[body.index("{") + 1:body.index("};")])
+    # Each declarator's name is the last word before its array size.
+    names = [re.findall(r"\w+", part)[-1]
+             for decl in re.sub(r"\[[^]]*\]", "", body).split(";")
+             if decl.strip() for part in decl.split(",")]
+    assert [field[0] for field in tpm._Params._fields_] == names
 
 
 def test_replaced_material_table_rebuilds_the_frame_tables_once(cornell):
