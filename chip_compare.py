@@ -11,8 +11,8 @@ directory that ``.gitignore`` lists::
 It builds both trees' kernels in parallel, then runs four turns (other,
 this, this, other), each in a process of its own that imports its tree's
 ``bifrost3d_tpu_torch`` and calls the same workloads through functions
-both trees export: B5, the SmallPT app, B3 and B2 frames, B4, B1 on three
-tables (closest, bounded, live prefix), B6 on two soups, B7 on the bridge's
+both trees export: B4, B1 on three tables (closest, bounded, live
+prefix), B6 on two soups, B7 on the bridge's
 camera and incoherent rays and on the 16,130-triangle soup's camera,
 incoherent and surrounding rays (closest, bounded any-hit: its occlusion
 and t, live prefix),
@@ -20,13 +20,14 @@ the gradient path's plain step (bench_backward's, CornellBox 256², 2
 bounces; median of 5 after a first step, its tint gradient compared bit for
 bit), the pooled wavefront's 512² CornellBox frame and its 512² frame of
 hier_bridge_15k on B1 and on B6 (host clock, median of 3 after a first
-frame). For each
-workload one ``RESULT`` line per turn gives
-``call_ms``, the median time of the call between CUDA events, and
-``kernel_ms``, the device time per call of the kernels it launched other
-than torch's own and memsets (torch.profiler), so a wrapper's host work and
-torch ops are left out; the SmallPT app's frame is timed on the host clock;
-``nvidia-smi`` clocks, power draw and limit are printed beside each group.
+frame). The benchmark's cells compare B2, B3, B5, the post chain and the
+progressive loops of two commits (``BENCHMARK.json``), so they are not
+here. For each workload one ``RESULT`` line per turn gives ``call_ms``,
+the median time of the call between CUDA events, and ``kernel_ms``, the
+device time per call of the kernels it launched other than torch's own
+and memsets (torch.profiler), so a wrapper's host work and torch ops are
+left out; ``nvidia-smi`` clocks, power draw and limit are printed beside
+each group.
 Then ``BITEQ`` says which workloads' outputs are bit-equal between the
 trees, and between the two turns of each tree, and ``SUMMARY`` gives each
 time of both turns of both trees. Timing helpers (``device_ms``: one
@@ -60,17 +61,23 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SPT_W, SPT_H, SPT_FRAMES = 1024, 768, 8
-HIER_SCENES = ("hier_bridge_50k", "hier_bridge_15k_env", "torus_grid_28")
-DENSE_SCENES = ("CornellBox", "Sphere")
 
 
 def _smoke():
-    """chip_smoke.py of this tree, for its helpers (its main does not run)."""
+    """chip_smoke.py of this tree, for its helpers (its main does not run).
+    Its yardstick (benchmark/harness/) is imported from this tree too, with
+    this tree first on the path while it loads; the harness's profiling
+    module imports ``SPAN_PREFIX`` and ``counters`` from the turn's
+    ``bifrost3d_tpu_torch.utils.profiling``, so the other tree must export
+    them."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_helpers", os.path.join(REPO, "chip_smoke.py"))
     module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
+    sys.path.insert(0, REPO)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        sys.path.remove(REPO)
     return module
 
 
@@ -85,17 +92,13 @@ def turn(root: str, label: str, out_path: str) -> None:
     if os.path.dirname(os.path.dirname(os.path.abspath(
             bifrost3d_tpu_torch.__file__))) != root:
         raise SystemExit(f"imported {bifrost3d_tpu_torch.__file__}, not {root}")
-    from bifrost3d_tpu_torch.apps import smallpt_app
     from bifrost3d_tpu_torch.apps.scenes import (SCENES, TEST_SCENES,
                                                  torus_grid_mesh)
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
     from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
-    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
-    from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
-    from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
 
     smoke = _smoke()
     dev = torch.device("cuda", 0)
@@ -111,37 +114,6 @@ def turn(root: str, label: str, out_path: str) -> None:
             arrays[f"{name}:{k}".replace("/", ".")] = x.detach().cpu().numpy()
         res[f"{name}/call_ms"] = smoke._median_ms(fn, repeats=repeats)
         workloads.append((name, fn))
-
-    # -- B5: frames at accumulations 1 and 2, and the app's frame -------------
-    w, h = SPT_W, SPT_H
-    scene = smallpt_scene(device=dev)
-    for acc in (1, 2):
-        run(f"smallpt_acc{acc}",
-            lambda scene=scene, acc=acc: spt.smallpt_megakernel_cuda(
-                scene, w, h, acc))
-    image = smallpt_app.render_progressive(w, h, SPT_FRAMES, quiet=True,
-                                           device=dev)
-    arrays["smallpt_app:0"] = image.cpu().numpy()
-    frames = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        smallpt_app.render_progressive(w, h, SPT_FRAMES, quiet=True,
-                                       device=dev)
-        frames.append((time.perf_counter() - t0) * 1e3 / SPT_FRAMES)
-    res["smallpt_app/frame_ms"] = statistics.median(frames)
-    res["smi/smallpt"] = smoke.smi()
-
-    # -- B3 at 512², B2 on the dense scenes -------------------------------------
-    for name in HIER_SCENES + DENSE_SCENES:
-        scene, camera = (SCENES[name] if name in SCENES
-                         else TEST_SCENES[name])(device=dev)
-        settings = pt.settings_for_scene(scene, max_bounce_count=smoke.BOUNCES)
-        args = mega.megakernel_frame_inputs(scene, camera, smoke.RES,
-                                            smoke.RES, 1, settings)
-        run(f"megakernel/{name}",
-            lambda args=args: mega.mesh_megakernel_cuda(*args), repeats=10)
-    res["smi/megakernel"] = smoke.smi()
 
     # -- B4 on the bridge's 512² camera and incoherent rays, and on the torus
     # grid's ray sets ------------------------------------------------------------

@@ -62,17 +62,15 @@ the last line):
    torch lanes; the same RNG bits, only FMA contraction differs: at most
    0.2% of pixels off by > 1e-3, means within 0.5%) and against the pooled
    wavefront (the statistical gate: 3%, 2%), ray counts within 2% of the
-   wavefront's. For CornellBox and SphereLight also the median kernel and
-   plain times (CUDA events), the chunk-box and triangle tests per trace,
-   and the frame time and rays/s of render_sample_fast.
+   wavefront's.
 7. progressive: CornellBox 512² × 8 accumulations through
    render_progressive, the main path: the megakernel's launch count must
    rise by exactly 8, the image be finite and lit and bit-equal to the
    eager loop's (render_sample_fast's frames lerped by torch), and the
    kernel's lerp hold against the plain version's over accumulations 0 and
    1, each from the plain running mean so far (0.2%, 0.5%); it is
-   tonemapped and written to build/cornell_512.png; time and peak memory
-   are printed.
+   tonemapped and written to build/cornell_512.png; peak memory is
+   printed.
 8. kernel/smallpt: the SmallPT megakernel at 1024 x 768, accumulations 1
    and 2, against its plain version (the eager wavefront over all
    pixels): share of pixels off by > 1e-4 and relative gap of the means,
@@ -80,10 +78,9 @@ the last line):
    mean lerped in the kernel) at accumulations 1-3, each launch given the
    plain version's running mean so far: under the same gates against
    smallpt_megakernel_accumulate_reference, and bit for bit the write
-   branch's frame lerped by torch; median times by CUDA events of the launch alone (its memset
-   and the kernel, the cached sphere table and camera made outside the
-   events), of the wrapper's call and of the plain version; the persistent
-   grid's blocks per SM; the card's SM clock and power draw.
+   branch's frame lerped by torch; the launch alone (its memset and the
+   kernel) on the wrapper's cached sphere table and camera, bit for bit
+   the wrapper's frame; the persistent grid's blocks per SM.
 9. kernel/bvh: the BVH trace kernel on the 589,824-triangle torus grid
    with 65,536 coherent camera rays and 65,536 seeded incoherent rays:
    closest hit, any-hit, and the sorted wrapper, each against the plain
@@ -95,14 +92,12 @@ the last line):
    16,130-triangle soup. The persistent grid's blocks per SM, median
    times, the plain walk's box and triangle test counts.
 10. smallpt: smallpt_app.render_progressive(1024, 768, 8) on the card,
-   main path A: exactly 8 SmallPT-kernel launches, frames/s and
-   pixel-samples/s, the image finite and lit and written to
-   build/smallpt_1024x768.png; the app's frame time after a first render
-   (host clock, median of 3); one render of 8 frames under torch.profiler
-   with torch's sync debug mode raising: 8 SmallPT kernels, at most one
-   kernel-launch call and one memset a frame (and the buffer's fill), no
-   host-device copy, at most one host synchronise (the return's); the
-   pooled torch wavefront renders one frame for comparison.
+   main path A: exactly 8 SmallPT-kernel launches, the image finite and
+   lit and written to build/smallpt_1024x768.png; a second render of 8
+   frames under torch.profiler with torch's sync debug mode raising: 8
+   SmallPT kernels, at most one kernel-launch call and one memset a frame
+   (and the buffer's fill), no host-device copy, at most one host
+   synchronise (the return's).
 11. torus_grid: the 589,824-triangle scene at 512², 4 bounces through
    render_sample_fast, main path B: explain_render_path, BVH-kernel
    launches > 0 and dense-kernel launches 0 on that frame, wavefront
@@ -130,26 +125,25 @@ the last line):
    scenes (3,054, 14,606 and 49,678 triangles) at 256², 4 bounces through
    the megakernel's BVH branch: the kernel against its plain version on the
    same lanes (at most 0.2% of pixels off by > 1e-3, means within 0.5%) and
-   against the pooled wavefront (3%, 2%), ray counts within 2%; for the
-   largest at 512² the median kernel time with the lanes in 8 x 4 pixel
-   tiles and in raster order, in turns, and the plain version's time and
-   box and triangle test counts.
+   against the pooled wavefront (3%, 2%), ray counts within 2%; the
+   largest also at 512², its lanes in 8 x 4 pixel tiles, against its plain
+   version (0.2%, 0.5%), with the median kernel time (CUDA events), the
+   plain version's time (one run), its box and triangle test counts and the
+   bound: the kHier instantiation without kExtras, which no cell runs.
    walk: the BVH branch's walk alone as the megakernel's library builds it
    (megakernel_hier_trace_probe) against the BVH trace kernel, which walks
    the same child records, on the trees of the 49,678-triangle bridge,
    hier_bridge_15k_env and torus_grid_28, with each scene's 512² camera
    rays and 262,144 seeded incoherent rays: t, prim, u, v bit for bit,
-   closest hit and unbounded any-hit; B3's time at 512² on each; on the
-   bridge both walks' times and the walk's share of B3 (the probe's rates
-   times the frame's traces).
+   closest hit and unbounded any-hit; on the bridge both walks' times.
 14. hier_bridge: the 49,678-triangle scene at 512², 4 bounces, 8
    accumulations through render_progressive, main path C:
    explain_render_path says megakernel, exactly 8 megakernel launches and
    no launch of a trace kernel, the image bit-equal to the eager loop's
-   (phase 7); frame time and rays/s of
-   render_sample_fast beside one pooled-wavefront frame, which it must
-   match under the statistical gate; the other two bridge scenes and the
-   258,048-triangle torus_grid_28 one frame each.
+   (phase 7); a render_sample_fast frame against one pooled-wavefront
+   frame (the statistical gate; the pooled frame's time); the other two
+   bridge scenes and the 258,048-triangle torus_grid_28 three frames each,
+   one megakernel launch a frame.
 15. packings: one pooled-wavefront frame of the 14,606-triangle bridge
    scene at 256² with tri_clustered set to the cluster-scan packing and one
    with the resident-cluster packing: launches of the right kernel > 0, of
@@ -183,13 +177,12 @@ the last line):
    instantiation and no launch of a trace kernel; the kernel at the path's
    shape against its plain version (at most 0.2% of pixels off by > 1e-3,
    means within 0.5%); the running mean bit-equal to the eager loop's and
-   the kernel's lerp against the plain version's, as in phase 7; frame
-   time and
-   rays/s of render_sample_fast (median of 5), the kernel's median time
-   (CUDA events) beside its plain version's (one run) and its bound, which
-   counts the shadow traces that the plain version made (one any-hit query
-   per lit shaded hit, or the march's steps one by one) and the tables'
-   bytes.
+   the kernel's lerp against the plain version's, as in phase 7. On Sphere
+   and Opacity, the dense trace's kExtras instantiation, which no cell
+   runs: the kernel's median time (CUDA events) beside its plain version's
+   (one run) and its bound, which counts the shadow traces that the plain
+   version made (one any-hit query per lit shaded hit, or the march's steps
+   one by one) and the tables' bytes.
 18. viewer: apps/simple_viewer --scene Sphere and --scene Opacity at its
    defaults' size (512², 4 bounces) with -n 8, the entry point of main
    path D: exactly 8 megakernel launches and no trace-kernel launch each,
@@ -199,8 +192,8 @@ the last line):
 19. profile: render_sample_fast at 512² after a scene's first frame, for
    CornellBox, Sphere, Opacity and the bridge: CUDA launches (at most 10)
    and host syncs (none) per frame from torch.profiler over three frames,
-   with torch's sync debug mode raising on a synchronising op; frame time
-   beside the kernel's. Then warm calls of the resident-cluster walk
+   with torch's sync debug mode raising on a synchronising op. Then warm
+   calls of the resident-cluster walk
    (closest and any-hit, bounds and the live count on the device) under
    the same mode: one kernel launch and no host sync a call.
 20. train, main path E (gradients): bench.py's bench_backward step in
@@ -231,7 +224,7 @@ the last line):
    time. MaterialScene and MaterialSceneLegacy ran on main path D (phase
    17: the megakernel's BVH branch in its kExtras instantiation, one B3
    launch a frame, held against its plain version at 512²); their lines
-   here repeat that phase's path, launches and frame time. Then a 64²
+   here repeat that phase's path, launches and gate. Then a 64²
    Glass frame on the card against the same frame on the CPU,
    where the plain B1 runs, under the statistical gate (≤ 3% of pixels off
    by > 1e-3, means within 2%). Then the JAX-rule clip helpers
@@ -262,9 +255,10 @@ the last line):
    within 1e-3 on >= 99.9% of those pixels; the viewer's --aov for each of
    the six on bridge.obj and primitive_id on torus.glb, written as EXR and
    read back equal. Each case prints its load seconds (native and Python
-   tokenizer, glTF accessors, PNG decode, EXR read), render_sample_fast's
-   frame ms (median of 3, with the range) and each kernel's launches a
-   frame, beside the card's name and power limit.
+   tokenizer, glTF accessors, PNG decode, EXR read), on the paths without
+   a megakernel (F2, F3) render_sample_fast's frame ms (median of 3, with
+   the range) and each kernel's launches a frame, beside the card's name
+   and power limit.
 
 23. viewer_modes: every mode of the viewer at its defaults (512², 4
    bounces; accumulations cut), each item with every count at 0 before,
@@ -360,7 +354,8 @@ the last line):
    (explain_render_path); at 256² one B3 launch against its plain version
    (0.2%, 0.5%) and the pooled wavefront (3%, 2%); then main path D's
    run at 512² x 8 through render_progressive (exactly 8 B3 launches, no
-   trace launch; frame ms, kernel ms vs plain, bound). P2: B5 through
+   trace launch, the kernel and the running mean gated as there). P2: B5
+   through
    apps/smallpt_app.render_progressive at 64 x 48 x 32 (exactly 32
    launches) against the float64 numpy reference tests/smallpt_reference.py
    with tests/test_smallpt.py's gates: relative RMS < 0.20, > 80% of the
@@ -368,20 +363,21 @@ the last line):
    assert_float64_reference_gate). P3: the headless interactive viewer
    (run on the card, no terminal) prints nothing, as JAX's, and returns
    a finite frame of its window's size.
-28. post (a process of its own): the post chain's two kernels
-   (csrc/post_chain.cu) at 512² with the viewer's settings against the
-   eager chain on the card (LDR max abs and exposure relative <= 1e-5),
-   with no host sync; call ms of both, the kernels' device ms, launches
-   a call, the bound (the image read once, the LDR written once).
+28. post: the post chain's two kernels (csrc/post_chain.cu) at 512² with
+   the viewer's settings against the eager chain on the card (LDR max abs
+   and exposure relative <= 1e-5), with no host sync; launches a call.
    Alone: python3 chip_smoke.py --profile post.
 
 After each phase, or a few phases together, a "time:" line gives the
 seconds since the start and since the line before (a run of the whole
 script must end within 1,200 s).
-Then one JSON line of per-kernel results (each kernel's time beside its
-bound: the larger of its bytes over 3.35 TB/s and its float32 operations
-over 67 TFLOP/s, counted from this run's inputs), and last the JSON
-result line.
+Then one JSON line of the kernels' results that no cell times (B1, B4,
+B6, B7, B3's kHier instantiation without kExtras and B2's dense one with
+kExtras; each kernel's time beside its bound: the larger of its bytes over
+3.35 TB/s and its float32 operations over 67 TFLOP/s, counted from this
+run's inputs), and last the JSON result line. The benchmark's cells time
+B2 without kExtras (CornellBox), B3 with kExtras (MaterialScene), B5 and
+the post chain (BENCHMARK.json, benchmark/run.py); this script gates them.
 The script imports nothing of JAX.
 """
 
@@ -399,6 +395,24 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+# One yardstick with the benchmark, from benchmark/harness/: the published
+# peaks of one H100 SXM (HBM bytes/s, float32 FLOP/s outside the tensor
+# cores), a Möller–Trumbore test and a slab test, the megakernel's shading
+# operations (shade_ops), and the spin kernel that marks a profiled range on
+# the card's clock. shade_ops' counts were taken once from
+# csrc/mesh_megakernel.cu (an add, a multiply, a compare or an integer op is
+# one, a fused multiply-add two). An iteration that shades a hit, outside
+# its traces: two path_rng_4d draws (~450 integer operations each: pcg2d,
+# two Owen scrambles, the 32-bit Sobol loop over four dimensions), the
+# attributes and the shading frame (~125), shading_create (~100), the BSDF
+# sample with its evaluation (~330), the light hits, offsets and throughput
+# (~95): ~1,600. Per RIS candidate a light sample, shading_evaluate, MIS and
+# the reservoir: ~360. The coat lobe adds ~150 at creation and ~120 per
+# candidate, the kExtras branches (a map or texture fetch, coverage) ~100.
+from benchmark.harness.profiling import spin
+from benchmark.harness.roofline import (
+    BOX_FLOPS, MT_FLOPS, PEAK_BYTES, PEAK_FLOPS, least_time_s, shade_ops)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 R = 65536
@@ -428,24 +442,6 @@ EXTRAS_SCENES = (("Sphere", True), ("sphere_sun", False), ("Opacity", True),
                  ("opacity_hier", False)) + tuple(
                      (name, True) for name in MATERIAL_SCENES)
 EXTRAS_PATHS = ("Sphere", "Opacity", "hier_bridge_15k_env") + MATERIAL_SCENES
-# Published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
-# tensor cores.
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
-# Operation counts behind the bounds: a Möller–Trumbore test, a slab test,
-# one SmallPT sphere test, and the rest of a SmallPT bounce.
-MT_FLOPS, BOX_FLOPS, SPHERE_FLOPS, SMALLPT_SHADE_FLOPS = 50, 24, 30, 120
-# Operations of one megakernel iteration that shades a hit, outside its
-# traces, counted once from csrc/mesh_megakernel.cu (an add, a multiply, a
-# compare or an integer op is one, a fused multiply-add two): two
-# path_rng_4d draws (~450 integer operations each: pcg2d, two Owen
-# scrambles, the 32-bit Sobol loop over four dimensions), the attributes and
-# the shading frame (~125), shading_create (~100), the BSDF sample with its
-# evaluation (~330), the light hits, offsets and throughput (~95): ~1,600.
-# Per RIS candidate a light sample, shading_evaluate, MIS and the reservoir
-# (~360). The coat lobe adds ~150 at creation and ~120 per candidate, the
-# kExtras branches (a map or texture fetch, coverage) ~100.
-MEGA_SHADE_OPS, MEGA_RIS_OPS = 1600, 360
-MEGA_COAT_OPS, MEGA_COAT_RIS_OPS, MEGA_EXTRAS_OPS = 150, 120, 100
 # SmallPT kernel vs its plain version: share of pixels off by > 1e-4 and
 # relative difference of the means.
 SMALLPT_FLIPS, SMALLPT_MEAN = 0.02, 0.003
@@ -478,15 +474,6 @@ def device_phase() -> str:
     return smi
 
 
-def shade_ops(cfg) -> int:
-    """MEGA_SHADE_OPS and the rest for one shaded iteration of the
-    megakernel instantiation that ``cfg`` launches."""
-    ops = MEGA_SHADE_OPS + MEGA_RIS_OPS * cfg.ris_count
-    if cfg.has_coat or cfg.extras:
-        ops += MEGA_COAT_OPS + MEGA_COAT_RIS_OPS * cfg.ris_count
-    return ops + (MEGA_EXTRAS_OPS if cfg.extras else 0)
-
-
 def smi() -> str:
     """The card's SM clock, power draw and power limit now."""
     return subprocess.run(
@@ -496,11 +483,11 @@ def smi() -> str:
 
 
 def roofline(n_bytes: float, flops: float) -> dict:
-    """The least time this card could take for the work, in ms, and which
-    of the two limits sets it."""
-    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
+    """least_time_s of the work in ms, and which of the two limits sets
+    it."""
+    by_bytes = n_bytes / PEAK_BYTES >= flops / PEAK_FLOPS
+    return dict(bound_ms=least_time_s(flops, n_bytes) * 1e3,
+                bound_by="bytes" if by_bytes else "operations")
 
 
 def build_phase() -> None:
@@ -711,20 +698,16 @@ def _median_ms(fn, repeats=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def _spin() -> None:
-    """A spin kernel (``torch.cuda._sleep``) that marks, on the card's own
-    clock, where a profiled range begins or ends: the host's clock cannot
-    place device events, since its mapping onto the card's has put the
-    kernels of one range into the host window of its neighbour."""
-    torch.cuda._sleep(1000)
-
-
 def _device_ranges(events, names) -> dict:
     """The device events of a torch.profiler session split at its spin
-    kernels (one ``_spin`` before each range and one after the last) into
+    kernels (one ``spin`` before each range and one after the last) into
     the ranges ``names``, in order → {name: [event, ...]}, spins left
     out; None where the session holds no spin kernel (the card's trace
-    was lost)."""
+    was lost). The host's clock cannot place device events: its mapping
+    onto the card's has put the kernels of one range into the host window
+    of its neighbour. The benchmark's ``profiling.segment`` reads one
+    range, between the first spin and the last; this splits one session
+    into several, as device_ms and _walk_call_profile need."""
     cuda = torch.autograd.DeviceType.CUDA
     on_card = sorted((e for e in events if e.device_type == cuda),
                      key=lambda e: e.time_range.start)
@@ -749,12 +732,12 @@ def device_ms(workloads, repeats=10) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for name, fn in workloads:
-            _spin()
+            spin()
             with record_function(f"workload:{name}"):
                 for _ in range(repeats):
                     fn()
                 torch.cuda.synchronize()
-        _spin()
+        spin()
         torch.cuda.synchronize()
     ranges = _device_ranges(prof.events(), [name for name, _ in workloads])
     check(ranges is not None, "torch.profiler saw nothing on the card")
@@ -1142,18 +1125,14 @@ def _megakernel_scenes(device):
             yield name, SMALL_RES, builder(device=device)
 
 
-def megakernel_phase(device) -> dict:
-    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
+def megakernel_phase(device) -> None:
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
 
-    results = {}
     for name, res, (scene, cam) in _megakernel_scenes(device):
         settings = pt.RenderSettings(max_bounce_count=BOUNCES)
         _expect_megakernel(scene, settings, name)
-        args, img, got_rays = _kernel_frame(scene, cam, res, 1, settings)
-        stats = {}
-        plain_args, ref, _ = _plain_frame(scene, cam, res, 1, settings,
-                                          stats)
+        _, img, got_rays = _kernel_frame(scene, cam, res, 1, settings)
+        _, ref, _ = _plain_frame(scene, cam, res, 1, settings)
         torch.cuda.synchronize()
         flips, max_err, mean_rel = _gate(img, ref, f"{name}: kernel vs plain",
                                          KERNEL_FLIPS, KERNEL_MEAN)
@@ -1165,63 +1144,14 @@ def megakernel_phase(device) -> dict:
         pooled_rays = int(pooled_rays)
         check(abs(rays - pooled_rays) <= 0.02 * pooled_rays,
               f"{name}: {rays} rays vs the wavefront's {pooled_rays}")
-        out = dict(res=res, n_tris=int(scene.tri_verts.shape[0]),
-                   flips=flips, max_abs_err=max_err, mean_rel=mean_rel,
-                   wavefront_flips=wf_flips,
-                   rays=rays, wavefront_rays=pooled_rays,
-                   mean=float(img.mean()))
-        line = (f"megakernel/{name}: {res}x{res} {out['n_tris']} tris | vs "
-                f"plain {flips:.5f} flips, max |d| {max_err:.3g}, means "
-                f"{mean_rel:.2e} apart | vs "
-                f"wavefront {wf_flips:.4f} flips | rays {rays:.0f} vs "
-                f"{pooled_rays} | mean {out['mean']:.4f}")
-        if name in ("CornellBox", "SphereLight"):
-            out["ms"] = _median_ms(lambda: mega.mesh_megakernel_cuda(*args),
-                                   repeats=10, warmup=2)
-            out["plain_ms"] = _median_ms(
-                lambda: mega.mesh_megakernel_reference(*plain_args),
-                repeats=3, warmup=1)
-            frame_ms, rates = [], []
-            for acc in (1, 2, 3, 4, 5):
-                _, acc_rays = mega.render_mesh_megakernel(
-                    scene, cam, res, res, acc, settings)
-                acc_rays = float(acc_rays)   # synchronises
-                t0 = time.perf_counter()
-                pt.render_sample_fast(scene, cam, res, res, acc, settings)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                frame_ms.append(dt * 1e3)
-                rates.append(acc_rays / dt)
-            out["frame_ms"] = statistics.median(frame_ms)
-            out["rays_per_s"] = statistics.median(rates)
-            # Per pixel 16 B out (radiance and rays), the triangle and
-            # attribute tables once; a closest hit per counted iteration
-            # (rays / 2) and the shadow rays that the plain version traced,
-            # each testing the chunk boxes and the triangles of the chunks
-            # it entered, as the plain version counted them; and the
-            # shading of every iteration that shaded a hit (shade_ops).
-            traces = rays / 2 + stats.get("shadow_traces", 0)
-            out.update(box_tests=stats["box_tests"],
-                       tri_tests=stats["tri_tests"], shaded=stats["shaded"],
-                       **roofline(16 * res * res
-                                  + (64 + 4 * mega.ATTR_ROWS) * out["n_tris"],
-                                  BOX_FLOPS * stats["box_tests"]
-                                  + MT_FLOPS * stats["tri_tests"]
-                                  + shade_ops(args[-1]) * stats["shaded"]))
-            line += (f" | {traces:.0f} traces, "
-                     f"{stats['tri_tests'] / traces:.1f} triangle and "
-                     f"{stats['box_tests'] / traces:.1f} chunk-box tests per "
-                     f"trace (full scan: {out['n_tris']}) | kernel "
-                     f"{out['ms']:.3f} ms, plain "
-                     f"{out['plain_ms']:.1f} ms (CUDA events) | "
-                     f"render_sample_fast frame {out['frame_ms']:.2f} ms, "
-                     f"{out['rays_per_s'] / 1e6:.1f} M rays/s (median of 5)")
-        print(line, flush=True)
-        results[name] = out
-    return results
+        print(f"megakernel/{name}: {res}x{res} {int(scene.tri_verts.shape[0])}"
+              f" tris | vs plain {flips:.5f} flips, max |d| {max_err:.3g}, "
+              f"means {mean_rel:.2e} apart | vs wavefront {wf_flips:.4f} "
+              f"flips | rays {rays:.0f} vs {pooled_rays} | mean "
+              f"{float(img.mean()):.4f}", flush=True)
 
 
-def progressive_phase(device) -> dict:
+def progressive_phase(device) -> None:
     from bifrost3d_tpu_torch.apps.scenes import create_cornell_box
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
@@ -1237,10 +1167,8 @@ def progressive_phase(device) -> dict:
 
     # The main path, driven with every count at 0.
     _reset_counts()
-    t0 = time.perf_counter()
     hdr = pt.render_progressive(scene, cam, RES, RES, ACCUMULATIONS, settings)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches, trace_launches = mega.launch_count, dense.launch_count
     check(launches == ACCUMULATIONS, f"the main path launched the "
           f"megakernel {launches} times for {ACCUMULATIONS} frames")
@@ -1260,19 +1188,15 @@ def progressive_phase(device) -> dict:
     save_image(png, ldr)
     check(os.path.getsize(png) > 0, "PNG not written")
     print(f"progressive: CornellBox {RES}x{RES} {BOUNCES} bounces "
-          f"x{ACCUMULATIONS} through render_progressive in {seconds:.3f} s | "
-          f"megakernel launches {launches}, trace launches {trace_launches} "
-          f"| mean {mean:.4f} | running mean bit-equal to the eager loop's, "
-          f"vs plain {plain_flips:.5f} flips | peak {peak_gib:.3f} GiB | "
+          f"x{ACCUMULATIONS} through render_progressive | megakernel "
+          f"launches {launches}, trace launches {trace_launches} | mean "
+          f"{mean:.4f} | running mean bit-equal to the eager loop's, vs plain "
+          f"{plain_flips:.5f} flips | peak {peak_gib:.3f} GiB | "
           f"{os.path.relpath(png, REPO)}", flush=True)
-    return dict(launches=launches, seconds=seconds, mean=mean,
-                peak_gib=peak_gib, plain_mean_flips=plain_flips)
 
 
-def smallpt_kernel_phase(device) -> dict:
+def smallpt_kernel_phase(device) -> None:
     from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
-    from bifrost3d_tpu_torch.integrator.smallpt import (
-        render_smallpt_pooled_counted)
     from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
 
     scene = smallpt_scene(device=device)
@@ -1319,50 +1243,24 @@ def smallpt_kernel_phase(device) -> dict:
         worst_flips = max(worst_flips, flips)
         worst_mean = max(worst_mean, mean_rel)
         worst_err = max(worst_err, float(d.max()))
-    # The launch alone (its memset and the kernel), inputs made outside the
-    # events, and the wrapper's call around it.
+    # The launch alone (its memset and the kernel) on the wrapper's cached
+    # inputs: the wrapper's frame bit for bit.
     sph, bsdf, cam = spt.kernel_inputs(scene, w, h)
     out = torch.empty(3 * w * h + 1, dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-
-    def launch():
-        err = spt._library().smallpt_megakernel(
-            sph.data_ptr(), bsdf.data_ptr(), int(sph.shape[0]),
-            cam.data_ptr(), w, h, 1, 0.0, out.data_ptr(),
-            out[-1:].data_ptr(), spt._THREADS, stream)
-        check(err == 0, f"smallpt_megakernel launch failed: cudaError {err}")
-    ms = _median_ms(launch)
+    err = spt._library().smallpt_megakernel(
+        sph.data_ptr(), bsdf.data_ptr(), int(sph.shape[0]), cam.data_ptr(), w,
+        h, 1, 0.0, out.data_ptr(), out[-1:].data_ptr(), spt._THREADS,
+        torch.cuda.current_stream(device).cuda_stream)
+    check(err == 0, f"smallpt_megakernel launch failed: cudaError {err}")
     check(torch.equal(out[:-1].view(h, w, 3),
                       spt.smallpt_megakernel_cuda(scene, w, h, 1)),
-          "the timed launch's frame is not the wrapper's")
-    wrapper_ms = _median_ms(lambda: spt.smallpt_megakernel_cuda(scene, w, h, 1))
-    clocks = smi()
-    plain_ms = _median_ms(
-        lambda: spt.smallpt_megakernel_reference(scene, w, h, 1), repeats=3,
-        warmup=1)
-    # This frame's bounces, from the pooled wavefront's live-lane tally; a
-    # bounce tests every sphere and shades once. Bytes: the table in, 12 B
-    # per pixel out.
-    _, bounces = render_smallpt_pooled_counted(scene, w, h, 1)
-    bounces = int(bounces)
-    n = int(scene.position.shape[0])
-    result = dict(flips=worst_flips, mean_rel=worst_mean,
-                  max_abs_err=worst_err, ms=ms, wrapper_ms=wrapper_ms,
-                  plain_ms=plain_ms, bounces=bounces,
-                  blocks_per_sm=spt.blocks_per_sm(),
-                  **roofline(44 * n + 12 * w * h,
-                             bounces * (SPHERE_FLOPS * n + SMALLPT_SHADE_FLOPS)))
+          "the launch's frame is not the wrapper's")
     print(f"kernel/smallpt: {w}x{h}, accumulations 1 and 2, running mean "
-          f"1-3 (bit-equal to the frame + torch lerp) | vs plain "
-          f"{worst_flips:.5f} of pixels off by > 1e-4, means {worst_mean:.2e} "
-          f"apart, max |d| {worst_err:.3g} (a flipped path) | {bounces} bounces "
-          f"({bounces / (w * h):.2f} per pixel) | persistent grid of "
-          f"{result['blocks_per_sm']} blocks of {spt._THREADS} per SM | "
-          f"launch alone {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms (medians "
-          f"of 20), plain {plain_ms:.1f} ms (median of 3) | bound "
-          f"{result['bound_ms']:.5f} ms by {result['bound_by']} | "
-          f"clocks.sm, power.draw, power.limit: {clocks}", flush=True)
-    return result
+          f"1-3 (bit-equal to the frame + torch lerp), the launch alone "
+          f"bit-equal to the wrapper | vs plain {worst_flips:.5f} of pixels "
+          f"off by > 1e-4, means {worst_mean:.2e} apart, max |d| "
+          f"{worst_err:.3g} (a flipped path) | persistent grid of "
+          f"{spt.blocks_per_sm()} blocks of {spt._THREADS} per SM", flush=True)
 
 
 def _torus_rays(device):
@@ -1569,13 +1467,10 @@ def bvh_kernel_phase(device, dense_soup) -> dict:
     return results
 
 
-def smallpt_path_phase(device) -> dict:
+def smallpt_path_phase(device) -> None:
     from bifrost3d_tpu_torch.apps import smallpt_app
     from bifrost3d_tpu_torch.integrator import pallas_smallpt as spt
-    from bifrost3d_tpu_torch.integrator.smallpt import (
-        render_smallpt_pooled_counted)
     from bifrost3d_tpu_torch.io.image import save_image
-    from bifrost3d_tpu_torch.scene.spheres import smallpt_scene
 
     w, h, n = SMALLPT_W, SMALLPT_H, ACCUMULATIONS
     torch.cuda.synchronize()
@@ -1583,9 +1478,7 @@ def smallpt_path_phase(device) -> dict:
 
     # Main path A, driven with every count at 0.
     _reset_counts()
-    t0 = time.perf_counter()
     img = smallpt_app.render_progressive(w, h, n, quiet=True, device=device)
-    seconds = time.perf_counter() - t0     # render_progressive synchronises
     launches = spt.launch_count
     check(launches == n, f"main path A launched the SmallPT kernel "
           f"{launches} times for {n} frames")
@@ -1605,17 +1498,10 @@ def smallpt_path_phase(device) -> dict:
     save_image(png, img.flip(0))
     check(os.path.getsize(png) > 0, "PNG not written")
 
-    # The app's frame after a first render (the scene and the kernel's
-    # tables are then on the card): host clock to the app's own synchronise
-    # over n accumulations, per frame, median of 3; then one such render
-    # under torch.profiler, with torch's sync debug mode raising on a
-    # synchronising torch op.
+    # A render after the first (the scene and the kernel's tables are then
+    # on the card) under torch.profiler, with torch's sync debug mode
+    # raising on a synchronising torch op.
     from torch.profiler import ProfilerActivity, profile, record_function
-    frame_ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        smallpt_app.render_progressive(w, h, n, quiet=True, device=device)
-        frame_ms.append((time.perf_counter() - t0) * 1e3 / n)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.set_sync_debug_mode("error")
@@ -1650,36 +1536,16 @@ def smallpt_path_phase(device) -> dict:
           f"{counts['copies']} times between host and card")
     check(counts["syncs"] <= 1, f"the profiled render synchronised "
           f"{counts['syncs']} times (once, at its return)")
-
-    # One frame of the pooled torch wavefront, for comparison.
-    scene = smallpt_scene(device=device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, rays = render_smallpt_pooled_counted(scene, w, h, 1)
-    rays = int(rays)    # synchronises
-    pooled_s = time.perf_counter() - t0
-    out = dict(launches=launches, seconds=seconds, mean=mean,
-               frames_per_s=n / seconds,
-               pixel_samples_per_s=w * h * n / seconds, pooled_s=pooled_s,
-               frame_ms=statistics.median(frame_ms), profile=counts)
-    print(f"smallpt: {w}x{h} x{n} through smallpt_app.render_progressive in "
-          f"{seconds:.4f} s (first render) | {out['frames_per_s']:.1f} "
-          f"frames/s, {out['pixel_samples_per_s'] / 1e6:.1f} M "
-          f"pixel-samples/s | SmallPT-kernel launches {launches} | mean "
-          f"{mean:.4f} | peak {peak_gib:.3f} GiB | {os.path.relpath(png, REPO)}"
-          f" | pooled torch wavefront: one frame in {pooled_s:.3f} s, {rays} "
-          f"bounces", flush=True)
-    print(f"smallpt/frame: the app's frame after a first render "
-          f"{out['frame_ms']:.4f} ms (render of {n} / {n}, median of 3) | "
-          f"torch.profiler over one render of {n} frames: "
-          f"{counts['smallpt']} SmallPT kernels, {counts['launches']} "
-          f"kernel-launch calls, {counts['memsets']} memsets, "
-          f"{counts['other']} other device activities (the buffer's fill), "
-          f"{counts['syncs']} host synchronise (the return's), "
+    print(f"smallpt: {w}x{h} x{n} through smallpt_app.render_progressive | "
+          f"SmallPT-kernel launches {launches} | mean {mean:.4f} | peak "
+          f"{peak_gib:.3f} GiB | {os.path.relpath(png, REPO)}", flush=True)
+    print(f"smallpt/frame: torch.profiler over a render of {n} frames after "
+          f"the first: {counts['smallpt']} SmallPT kernels, "
+          f"{counts['launches']} kernel-launch calls, {counts['memsets']} "
+          f"memsets, {counts['other']} other device activities (the buffer's "
+          f"fill), {counts['syncs']} host synchronise (the return's), "
           f"{counts['copies']} host-device copies; sync debug mode raised "
-          f"nothing | clocks.sm, power.draw, power.limit: {smi()}",
-          flush=True)
-    return out
+          f"nothing", flush=True)
 
 
 def torus_path_phase(device) -> dict:
@@ -2060,7 +1926,8 @@ def _gate_tiled_scene(name, scene, cam, res, settings, device):
 
 def megakernel_hier_phase(device) -> dict:
     """The megakernel's BVH branch against its plain version and the pooled
-    wavefront; kernel times on the bridge scene at 512 x 512."""
+    wavefront; the bridge scene at 512 x 512 in pixel tiles against its
+    plain version."""
     from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
@@ -2083,31 +1950,27 @@ def megakernel_hier_phase(device) -> dict:
               flush=True)
         results[name] = out
 
-    # Kernel times at the main path's size, lanes tiled and in raster order
-    # in turns; the plain version once more for its time and its counts.
+    # The bridge at the main path's size, in the pixel tiles the BVH branch
+    # renders in, against its plain version in raster order. Its kHier
+    # instantiation without kExtras runs in no cell, so it is timed here.
     res = RES
     scene, cam = TEST_SCENES[BRIDGE_SCENE](device=device)
     settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-    tiled = mega.megakernel_frame_inputs(scene, cam, res, res, 1, settings)
-    check(tiled[6].tile == tile, "the BVH branch renders in pixel tiles")
-    raster = tiled[:6] + (tiled[6]._replace(tile=None),) + tiled[7:]
-    turns = {"tiled": [], "raster": []}
-    for which in ("tiled", "raster", "raster", "tiled"):
-        args = tiled if which == "tiled" else raster
-        turns[which].append(_median_ms(
-            lambda: mega.mesh_megakernel_cuda(*args), repeats=10, warmup=2))
+    args, img, got_rays = _kernel_frame(scene, cam, res, 1, settings)
+    cfg = args[-1]
+    check(args[6].tile == tile, "the BVH branch renders in pixel tiles")
+    ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args), repeats=10,
+                    warmup=2)
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, ref, _ = _plain_frame(scene, cam, res, 1, settings, stats)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    img, got_rays = mega.mesh_megakernel_cuda(*tiled)
-    flips, max_err, _ = _gate(img.reshape(-1, 3), ref,
-                              f"{BRIDGE_SCENE} {res}: kernel vs plain",
+    flips, max_err, _ = _gate(img, ref, f"{BRIDGE_SCENE} {res}: kernel vs plain",
                               KERNEL_FLIPS, KERNEL_MEAN)
     rays = float(got_rays.sum())
-    tree = tiled[0]
+    tree = args[0]
     n_records, n_tris = int(tree.child_records.shape[0]), tree.n_tris
     # Per pixel 16 B out; of the child records (64 B, two box tests each)
     # and the attribute table no more than each record once (a frame's
@@ -2115,25 +1978,18 @@ def megakernel_hier_phase(device) -> dict:
     # the shading of every iteration that shaded a hit (shade_ops).
     out = results[BRIDGE_SCENE]
     out.update(
-        ms=statistics.median(turns["tiled"]),
-        raster_ms=statistics.median(turns["raster"]), plain_ms=plain_ms,
-        max_abs_err=max(max_err, out["max_abs_err"]),
-        box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
-        shaded=stats["shaded"], rays_512=rays,
-        shadow_traces_512=stats.get("shadow_traces", 0),
+        ms=ms, plain_ms=plain_ms, max_abs_err=max(max_err, out["max_abs_err"]),
         **roofline(16 * res * res
                    + 64 * min(n_records, stats["box_tests"] // 2)
                    + (48 + 4 * mega.ATTR_ROWS) * min(n_tris, stats["tri_tests"]),
                    BOX_FLOPS * stats["box_tests"]
                    + MT_FLOPS * stats["tri_tests"]
-                   + shade_ops(tiled[-1]) * stats["shaded"]))
-    print(f"megakernel/hier/{BRIDGE_SCENE}: {res}x{res} | kernel "
-          f"{out['ms']:.3f} ms with {tile[0]}x{tile[1]} pixel tiles "
-          f"({turns['tiled'][0]:.3f}, {turns['tiled'][1]:.3f}), "
-          f"{out['raster_ms']:.3f} ms in raster order "
-          f"({turns['raster'][0]:.3f}, {turns['raster'][1]:.3f}; medians of "
-          f"10, in turns) | plain {plain_ms:.0f} ms (one run) | vs plain "
-          f"{flips:.5f} flips | {rays:.0f} rays, "
+                   + shade_ops(cfg.ris_count, cfg.has_coat, cfg.extras)
+                   * stats["shaded"]))
+    print(f"megakernel/hier/{BRIDGE_SCENE}: {res}x{res} with {tile[0]}x"
+          f"{tile[1]} pixel tiles | kernel {ms:.3f} ms (median of 10), plain "
+          f"{plain_ms:.0f} ms (one run) | vs plain {flips:.5f} flips, max "
+          f"|d| {max_err:.3g} | {rays:.0f} rays, "
           f"{stats['box_tests'] / rays:.1f} box and "
           f"{stats['tri_tests'] / rays:.1f} triangle tests per ray (plain "
           f"walk) | bound {out['bound_ms']:.5f} ms by {out['bound_by']}",
@@ -2166,23 +2022,19 @@ def _walk_rays(scene, cam, device) -> dict:
                            torch.tensor(d, device=device))}
 
 
-def hier_walk_phase(device, bridge) -> dict:
+def hier_walk_phase(device) -> None:
     """The BVH branch's walk as the megakernel's library builds it
     (megakernel_hier_trace_probe) against the BVH trace kernel, which walks
     the same child records in its own library, on the three main-path BVH
     scenes' trees with their 512² camera rays and seeded incoherent rays:
     t, prim, u and v bit for bit, closest hit and unbounded any-hit (the
-    first hit in walk order). Then B3's time at 512², both walks' times on
-    the bridge's rays, and the walk's share of B3 on the bridge: the
-    probe's rate on camera rays for the primary traces, on incoherent rays
-    for the rest (bounces closest, shadow rays any-hit)."""
+    first hit in walk order). Then both walks' times on the bridge's
+    rays."""
     from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
-    from bifrost3d_tpu_torch.integrator import path_tracer as pt
 
     inf = float("inf")
-    out = {}
     for name in WALK_SCENES:
         scene, cam = TEST_SCENES[name](device=device)
         tree = mega._pack_scene(scene)["tri"]
@@ -2209,40 +2061,20 @@ def hier_walk_phase(device, bridge) -> dict:
                     times[f"{query} B4"] = _median_ms(
                         lambda: hier.hierarchical_intersect_cuda(
                             tree, o, d, 1e-4, inf, any_hit=any_hit))
-        settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-        args = mega.megakernel_frame_inputs(scene, cam, RES, RES, 1, settings)
-        b3 = _median_ms(lambda: mega.mesh_megakernel_cuda(*args), repeats=10,
-                        warmup=2)
-        records = int(tree.child_records.shape[0])
-        out[name] = dict(b3_ms=b3, walk_ms=times, records=records)
-        line = (f"walk/{name}: {records} child records | probe vs BVH kernel "
-                f"on {RES * RES} camera and {RES * RES} incoherent rays, "
-                f"closest and any-hit: t, prim, u, v bit-equal | B3 "
-                f"{RES}x{RES} {b3:.4f} ms (median of 10)")
+        line = (f"walk/{name}: {int(tree.child_records.shape[0])} child "
+                f"records | probe vs BVH kernel on {RES * RES} camera and "
+                f"{RES * RES} incoherent rays, closest and any-hit: t, prim, "
+                f"u, v bit-equal")
         if name == BRIDGE_SCENE:
-            line += " | walks (medians of 20): " + ", ".join(
+            line += (" | walks (medians of 20): " + ", ".join(
                 f"{q} {ms:.4f} ms" for q, ms in times.items())
-            # The frame's traces: the primary closest traces (one per
-            # pixel), the other closest traces (rays / 2 in all) and the
-            # shadow rays, each at the probe's rate on like rays.
-            n = RES * RES
-            closest = bridge["rays_512"] / 2
-            walk = (times["camera probe"] * min(closest, n) / n
-                    + times["incoherent probe"] * max(closest - n, 0) / n
-                    + times["incoherent/any probe"]
-                    * bridge["shadow_traces_512"] / n)
-            out[name].update(walk_share=walk / b3, walk_est_ms=walk)
-            line += (f" | the frame's walks at the probe's rates "
-                     f"({closest:.0f} closest traces, "
-                     f"{bridge['shadow_traces_512']} shadow rays): "
-                     f"{walk:.4f} ms, {100 * walk / b3:.1f}% of B3")
-        line += f" | clocks.sm, power.draw, power.limit: {smi()}"
+                + f" | clocks.sm, power.draw, power.limit: {smi()}")
         print(line, flush=True)
-    return out
 
 
-def hier_path_phase(device) -> dict:
-    """Main path C: the bridge scene through render_progressive."""
+def hier_path_phase(device) -> int:
+    """Main path C: the bridge scene through render_progressive → its
+    megakernel launches."""
     from bifrost3d_tpu_torch.apps.scenes import TEST_SCENES
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_intersect as dense
@@ -2260,19 +2092,15 @@ def hier_path_phase(device) -> dict:
     n_tris = int(scene.tri_verts.shape[0])
     check(n_tris == BRIDGE_TRIS, f"the bridge scene has {n_tris} triangles")
     settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
-    path = _expect_megakernel(scene, settings, BRIDGE_SCENE)
-    t0 = time.perf_counter()
+    _expect_megakernel(scene, settings, BRIDGE_SCENE)
     mega.prewarm_megakernel(scene)
     torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
 
     # Main path C, driven with every count at 0.
     _reset_counts()
-    t0 = time.perf_counter()
     hdr = pt.render_progressive(scene, cam, res, res, ACCUMULATIONS, settings)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = mega.launch_count
     trace_launches = dense.launch_count + hier.launch_count
     check(launches == ACCUMULATIONS, f"main path C launched the megakernel "
@@ -2290,19 +2118,8 @@ def hier_path_phase(device) -> dict:
     save_image(png, process(hdr, CameraEffectsSettings.preset()._replace(
         film_grain=0.0)))
 
-    frame_ms, rates = [], []
-    for acc in (1, 2, 3, 4, 5):
-        _, acc_rays = mega.render_mesh_megakernel(scene, cam, res, res, acc,
-                                                  settings)
-        acc_rays = float(acc_rays)   # synchronises
-        t0 = time.perf_counter()
-        img = pt.render_sample_fast(scene, cam, res, res, acc, settings)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        frame_ms.append(dt * 1e3)
-        rates.append(acc_rays / dt)
-    # One pooled-wavefront frame of the same accumulation, for the gate and
-    # for comparison.
+    # One frame against a pooled-wavefront frame of the same accumulation.
+    img = pt.render_sample_fast(scene, cam, res, res, 5, settings)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pooled, pooled_rays = pt.render_sample_pooled_counted(scene, cam, res, res,
@@ -2310,54 +2127,34 @@ def hier_path_phase(device) -> dict:
     pooled_rays = int(pooled_rays)   # synchronises
     pooled_ms = (time.perf_counter() - t0) * 1e3
     flips, _, _ = _gate(img, pooled, f"{BRIDGE_SCENE}: frame vs wavefront")
-    out = dict(launches=launches, seconds=seconds, mean=mean, flips=flips,
-               frame_ms=statistics.median(frame_ms),
-               rays_per_s=statistics.median(rates), pooled_ms=pooled_ms,
-               peak_gib=peak_gib)
     print(f"hier_bridge: {BRIDGE_SCENE} {n_tris} triangles built in "
-          f"{build_s:.2f} s, packed in {pack_s:.2f} s | {res}x{res} {BOUNCES} "
-          f"bounces x{ACCUMULATIONS} through render_progressive in "
-          f"{seconds:.3f} s | megakernel launches {launches}, trace-kernel "
-          f"launches {trace_launches} | mean {mean:.4f}, bit-equal to the "
-          f"eager loop's | render_sample_fast "
-          f"frame {out['frame_ms']:.2f} ms, {out['rays_per_s'] / 1e6:.1f} M "
-          f"rays/s (median of 5) | pooled wavefront frame {pooled_ms:.0f} ms, "
-          f"{pooled_rays} rays, gate {flips:.4f} flips | peak "
-          f"{peak_gib:.3f} GiB | {os.path.relpath(png, REPO)}", flush=True)
+          f"{build_s:.2f} s | {res}x{res} {BOUNCES} bounces x{ACCUMULATIONS} "
+          f"through render_progressive | megakernel launches {launches}, "
+          f"trace-kernel launches {trace_launches} | mean {mean:.4f}, "
+          f"bit-equal to the eager loop's | pooled wavefront frame "
+          f"{pooled_ms:.0f} ms, {pooled_rays} rays, gate {flips:.4f} flips | "
+          f"peak {peak_gib:.3f} GiB | {os.path.relpath(png, REPO)}",
+          flush=True)
 
     for name in ("hier_bridge_3k", "hier_bridge_15k", "torus_grid_28"):
-        t0 = time.perf_counter()
         scene, cam = TEST_SCENES[name](device=device)
         settings = pt.settings_for_scene(scene, max_bounce_count=BOUNCES)
         _expect_megakernel(scene, settings, name)
         mega.prewarm_megakernel(scene)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
         before = mega.launch_count
         trace_before = dense.launch_count + hier.launch_count
-        times = []
         for acc in (0, 1, 2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             img = pt.render_sample_fast(scene, cam, res, res, acc, settings)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
         check(mega.launch_count == before + 3
               and dense.launch_count + hier.launch_count == trace_before,
               f"{name}: not one megakernel launch per frame and nothing else")
         check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.005,
               f"{name}: the frame is not finite and lit")
-        args = mega.megakernel_frame_inputs(scene, cam, res, res, 1, settings)
-        kernel_ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args),
-                               repeats=10, warmup=2)
-        out[name] = dict(frame_ms=statistics.median(times),
-                         kernel_ms=kernel_ms)
         print(f"hier_bridge: {name} {int(scene.tri_verts.shape[0])} triangles "
-              f"(scene and tree in {setup_s:.2f} s) | {res}x{res} frame "
-              f"{out[name]['frame_ms']:.2f} ms (median of 3), kernel "
-              f"{kernel_ms:.3f} ms (median of 10) | mean "
-              f"{float(img.mean()):.4f}", flush=True)
-    return out
+              f"| {res}x{res}, one megakernel launch a frame over 3 frames | "
+              f"mean {float(img.mean()):.4f}", flush=True)
+    return launches
 
 
 def packing_path_phase(device, dense_frame) -> dict:
@@ -2556,8 +2353,9 @@ def _extras_path(name, scene, cam, tag="extras_path") -> dict:
     render_progressive with every count at 0 (exactly one megakernel
     launch a frame, no trace launch), its running mean against the eager
     loop's and the plain version's (_check_eager_mean, _check_plain_mean),
-    render_sample_fast frame ms, and the kernel at the path's shape beside
-    its plain version and its bound."""
+    and the kernel at the path's shape against its plain version; on the
+    dense trace also the kernel's and the plain version's times and the
+    bound."""
     from bifrost3d_tpu_torch.geometry import pallas_bvh as hier
     from bifrost3d_tpu_torch.geometry import pallas_bvh_vmem as vmem
     from bifrost3d_tpu_torch.geometry import pallas_clustered as clustered
@@ -2576,11 +2374,9 @@ def _extras_path(name, scene, cam, tag="extras_path") -> dict:
 
     # The path, driven with every count at 0.
     _reset_counts()
-    t0 = time.perf_counter()
     hdr = pt.render_progressive(scene, cam, res, res, ACCUMULATIONS,
                                 settings)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = mega.launch_count
     trace_launches = (dense.launch_count + hier.launch_count
                       + clustered.launch_count + vmem.launch_count)
@@ -2598,91 +2394,62 @@ def _extras_path(name, scene, cam, tag="extras_path") -> dict:
         film_grain=0.0)))
     check(os.path.getsize(png) > 0, "PNG not written")
 
-    frame_ms, rates = [], []
-    for acc in (1, 2, 3, 4, 5):
-        _, acc_rays = mega.render_mesh_megakernel(scene, cam, res, res,
-                                                  acc, settings)
-        acc_rays = float(acc_rays)   # synchronises
-        t0 = time.perf_counter()
-        pt.render_sample_fast(scene, cam, res, res, acc, settings)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        frame_ms.append(dt * 1e3)
-        rates.append(acc_rays / dt)
-
-    # The kernel at the path's shape beside its plain version.
-    args = mega.megakernel_frame_inputs(scene, cam, res, res, 1,
-                                        settings)
-    cfg, extras = args[-1], args[-2]
+    # The kernel at the path's shape against its plain version. The dense
+    # trace's kExtras instantiation runs in no cell, so it is timed here
+    # beside its plain version and its bound.
+    args, img, got_rays = _kernel_frame(scene, cam, res, 1, settings)
+    cfg = args[-1]
     check(cfg.extras, f"{name}: not the kExtras instantiation")
-    ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args), repeats=10,
-                    warmup=2)
+    timed = not cfg.hier
+    if timed:
+        ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args), repeats=10,
+                        warmup=2)
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, ref, _ = _plain_frame(scene, cam, res, 1, settings, stats)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    img, got_rays = mega.mesh_megakernel_cuda(*args)
-    flips, max_err, _ = _gate(img.reshape(-1, 3), ref,
-                              f"{name} {res}: kernel vs plain",
+    flips, max_err, _ = _gate(img, ref, f"{name} {res}: kernel vs plain",
                               KERNEL_FLIPS, KERNEL_MEAN)
     _check_eager_mean(name, scene, cam, res, settings, hdr)
     mean_flips = _check_plain_mean(name, scene, cam, res, settings, ref)
-    rays = float(got_rays.sum())
-    # Bytes: per pixel 16 B out; the triangle (or tree) and attribute
-    # tables and every table of the extras once. Operations: one
-    # closest trace per counted iteration (rays / 2) and the shadow
-    # traces that the plain version made, counted one by one (an
-    # any-hit query per lit shaded hit, or the march's steps), each
-    # with the box and triangle tests that the plain version counted
-    # for it (the BVH walk's, or the dense trace's chunk boxes and the
-    # triangles of the chunks it entered); and the shading of every
-    # iteration that shaded a hit (shade_ops).
-    march = stats.get("march_traces", 0)
-    shadow = stats.get("shadow_traces", 0)
-    table_bytes = sum(t.numel() * 4 for t in extras if t is not None)
-    n_tris = cfg.n_tris
-    traces = rays / 2 + shadow + march
-    if cfg.hier:
-        tree = args[0]
-        table_bytes += 64 * int(tree.child_records.shape[0]) + (
-            48 + 4 * mega.ATTR_ROWS) * n_tris
-    else:
-        table_bytes += (64 + 4 * mega.ATTR_ROWS) * n_tris
-    flops = (BOX_FLOPS * stats["box_tests"] + MT_FLOPS * stats["tri_tests"]
-             + shade_ops(cfg) * stats["shaded"])
-    work = (f"{traces:.0f} traces, {stats['box_tests'] / traces:.1f} "
-            f"{'node' if cfg.hier else 'chunk'} box and "
-            f"{stats['tri_tests'] / traces:.1f} triangle tests per trace")
-    out = dict(
-        path=path, tris=n_tris, launches=launches, seconds=seconds,
-        mean=mean, ms=ms,
-        plain_ms=plain_ms, max_abs_err=max_err, flips=flips,
-        plain_mean_flips=mean_flips, rays=rays,
-        march_traces=march, shadow_traces=shadow,
-        box_tests=stats["box_tests"], tri_tests=stats["tri_tests"],
-        frame_ms=statistics.median(frame_ms),
-        rays_per_s=statistics.median(rates),
-        **roofline(16 * res * res + table_bytes, flops))
-    print(f"{tag}/{name}: {path} | {res}x{res} {BOUNCES} bounces "
-          f"x{ACCUMULATIONS} through render_progressive in {seconds:.3f} "
-          f"s | megakernel launches {launches}, trace-kernel launches "
-          f"{trace_launches} | mean {mean:.4f} | render_sample_fast frame "
-          f"{out['frame_ms']:.2f} ms, "
-          f"{out['rays_per_s'] / 1e6:.1f} M rays/s (median of 5) | "
-          f"kernel {ms:.3f} ms (median of 10), plain {plain_ms:.0f} ms "
-          f"(one run), vs plain {flips:.5f} flips | running mean "
-          f"bit-equal to the eager loop's, vs plain {mean_flips:.5f} flips | "
-          f"{rays:.0f} rays, "
-          f"{shadow} shadow and {march} march traces, {work}, tables "
-          f"{table_bytes / 1024:.0f} KiB | bound "
-          f"{out['bound_ms']:.5f} ms by {out['bound_by']} | "
-          f"{os.path.relpath(png, REPO)}", flush=True)
+    out = dict(path=path, tris=cfg.n_tris, launches=launches, mean=mean,
+               max_abs_err=max_err, flips=flips, plain_mean_flips=mean_flips)
+    line = (f"{tag}/{name}: {path} | {res}x{res} {BOUNCES} bounces "
+            f"x{ACCUMULATIONS} through render_progressive | megakernel "
+            f"launches {launches}, trace-kernel launches {trace_launches} | "
+            f"mean {mean:.4f} | kernel vs plain {flips:.5f} flips, max |d| "
+            f"{max_err:.3g} | running mean bit-equal to the eager loop's, vs "
+            f"plain {mean_flips:.5f} flips")
+    if timed:
+        # Bytes: per pixel 16 B out; the triangle and attribute tables and
+        # every table of the extras once. Operations: the chunk box and
+        # triangle tests that the plain version counted for its closest and
+        # shadow traces (an any-hit query per lit shaded hit, or the
+        # march's steps), and the shading of every iteration that shaded a
+        # hit (shade_ops).
+        rays = float(got_rays.sum())
+        traces = (rays / 2 + stats.get("shadow_traces", 0)
+                  + stats.get("march_traces", 0))
+        table_bytes = (sum(t.numel() * 4 for t in args[-2] if t is not None)
+                       + (64 + 4 * mega.ATTR_ROWS) * cfg.n_tris)
+        out.update(ms=ms, plain_ms=plain_ms, **roofline(
+            16 * res * res + table_bytes,
+            BOX_FLOPS * stats["box_tests"] + MT_FLOPS * stats["tri_tests"]
+            + shade_ops(cfg.ris_count, cfg.has_coat, cfg.extras)
+            * stats["shaded"]))
+        line += (f" | kernel {ms:.3f} ms (median of 10), plain "
+                 f"{plain_ms:.0f} ms (one run) | {traces:.0f} traces, "
+                 f"{stats['box_tests'] / traces:.1f} chunk box and "
+                 f"{stats['tri_tests'] / traces:.1f} triangle tests per "
+                 f"trace, tables {table_bytes / 1024:.0f} KiB | bound "
+                 f"{out['bound_ms']:.5f} ms by {out['bound_by']}")
+    print(f"{line} | {os.path.relpath(png, REPO)}", flush=True)
     return out
 
 
-def viewer_phase(device) -> dict:
+def viewer_phase(device) -> None:
     """Main path D from its entry point: the viewer's CLI on Sphere and
     Opacity. The viewer's settings are a plain RenderSettings, so Opacity's
     shadow rays are any-hit queries here: that frame against the plain
@@ -2695,17 +2462,14 @@ def viewer_phase(device) -> dict:
     from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
 
-    out = {}
     for name in ("Sphere", "Opacity"):
         png = os.path.join(REPO, "build", f"viewer_{name.lower()}.png")
         if os.path.exists(png):
             os.remove(png)
         _reset_counts()
-        t0 = time.perf_counter()
         simple_viewer.main(["--scene", name, "-n", str(ACCUMULATIONS), "-o",
                             png])
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         launches = mega.launch_count
         trace_launches = (dense.launch_count + hier.launch_count
                           + clustered.launch_count + vmem.launch_count)
@@ -2714,11 +2478,9 @@ def viewer_phase(device) -> dict:
         check(trace_launches == 0, f"viewer {name}: launched a trace kernel "
               f"{trace_launches} times")
         check(os.path.getsize(png) > 0, "PNG not written")
-        out[name] = dict(launches=launches, seconds=seconds)
         print(f"viewer/{name}: simple_viewer --scene {name} -n "
-              f"{ACCUMULATIONS} ({RES}x{RES}, {BOUNCES} bounces) in "
-              f"{seconds:.3f} s with the scene's build | megakernel launches "
-              f"{launches}, trace-kernel launches {trace_launches} | "
+              f"{ACCUMULATIONS} ({RES}x{RES}, {BOUNCES} bounces) | megakernel "
+              f"launches {launches}, trace-kernel launches {trace_launches} | "
               f"{os.path.relpath(png, REPO)}", flush=True)
 
     scene, cam = _extras_scene("Opacity", True, device)
@@ -2740,7 +2502,6 @@ def viewer_phase(device) -> dict:
           f"any-hit shadow rays | vs plain {flips:.5f} flips, max |d| "
           f"{max_err:.3g}, means {mean_rel:.2e} apart | rays {rays:.0f} vs "
           f"{plain_rays:.0f}", flush=True)
-    return out
 
 
 PROFILED_SCENES = (("CornellBox", True), ("Sphere", True), ("Opacity", True),
@@ -2811,9 +2572,7 @@ def viewer_scenes_phase(device, card, path_d) -> dict:
               f"{res}x{res} {BOUNCES} bounces x{ACCUMULATIONS} through "
               f"render_progressive on main path D | launches B3 "
               f"{d['launches']}, no trace kernel | mean {d['mean']:.4f} | "
-              f"kernel vs plain {d['flips']:.5f} flips | render_sample_fast "
-              f"frame {d['frame_ms']:.2f} ms (median of 5) | {card}",
-              flush=True)
+              f"kernel vs plain {d['flips']:.5f} flips | {card}", flush=True)
 
     # Glass at 64² on the card (B1) against the CPU (its plain version).
     gres = GLASS_GATE_RES
@@ -2876,10 +2635,8 @@ def frame_profile_phase(device) -> dict:
     Sphere, Opacity and the 49,678-triangle bridge at 512²: CUDA launches
     and host syncs per frame over three frames from torch.profiler (at most
     MAX_FRAME_LAUNCHES launches, no sync), with torch's sync debug mode set
-    to raise, so a synchronising torch op fails the phase; frame time
-    (host clock to a synchronise, median of 5) beside the kernel's. Then
+    to raise, so a synchronising torch op fails the phase. Then
     _walk_call_profile."""
-    from bifrost3d_tpu_torch.integrator import pallas_mesh as mega
     from bifrost3d_tpu_torch.integrator import path_tracer as pt
     from torch.profiler import ProfilerActivity, profile, record_function
     out = {}
@@ -2916,27 +2673,13 @@ def frame_profile_phase(device) -> dict:
         check(max(launches + memsets, kernels) <= MAX_FRAME_LAUNCHES,
               f"profile/{name}: {launches + memsets} launches, {kernels} "
               "kernels per frame")
-        frame_ms = []
-        for acc in range(4, 9):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pt.render_sample_fast(scene, cam, RES, RES, acc, settings)
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-        args = mega.megakernel_frame_inputs(scene, cam, RES, RES, 1, settings)
-        kernel_ms = _median_ms(lambda: mega.mesh_megakernel_cuda(*args),
-                               repeats=10, warmup=2)
         out[name] = dict(launches=launches, memsets=memsets, syncs=syncs,
-                         kernels=kernels,
-                         frame_ms=statistics.median(frame_ms),
-                         kernel_ms=kernel_ms)
+                         kernels=kernels)
         print(f"profile/{name}: render_sample_fast {RES}x{RES} after the "
               f"scene's first frame | per frame {launches:.1f} kernel-launch "
               f"calls, {memsets:.1f} memsets, {kernels:.1f} device activities "
               f"and {syncs:.0f} host syncs (torch.profiler over {frames} "
-              f"frames; sync debug mode raised nothing) | frame "
-              f"{out[name]['frame_ms']:.3f} ms (median of 5), kernel "
-              f"{kernel_ms:.3f} ms (median of 10)", flush=True)
+              f"frames; sync debug mode raised nothing)", flush=True)
     out["vmem_calls"] = _walk_call_profile(device)
     return out
 
@@ -2964,13 +2707,13 @@ def _walk_call_profile(device, calls=3) -> dict:
         torch.cuda.set_sync_debug_mode("error")
         try:
             for name, any_hit in queries.items():
-                _spin()
+                spin()
                 with record_function(f"walk_calls:{name}"):
                     for _ in range(calls):
                         vmem.vmem_intersect(walk, o, d, t_min, t_max,
                                             any_hit, live)
                     torch.cuda.synchronize()
-            _spin()
+            spin()
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -3404,7 +3147,7 @@ def train_profile_phase(device) -> dict:
     counts, parts, wall_ms = {}, [], {}
 
     def part(name, fn):
-        _spin()                         # the part's first spin kernel
+        spin()                         # the part's first spin kernel
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -3426,7 +3169,7 @@ def train_profile_phase(device) -> dict:
             fwd = dense.launch_count
             part(f"{name}:backward", lambda: torch.autograd.grad(loss, tint))
             counts[name] = (fwd, dense.launch_count - fwd)
-        _spin()                         # the last part's end
+        spin()                         # the last part's end
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     device_events = sorted(
@@ -3625,20 +3368,16 @@ def _files_f1(device, card, paths) -> dict:
     _, ref, ref_rays = _plain_frame(scene, cam, RES, 1, settings)
     flips, max_err, mean_rel = _gate(img, ref, "F1: kernel vs plain",
                                      KERNEL_FLIPS, KERNEL_MEAN)
-    frames = _timed_frames(scene, cam, RES, settings, ACCUMULATIONS)
     out = dict(launches=run["counts"]["B2_B3"], native_s=native_s,
-               python_s=python_s, viewer_s=run["seconds"], flips=flips,
-               frames=frames, scene=(scene, cam), tris=len(tris))
+               python_s=python_s, flips=flips, scene=(scene, cam),
+               tris=len(tris))
     print(f"files/F1 bridge.obj: {len(tris)} triangles, "
           f"{os.path.getsize(obj) / 2**20:.1f} MiB | load: native tokenizer "
           f"{native_s:.3f} s, Python tokenizer {python_s:.3f} s, the "
-          f"triangles those written | viewer -n {ACCUMULATIONS} {RES}x{RES} "
-          f"in {run['seconds']:.2f} s with load and build: {path}, launches "
-          f"{run['counts']} | {RES}² kernel vs plain {flips:.5f} flips, max "
-          f"|d| {max_err:.3g}, means {mean_rel:.2e} apart | render_sample_fast"
-          f" frame {frames['ms']:.3f} ms (median of 3, {frames['ms_min']:.3f}"
-          f"–{frames['ms_max']:.3f}), launches a frame {frames['per_frame']}"
-          f" | {card}", flush=True)
+          f"triangles those written | viewer -n {ACCUMULATIONS} {RES}x{RES}: "
+          f"{path}, launches {run['counts']} | {RES}² kernel vs plain "
+          f"{flips:.5f} flips, max |d| {max_err:.3g}, means {mean_rel:.2e} "
+          f"apart | {card}", flush=True)
     return out
 
 
@@ -4202,19 +3941,18 @@ def _modes_v5(device, card) -> dict:
         MODES_DIR, "resumed_12.exr")], {"B2_B3": 4}, "V5 -n 12 resumed")
     check("resumed at accumulation 8" in resumed["said"],
           f"V5: the second run said {resumed['said']!r}")
-    whole = _viewer_said(["--scene", "CornellBox", "-n", "12", "-o",
-                          os.path.join(MODES_DIR, "whole_12.exr")],
-                         {"B2_B3": 12}, "V5 -n 12 uninterrupted")
+    _viewer_said(["--scene", "CornellBox", "-n", "12", "-o",
+                  os.path.join(MODES_DIR, "whole_12.exr")],
+                 {"B2_B3": 12}, "V5 -n 12 uninterrupted")
     a = load_exr(os.path.join(MODES_DIR, "resumed_12.exr"))
     b = load_exr(os.path.join(MODES_DIR, "whole_12.exr"))
     equal = bool(np.array_equal(a.view(np.uint32), b.view(np.uint32)))
     check(equal, f"V5: the resumed image is off the uninterrupted one by "
           f"{float(np.abs(a - b).max())}")
-    print(f"viewer_modes/V5 checkpoint: -n 8 every 4 in "
-          f"{first['seconds']:.2f} s, then -n 12 resumed at accumulation 8 in "
-          f"{resumed['seconds']:.2f} s (4 megakernel launches), uninterrupted "
-          f"-n 12 in {whole['seconds']:.2f} s | resumed image bit for bit "
-          f"the uninterrupted one: {equal} | {card}", flush=True)
+    print(f"viewer_modes/V5 checkpoint: -n 8 every 4, then -n 12 resumed at "
+          f"accumulation 8 (4 megakernel launches), uninterrupted -n 12 | "
+          f"resumed image bit for bit the uninterrupted one: {equal} | "
+          f"{card}", flush=True)
     return dict(launches=first["counts"]["B2_B3"]
                 + resumed["counts"]["B2_B3"], equal=equal)
 
@@ -5162,9 +4900,8 @@ def _parity_ball(device, card) -> dict:
           f"{SMALL_RES}x{SMALL_RES}: B3 vs plain {small['flips']:.5f} flips,"
           f" means {small['mean_rel']:.2e} apart, vs wavefront "
           f"{small['wavefront_flips']:.4f} flips | {RES}x{RES} x"
-          f"{ACCUMULATIONS}: {out['launches']} B3 launches, frame "
-          f"{out['frame_ms']:.2f} ms (median of 5), kernel {out['ms']:.3f} "
-          f"ms | {card}", flush=True)
+          f"{ACCUMULATIONS}: {out['launches']} B3 launches | {card}",
+          flush=True)
     return out
 
 
@@ -5178,10 +4915,7 @@ def _parity_smallpt(device, card) -> dict:
     w, h, n = 64, 48, 32        # tests/test_smallpt.py:20
     smallpt_app.render_progressive(w, h, 1, quiet=True, device=device)
     _reset_counts()
-    t0 = time.perf_counter()
     img = smallpt_app.render_progressive(w, h, n, quiet=True, device=device)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     check(spt.launch_count == n, f"P2: {spt.launch_count} B5 launches for "
           f"{n} frames")
     t0 = time.perf_counter()
@@ -5193,12 +4927,12 @@ def _parity_smallpt(device, card) -> dict:
     rel_rms, within = gate["rel_rms"], gate["within_2pct"]
     mean_rel = abs(gate["mean"] - gate["ref_mean"]) / gate["ref_mean"]
     print(f"parity/P2 smallpt_app {w}x{h} x{n} on B5 ({spt.launch_count} "
-          f"launches, {seconds * 1e3:.1f} ms) vs the float64 reference "
+          f"launches) vs the float64 reference "
           f"({ref_s:.1f} s on the host): relative RMS {rel_rms:.4f} (< 0.20),"
           f" {within:.4f} of the pixels within 2% (> 0.80), means "
           f"{mean_rel:.2e} apart (< 0.03) | {card}", flush=True)
     return dict(launches=n, rel_rms=rel_rms, within=within,
-                mean_rel=mean_rel, seconds=seconds)
+                mean_rel=mean_rel)
 
 
 def _parity_viewer(device, card) -> dict:
@@ -5239,21 +4973,12 @@ def parity_phase(device, card) -> dict:
     return out
 
 
-# Operations a pixel of the post chain's two kernels with the viewer's
-# settings: luminance, log2 and bin (~30); exposure and vignette (~15);
-# filmic: two 3 x 3 products (36), per channel a log10, two exps (~20
-# each) and ~25 more (~255).
-POST_OPS_PER_PIXEL = 336
-
-
 def post_phase(device) -> dict:
     """Phase 28: the post chain's two kernels (``post/post_chain.py``) at
     512² with the viewer's settings (histogram exposure, eye adaptation
     snapping, vignette 0.63, filmic, no grain) against the eager chain on
     the card (LDR max abs and exposure relative ≤ 1e-5), with no host sync
-    (sync debug mode raising); call ms of both (CUDA events), the kernels'
-    device ms, launches a call, and the bound: the image read once and
-    the LDR written once (the histogram pass reads it a second time)."""
+    (sync debug mode raising); launches a call."""
     from bifrost3d_tpu_torch.post import pipeline, post_chain
     from bifrost3d_tpu_torch.post.tonemap import CameraEffectsSettings
     rng = np.random.default_rng(28)
@@ -5264,10 +4989,8 @@ def post_phase(device) -> dict:
     def fused():
         return pipeline._process(image, settings, 0, -1.0, 0.0)
 
-    def plain():
-        return pipeline._process_plain(image, settings, 0, -1.0, 0.0)
-
-    (ldr, exposure), (ref, ref_exposure) = fused(), plain()
+    ldr, exposure = fused()
+    ref, ref_exposure = pipeline._process_plain(image, settings, 0, -1.0, 0.0)
     err = float((ldr - ref).abs().max())
     rel = abs(float(exposure) / float(ref_exposure) - 1.0)
     check(err <= 1e-5 and rel <= 1e-5,
@@ -5280,19 +5003,10 @@ def post_phase(device) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     launches = post_chain.launch_count - before
-    ms, plain_ms = _median_ms(fused), _median_ms(plain)
-    kernel_ms = device_ms([("post", fused)])["post"]
-    out = dict(launches=launches, max_abs_err=err, exposure_rel=rel, ms=ms,
-               kernel_ms=kernel_ms, plain_ms=plain_ms,
-               **roofline(2 * image.numel() * 4,
-                          POST_OPS_PER_PIXEL * RES * RES))
-    device_text = ("not measured" if kernel_ms is None
-                   else f"{kernel_ms:.4f} ms")
-    print(f"post: {RES}² kernels {launches} launches, call {ms:.4f} ms, "
-          f"device {device_text}, eager chain {plain_ms:.4f} ms, bound "
-          f"{out['bound_ms']:.5f} ms by {out['bound_by']}; LDR {err:.3g}, "
-          f"exposure {rel:.3g} | {smi()}", flush=True)
-    return out
+    print(f"post: {RES}² kernels {launches} launches a call, no host sync; "
+          f"against the eager chain LDR {err:.3g}, exposure {rel:.3g}",
+          flush=True)
+    return dict(launches=launches, max_abs_err=err, exposure_rel=rel)
 
 
 def _kernel_row(name, source, replaces, launches, result) -> dict:
@@ -5333,19 +5047,19 @@ def main() -> int:
     kernels = kernel_phase(device, soups, device_times)
     sliced = slice_phase(device)
     lap("kernel/dense and slice")
-    scenes = megakernel_phase(device)
-    main = progressive_phase(device)
+    megakernel_phase(device)
+    progressive_phase(device)
     lap("megakernel and progressive")
-    smallpt = smallpt_kernel_phase(device)
+    smallpt_kernel_phase(device)
     bvh = bvh_kernel_phase(device, soups["sphere"])
     lap("kernel/smallpt and kernel/bvh")
-    path_a = smallpt_path_phase(device)
+    smallpt_path_phase(device)
     path_b = torus_path_phase(device)
     lap("smallpt and torus_grid paths")
     clusters = cluster_kernel_phase(device, soups["sphere"], device_times)
     lap("kernel/clustered and kernel/vmem")
     hier_scenes = megakernel_hier_phase(device)
-    hier_walk_phase(device, hier_scenes[BRIDGE_SCENE])
+    hier_walk_phase(device)
     path_c = hier_path_phase(device)
     lap("megakernel/hier, walk and hier_bridge")
     packings = packing_path_phase(device,
@@ -5376,29 +5090,25 @@ def main() -> int:
     lap("parallel")
     fits_phase(device, card)
     lap("fits")
-    parity = parity_phase(device, card)
+    parity_phase(device, card)
     lap("parity")
-    post = fresh_process("post")
-    lap("post (a process of its own)")
-    # No single PyTorch call computes any of the seven: library_ms is null.
-    # The first seven rows are the seven kernels; then B2 and B3 again,
-    # through their kExtras instantiations.
+    post_phase(device)
+    lap("post")
+    # The four trace kernels, and the megakernel's two instantiations that
+    # no cell runs: B3's kHier without kExtras (the bridge) and B2's dense
+    # trace with kExtras (Sphere, Opacity). The cells time B2 without
+    # kExtras, B3 with it, B5 and the post chain. No single PyTorch call
+    # computes any of them: library_ms is null.
     print(json.dumps({"kernels": [
         _kernel_row("dense_intersect", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
                     sliced["launches"], kernels["cornell/incoherent"]),
-        _kernel_row("mesh_megakernel", "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
-                    main["launches"], scenes["CornellBox"]),
         _kernel_row("bvh_intersect", "bvh_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_bvh.py:240",
                     path_b["launches"], bvh["incoherent"]),
-        _kernel_row("smallpt_megakernel", "smallpt_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_smallpt.py:137",
-                    path_a["launches"], smallpt),
         _kernel_row("mesh_megakernel_hier", "mesh_megakernel.cu",
                     "bifrost3d_tpu/integrator/pallas_mesh.py:898",
-                    path_c["launches"], hier_scenes[BRIDGE_SCENE]),
+                    path_c, hier_scenes[BRIDGE_SCENE]),
         _kernel_row("clustered_intersect", "clustered_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_clustered.py:96",
                     packings["clustered"]["launches"],
@@ -5407,18 +5117,11 @@ def main() -> int:
                     "bifrost3d_tpu/geometry/pallas_bvh_vmem.py:139",
                     packings["vmem"]["launches"],
                     clusters["bridge/incoherent"]["vmem"]),
-        # The same two kernels through their kExtras instantiations, on
-        # main path D.
-        _kernel_row("mesh_megakernel/Sphere", "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
-                    path_d["Sphere"]["launches"], path_d["Sphere"]),
-        _kernel_row("mesh_megakernel/Opacity", "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
-                    path_d["Opacity"]["launches"], path_d["Opacity"]),
-        *(_kernel_row(f"mesh_megakernel_hier/{name}", "mesh_megakernel.cu",
-                      "bifrost3d_tpu/integrator/pallas_mesh.py:898",
+        # B2's kExtras instantiation on main path D.
+        *(_kernel_row(f"mesh_megakernel/{name}", "mesh_megakernel.cu",
+                      "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
                       path_d[name]["launches"], path_d[name])
-          for name in ("hier_bridge_15k_env",) + MATERIAL_SCENES),
+          for name in ("Sphere", "Opacity")),
         # The two traces again on main path E, the gradient path: the three
         # plain Cornell train steps (B1) and the torus grid's step (B4),
         # each timed at the same ray count in its kernel phase.
@@ -5448,27 +5151,17 @@ def main() -> int:
         _kernel_row("bvh_intersect/aov", "bvh_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_bvh.py:240",
                     files["F4"]["torus.glb"]["launches"], bvh["coherent"]),
-        # The kernels again on the viewer's modes (phase 23): V1 path
+        # The traces again on the viewer's modes (phase 23): V1 path
         # regularization and V2 trilinear mips (B1, the pooled wavefront),
-        # V3 the denoised backend (B2 on CornellBox, B3 on
-        # hier_bridge_15k_env), V4 the preview's primary and shadow traces
-        # (B1 on CornellBox, Sphere, Opacity and the bridge, B4 on the torus
-        # grid), V5 the resumed viewer (B2), each with the timing row of
-        # its kernel phase.
+        # V4 the preview's primary and shadow traces (B1 on CornellBox,
+        # Sphere, Opacity and the bridge, B4 on the torus grid), each with
+        # the timing row of its kernel phase.
         _kernel_row("dense_intersect/regularization", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
                     modes["V1"]["launches"], kernels["cornell/incoherent"]),
         _kernel_row("dense_intersect/trilinear", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
                     modes["V2"]["launches"], kernels["cornell/incoherent"]),
-        _kernel_row("mesh_megakernel/denoised", "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
-                    modes["V3"]["CornellBox"]["counts"]["B2_B3"],
-                    scenes["CornellBox"]),
-        _kernel_row("mesh_megakernel_hier/denoised", "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:898",
-                    modes["V3"]["hier_bridge_15k_env"]["counts"]["B2_B3"],
-                    path_d["hier_bridge_15k_env"]),
         _kernel_row("dense_intersect/preview", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
                     sum(v["launches"] for v in modes["V4"].values()
@@ -5477,19 +5170,13 @@ def main() -> int:
                     "bifrost3d_tpu/geometry/pallas_bvh.py:240",
                     sum(v["launches"] for v in modes["V4"].values()
                         if v["trace"] == "B4"), bvh["coherent"]),
-        _kernel_row("mesh_megakernel/checkpoint", "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
-                    modes["V5"]["launches"], scenes["CornellBox"]),
         # The kernels again on the engine (phase 24): E1 the compositor's
-        # path tracer on the viewer's Sphere (B3), E3 its Box (B2), E4 the
-        # preview, the denoiser's AOV trace and the regularized wavefront
-        # (B1), each with the timing row of its kernel phase.
+        # path tracer on the viewer's Sphere (B3), E4 the preview, the
+        # denoiser's AOV trace and the regularized wavefront (B1), each with
+        # the timing row of its kernel phase.
         _kernel_row("mesh_megakernel_hier/engine", "mesh_megakernel.cu",
                     "bifrost3d_tpu/integrator/pallas_mesh.py:898",
                     engine["E1"]["launches"], hier_scenes[BRIDGE_SCENE]),
-        _kernel_row("mesh_megakernel/engine", "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:1541",
-                    engine["E3"]["launches"], scenes["CornellBox"]),
         _kernel_row("dense_intersect/engine", "dense_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_intersect.py:74",
                     engine["E4"]["launches"], kernels["cornell/camera"]),
@@ -5503,16 +5190,6 @@ def main() -> int:
         _kernel_row("bvh_intersect/parallel", "bvh_intersect.cu",
                     "bifrost3d_tpu/geometry/pallas_bvh.py:240",
                     parallel["launches_B4"], bvh["incoherent"]),
-        # The parity phase (27): B3's kExtras instantiation on the
-        # shader-ball MaterialScene (P1, its own timing row). B5's launches
-        # through the SmallPT app (P2) are on P2's own line.
-        _kernel_row("mesh_megakernel_hier/shaderball", "mesh_megakernel.cu",
-                    "bifrost3d_tpu/integrator/pallas_mesh.py:898",
-                    parity["P1"]["launches"], parity["P1"]),
-        # The post chain (phase 28): two kernels that replace no TPU
-        # kernel (the JAX post chain is jnp).
-        _kernel_row("post_chain", "post_chain.cu", None, post["launches"],
-                    post),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5520,10 +5197,10 @@ def main() -> int:
     return 0
 
 
-# Phases that profile, each run alone in a process (fresh_process; the
-# post chain's phase 28 among them); and phases 23–27 alone (``python3 chip_smoke.py --profile viewer_modes``,
-# ``engine``, ``parallel``, ``fits`` or ``parity``), whose kernels build at
-# first use.
+# Phases that profile, each run alone in a process (fresh_process); and
+# phases 23–28 alone (``python3 chip_smoke.py --profile viewer_modes``,
+# ``engine``, ``parallel``, ``fits``, ``parity`` or ``post``), whose kernels
+# build at first use.
 PROFILES = {"viewer_modes": lambda device: viewer_modes_phase(
                 device, device_phase()),
             "engine": lambda device: engine_phase(device, device_phase()),

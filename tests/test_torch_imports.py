@@ -4,7 +4,8 @@ The port imports torch and numpy only: importing every one of its modules
 in a fresh interpreter must bring in neither ``jax`` nor the JAX package
 ``bifrost3d_tpu`` (which would also switch on its compile cache), nor
 ``triton``. chip_smoke.py must refuse to run without a CUDA card and
-outside a checkout of the repository.
+outside a checkout of the repository, and take its roofline yardstick
+from the benchmark's harness.
 
 Name hygiene, read from the sources with ``ast`` (neither package is
 imported): every public top-level name of a JAX module (a function, a
@@ -16,6 +17,7 @@ function and class is a case of ``test_torch_public_parity*.py`` or in
 
 import ast
 import glob
+import importlib.util
 import os
 import re
 import shutil
@@ -106,6 +108,23 @@ def test_chip_smoke_refuses_outside_the_repository(tmp_path):
     proc = _run(["chip_smoke.py"], str(tmp_path))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_takes_the_benchmark_yardstick():
+    from benchmark.harness import profiling, roofline
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_yardstick", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)          # main() runs only as a script
+    for name in ("shade_ops", "least_time_s", "PEAK_FLOPS", "PEAK_BYTES",
+                 "MT_FLOPS", "BOX_FLOPS"):
+        assert getattr(smoke, name) is getattr(roofline, name), name
+    assert smoke.spin is profiling.spin
+    # No copy of the counts or of the spin marker is left beside them.
+    for name in ("MEGA_SHADE_OPS", "MEGA_RIS_OPS", "MEGA_COAT_OPS",
+                 "MEGA_COAT_RIS_OPS", "MEGA_EXTRAS_OPS", "SPHERE_FLOPS",
+                 "SMALLPT_SHADE_FLOPS", "_spin"):
+        assert not hasattr(smoke, name), name
 
 
 # -- public names --------------------------------------------------------------------
